@@ -8,15 +8,33 @@ Phases, each printed with its wall time:
   2. build every CUDA kernel of the port with nvcc (one process per
      source, started together);
   3. generate and encode TPC-H lineitem at the scale factor on the card;
-  4. the main path: TPC-H Q6 and Q1 through LocalQueryRunner (one warm-up,
-     then timed runs), with the kernels' launch counters set to 0 just
-     before and read just after;
-  5. each kernel against its plain torch version on the exact inputs of
-     the main path's launches (and of one float64-accumulator query):
-     integers and row counters exact, float64 within rtol 1e-12; kernel
-     and plain times with CUDA events, and the kernel's bound;
-  6. an independent numpy computation of Q6 (and of Q1's counts and
-     quantity sums) from the decoded resident columns.
+  4. the main path: TPC-H Q6 and Q1 (direct kernel), S1 (span kernel), H1
+     and H2 (hash kernel) through LocalQueryRunner (one warm-up, then
+     timed runs), with every kernel's launch counter set to 0 just before
+     and read just after;
+  5. the hash kernel's collision loop through LocalQueryRunner: a group
+     estimate of 1 starts the table below the query's 4950 groups, so
+     the kernel must flag a collision and the runner relaunch it with
+     the table doubled and the next salt until the groups fit;
+  6. each kernel against its plain torch version on the exact inputs of
+     the main path's launches (and of a float64-accumulator query, the
+     wide span query S2, a span and a hash query with float sums and
+     integer / float min and max, and the collision loop's last launch):
+     integers and row counters exact, floats bit-identical across two
+     launches, hash tables compared group by group (keyed by key values)
+     and their keyhashes against exec/operators.py hash_columns; a
+     launch into too small a table must set the collision flag.  The
+     direct kernel's floats are held to the plain version's within rtol
+     1e-12.  The grouped kernels' float min / max equal the plain
+     version's, and their float sums are held to the exact sum of their
+     float64 inputs, computed in integers: the kernel's within rtol 1e-12,
+     the plain version's (an unordered sum on the card) within recursive
+     summation's bound (n + 1) 2**-53 sum |x|.  Kernel and plain times
+     with CUDA events, and each kernel's byte bound;
+  7. an independent numpy computation of Q6, Q1's counts and quantity
+     sums, S1's counts and quantity sums, H1's counts and revenue, H2's
+     counts and the collision query's counts and price sums from the
+     decoded resident columns.
 
 Any failed check raises and exits non-zero.  The second-to-last line is
 the kernels' JSON record; the last line is
@@ -29,12 +47,33 @@ import subprocess
 import sys
 import time
 from contextlib import contextmanager
+from fractions import Fraction
 
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
 
 FLOAT_QUERY = ("select sum(cast(l_extendedprice as double)) as s "
                "from lineitem where l_discount > 0.05")
+# the grouped kernels' float and min/max folds, which the main path's
+# grouped queries leave out (checked against the plain versions and the
+# exact float sums only)
+SPAN_MINMAX_QUERY = (
+    "select l_returnflag, l_linestatus, l_shipmode, l_shipinstruct, "
+    "sum(cast(l_extendedprice as double)) as s, min(l_quantity) as mn, "
+    "max(cast(l_discount as double)) as mx, max(l_orderkey) as mo, "
+    "count(l_tax) as c from lineitem group by 1, 2, 3, 4")
+HASH_MINMAX_QUERY = (
+    "select l_quantity, l_linenumber, min(l_extendedprice) as mn, "
+    "max(cast(l_tax as double)) as mx, avg(cast(l_discount as double)) as a, "
+    "min(l_orderkey) as mo from lineitem where l_shipdate > date '1995-06-17' "
+    "group by 1, 2")
+# 50 x 11 x 9 = 4950 groups: more than AGG_SLOTS, so a table started there
+# must collide
+COLLIDE_QUERY = (
+    "select l_quantity, l_discount, l_tax, count(*) as n, "
+    "sum(l_extendedprice) as s, sum(cast(l_extendedprice as double)) as sf "
+    "from lineitem group by 1, 2, 3")
+UNIT_ROUNDOFF = 2.0 ** -53
 
 
 @contextmanager
@@ -57,10 +96,16 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import numpy as np
+    from presto_tpu_torch.benchmarks.grouped_queries import H1, H2, S1, S2
     from presto_tpu_torch.benchmarks.tpch_queries import Q1, Q6
-    from presto_tpu_torch.connectors import catalog
-    from presto_tpu_torch.exec.kernels import build, scan_kernel as sk
+    from presto_tpu_torch.connectors import catalog, device_gen
+    from presto_tpu_torch.exec import operators as ops
+    from presto_tpu_torch.exec import pipeline
+    from presto_tpu_torch.exec.batch import Column
+    from presto_tpu_torch.exec.kernels import build, grouped as gk
+    from presto_tpu_torch.exec.kernels import scan_kernel as sk
     from presto_tpu_torch.exec.runner import LocalQueryRunner
+    from presto_tpu_torch.sql.stats import StatsCalculator
     from presto_tpu_torch.storage import get_store
 
     device = torch.device("cuda", 0)
@@ -87,7 +132,8 @@ def main() -> int:
     cfg = runner.config
     sf = float(args.sf)
     cols = ("quantity", "extendedprice", "discount", "tax", "returnflag",
-            "linestatus", "shipdate")
+            "linestatus", "shipdate", "shipmode", "shipinstruct",
+            "linenumber")
     with phase(f"generate + encode lineitem at {schema}"):
         store = get_store(cfg.storage_budget_bytes,
                           cfg.storage_max_column_bytes, device)
@@ -108,18 +154,28 @@ def main() -> int:
         print(f"  rows {n_rows}, resident {total} bytes")
 
     # -- the main path ----------------------------------------------------
-    calls = []
-    real_scan = sk.scan_direct
+    wrappers = {"scan_direct": (sk, "scan_direct"),
+                "scan_span": (gk, "scan_span"),
+                "scan_hash": (gk, "scan_hash")}
+    real = {k: getattr(mod, attr) for k, (mod, attr) in wrappers.items()}
+    calls = {k: [] for k in wrappers}
 
-    def recording(*a):
-        calls.append(a)
-        return real_scan(*a)
-    sk.scan_direct = recording
-    results, timings, launches = {}, {}, {}
-    with phase("main path: Q6, Q1 through LocalQueryRunner"):
-        sk.LAUNCHES["scan_direct"] = 0
-        for qname, sql in (("q6", Q6), ("q1", Q1)):
-            before = sk.LAUNCHES["scan_direct"]
+    def recorder(name):
+        def recording(*a):
+            calls[name].append(a)
+            return real[name](*a)
+        return recording
+    for k, (mod, attr) in wrappers.items():
+        setattr(mod, attr, recorder(k))
+    main_queries = (("q6", Q6, "scan_direct"), ("q1", Q1, "scan_direct"),
+                    ("s1", S1, "scan_span"), ("h1", H1, "scan_hash"),
+                    ("h2", H2, "scan_hash"))
+    results, launches, q_calls = {}, {}, {}
+    with phase("main path: Q6, Q1, S1, H1, H2 through LocalQueryRunner"):
+        for k in sk.LAUNCHES:
+            sk.LAUNCHES[k] = 0
+        for qname, sql, kernel in main_queries:
+            before = sk.LAUNCHES[kernel]
             res = runner.execute(sql)          # warm-up
             walls = []
             for _ in range(args.runs):
@@ -130,27 +186,56 @@ def main() -> int:
             declined = [k for k in rs if k.startswith("kernelDeclined")]
             assert not declined, f"{qname}: {declined}"
             assert rs.get("kernelScanPrograms", {}).get("sum") == 1, rs
-            launches[qname] = sk.LAUNCHES["scan_direct"] - before
-            assert launches[qname] == 1 + args.runs, launches
+            launches[qname] = sk.LAUNCHES[kernel] - before
+            if kernel == "scan_hash":          # a collision relaunches
+                assert launches[qname] >= 1 + args.runs, launches
+            else:
+                assert launches[qname] == 1 + args.runs, launches
             results[qname] = res
+            q_calls[qname] = (kernel, calls[kernel][-1])
             med = float(np.median(walls))
-            timings[qname] = med
             print(f"  {qname}: median wall {med * 1e3:.3f} ms over "
-                  f"{args.runs} runs, {n_rows / med:.0f} rows/s, kernel "
+                  f"{args.runs} runs, {n_rows / med:.0f} rows/s, {kernel} "
                   f"launches {launches[qname]}, rows {len(res.rows)}")
             walls_ms = {k[:-len("WallNanos")]: v["sum"] / 1e6
                         for k, v in rs.items() if k.endswith("WallNanos")}
             print(f"  {qname}: last run walls (ms) {walls_ms}")
-        main_launches = sk.LAUNCHES["scan_direct"]
+        main_launches = dict(sk.LAUNCHES)
         for row in results["q1"].rows:
             print(f"  q1 {row}")
         print(f"  q6 {results['q6'].rows}")
-    assert main_launches > 0
-    q_calls = {"q6": calls[1 + args.runs - 1], "q1": calls[-1]}
-    calls.clear()
+        for qname in ("s1", "h1", "h2"):
+            print(f"  {qname}: first rows {results[qname].rows[:2]}")
+    print(f"  main-path launches {main_launches}")
+    assert all(v > 0 for v in main_launches.values()), main_launches
     res_f = runner.execute(FLOAT_QUERY)
-    q_calls["float"] = calls[-1]
-    sk.scan_direct = real_scan
+    q_calls["float"] = ("scan_direct", calls["scan_direct"][-1])
+    res_s2 = runner.execute(S2)
+    q_calls["s2"] = ("scan_span", calls["scan_span"][-1])
+    runner.execute(SPAN_MINMAX_QUERY)
+    q_calls["span_minmax"] = ("scan_span", calls["scan_span"][-1])
+    runner.execute(HASH_MINMAX_QUERY)
+    q_calls["hash_minmax"] = ("scan_hash", calls["scan_hash"][-1])
+
+    with phase("hash collision loop through LocalQueryRunner"):
+        real_rows = StatsCalculator.rows
+        StatsCalculator.rows = lambda self, node: 1.0
+        n_calls, before = len(calls["scan_hash"]), sk.LAUNCHES["scan_hash"]
+        try:
+            res_c = runner.execute(COLLIDE_QUERY)
+        finally:
+            StatsCalculator.rows = real_rows
+        tables = [(a[5], a[6]) for a in calls["scan_hash"][n_calls:]]
+        assert sk.LAUNCHES["scan_hash"] - before == len(tables) > 1, tables
+        assert tables[0] == (pipeline.AGG_SLOTS, 0), tables
+        for (s0, t0), (s1, t1) in zip(tables, tables[1:]):
+            assert s1 == 2 * s0 and t1 == t0 + 1, tables
+        assert len(res_c.rows) == 4950, len(res_c.rows)
+        q_calls["collide"] = ("scan_hash", calls["scan_hash"][-1])
+        print(f"  (slots, salt) per launch {tables}, "
+              f"{len(res_c.rows)} groups")
+    for k, (mod, attr) in wrappers.items():
+        setattr(mod, attr, real[k])
 
     # -- kernel against plain ---------------------------------------------
     def events_ms(fn, n):
@@ -165,11 +250,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / n
 
-    def bound_bytes(plan, columns, grid, counts):
+    def bound_bytes(plan, columns, counts, table_bytes):
         """Bytes the function must move for this run's data: a column is
         read for the rows live when it is first needed (the filter's
         columns for every scanned row, the others for the rows that passed
-        the filter), whole dictionary / run arrays once, outputs once."""
+        the filter), whole dictionary / run arrays once, the accumulator
+        table and the counters once."""
         counts = counts.tolist()
         first = {}
         for s, p in enumerate(plan.step_programs):
@@ -180,7 +266,7 @@ def main() -> int:
         for p in later:
             for c in p.columns:
                 first.setdefault(c, counts[-1])
-        nbytes = 8 * (plan.n_i + max(plan.n_f, 1)) * plan.G + 8 * len(counts)
+        nbytes = table_bytes + 8 * len(counts)
         for name, rc in zip(plan.names, columns):
             rows = first.get(name, 0)
             if rc.kind == "rle":
@@ -191,36 +277,232 @@ def main() -> int:
                 nbytes += rc.arrays[1].numel() * rc.arrays[1].element_size()
         return nbytes
 
+    def hash_groups(plan, table):
+        """{key bits and nulls: (integer rows, float rows, slot)} of a
+        table's occupied slots."""
+        occ = torch.nonzero(table.keyhash != ops.EMPTY_SLOT).flatten()
+        keys = torch.cat([table.keys[:, occ], table.keynull[:, occ].long()])
+        ints = table.acc_i[:, occ].T.tolist()
+        flts = table.acc_f[:plan.n_f, occ].T.tolist()
+        return {tuple(k): (i, f, s) for k, i, f, s in
+                zip(keys.T.tolist(), ints, flts or [[]] * len(ints),
+                    occ.tolist())}
+
+    def float_sum_rows(plan):
+        """{float accumulator row: aggregate output} of the float sums."""
+        return {plan.flt_names.index(
+                    sp.output + ("$sum" if sp.name == "avg" else "")):
+                sp.output for sp in plan.specs
+                if sp.is_float and sp.name in ("sum", "avg")}
+
+    def exact_sums(plan, call, n_slots, slot_of):
+        """{float sum row: (sum, sum of |x|, rows), each an (n_slots,)
+        tensor}: the exact sums of the row's float64 inputs over the call's
+        live rows per slot, rounded once.  Each row group's inputs are
+        scaled by one power of two to exact int64 values, summed per slot
+        in two 32-bit halves with integer adds (exact in any order), and
+        the halves combined as exact rationals on the host."""
+        rows_of = float_sum_rows(plan)
+        acc = {r: {} for r in rows_of}
+        scratch = torch.zeros(1 + plan.n_steps, dtype=torch.int64,
+                              device=device)
+        for rows in sk.plain_row_groups(plan, *call[1:5], scratch):
+            slot_all = slot_of(rows)
+            inputs = rows.agg_inputs()
+            for r, out in rows_of.items():
+                col = inputs[out]
+                live = rows.batch.mask if col.nulls is None \
+                    else rows.batch.mask & ~col.nulls
+                x = col.values.to(torch.float64)[live]
+                if not x.numel():
+                    continue
+                assert bool(torch.isfinite(x).all()), out
+                nz = x.abs()[x != 0]
+                scale = (53 - int(torch.frexp(nz.min()).exponent)
+                         if nz.numel() else 0)
+                xs = x * 2.0 ** scale
+                assert float(xs.abs().max()) < 2.0 ** 62, out
+                v = xs.to(torch.int64)
+                unit = Fraction(2) ** scale
+                assert torch.equal(v.to(torch.float64), xs), out
+                u, inv = torch.unique(slot_all[live], return_inverse=True)
+                halves = []
+                for w in (v, v.abs()):
+                    for h in (w >> 32, w & 0xFFFFFFFF):
+                        halves.append(torch.zeros(
+                            len(u), dtype=torch.int64, device=device)
+                            .index_add_(0, inv, h).tolist())
+                n = torch.bincount(inv, minlength=len(u)).tolist()
+                for j, slot in enumerate(u.tolist()):
+                    s0, a0, n0 = acc[r].get(slot, (0, 0, 0))
+                    acc[r][slot] = (
+                        s0 + Fraction((halves[0][j] << 32) + halves[1][j])
+                        / unit,
+                        a0 + Fraction((halves[2][j] << 32) + halves[3][j])
+                        / unit,
+                        n0 + n[j])
+        out = {}
+        for r, by_slot in acc.items():
+            s, a, n = (torch.zeros(n_slots, dtype=torch.float64)
+                       for _ in range(3))
+            if by_slot:
+                idx = torch.tensor(list(by_slot))
+                vals = list(by_slot.values())
+                s[idx] = torch.tensor([float(v[0]) for v in vals],
+                                      dtype=torch.float64)
+                a[idx] = torch.tensor([float(v[1]) for v in vals],
+                                      dtype=torch.float64)
+                n[idx] = torch.tensor([float(v[2]) for v in vals],
+                                      dtype=torch.float64)
+            out[r] = (s.to(device), a.to(device), n.to(device))
+        return out
+
+    def check_floats(qname, plan, kf, pf, exact):
+        """The grouped kernels' float rows kf against the plain version's
+        pf, both (n_f, groups) in one group order: min / max equal, sums
+        against `exact` (by the same group order).  Returns the largest
+        |kernel - plain|."""
+        for r in range(plan.n_f):
+            a, b = kf[r], pf[r]
+            if r in exact:
+                s, sabs, n = exact[r]
+                assert bool(((a - s).abs() <= 1e-12 * s.abs()).all()), \
+                    f"{qname}: float sum row {r} off the exact sum"
+                assert bool(((b - s).abs()
+                             <= (n + 1) * UNIT_ROUNDOFF * sabs).all()), \
+                    f"{qname}: plain float sum row {r} off the exact sum"
+            else:
+                assert torch.equal(a, b), f"{qname}: float row {r} differs"
+        diff = (kf - pf).abs()
+        diff = diff[torch.isfinite(diff)]    # equal infinities
+        return float(diff.max()) if diff.numel() else 0.0
+
+    def hash_slot_of(plan, kt, salt):
+        """Each row's slot in the kernel's table, found by its keyhash."""
+        occ = torch.nonzero(kt.keyhash != ops.EMPTY_SLOT).flatten()
+        sorted_kh, order = torch.sort(kt.keyhash[occ])
+
+        def slot_of(rows):
+            keys = []
+            for prog in plan.key_programs:
+                c = rows.run(prog)
+                keys.append(Column(ops.key_bits(c), c.nulls))
+            h = ops.hash_columns(keys, salt)
+            h = torch.where(h == ops.EMPTY_SLOT, torch.zeros_like(h), h)
+            pos = torch.searchsorted(sorted_kh, h).clamp(
+                max=sorted_kh.numel() - 1)
+            found = sorted_kh[pos] == h
+            assert bool(found[rows.batch.mask].all()), \
+                "a live row's keyhash is missing from the kernel's table"
+            return occ[order[pos]]
+        return slot_of
+
+    def compare_hash(qname, plan, call, kt, pt):
+        """Kernel table kt against plain table pt, group by group; returns
+        the largest float difference."""
+        salt, slots = call[6], call[5]
+        assert not bool(kt.collision) and not bool(pt.collision), qname
+        assert torch.equal(kt.counts, pt.counts), f"{qname}: counts differ"
+        kg, pg = hash_groups(plan, kt), hash_groups(plan, pt)
+        assert kg.keys() == pg.keys(), f"{qname}: groups differ"
+        for key, (ki, _kf, _ks) in kg.items():
+            assert ki == pg[key][0], f"{qname}: integer rows differ at {key}"
+        ks = torch.tensor([g[2] for g in kg.values()], device=device)
+        ps = torch.tensor([pg[k][2] for k in kg], device=device)
+        exact = exact_sums(plan, call, slots, hash_slot_of(plan, kt, salt))
+        err = check_floats(qname, plan, kt.acc_f[:plan.n_f, ks],
+                           pt.acc_f[:plan.n_f, ps],
+                           {r: tuple(t[ks] for t in e)
+                            for r, e in exact.items()})
+        occ = torch.nonzero(kt.keyhash != ops.EMPTY_SLOT).flatten()
+        want = ops.hash_columns(
+            [Column(kt.keys[j, occ], kt.keynull[j, occ] != 0)
+             for j in range(kt.keys.shape[0])], salt)
+        want = torch.where(want == ops.EMPTY_SLOT, torch.zeros_like(want),
+                           want)
+        assert torch.equal(kt.keyhash[occ], want), \
+            f"{qname}: kernel keyhash differs from hash_columns"
+        return err, len(kg)
+
+    def unslotted(plan, table):
+        return {k: v[:2] for k, v in hash_groups(plan, table).items()}
+
     records = {}
-    with phase("kernel vs plain on the main path's inputs"):
-        for qname, call in q_calls.items():
-            plan, columns, grid, br, params = call
-            ki, kf, kc = real_scan(plan, columns, grid, br, params)
-            pi, pf, pc = sk.scan_direct_plain(plan, columns, grid, br,
-                                              params)
-            torch.cuda.synchronize()
-            assert torch.equal(ki, pi), f"{qname}: acc_i differs"
-            assert torch.equal(kc, pc), f"{qname}: counts differ"
-            assert torch.allclose(kf, pf, rtol=1e-12, atol=0), \
-                f"{qname}: acc_f differs"
-            err = float((kf - pf).abs().max()) if plan.n_f else 0.0
-            ms = events_ms(lambda: real_scan(plan, columns, grid, br,
-                                             params), 20)
-            plain_ms = events_ms(lambda: sk.scan_direct_plain(
-                plan, columns, grid, br, params), 2)
-            nbytes = bound_bytes(plan, columns, grid, kc)
+    with phase("kernels vs plain on the main path's inputs (+ 5 more)"):
+        for qname, (kernel, call) in q_calls.items():
+            launch = real[kernel]
+            plain = {"scan_direct": sk.scan_direct_plain,
+                     "scan_span": gk.scan_span_plain,
+                     "scan_hash": gk.scan_hash_plain}[kernel]
+            plan, columns, grid = call[0], call[1], call[2]
+            if kernel == "scan_hash":
+                salt, slots = call[6], call[5]
+                kt, kt2 = launch(*call), launch(*call)
+                pt = plain(*call)
+                torch.cuda.synchronize()
+                err, n_groups = compare_hash(qname, plan, call, kt, pt)
+                assert unslotted(plan, kt) == unslotted(plan, kt2), \
+                    f"{qname}: two launches differ"
+                kc = kt.counts
+                table_bytes = slots * (8 * (1 + len(plan.key_programs)
+                                            + plan.n_i + plan.n_f)
+                                       + len(plan.key_programs))
+                detail = (f"slots {slots}, salt {salt}, groups {n_groups}, "
+                          f"keyhash == hash_columns")
+            else:
+                ki, kf, kc = launch(*call)
+                ki2, kf2, kc2 = launch(*call)
+                pi, pf, pc = plain(*call)
+                torch.cuda.synchronize()
+                assert torch.equal(ki, pi), f"{qname}: acc_i differs"
+                assert torch.equal(kc, pc), f"{qname}: counts differ"
+                assert torch.equal(ki, ki2) and torch.equal(kc, kc2) and \
+                    torch.equal(kf.view(torch.int64),
+                                kf2.view(torch.int64)), \
+                    f"{qname}: two launches differ"
+                if kernel == "scan_span":
+                    err = check_floats(
+                        qname, plan, kf[:plan.n_f], pf[:plan.n_f],
+                        exact_sums(plan, call, plan.G,
+                                   lambda rows: rows.codes()))
+                else:
+                    assert torch.allclose(kf, pf, rtol=1e-12, atol=0), \
+                        f"{qname}: acc_f differs"
+                    diff = (kf - pf).abs()
+                    diff = diff[torch.isfinite(diff)]    # equal infinities
+                    err = float(diff.max()) if diff.numel() else 0.0
+                table_bytes = 8 * (plan.n_i + max(plan.n_f, 1)) * plan.G
+                detail = f"G={plan.G}"
+                if kernel == "scan_span":
+                    detail += f", int_smem {plan.int_smem}"
+            ms = events_ms(lambda: launch(*call), 20)
+            plain_ms = events_ms(lambda: plain(*call), 2)
+            nbytes = bound_bytes(plan, columns, kc, table_bytes)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
-            records[qname] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound, bytes=nbytes)
-            print(f"  {qname}: grid {len(grid)} blocks, G={plan.G}, "
+            records[qname] = dict(kernel=kernel, err=err, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound,
+                                  bytes=nbytes)
+            print(f"  {qname} ({kernel}): grid {len(grid)} blocks, {detail}, "
                   f"n_i={plan.n_i}, n_f={plan.n_f}, counts {kc.tolist()}, "
-                  f"acc_i exact, counts exact, max |acc_f diff| {err}")
+                  f"integers exact, counts exact, max |float diff| {err}, "
+                  f"two launches identical")
             print(f"  {qname}: kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
                   f"bound_ms {bound:.4f} ({nbytes} bytes at 3.35 TB/s), "
                   f"threads {plan.threads}, smem {plan.smem_bytes} B")
-        print(f"  float query: {res_f.rows}")
+        print(f"  float query: {res_f.rows}; s2: {len(res_s2.rows)} groups")
+        # a table with fewer slots than H1's groups must flag a collision,
+        # and the next launch starts with a clear flag
+        h1 = q_calls["h1"][1]
+        small = h1[:5] + (256, 0)
+        kt = real["scan_hash"](*small)
+        pt = gk.scan_hash_plain(*small)
+        assert bool(kt.collision) and bool(pt.collision), "h1 at 256 slots"
+        assert not bool(real["scan_hash"](*h1).collision), "stale flag"
+        print(f"  h1 at 256 slots: collision flagged by kernel and plain; "
+              f"at {h1[5]} slots: none")
 
-    with phase("numpy check of Q6 and Q1 at " + schema):
+    with phase("numpy check of Q6, Q1, S1, H1, H2 and the collision "
+               "query at " + schema):
         def host(c):
             return ents[c].column.decode_full()[:n_rows].cpu().numpy() \
                 .astype(np.int64)
@@ -246,25 +528,91 @@ def main() -> int:
             assert int(qty[g].sum()) == int(row[2].scaleb(2)), row
         print("  q1 count_order and sum_qty per group == port")
 
-    rec = records["q1"]
+        def grouped_sums(codes, n_codes, values):
+            out = np.zeros(n_codes, dtype=np.int64)
+            np.add.at(out, codes, values)
+            return out
+
+        def dict_code(column, value):
+            return device_gen.dictionary("tpch", "lineitem", column) \
+                .index(value)
+        mode, instr = host("shipmode"), host("shipinstruct")
+        code = ((flag * 2 + status) * 7 + mode) * 4 + instr
+        n_s1 = grouped_sums(code[live], 168, np.ones(int(live.sum()),
+                                                     dtype=np.int64))
+        q_s1 = grouped_sums(code[live], 168, qty[live])
+        for row in results["s1"].rows:
+            c = ((dict_code("returnflag", row[0]) * 2
+                  + dict_code("linestatus", row[1])) * 7
+                 + dict_code("shipmode", row[2])) * 4 \
+                + dict_code("shipinstruct", row[3])
+            assert n_s1[c] == row[7] and q_s1[c] == int(row[4].scaleb(2)), \
+                (row, n_s1[c], q_s1[c])
+        assert len(results["s1"].rows) == int((n_s1 > 0).sum())
+        print(f"  s1 count_order and sum_qty of {len(results['s1'].rows)} "
+              f"groups == port")
+        year = (ship >= d0) & (ship < d1)
+        k_h1 = qty[year] * 16 + disc[year]
+        n_h1 = np.bincount(k_h1, minlength=5001 * 16)
+        r_h1 = grouped_sums(k_h1, 5001 * 16, price[year] * disc[year])
+        for row in results["h1"].rows:
+            c = int(row[0].scaleb(2)) * 16 + int(row[1].scaleb(2))
+            assert n_h1[c] == row[3] and r_h1[c] == int(row[2].scaleb(4)), \
+                (row, n_h1[c], r_h1[c])
+        assert len(results["h1"].rows) == int((n_h1 > 0).sum())
+        print(f"  h1 n and unscaled revenue of {len(results['h1'].rows)} "
+              f"groups == port")
+        line = host("linenumber")
+        k_h2 = (flag[live] * 2 + status[live]) * 8 + line[live]
+        n_h2 = np.bincount(k_h2, minlength=6 * 8)
+        for row in results["h2"].rows:
+            c = (dict_code("returnflag", row[0]) * 2
+                 + dict_code("linestatus", row[1])) * 8 + row[2]
+            assert n_h2[c] == row[4], (row, n_h2[c])
+        assert len(results["h2"].rows) == int((n_h2 > 0).sum())
+        print(f"  h2 n of {len(results['h2'].rows)} groups == port")
+        tax = host("tax")
+        k_c = (qty * 16 + disc) * 16 + tax
+        n_c = np.bincount(k_c, minlength=5001 * 256)
+        p_c = grouped_sums(k_c, 5001 * 256, price)
+        for row in res_c.rows:
+            c = (int(row[0].scaleb(2)) * 16 + int(row[1].scaleb(2))) * 16 \
+                + int(row[2].scaleb(2))
+            assert n_c[c] == row[3] and p_c[c] == int(row[4].scaleb(2)), \
+                (row, n_c[c], p_c[c])
+        assert len(res_c.rows) == int((n_c > 0).sum())
+        print(f"  collision query n and price sums of {len(res_c.rows)} "
+              f"groups == port")
+
+    summary = {"scan_direct": "q1", "scan_span": "s1", "scan_hash": "h1"}
+    sources = {"scan_direct": "scan_direct.cu", "scan_span": "scan_grouped.cu",
+               "scan_hash": "scan_grouped.cu"}
+    replaces = {"scan_direct": "presto_tpu/exec/kernels/scan_kernel.py:580",
+                "scan_span": "presto_tpu/exec/kernels/grouped.py:213",
+                "scan_hash": "presto_tpu/exec/kernels/grouped.py:63"}
+    kernels = []
     with phase("kernel summary"):
         for qname, r in records.items():
-            print(f"  scan_direct {qname}: kernel_ms {r['ms']:.4f} "
+            print(f"  {r['kernel']} {qname}: kernel_ms {r['ms']:.4f} "
                   f"bound_ms {r['bound_ms']:.4f} plain_ms "
                   f"{r['plain_ms']:.4f} on {card}")
-    kernels = [{
-        "name": "scan_direct",
-        "route": "cuda",
-        "source": "presto_tpu_torch/exec/kernels/csrc/scan_direct.cu",
-        "replaces": "presto_tpu/exec/kernels/scan_kernel.py:580",
-        "launches": main_launches,
-        "max_abs_err": max(r["err"] for r in records.values()),
-        "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"],
-        "bound_ms": rec["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-    }]
+        for name, qname in summary.items():
+            rec = records[qname]
+            kernels.append({
+                "name": name,
+                "route": "cuda",
+                "source": "presto_tpu_torch/exec/kernels/csrc/"
+                          + sources[name],
+                "replaces": replaces[name],
+                "launches": main_launches[name],
+                "max_abs_err": max(r["err"] for r in records.values()
+                                   if r["kernel"] == name),
+                "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": None,
+            })
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

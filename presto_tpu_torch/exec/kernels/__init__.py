@@ -2,9 +2,16 @@
 (build.py) and their host-side wrappers.  Each wrapper launches its
 kernel for CUDA tensors and runs its plain torch version for CPU
 tensors; nothing is built or imported from CUDA at import time."""
-from .scan_kernel import (KERNEL_DECLINE_REASONS, KERNEL_METRICS,
-                          build_direct_plan, scan_direct, scan_direct_plain,
+from .grouped import (scan_hash, scan_hash_plain, scan_span,
+                      scan_span_plain, try_grouped_scan_kernel)
+from .scan_kernel import (KERNEL_DECLINE_REASONS, KERNEL_HASH_MAX_SLOTS,
+                          KERNEL_METRICS, KERNEL_SPAN_MAX_GROUPS, LAUNCHES,
+                          build_scan_plan, scan_direct, scan_direct_plain,
                           try_direct_scan_kernel)
 
-__all__ = ["KERNEL_DECLINE_REASONS", "KERNEL_METRICS", "build_direct_plan",
-           "scan_direct", "scan_direct_plain", "try_direct_scan_kernel"]
+__all__ = ["KERNEL_DECLINE_REASONS", "KERNEL_HASH_MAX_SLOTS",
+           "KERNEL_METRICS", "KERNEL_SPAN_MAX_GROUPS", "LAUNCHES",
+           "build_scan_plan", "scan_direct",
+           "scan_direct_plain", "scan_hash", "scan_hash_plain", "scan_span",
+           "scan_span_plain", "try_direct_scan_kernel",
+           "try_grouped_scan_kernel"]

@@ -3,9 +3,10 @@
 Each source under csrc/ compiles with nvcc into a shared library with a
 plain C interface (sm_90a, -O3), loaded with ctypes.  Libraries land in
 build/presto_tpu_torch/ at the repository root (listed in .gitignore),
-named by a hash of the source and flags, so an edited source rebuilds and
-an unchanged one is loaded as built.  Nothing here runs at import time:
-the first launch of a kernel builds it.
+named by a hash of the source, the shared headers (csrc/*.cuh) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+loaded as built.  Nothing here runs at import time: the first launch of
+a kernel builds it.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "presto_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-SOURCES = ("scan_direct",)
+SOURCES = ("scan_direct", "scan_grouped")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -40,9 +41,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -11,11 +11,13 @@ row and folds live rows into the aggregation accumulators.
             block index and a block-relative [lo, hi) live row range.
             Zone-map pruning runs over this grid on the host, so pruned
             blocks are never launched.
-  plan      DirectScanPlan: the chain's filter steps, group keys and
-            aggregate inputs compiled to ExprPrograms over the scan's
-            columns (project steps are substituted into their consumers),
-            the aggregate specs and the accumulator row layout, packed
-            into one int64 vector the kernel reads.
+  plan      ScanPlan: the chain's filter steps, group keys and aggregate
+            inputs compiled to ExprPrograms over the scan's columns
+            (project steps are substituted into their consumers), the
+            aggregate specs and the accumulator row layout, packed into
+            one int64 vector the kernel reads.  The grouped kernels
+            (grouped.py, csrc/scan_grouped.cu) read the same plan; only
+            its shared-memory layout differs by mode.
   wrapper   scan_direct: CUDA tensors launch the kernel (or raise); CPU
             tensors run scan_direct_plain, the same function in torch.
 
@@ -46,8 +48,9 @@ from ...spi.expr import (CallExpression, RowExpression,
 KERNEL_DECLINE_REASONS = (
     "Disabled",              # scan.kernel = xla (not ported)
     "AggFunctionShape",      # non-BASIC aggregate functions
-    "AggGroupCardinality",   # group count or accumulator rows beyond the
-    #                          kernel's shared-memory layout
+    "AggGroupCardinality",   # group estimate beyond twice the hash slot
+    #                          cap, a collision at the cap, or a failed
+    #                          accumulator reservation
     "PlanShape",             # chain step the kernel does not run, or a
     #                          plan/expression shape the port lacks
     "ColumnsNotResident",    # a scanned column is not device-resident
@@ -65,10 +68,17 @@ MAX_SMEM_BYTES = 200 * 1024
 MAX_PARAMS = 256
 # rows the plain version decodes at once
 PLAIN_ROWS = 1 << 22
+# rows of a block one CTA of a grouped kernel takes per work item
+GROUPED_SUBTILE_ROWS = 8192
+# span mode's group gate (the reference's VMEM accumulator gate, kept so
+# both packages pick the same mode for the same query)
+KERNEL_SPAN_MAX_GROUPS = 1 << 15
+# hash mode's table cap
+KERNEL_HASH_MAX_SLOTS = 1 << 16
 
 # kernel launches per wrapper: each wrapper adds one where it launches its
 # kernel (plain-version runs on CPU tensors are not launches)
-LAUNCHES: Dict[str, int] = {"scan_direct": 0}
+LAUNCHES: Dict[str, int] = {"scan_direct": 0, "scan_span": 0, "scan_hash": 0}
 
 
 class KernelMetrics:
@@ -242,13 +252,14 @@ def substitute(expr: RowExpression, env: Dict[str, RowExpression]):
 
 
 @dataclasses.dataclass
-class DirectScanPlan:
+class ScanPlan:
+    mode: str                              # "direct" | "span" | "hash"
     names: Tuple[str, ...]                 # kernel column order
     n_steps: int
     step_programs: List[Optional[ExprProgram]]   # per step; None = no filter
     key_programs: List[ExprProgram]
     strides: Tuple[int, ...]
-    G: int
+    G: int                                 # groups (hash: 0, slots per launch)
     specs: Tuple
     agg_programs: Dict[str, Optional[ExprProgram]]
     int_names: Tuple[str, ...]
@@ -258,6 +269,8 @@ class DirectScanPlan:
     words: np.ndarray                      # static plan vector (int64)
     threads: int
     smem_bytes: int
+    # span: integer accumulators per CTA in shared memory (else global)
+    int_smem: bool = False
 
     @property
     def n_i(self) -> int:
@@ -268,11 +281,12 @@ class DirectScanPlan:
         return len(self.flt_names)
 
 
-def build_direct_plan(chain, *, specs, key_names, strides, G,
-                      agg_inputs: Dict[str, Optional[RowExpression]]
-                      ) -> DirectScanPlan:
-    """Compile the chain's static shape into a DirectScanPlan.  Raises
-    NotImplementedError for an expression or shape the kernel lacks."""
+def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
+                    agg_inputs: Dict[str, Optional[RowExpression]]
+                    ) -> ScanPlan:
+    """Compile the chain's static shape into a ScanPlan for `mode`.
+    Raises NotImplementedError for an expression or shape the kernel
+    lacks."""
     meta = chain.scan_meta
     names = tuple(meta["colmap"])
     env: Dict[str, RowExpression] = {
@@ -295,7 +309,7 @@ def build_direct_plan(chain, *, specs, key_names, strides, G,
                           else compile_expr(substitute(e, env)))
                     for out, e in agg_inputs.items()}
 
-    template = ops.agg_direct_init(G, specs, "cpu")
+    template = ops.agg_direct_init(max(G, 1), specs, "cpu")
     int_names = tuple(k for k, v in template.items()
                       if v.dtype == torch.int64)
     flt_names = tuple(k for k, v in template.items()
@@ -325,6 +339,9 @@ def build_direct_plan(chain, *, specs, key_names, strides, G,
     step_offs = [-1 if p is None else add_prog(p) for p in step_programs]
     key_offs = [add_prog(p) for p in key_programs]
     spec_rows = []
+    # integer row each row's final value is copied from (the grouped
+    # kernels' reduce copies __seen into the counts it stands for)
+    src_rows = list(range(len(int_names)))
     for spec in specs:
         p = agg_programs.get(spec.output)
         off = -1 if p is None else add_prog(p)
@@ -339,17 +356,21 @@ def build_direct_plan(chain, *, specs, key_names, strides, G,
         # (resident columns carry no NULLs; only NULL constants make them)
         seen_count = p is None or not any(
             op in (OP["NULL_I"], OP["NULL_F"]) for op, _a in p.ops)
+        if seen_count:
+            src_rows[vrow if crow < 0 else crow] = 0
         spec_rows.append((_SPEC_KINDS[spec.name], int(spec.is_float), off,
                           vrow, crow, int(bool(p is not None
                                                 and p.float_result)),
                           int(seen_count)))
     n_cols, n_steps = len(names), len(chain.steps)
+    n_keys = len(key_programs)
     off_cols = _HEADER
     off_steps = off_cols + _COL_WORDS * n_cols
     off_keys = off_steps + n_steps
-    off_specs = off_keys + 2 * len(key_programs)
+    off_specs = off_keys + 2 * n_keys
     off_rows = off_specs + _SPEC_WORDS * len(specs)
-    prog_base = off_rows + 2 * (len(int_names) + len(flt_names))
+    off_src = off_rows + 2 * (len(int_names) + len(flt_names))
+    prog_base = off_src + len(int_names)
 
     def rel(off):
         return -1 if off < 0 else prog_base + off
@@ -358,8 +379,8 @@ def build_direct_plan(chain, *, specs, key_names, strides, G,
                 + list(agg_programs.values()) if p is not None]
     depth = max([p.depth for p in programs] + [1])
     words = [n_cols, n_steps, G, len(int_names), len(flt_names), len(specs),
-             len(key_programs), off_cols, off_steps, off_keys, off_specs,
-             off_rows, depth]
+             n_keys, off_cols, off_steps, off_keys, off_specs,
+             off_rows, depth, off_src]
     words += [0] * (_HEADER - len(words))
     words += [0] * (_COL_WORDS * n_cols)           # filled per launch
     words += [rel(o) for o in step_offs]
@@ -371,16 +392,28 @@ def build_direct_plan(chain, *, specs, key_names, strides, G,
         words += [int(v), ops_of.get(k, _R_ADD)]
     for k, v in zip(flt_names, init_f.tolist()):
         words += [float_bits(v), ops_of.get(k, _R_ADD)]
+    words += src_rows
     words += progs
 
-    # shared memory: the staged plan vector and parameters, CTA
-    # accumulators and counters, plus per-thread row counters, stack slots
-    # (values for ROWS_PER_THREAD rows, one null mask) and float
-    # accumulator slots; wide float layouts shrink the CTA rather than
-    # exceed it.  smem_bytes leaves out the parameters, added per launch.
-    fixed = 8 * (len(words) + len(int_names) * G + 1 + n_steps)
-    per_thread = (8 * (1 + n_steps + depth * ROWS_PER_THREAD
-                       + len(flt_names) * G) + 4 * depth)
+    # shared memory: the staged plan vector and parameters, the CTA's row
+    # counters, per-thread row counters, stack slots (values for
+    # ROWS_PER_THREAD rows, one null mask) and, by mode:
+    #   direct  CTA integer accumulators and per-thread float slots;
+    #   span    CTA integer accumulators when they fit (int_smem), else
+    #           none: they fold into global memory;
+    #   hash    per-thread key values and null masks of the probed rows;
+    #   both    with float rows, the warps' staged (slot, value) pairs.
+    # A wide layout shrinks the CTA rather than exceed the limit.
+    # smem_bytes leaves out the parameters, added per launch.
+    fixed = 8 * (len(words) + 1 + n_steps)
+    per_thread = 8 * (1 + n_steps + depth * ROWS_PER_THREAD) + 4 * depth
+    if mode == "direct":
+        fixed += 8 * len(int_names) * G
+        per_thread += 8 * len(flt_names) * G
+    elif flt_names:
+        per_thread += 16 * ROWS_PER_THREAD
+    if mode == "hash":
+        per_thread += 8 * n_keys * ROWS_PER_THREAD + 4 * n_keys
     threads = THREADS
     while threads > 32 and fixed + 8 * MAX_PARAMS + per_thread * threads \
             > MAX_SMEM_BYTES:
@@ -390,10 +423,16 @@ def build_direct_plan(chain, *, specs, key_names, strides, G,
         raise NotImplementedError(
             f"accumulator layout of {smem} bytes exceeds the kernel's "
             f"shared memory")
-    return DirectScanPlan(names, n_steps, step_programs, key_programs,
-                          tuple(strides), G, tuple(specs), agg_programs,
-                          int_names, flt_names, init_i, init_f,
-                          np.asarray(words, dtype=np.int64), threads, smem)
+    int_smem = False
+    if mode == "span" and (smem + 8 * len(int_names) * G + 8 * MAX_PARAMS
+                           <= MAX_SMEM_BYTES):
+        int_smem = True
+        smem += 8 * len(int_names) * G
+    return ScanPlan(mode, names, n_steps, step_programs, key_programs,
+                    tuple(strides), G, tuple(specs), agg_programs,
+                    int_names, flt_names, init_i, init_f,
+                    np.asarray(words, dtype=np.int64), threads, smem,
+                    int_smem)
 
 
 def _column_words(columns) -> List[int]:
@@ -409,26 +448,19 @@ def _column_words(columns) -> List[int]:
     return out
 
 
-def _init_outputs(plan: DirectScanPlan, device):
-    acc_i = plan.init_i.to(device)[:, None].repeat(1, plan.G)
-    acc_f = (plan.init_f.to(device)[:, None].repeat(1, plan.G) if plan.n_f
-             else torch.zeros((1, plan.G), dtype=torch.float64,
-                              device=device))
+def init_outputs(plan: ScanPlan, device, G: Optional[int] = None):
+    """acc_i (n_i, G) and acc_f (max(n_f, 1), G) filled with each row's
+    initial value (G defaults to the plan's)."""
+    G = plan.G if G is None else G
+    acc_i = plan.init_i.to(device)[:, None].repeat(1, G)
+    acc_f = (plan.init_f.to(device)[:, None].repeat(1, G) if plan.n_f
+             else torch.zeros((1, G), dtype=torch.float64, device=device))
     return acc_i.contiguous(), acc_f.contiguous()
 
 
-# ---------------------------------------------------------------------------
-# kernel wrapper and its plain version
-# ---------------------------------------------------------------------------
-
-def scan_direct(plan: DirectScanPlan, columns, grid, br: int, params):
-    """Run the fused scan over `grid` entries (bidx, lo, hi) of the
-    ResidentColumns `columns` (plan.names order).  CUDA tensors launch
-    the kernel; CPU tensors run scan_direct_plain.  Returns (acc_i,
-    acc_f, counts)."""
-    device = columns[0].device
-    if device.type == "cpu":
-        return scan_direct_plain(plan, columns, grid, br, params)
+def check_launch_inputs(columns, params, device) -> None:
+    """What every scan kernel takes: columns and parameters on `device`,
+    at most MAX_PARAMS int64 parameters."""
     if device.type != "cuda":
         raise NotImplementedError(f"scan kernel on {device.type}")
     for rc in columns:
@@ -439,6 +471,33 @@ def scan_direct(plan: DirectScanPlan, columns, grid, br: int, params):
                                or params.numel() > MAX_PARAMS):
         raise ValueError(f"bound parameters must be at most {MAX_PARAMS} "
                          f"int64 values on the scan device")
+
+
+def launch_tensors(plan: ScanPlan, columns, grid, device):
+    """The plan vector with this launch's column table, and the grid as a
+    (3, n_grid) int64 tensor, both on `device`."""
+    words = plan.words.copy()
+    words[_HEADER:_HEADER + _COL_WORDS * len(columns)] = \
+        _column_words(columns)
+    plan_dev = torch.from_numpy(words).to(device)
+    grid_dev = torch.from_numpy(
+        np.asarray(grid, dtype=np.int64).T.copy()).to(device)
+    return plan_dev, grid_dev
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper and its plain version
+# ---------------------------------------------------------------------------
+
+def scan_direct(plan: ScanPlan, columns, grid, br: int, params):
+    """Run the fused scan over `grid` entries (bidx, lo, hi) of the
+    ResidentColumns `columns` (plan.names order).  CUDA tensors launch
+    the kernel; CPU tensors run scan_direct_plain.  Returns (acc_i,
+    acc_f, counts)."""
+    device = columns[0].device
+    if device.type == "cpu":
+        return scan_direct_plain(plan, columns, grid, br, params)
+    check_launch_inputs(columns, params, device)
     from .build import load
     lib = load("scan_direct")
     fn = lib.scan_direct_launch
@@ -450,16 +509,12 @@ def scan_direct(plan: DirectScanPlan, columns, grid, br: int, params):
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n_grid = len(grid)
-    acc_i, acc_f = _init_outputs(plan, device)
+    acc_i, acc_f = init_outputs(plan, device)
     counts = torch.zeros(1 + plan.n_steps, dtype=torch.int64, device=device)
     if n_grid == 0:
         return acc_i, acc_f, counts
-    words = plan.words.copy()
-    words[_HEADER:_HEADER + _COL_WORDS * len(columns)] = \
-        _column_words(columns)
-    plan_dev = torch.from_numpy(words).to(device)
-    grid_dev = torch.from_numpy(
-        np.asarray(grid, dtype=np.int64).T.copy()).to(device)
+    plan_dev, grid_dev = launch_tensors(plan, columns, grid, device)
+    n_plan = int(plan_dev.numel())
     rows_per_cta = min(int(br), ROWS_PER_CTA)
     n_sub = -(-int(br) // rows_per_cta)
     n_parts = n_grid * n_sub
@@ -469,7 +524,7 @@ def scan_direct(plan: DirectScanPlan, columns, grid, br: int, params):
                          dtype=torch.float64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     n_params = 0 if params is None else int(params.numel())
-    rc = fn(plan_dev.data_ptr(), len(words), grid_dev.data_ptr(), n_grid,
+    rc = fn(plan_dev.data_ptr(), n_plan, grid_dev.data_ptr(), n_grid,
             int(br), rows_per_cta, n_sub,
             params.data_ptr() if n_params else None, n_params,
             part_i.data_ptr(), part_f.data_ptr(), counts.data_ptr(),
@@ -487,32 +542,70 @@ def _truthy(c: Column):
     return keep if c.nulls is None else keep & ~c.nulls
 
 
-def scan_direct_plain(plan: DirectScanPlan, columns, grid, br: int, params):
+def scan_direct_plain(plan: ScanPlan, columns, grid, br: int, params):
     """The kernel's function in plain torch over the same grid entries:
     index_select / searchsorted decode, the torch ExprProgram evaluator,
     and agg_direct_update's one-hot grid."""
     device = columns[0].device
     state = ops.agg_direct_init(plan.G, plan.specs, device)
     counts = torch.zeros(1 + plan.n_steps, dtype=torch.int64, device=device)
+    for rows in plain_row_groups(plan, columns, grid, br, params, counts):
+        state = ops.agg_direct_update(state, rows.batch, rows.codes(),
+                                      rows.agg_inputs(), plan.specs, plan.G)
+    return stacked_state(plan, state) + (counts,)
+
+
+def stacked_state(plan: ScanPlan, state: dict):
+    """(acc_i, acc_f) stacked in the plan's row order from a state dict."""
+    acc_i = torch.stack([state[k] for k in plan.int_names])
+    acc_f = (torch.stack([state[k] for k in plan.flt_names]) if plan.n_f
+             else torch.zeros_like(acc_i[:1], dtype=torch.float64))
+    return acc_i, acc_f
+
+
+class PlainRows:
+    """One group of decoded grid rows after the chain's steps: the
+    plain versions' unit of work."""
+
+    def __init__(self, plan: ScanPlan, cols, n: int, mask, params):
+        self.plan = plan
+        self.cols = cols
+        self.n = n
+        self.batch = Batch({}, mask)
+        self.params = params
+
+    def run(self, prog: ExprProgram) -> Column:
+        return prog.run(self.cols, self.n, self.params, self.batch.device)
+
+    def codes(self):
+        """The combined stride code of the key programs."""
+        codes = torch.zeros(self.n, dtype=torch.int64,
+                            device=self.batch.device)
+        for prog, stride in zip(self.plan.key_programs, self.plan.strides):
+            codes = codes + self.run(prog).values.to(torch.int64) * stride
+        return codes
+
+    def agg_inputs(self) -> Dict[str, Optional[Column]]:
+        return {out: (None if p is None else self.run(p))
+                for out, p in self.plan.agg_programs.items()}
+
+
+def plain_row_groups(plan: ScanPlan, columns, grid, br: int, params,
+                     counts):
+    """Yield PlainRows over the grid entries, about PLAIN_ROWS rows at a
+    time, adding each step's live rows to `counts`."""
     groups, rows = [], 0
     for ent in grid:
         groups.append(ent)
         rows += ent[2] - ent[1]
         if rows >= PLAIN_ROWS:
-            state = _plain_group(plan, columns, groups, br, params, state,
-                                 counts)
+            yield _plain_group(plan, columns, groups, br, params, counts)
             groups, rows = [], 0
     if groups:
-        state = _plain_group(plan, columns, groups, br, params, state,
-                             counts)
-    acc_i = torch.stack([state[k] for k in plan.int_names])
-    acc_f = (torch.stack([state[k] for k in plan.flt_names]) if plan.n_f
-             else torch.zeros((1, plan.G), dtype=torch.float64,
-                              device=device))
-    return acc_i, acc_f, counts
+        yield _plain_group(plan, columns, groups, br, params, counts)
 
 
-def _plain_group(plan, columns, entries, br, params, state, counts):
+def _plain_group(plan, columns, entries, br, params, counts) -> PlainRows:
     device = columns[0].device
     idx = torch.cat([torch.arange(b * br + lo, b * br + hi, device=device)
                      for b, lo, hi in entries])
@@ -525,14 +618,7 @@ def _plain_group(plan, columns, entries, br, params, state, counts):
         if prog is not None:
             mask = mask & _truthy(prog.run(cols, n, params, device))
         counts[s + 1] += mask.sum()
-    codes = torch.zeros(n, dtype=torch.int64, device=device)
-    for prog, stride in zip(plan.key_programs, plan.strides):
-        codes = codes + prog.run(cols, n, params, device).values.to(
-            torch.int64) * stride
-    agg_cols = {out: (None if p is None else p.run(cols, n, params, device))
-                for out, p in plan.agg_programs.items()}
-    return ops.agg_direct_update(state, Batch({}, mask), codes, agg_cols,
-                                 plan.specs, plan.G)
+    return PlainRows(plan, cols, n, mask, params)
 
 
 # ---------------------------------------------------------------------------
@@ -549,17 +635,11 @@ def try_direct_scan_kernel(chain, params, *, specs, key_names, strides, G,
     if elig is None:
         return None
     cached, colmap = elig
-    key = ("direct_plan", G, tuple(strides))
-    plan = cache.get(key)
+    plan = cached_plan(cache, chain, declined, mode="direct", specs=specs,
+                       key_names=key_names, strides=strides, G=G,
+                       agg_inputs=agg_inputs)
     if plan is None:
-        try:
-            plan = build_direct_plan(chain, specs=specs, key_names=key_names,
-                                     strides=strides, G=G,
-                                     agg_inputs=agg_inputs)
-        except NotImplementedError:
-            declined("PlanShape")
-            return None
-        cache[key] = plan
+        return None
     br = block_rows_for(chain.leaf_cap(()))
     grid = aligned_grid(chain.scan_meta, br,
                         chain.compiler.ctx.params_fingerprint)
@@ -567,6 +647,26 @@ def try_direct_scan_kernel(chain, params, *, specs, key_names, strides, G,
     acc_i, acc_f, counts = scan_direct(plan, columns, grid, br, params)
     if grid:
         meter_kernel_run(runtime_stats, len(grid))
+    return state_of(plan, acc_i, acc_f), counts, len(grid)
+
+
+def cached_plan(cache, chain, declined, **kw) -> Optional[ScanPlan]:
+    """The chain's ScanPlan for these arguments, built once per compiled
+    aggregation; None after metering a PlanShape decline."""
+    key = ("plan", kw["mode"], kw["G"], tuple(kw["strides"]))
+    plan = cache.get(key)
+    if plan is None:
+        try:
+            plan = build_scan_plan(chain, **kw)
+        except NotImplementedError:
+            declined("PlanShape")
+            return None
+        cache[key] = plan
+    return plan
+
+
+def state_of(plan: ScanPlan, acc_i, acc_f) -> dict:
+    """Stacked accumulator rows -> the state dict they stand for."""
     state = {k: acc_i[j] for j, k in enumerate(plan.int_names)}
     state.update({k: acc_f[j] for j, k in enumerate(plan.flt_names)})
-    return state, counts, len(grid)
+    return state

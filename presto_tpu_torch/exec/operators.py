@@ -1,9 +1,10 @@
 """Physical operators over device Batches (torch).
 
-The subset of presto_tpu/exec/operators.py the first slice runs: the
-hash mixer, filter application, direct-slot aggregation (init / update /
-finalize), the decimal average, sort permutations and compaction.  Every
-function takes tensors on one device and allocates on that device.
+The subset of presto_tpu/exec/operators.py the port runs: the hash
+mixer and key hashing, filter application, direct-slot, span and hashed
+open-addressing aggregation (init / update / finalize, BASIC aggregates),
+the decimal average, sort permutations and compaction.  Every function
+takes tensors on one device and allocates on that device.
 """
 from __future__ import annotations
 
@@ -51,6 +52,30 @@ def umod(x, n: int):
     return (half * 2 + (x & 1)) % n
 
 
+def key_bits(c: Column):
+    """A key column's values as the int64 bits hash_columns mixes: float64
+    bit patterns, booleans as 0/1, integers sign-extended."""
+    v = c.values
+    if v.dtype == torch.float64:
+        return v.view(torch.int64)
+    if v.dtype == torch.float32:
+        return v.view(torch.int32).to(torch.int64)
+    return v.to(torch.int64)
+
+
+def hash_columns(cols: List[Column], salt: int = 0):
+    """Combined 64-bit hash of key columns (nulls hash distinctly), as
+    int64 bits; the reference's uint64 arithmetic wraps the same way."""
+    h = torch.full(cols[0].values.shape, salt + 1, dtype=torch.int64,
+                   device=cols[0].values.device)
+    for c in cols:
+        hv = splitmix64(key_bits(c))
+        if c.nulls is not None:
+            hv = torch.where(c.nulls, torch.full_like(hv, _GOLDEN), hv)
+        h = splitmix64(h * 31 + hv)
+    return h
+
+
 # ---------------------------------------------------------------------------
 # filter
 # ---------------------------------------------------------------------------
@@ -86,10 +111,18 @@ def _acc_dtype(spec: AggSpec):
 
 
 def agg_direct_init(G: int, specs: Tuple[AggSpec, ...], device) -> dict:
+    state = {"__seen": torch.zeros(G, dtype=torch.int64, device=device)}
+    state.update(_spec_state(G, specs, device))
+    return state
+
+
+def _spec_state(G: int, specs: Tuple[AggSpec, ...], device) -> dict:
+    """The per-aggregate accumulator entries shared by every mode's state
+    (BASIC aggregates; any other function raises NotImplementedError)."""
     def zeros(dt=torch.int64):
         return torch.zeros(G, dtype=dt, device=device)
 
-    state = {"__seen": zeros()}
+    state = {}
     for spec in specs:
         if spec.name in ("count", "count_star"):
             state[spec.output] = zeros()
@@ -191,6 +224,13 @@ def agg_direct_finalize(state: dict, specs: Tuple[AggSpec, ...],
         stride //= dom
         code = (slot // stride) % dom
         cols[k] = Column(code.to(dt), None, key_dicts.get(k))
+    _finalize_specs(state, specs, cols)
+    return Batch(cols, occupied)
+
+
+def _finalize_specs(state: dict, specs: Tuple[AggSpec, ...],
+                    cols: Dict[str, Column]) -> None:
+    """Accumulators -> one output column per aggregate, into `cols`."""
     for spec in specs:
         if spec.name in ("count", "count_star"):
             cols[spec.output] = Column(state[spec.output], None)
@@ -210,7 +250,206 @@ def agg_direct_finalize(state: dict, specs: Tuple[AggSpec, ...],
                 cols[spec.output] = Column(_decimal_avg(s, c, empty), empty)
         else:
             raise NotImplementedError(spec.name)
-    return Batch(cols, occupied)
+
+
+# ---------------------------------------------------------------------------
+# span aggregation: closed key domains, combined stride code = slot
+# ---------------------------------------------------------------------------
+
+# max accumulator length for span-direct (scatter-indexed) aggregation
+SPAN_AGG_MAX_GROUPS = 1 << 26
+
+
+def _scatter(dst, slot, vals, how: str):
+    """dst.at[slot].<how>(vals, mode="drop"): a slot equal to len(dst)
+    lands in an overflow entry that is dropped."""
+    n = dst.shape[0]
+    buf = torch.cat([dst, dst[:1]])
+    vals = vals.to(dst.dtype)
+    if how == "set":
+        buf[slot] = vals
+    elif how == "add":
+        buf.index_add_(0, slot, vals)
+    else:
+        buf.scatter_reduce_(0, slot, vals, how, include_self=True)
+    return buf[:n]
+
+
+def _scatter_specs(state: dict, out: dict, slot, mask,
+                   agg_inputs: Dict[str, Optional[Column]],
+                   specs: Tuple[AggSpec, ...]) -> None:
+    """Scatter each aggregate's live inputs into its accumulators at
+    `slot` (rows outside `mask` carry the drop slot).  NULL inputs fold as
+    the operation's identity and are not counted."""
+    ones = mask.to(torch.int64)
+    for spec in specs:
+        o = spec.output
+        if spec.name == "count_star":
+            out[o] = _scatter(state[o], slot, ones, "add")
+            continue
+        col = agg_inputs[o]
+        valid = mask & ~col.null_mask()
+        vones = valid.to(torch.int64)
+        if spec.name == "count":
+            out[o] = _scatter(state[o], slot, vones, "add")
+            continue
+        if spec.name not in BASIC_AGGS:
+            raise NotImplementedError(f"aggregate {spec.name}")
+        dt = _acc_dtype(spec)
+        v = col.values.to(dt)
+        if spec.name in ("sum", "avg"):
+            key = o if spec.name == "sum" else o + "$sum"
+            out[key] = _scatter(state[key], slot,
+                                torch.where(valid, v, torch.zeros_like(v)),
+                                "add")
+        else:
+            is_min = spec.name == "min"
+            if spec.is_float:
+                fill = float("inf") if is_min else float("-inf")
+            else:
+                fill = INT64_MAX if is_min else INT64_MIN
+            out[o] = _scatter(state[o], slot,
+                              torch.where(valid, v, torch.full_like(v, fill)),
+                              "amin" if is_min else "amax")
+        out[o + "$count"] = _scatter(state[o + "$count"], slot, vones, "add")
+
+
+def agg_span_init(G: int, specs: Tuple[AggSpec, ...], device) -> dict:
+    """State for span-direct aggregation: integer group codes in [0, G)
+    index the accumulators directly; the group keys are not stored (the
+    caller rebuilds them from the slot index, agg_span_finalize)."""
+    return agg_direct_init(G, specs, device)
+
+
+def agg_span_update(state: dict, batch: Batch, codes,
+                    agg_inputs: Dict[str, Optional[Column]],
+                    specs: Tuple[AggSpec, ...], G: int) -> dict:
+    """codes: per-row group index, in [0, G) for live rows; masked rows
+    (and codes off the grid) are routed out of range and dropped."""
+    codes = codes.to(torch.int64)
+    mask = batch.mask & (codes >= 0) & (codes < G)
+    slot = torch.where(mask, codes, torch.full_like(codes, G))
+    out = dict(state)
+    out["__seen"] = _scatter(state["__seen"], slot, mask.to(torch.int64),
+                             "add")
+    _scatter_specs(state, out, slot, mask, agg_inputs, specs)
+    return out
+
+
+def agg_span_finalize(state: dict, specs: Tuple[AggSpec, ...],
+                      key_names: Tuple[str, ...],
+                      key_arrays: Dict[str, torch.Tensor],
+                      key_dicts: Dict[str, Tuple[str, ...]]) -> Batch:
+    """key_arrays: slot index -> key value per key (rebuilt by the
+    caller from the slot's stride decomposition)."""
+    fake = dict(state)
+    fake["__occupied"] = state["__seen"] > 0
+    G = state["__seen"].shape[0]
+    for k in key_names:
+        fake[f"__key_{k}"] = key_arrays[k]
+        fake[f"__keynull_{k}"] = torch.zeros(G, dtype=torch.bool,
+                                             device=key_arrays[k].device)
+    return agg_finalize(fake, specs, key_names, key_dicts)
+
+
+# ---------------------------------------------------------------------------
+# hashed aggregation: open addressing over 64-bit key hashes
+# ---------------------------------------------------------------------------
+
+# the reference's uint64 0xFFFFFFFFFFFFFFFF, as int64 bits
+EMPTY_SLOT = -1
+PROBE_ROUNDS = 16
+
+
+def agg_init(num_slots: int, specs: Tuple[AggSpec, ...],
+             key_names: Tuple[str, ...], key_dtypes, device) -> dict:
+    """A fresh accumulator table: keyhash (EMPTY_SLOT when free),
+    occupancy, the collision flag, per-key values and null flags, and the
+    per-aggregate accumulators."""
+    state = {
+        "__keyhash": torch.full((num_slots,), EMPTY_SLOT, dtype=torch.int64,
+                                device=device),
+        "__occupied": torch.zeros(num_slots, dtype=torch.bool, device=device),
+        "__collision": torch.zeros((), dtype=torch.bool, device=device),
+    }
+    for name, dtype in zip(key_names, key_dtypes):
+        state[f"__key_{name}"] = torch.zeros(num_slots, dtype=dtype,
+                                             device=device)
+        state[f"__keynull_{name}"] = torch.zeros(num_slots, dtype=torch.bool,
+                                                 device=device)
+    state.update(_spec_state(num_slots, specs, device))
+    return state
+
+
+def _scatter_umin(num_slots: int, slot, bits):
+    """Unsigned scatter-min of uint64 bits held in int64 into a table of
+    EMPTY_SLOT entries: flipping the sign bit makes signed order the
+    unsigned order."""
+    out = torch.full((num_slots,), EMPTY_SLOT ^ INT64_MIN, dtype=torch.int64,
+                     device=bits.device)
+    out.scatter_reduce_(0, slot, bits ^ INT64_MIN, "amin", include_self=True)
+    return out ^ INT64_MIN
+
+
+def agg_update(state: dict, batch: Batch, key_cols: List[Column],
+               agg_inputs: Dict[str, Optional[Column]],
+               specs: Tuple[AggSpec, ...], num_slots: int, salt: int,
+               key_names: Tuple[str, ...] = ()) -> dict:
+    """Scatter one batch into the accumulator table: open addressing,
+    linear probing vectorized as PROBE_ROUNDS scatter rounds.  Each round
+    the pending rows propose their keyhash for their current slot, an
+    (unsigned) scatter-min picks one winner per free slot, rows whose
+    keyhash now matches their slot's are placed, and the rest advance one
+    slot.  Rows still pending after every round set __collision and are
+    dropped; the caller re-runs with a doubled table."""
+    mask = batch.mask
+    out = dict(state)
+    if key_cols:
+        kh = hash_columns(key_cols, salt)
+        kh = torch.where(kh == EMPTY_SLOT, torch.zeros_like(kh), kh)
+    else:
+        kh = torch.zeros(mask.shape, dtype=torch.int64, device=mask.device)
+    slot = umod(kh, num_slots)
+    table = state["__keyhash"]
+    pending = mask
+    placed_slot = torch.zeros_like(slot)
+    empty = torch.full_like(kh, EMPTY_SLOT)
+    for _ in range(PROBE_ROUNDS):
+        attempt = _scatter_umin(num_slots, slot,
+                                torch.where(pending, kh, empty))
+        table = torch.where(table == EMPTY_SLOT, attempt, table)
+        win = pending & (table[slot] == kh)
+        placed_slot = torch.where(win, slot, placed_slot)
+        pending = pending & ~win
+        slot = torch.where(pending, (slot + 1) % num_slots, slot)
+    out["__collision"] = state["__collision"] | pending.any()
+    out["__keyhash"] = table
+    out["__occupied"] = table != EMPTY_SLOT
+    mask = mask & ~pending          # unplaced rows drop (the retry redoes all)
+    slot = torch.where(mask, placed_slot, torch.full_like(placed_slot,
+                                                          num_slots))
+    for kname, col in zip(key_names, key_cols):
+        name = f"__key_{kname}"
+        out[name] = _scatter(state[name], slot, col.values, "set")
+        if col.nulls is not None:
+            nname = f"__keynull_{kname}"
+            out[nname] = _scatter(state[nname], slot, col.nulls, "set")
+    _scatter_specs(state, out, slot, mask, agg_inputs, specs)
+    return out
+
+
+def agg_finalize(state: dict, specs: Tuple[AggSpec, ...],
+                 key_names: Tuple[str, ...],
+                 key_dicts: Dict[str, Tuple[str, ...]]) -> Batch:
+    """Accumulator table -> output Batch (capacity == num_slots, mask ==
+    occupied)."""
+    cols: Dict[str, Column] = {}
+    for name in key_names:
+        cols[name] = Column(state[f"__key_{name}"],
+                            state.get(f"__keynull_{name}"),
+                            key_dicts.get(name))
+    _finalize_specs(state, specs, cols)
+    return Batch(cols, state["__occupied"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
-"""Plan -> executable pipelines over torch tensors (first slice).
+"""Plan -> executable pipelines over torch tensors.
 
-The port of presto_tpu/exec/pipeline.py for the main path: a TableScan
-over device-resident encoded columns, streaming Filter/Project, a direct-
-slot Aggregation whose fused scan -> filter -> project chain runs through
-the hand-written CUDA scan kernel (exec/kernels/scan_kernel.py), Sort and
-Output.  Every tensor is allocated on the task's device (TaskContext.
-device).  A plan shape or option outside the slice raises
-NotImplementedError naming what is missing; nothing falls back quietly.
+The port of presto_tpu/exec/pipeline.py for the ported slices: a
+TableScan over device-resident encoded columns, streaming Filter/Project,
+an Aggregation whose fused scan -> filter -> project chain runs through
+the hand-written CUDA scan kernels (direct slots for G <= 64,
+exec/kernels/scan_kernel.py; span or hash slots beyond,
+exec/kernels/grouped.py), Sort and Output.  Every tensor is allocated on
+the task's device (TaskContext.device).  A plan shape or option outside
+the slices raises NotImplementedError naming what is missing; nothing
+falls back quietly.
 """
 from __future__ import annotations
 
@@ -27,6 +29,23 @@ from .lowering import Lowering, canonical_name, expr_has_params, torch_dtype
 from .memory import MemoryContext, MemoryPool
 
 DEFAULT_CAPACITY = 1 << 20
+# the hash table's least first size
+AGG_SLOTS = 4096
+# capacities a sparse aggregation table is compacted to
+_COMPACT_BUCKETS = (1 << 12, 1 << 16, 1 << 18, 1 << 20)
+
+
+def _maybe_compact(batch: Batch) -> Batch:
+    """Compact a single mostly-dead batch (a sparse aggregation table) to
+    a bucketed capacity so downstream sorts don't pay full-capacity
+    costs.  One host sync for the live count."""
+    live = int(batch.mask.sum())
+    if live * 4 >= batch.capacity:
+        return batch
+    bucket = next((s for s in _COMPACT_BUCKETS if s >= live), None)
+    if bucket is None or bucket >= batch.capacity:
+        return batch
+    return ops.compact(batch, bucket)
 
 
 @dataclass
@@ -292,9 +311,11 @@ class PlanCompiler:
 
     # -- aggregation ------------------------------------------------------
     def _compile_AggregationNode(self, node: P.AggregationNode) -> BatchSource:
-        """Direct-slot aggregation over a fused scan chain, run by the
-        scan kernel.  The streaming (non-fused) aggregation, the hash /
-        span / sort modes and spill are not ported yet."""
+        """Aggregation over a fused scan chain, run by the scan kernels in
+        the reference's mode order: direct slots (G <= 64), span slots
+        (closed key domains, G <= KERNEL_SPAN_MAX_GROUPS), hashed slots.
+        The streaming (non-fused) aggregation, the XLA-chain span / sort /
+        hash paths and spill are not ported yet."""
         if any(a.mask is not None or a.distinct
                for a in node.aggregations.values()):
             raise NotImplementedError(
@@ -320,6 +341,7 @@ class PlanCompiler:
         basic = all(s.name in ops.BASIC_AGGS for s in specs)
         cfg = self.ctx.config
         fused_cache: dict = {}
+        initial_slots = _initial_slots(node, key_names)
 
         def declined(reason: str) -> None:
             from .kernels.scan_kernel import KERNEL_METRICS
@@ -345,33 +367,54 @@ class PlanCompiler:
             if self.ctx.memory.limited:
                 raise NotImplementedError(
                     "budgeted aggregation (the streaming path) is not ported")
-            info = (_direct_mode_info(key_names,
-                                      _chain_key_columns(chain, key_names))
+            key_cols = _chain_key_columns(chain, key_names)
+            info = (_direct_mode_info(key_names, key_cols)
                     if basic else None)
-            if info is None:
-                refuse("AggFunctionShape" if not basic
-                       else "AggGroupCardinality")
             if cfg.scan_kernel == "xla":
                 refuse("Disabled")
+            if not basic:
+                refuse("AggFunctionShape")
             if cfg.scan_kernel_dma == "double":
                 raise NotImplementedError(
                     "scan_kernel_dma=double (a staged input ring) is not "
                     "ported")
-            doms, G, strides, kdts, kdicts = info
-            from .kernels.scan_kernel import try_direct_scan_kernel
-            kres = try_direct_scan_kernel(
-                chain, self.ctx.params, specs=specs, key_names=key_names,
-                strides=strides, G=G, agg_inputs=input_exprs,
-                cache=fused_cache, declined=declined,
-                runtime_stats=self.ctx.runtime_stats)
-            if kres is None:
-                raise NotImplementedError(
-                    f"kernelDeclined{fused_cache['declined']}: the torch "
-                    f"fused chain is not ported yet")
-            state, _counts, _n_blocks = kres
-            return ops.agg_direct_finalize(
-                state, specs, key_names, doms, kdts, kdicts,
-                force_row=not key_names)
+            if info is not None:
+                doms, G, strides, kdts, kdicts = info
+                from .kernels.scan_kernel import try_direct_scan_kernel
+                kres = try_direct_scan_kernel(
+                    chain, self.ctx.params, specs=specs,
+                    key_names=key_names, strides=strides, G=G,
+                    agg_inputs=input_exprs, cache=fused_cache,
+                    declined=declined, runtime_stats=self.ctx.runtime_stats)
+                if kres is not None:
+                    state, _counts, _n_blocks = kres
+                    return ops.agg_direct_finalize(
+                        state, specs, key_names, doms, kdts, kdicts,
+                        force_row=not key_names)
+            else:
+                # grouped (G > 64): span slots when the closed key domains
+                # fit the span gate, hashed open addressing otherwise
+                from .kernels.grouped import try_grouped_scan_kernel
+                from .kernels.scan_kernel import KERNEL_SPAN_MAX_GROUPS
+                kres = try_grouped_scan_kernel(
+                    chain, self.ctx.params, specs=specs,
+                    key_names=key_names,
+                    key_dtypes=tuple(c.values.dtype for c in key_cols),
+                    key_dicts={k: c.dictionary
+                               for k, c in zip(key_names, key_cols)
+                               if c.dictionary is not None},
+                    span_info=_direct_mode_info(
+                        key_names, key_cols, gmax=KERNEL_SPAN_MAX_GROUPS),
+                    est_slots=initial_slots, agg_inputs=input_exprs,
+                    cache=fused_cache, declined=declined,
+                    pool=self.ctx.memory, state_bytes=_agg_state_bytes,
+                    runtime_stats=self.ctx.runtime_stats)
+                if kres is not None:
+                    out, _counts, _n_blocks = kres
+                    return _maybe_compact(out)
+            raise NotImplementedError(
+                f"kernelDeclined{fused_cache['declined']}: the torch "
+                f"fused chain is not ported yet")
 
         def gen():
             chain = get_fused()
@@ -381,6 +424,31 @@ class PlanCompiler:
                     "chain (the streaming aggregation) is not ported")
             yield run_fused(chain)
         return BatchSource(gen, out_names, out_types)
+
+
+def _initial_slots(node: P.AggregationNode, key_names) -> int:
+    """The hash table's first size: AGG_SLOTS, raised to the pow2
+    ceiling of twice the optimizer's group estimate (~2x probing
+    headroom), the estimate term clamped to 2**20 so a wild overestimate
+    cannot blow up device memory."""
+    if not key_names:
+        return AGG_SLOTS
+    try:
+        from ..sql.stats import StatsCalculator
+        est_groups = StatsCalculator().rows(node)
+    except Exception:   # noqa: BLE001 -- an estimate only
+        est_groups = None
+    if not est_groups:
+        return AGG_SLOTS
+    est_based = 1 << max(0, (int(2 * est_groups) - 1).bit_length())
+    return max(AGG_SLOTS, min(est_based, 1 << 20))
+
+
+def _agg_state_bytes(num_slots: int, key_names, specs) -> int:
+    """Accumulator footprint estimate of a hash table (hash + occupied +
+    per-key value/null + per-aggregate state columns), the reference's
+    one formula for every aggregation budget check."""
+    return num_slots * (16 + 12 * len(key_names) + 24 * max(1, len(specs)))
 
 
 def _chain_key_columns(chain, key_names):

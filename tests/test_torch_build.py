@@ -1,0 +1,46 @@
+"""The kernel builder names each library by a digest of its source, the
+shared headers and the flags: an edited shared header rebuilds every
+kernel that includes it, an edited source rebuilds only its own kernel.
+The edits go to a temporary copy of csrc/, never to the package."""
+import shutil
+
+import pytest
+
+from presto_tpu_torch.exec.kernels import build
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    return csrc
+
+
+def _paths():
+    return {n: build.library_path(n) for n in build.SOURCES}
+
+
+def test_every_source_is_built():
+    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == \
+        sorted(build.SOURCES)
+    assert list(build.CSRC.glob("*.cuh")), "the shared header is missing"
+
+
+def test_header_edit_changes_every_digest(csrc_copy):
+    before = _paths()
+    assert _paths() == before                    # stable for equal bytes
+    header = csrc_copy / "scan_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = _paths()
+    for name in build.SOURCES:
+        assert after[name] != before[name], name
+
+
+def test_source_edit_changes_only_its_digest(csrc_copy):
+    before = _paths()
+    src = csrc_copy / "scan_grouped.cu"
+    src.write_bytes(src.read_bytes() + b"\n// edited\n")
+    after = _paths()
+    assert after["scan_grouped"] != before["scan_grouped"]
+    assert after["scan_direct"] == before["scan_direct"]

@@ -184,9 +184,9 @@ def test_plain_matches_pallas_kernel(pred, keys, enc, splits, prune):
     meta = _meta(SPLITS[splits], tzones, pushdown)
     meta["types"] = _schema(TT)
     tchain = SimpleNamespace(steps=steps, scan_meta=meta)
-    plan = tsk.build_direct_plan(tchain, specs=_specs(tops),
-                                 key_names=key_names, strides=strides, G=G,
-                                 agg_inputs=agg_in)
+    plan = tsk.build_scan_plan(tchain, mode="direct", specs=_specs(tops),
+                               key_names=key_names, strides=strides, G=G,
+                               agg_inputs=agg_in)
     br = tsk.block_rows_for(CAP)
     grid = tsk.aligned_grid(meta, br, tuple(PARAMS))
     assert grid == jsk.aligned_grid(jchain.scan_meta, br, tuple(PARAMS))
@@ -216,9 +216,10 @@ def test_wrapper_on_cpu_counts_no_launch():
     steps, key_names, strides, G, agg_in = _chain_parts(TE, TT, "all", False)
     meta = _meta(SPLITS["aligned_tail"], {}, [])
     meta["types"] = _schema(TT)
-    plan = tsk.build_direct_plan(SimpleNamespace(steps=steps, scan_meta=meta),
-                                 specs=_specs(tops), key_names=key_names,
-                                 strides=strides, G=G, agg_inputs=agg_in)
+    plan = tsk.build_scan_plan(SimpleNamespace(steps=steps, scan_meta=meta),
+                               mode="direct", specs=_specs(tops),
+                               key_names=key_names, strides=strides, G=G,
+                               agg_inputs=agg_in)
     tc = [resident_from_numpy(c.kind, [np.asarray(a) for a in c.arrays],
                               None, c.n_rows)[0]
           for c, _z in (cols[n] for n in plan.names)]
@@ -238,9 +239,10 @@ def test_plan_rejects_unsupported_expression():
     meta = _meta(SPLITS["aligned_tail"], {}, [])
     meta["types"] = _schema(TT)
     with pytest.raises(NotImplementedError):
-        tsk.build_direct_plan(SimpleNamespace(steps=steps, scan_meta=meta),
-                              specs=_specs(tops), key_names=key_names,
-                              strides=strides, G=G, agg_inputs=agg_in)
+        tsk.build_scan_plan(SimpleNamespace(steps=steps, scan_meta=meta),
+                            mode="direct", specs=_specs(tops),
+                            key_names=key_names, strides=strides, G=G,
+                            agg_inputs=agg_in)
 
 
 @pytest.mark.parametrize("seed", range(6))

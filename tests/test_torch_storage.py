@@ -96,7 +96,8 @@ def test_zone_maps_match_reference(kind, on_host, with_nulls):
 @pytest.mark.parametrize("column", ["orderkey", "quantity", "extendedprice",
                                     "discount", "tax", "returnflag",
                                     "linestatus", "shipdate", "commitdate",
-                                    "shipmode"])
+                                    "shipmode", "shipinstruct",
+                                    "linenumber"])
 def test_store_builds_the_same_lineitem_columns(column):
     sf = 0.01
     n = jcatalog.table_row_count("lineitem", sf, "tpch")
