@@ -7,7 +7,8 @@ Phases, each printed with its wall time:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the port with nvcc (one process per
      source, started together);
-  3. generate and encode TPC-H lineitem at the scale factor on the card;
+  3. generate and encode TPC-H lineitem and supplier at the scale factor
+     on the card;
   4. the main path: TPC-H Q6 and Q1 (direct kernel), S1 (span kernel), H1
      and H2 (hash kernel) through LocalQueryRunner (one warm-up, then
      timed runs), with every kernel's launch counter set to 0 just before
@@ -16,10 +17,22 @@ Phases, each printed with its wall time:
      estimate of 1 starts the table below the query's 4950 groups, so
      the kernel must flag a collision and the runner relaunch it with
      the table doubled and the next salt until the groups fit;
-  6. each kernel against its plain torch version on the exact inputs of
-     the main path's launches (and of a float64-accumulator query, the
-     wide span query S2, a span and a hash query with float sums and
-     integer / float min and max, and the collision loop's last launch):
+  6. the join path: J1 (hash kernel, INNER probe of the supplier
+     DirectTable), J2 (direct kernel, semi-join probe of a hash-sorted
+     unique table) and J3 (span kernel, LEFT probe) through
+     LocalQueryRunner, each launch carrying kernel #5, with the launch
+     counters (and the counters of launches that carry a probe) set to 0
+     just before and read just after; J3 gathering a second build column
+     must decline with kernelDeclinedJoinBuildSize at SF10;
+  7. the reference's join shapes at the largest scale its gates admit
+     them: Q3_SHAPE (hash kernel, orders build), Q18_SHAPE, an IN
+     subquery, the lineitem -> orders -> customer two-probe chain and the
+     two-column partsupp probe (unique table);
+  8. each kernel against its plain torch version on the exact inputs of
+     the main path's and the join path's launches (and of a
+     float64-accumulator query, the wide span query S2, a span and a hash
+     query with float sums and integer / float min and max, the collision
+     loop's last launch and the small join shapes):
      integers and row counters exact, floats bit-identical across two
      launches, hash tables compared group by group (keyed by key values)
      and their keyhashes against exec/operators.py hash_columns; a
@@ -30,11 +43,12 @@ Phases, each printed with its wall time:
      float64 inputs, computed in integers: the kernel's within rtol 1e-12,
      the plain version's (an unordered sum on the card) within recursive
      summation's bound (n + 1) 2**-53 sum |x|.  Kernel and plain times
-     with CUDA events, and each kernel's byte bound;
-  7. an independent numpy computation of Q6, Q1's counts and quantity
+     with CUDA events, and each kernel's byte bound (for a join query the
+     scan bytes plus the build operands once);
+  9. an independent numpy computation of Q6, Q1's counts and quantity
      sums, S1's counts and quantity sums, H1's counts and revenue, H2's
-     counts and the collision query's counts and price sums from the
-     decoded resident columns.
+     counts, the collision query's counts and price sums, and J1's, J2's
+     and J3's counts and sums from the decoded resident columns.
 
 Any failed check raises and exits non-zero.  The second-to-last line is
 the kernels' JSON record; the last line is
@@ -96,6 +110,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import numpy as np
+    from presto_tpu_torch.benchmarks import join_queries as JQ
     from presto_tpu_torch.benchmarks.grouped_queries import H1, H2, S1, S2
     from presto_tpu_torch.benchmarks.tpch_queries import Q1, Q6
     from presto_tpu_torch.connectors import catalog, device_gen
@@ -133,25 +148,33 @@ def main() -> int:
     sf = float(args.sf)
     cols = ("quantity", "extendedprice", "discount", "tax", "returnflag",
             "linestatus", "shipdate", "shipmode", "shipinstruct",
-            "linenumber")
-    with phase(f"generate + encode lineitem at {schema}"):
+            "linenumber", "suppkey")
+    with phase(f"generate + encode lineitem and supplier at {schema}"):
         store = get_store(cfg.storage_budget_bytes,
                           cfg.storage_max_column_bytes, device)
         n_rows = catalog.table_row_count("lineitem", sf, "tpch")
-        ents = {}
-        for c in cols:
-            ents[c] = store.get_or_build(
-                "tpch", "lineitem", c, sf, n_rows, cfg.batch_rows,
-                c.endswith("date"), zone_rows=cfg.storage_zone_rows)
-            assert ents[c] is not None, f"{c} not resident"
+        n_sup = catalog.table_row_count("supplier", sf, "tpch")
+        ents, sup = {}, {}
+        for table, names, n, out, p in (
+                ("lineitem", cols, n_rows, ents, "l"),
+                ("supplier", ("suppkey", "nationkey", "acctbal"), n_sup, sup,
+                 "s")):
+            for c in names:
+                out[c] = store.get_or_build(
+                    "tpch", table, c, sf, n, cfg.batch_rows,
+                    c.endswith("date"), zone_rows=cfg.storage_zone_rows)
+                assert out[c] is not None, f"{p}_{c} not resident"
         torch.cuda.synchronize()
         total = 0
-        for c, e in ents.items():
-            total += e.nbytes
-            print(f"  l_{c}: {e.column.kind} "
-                  f"{[str(a.dtype).replace('torch.', '') for a in e.column.arrays]}"
-                  f" {e.nbytes} bytes ({e.nbytes / n_rows:.3f} B/row)")
-        print(f"  rows {n_rows}, resident {total} bytes")
+        for p, out in (("l", ents), ("s", sup)):
+            for c, e in out.items():
+                total += e.nbytes
+                n = n_rows if p == "l" else n_sup
+                print(f"  {p}_{c}: {e.column.kind} "
+                      f"{[str(a.dtype).replace('torch.', '') for a in e.column.arrays]}"
+                      f" {e.nbytes} bytes ({e.nbytes / n:.3f} B/row)")
+        print(f"  lineitem rows {n_rows}, supplier rows {n_sup}, resident "
+              f"{total} bytes")
 
     # -- the main path ----------------------------------------------------
     wrappers = {"scan_direct": (sk, "scan_direct"),
@@ -161,9 +184,11 @@ def main() -> int:
     calls = {k: [] for k in wrappers}
 
     def recorder(name):
-        def recording(*a):
-            calls[name].append(a)
-            return real[name](*a)
+        # a call is (positional args, keyword args): a chain with probe
+        # steps passes its build operands as joins=
+        def recording(*a, **kw):
+            calls[name].append((a, kw))
+            return real[name](*a, **kw)
         return recording
     for k, (mod, attr) in wrappers.items():
         setattr(mod, attr, recorder(k))
@@ -225,7 +250,7 @@ def main() -> int:
             res_c = runner.execute(COLLIDE_QUERY)
         finally:
             StatsCalculator.rows = real_rows
-        tables = [(a[5], a[6]) for a in calls["scan_hash"][n_calls:]]
+        tables = [(a[5], a[6]) for a, _kw in calls["scan_hash"][n_calls:]]
         assert sk.LAUNCHES["scan_hash"] - before == len(tables) > 1, tables
         assert tables[0] == (pipeline.AGG_SLOTS, 0), tables
         for (s0, t0), (s1, t1) in zip(tables, tables[1:]):
@@ -234,6 +259,90 @@ def main() -> int:
         q_calls["collide"] = ("scan_hash", calls["scan_hash"][-1])
         print(f"  (slots, salt) per launch {tables}, "
               f"{len(res_c.rows)} groups")
+
+    # -- the join path (kernel #5 inside the scan kernels) ---------------
+    join_path = (("j1", JQ.J1, "scan_hash"), ("j2", JQ.J2, "scan_direct"),
+                 ("j3", JQ.J3, "scan_span"))
+    with phase("join path: J1, J2, J3 through LocalQueryRunner"):
+        for k in sk.LAUNCHES:
+            sk.LAUNCHES[k] = 0
+            sk.JOIN_LAUNCHES[k] = 0
+        for qname, sql, kernel in join_path:
+            before = sk.LAUNCHES[kernel]
+            res = runner.execute(sql)          # warm-up, builds the table
+            walls = []
+            for _ in range(args.runs):
+                t0 = time.perf_counter()
+                res = runner.execute(sql)
+                walls.append(time.perf_counter() - t0)
+            rs = res.runtime_stats
+            declined = [k for k in rs if k.startswith("kernelDeclined")]
+            assert not declined, f"{qname}: {declined}"
+            assert rs.get("kernelScanPrograms", {}).get("sum") == 1, rs
+            launches[qname] = sk.LAUNCHES[kernel] - before
+            assert launches[qname] == 1 + args.runs, launches
+            results[qname] = res
+            q_calls[qname] = (kernel, calls[kernel][-1])
+            plan, jplan = calls[kernel][-1][0][0], calls[kernel][-1][1]["joins"]
+            med = float(np.median(walls))
+            print(f"  {qname}: median wall {med * 1e3:.3f} ms over "
+                  f"{args.runs} runs, {n_rows / med:.0f} rows/s, {kernel} "
+                  f"launches {launches[qname]}, rows {len(res.rows)}, "
+                  f"probes {[(s.kind, s.table, s.is_left) for s in jplan.steps]}"
+                  f", build operands {jplan.nbytes} bytes")
+            walls_ms = {k[:-len("WallNanos")]: v["sum"] / 1e6
+                        for k, v in rs.items() if k.endswith("WallNanos")}
+            print(f"  {qname}: last run walls (ms) {walls_ms}")
+        join_launches = dict(sk.JOIN_LAUNCHES)
+        assert join_launches == sk.LAUNCHES, (join_launches, sk.LAUNCHES)
+        for qname in ("j1", "j2", "j3"):
+            print(f"  {qname}: first rows {results[qname].rows[:3]}")
+    print(f"  join-path launches carrying kernel #5 {join_launches}")
+    assert all(v > 0 for v in join_launches.values()), join_launches
+    # J2's build is a unique table from SF1 up (at smaller scales the
+    # 1024-slot floor makes it a DirectTable)
+    want_tables = {"j1": ("direct", "inner"),
+                   "j2": ("unique" if sf >= 1 else "direct", "semi"),
+                   "j3": ("direct", "left")}
+    for qname, (table, form) in want_tables.items():
+        jp = q_calls[qname][1][0][0].joins[0].step
+        got = (jp.table, "semi" if jp.kind == "semi"
+               else "left" if jp.is_left else "inner")
+        assert got == (table, form), (qname, got)
+    if sf >= 10:
+        # a 262144-row supplier build batch: two gathered int64 columns
+        # and the slots pass the 4 MiB operand cap
+        try:
+            runner.execute(JQ.J3_SUPPKEY)
+            raise AssertionError("J3 with count(s_suppkey) should decline")
+        except NotImplementedError as e:
+            assert "kernelDeclinedJoinBuildSize" in str(e), e
+            print(f"  j3_suppkey: {str(e)[:60]} (two gathered columns "
+                  f"over the 4 MiB cap)")
+
+    # the reference's join shapes, each at the largest scale the
+    # reference's gates (build operands <= 4 MiB, hash slots <= 65536)
+    # admit
+    small = (("q3_shape", JQ.Q3_SHAPE, "0.02", "scan_hash"),
+             ("q18_shape", JQ.Q18_SHAPE, "0.01", "scan_hash"),
+             ("semi", JQ.SEMI, "0.1", "scan_direct"),
+             ("multi_probe", JQ.MULTI_PROBE, "0.1", "scan_direct"),
+             ("partsupp", JQ.PARTSUPP, "0.05", "scan_direct"))
+    with phase("join shapes at small scale through LocalQueryRunner"):
+        small_runners = {}
+        for qname, sql, s_sf, kernel in small:
+            r = small_runners.setdefault(
+                s_sf, LocalQueryRunner(f"sf{s_sf}", device=device))
+            res = r.execute(sql)
+            rs = res.runtime_stats
+            declined = [k for k in rs if k.startswith("kernelDeclined")]
+            assert not declined, f"{qname}: {declined}"
+            assert rs.get("kernelScanPrograms", {}).get("sum") == 1, rs
+            q_calls[qname] = (kernel, calls[kernel][-1])
+            plan, kw = calls[kernel][-1][0][0], calls[kernel][-1][1]
+            print(f"  {qname} at sf{s_sf}: {kernel}, rows {len(res.rows)}, "
+                  f"probes {[(jp.step.kind, jp.step.table) for jp in plan.joins]}"
+                  f", build operands {kw['joins'].nbytes} bytes")
     for k, (mod, attr) in wrappers.items():
         setattr(mod, attr, real[k])
 
@@ -250,16 +359,20 @@ def main() -> int:
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / n
 
-    def bound_bytes(plan, columns, counts, table_bytes):
+    def bound_bytes(plan, columns, counts, table_bytes, joins=None):
         """Bytes the function must move for this run's data: a column is
-        read for the rows live when it is first needed (the filter's
-        columns for every scanned row, the others for the rows that passed
-        the filter), whole dictionary / run arrays once, the accumulator
-        table and the counters once."""
+        read for the rows live when it is first needed (the filter's and
+        probe keys' columns for the rows live at their step, the others
+        for the rows that passed every step), whole dictionary / run arrays
+        once, a probe step's build operands once, the accumulator table and
+        the counters once."""
         counts = counts.tolist()
         first = {}
         for s, p in enumerate(plan.step_programs):
-            for c in (p.columns if p is not None else ()):
+            progs = [p] if p is not None else []
+            progs += [kp for jp in plan.joins if jp.step.si == s
+                      for kp in jp.key_programs]
+            for c in (c for q in progs for c in q.columns):
                 first.setdefault(c, counts[s])
         later = [p for p in plan.key_programs] + \
             [p for p in plan.agg_programs.values() if p is not None]
@@ -267,6 +380,8 @@ def main() -> int:
             for c in p.columns:
                 first.setdefault(c, counts[-1])
         nbytes = table_bytes + 8 * len(counts)
+        if joins is not None:
+            nbytes += joins.nbytes
         for name, rc in zip(plan.names, columns):
             rows = first.get(name, 0)
             if rc.kind == "rle":
@@ -304,9 +419,13 @@ def main() -> int:
         the halves combined as exact rationals on the host."""
         rows_of = float_sum_rows(plan)
         acc = {r: {} for r in rows_of}
+        if not rows_of:
+            return {}
         scratch = torch.zeros(1 + plan.n_steps, dtype=torch.int64,
                               device=device)
-        for rows in sk.plain_row_groups(plan, *call[1:5], scratch):
+        a, kw = call
+        for rows in sk.plain_row_groups(plan, *a[1:5], scratch,
+                                        kw.get("joins")):
             slot_all = slot_of(rows)
             inputs = rows.agg_inputs()
             for r, out in rows_of.items():
@@ -400,7 +519,7 @@ def main() -> int:
     def compare_hash(qname, plan, call, kt, pt):
         """Kernel table kt against plain table pt, group by group; returns
         the largest float difference."""
-        salt, slots = call[6], call[5]
+        salt, slots = call[0][6], call[0][5]
         assert not bool(kt.collision) and not bool(pt.collision), qname
         assert torch.equal(kt.counts, pt.counts), f"{qname}: counts differ"
         kg, pg = hash_groups(plan, kt), hash_groups(plan, pt)
@@ -428,17 +547,19 @@ def main() -> int:
         return {k: v[:2] for k, v in hash_groups(plan, table).items()}
 
     records = {}
-    with phase("kernels vs plain on the main path's inputs (+ 5 more)"):
+    with phase("kernels vs plain on the main and join paths' inputs "
+               "(+ 10 more)"):
         for qname, (kernel, call) in q_calls.items():
             launch = real[kernel]
             plain = {"scan_direct": sk.scan_direct_plain,
                      "scan_span": gk.scan_span_plain,
                      "scan_hash": gk.scan_hash_plain}[kernel]
-            plan, columns, grid = call[0], call[1], call[2]
+            a, kw = call
+            plan, columns, grid = a[0], a[1], a[2]
             if kernel == "scan_hash":
-                salt, slots = call[6], call[5]
-                kt, kt2 = launch(*call), launch(*call)
-                pt = plain(*call)
+                salt, slots = a[6], a[5]
+                kt, kt2 = launch(*a, **kw), launch(*a, **kw)
+                pt = plain(*a, **kw)
                 torch.cuda.synchronize()
                 err, n_groups = compare_hash(qname, plan, call, kt, pt)
                 assert unslotted(plan, kt) == unslotted(plan, kt2), \
@@ -450,9 +571,9 @@ def main() -> int:
                 detail = (f"slots {slots}, salt {salt}, groups {n_groups}, "
                           f"keyhash == hash_columns")
             else:
-                ki, kf, kc = launch(*call)
-                ki2, kf2, kc2 = launch(*call)
-                pi, pf, pc = plain(*call)
+                ki, kf, kc = launch(*a, **kw)
+                ki2, kf2, kc2 = launch(*a, **kw)
+                pi, pf, pc = plain(*a, **kw)
                 torch.cuda.synchronize()
                 assert torch.equal(ki, pi), f"{qname}: acc_i differs"
                 assert torch.equal(kc, pc), f"{qname}: counts differ"
@@ -475,13 +596,17 @@ def main() -> int:
                 detail = f"G={plan.G}"
                 if kernel == "scan_span":
                     detail += f", int_smem {plan.int_smem}"
-            ms = events_ms(lambda: launch(*call), 20)
-            plain_ms = events_ms(lambda: plain(*call), 2)
-            nbytes = bound_bytes(plan, columns, kc, table_bytes)
+            ms = events_ms(lambda: launch(*a, **kw), 20)
+            plain_ms = events_ms(lambda: plain(*a, **kw), 2)
+            nbytes = bound_bytes(plan, columns, kc, table_bytes,
+                                 kw.get("joins"))
             bound = nbytes / HBM_BYTES_PER_S * 1e3
             records[qname] = dict(kernel=kernel, err=err, ms=ms,
                                   plain_ms=plain_ms, bound_ms=bound,
                                   bytes=nbytes)
+            if plan.joins:
+                detail += (f", probes "
+                           f"{[(jp.step.kind, jp.step.table) for jp in plan.joins]}")
             print(f"  {qname} ({kernel}): grid {len(grid)} blocks, {detail}, "
                   f"n_i={plan.n_i}, n_f={plan.n_f}, counts {kc.tolist()}, "
                   f"integers exact, counts exact, max |float diff| {err}, "
@@ -492,17 +617,17 @@ def main() -> int:
         print(f"  float query: {res_f.rows}; s2: {len(res_s2.rows)} groups")
         # a table with fewer slots than H1's groups must flag a collision,
         # and the next launch starts with a clear flag
-        h1 = q_calls["h1"][1]
-        small = h1[:5] + (256, 0)
-        kt = real["scan_hash"](*small)
-        pt = gk.scan_hash_plain(*small)
+        h1 = q_calls["h1"][1][0]
+        few = h1[:5] + (256, 0)
+        kt = real["scan_hash"](*few)
+        pt = gk.scan_hash_plain(*few)
         assert bool(kt.collision) and bool(pt.collision), "h1 at 256 slots"
         assert not bool(real["scan_hash"](*h1).collision), "stale flag"
         print(f"  h1 at 256 slots: collision flagged by kernel and plain; "
               f"at {h1[5]} slots: none")
 
-    with phase("numpy check of Q6, Q1, S1, H1, H2 and the collision "
-               "query at " + schema):
+    with phase("numpy check of Q6, Q1, S1, H1, H2, the collision query "
+               "and J1, J2, J3 at " + schema):
         def host(c):
             return ents[c].column.decode_full()[:n_rows].cpu().numpy() \
                 .astype(np.int64)
@@ -584,7 +709,55 @@ def main() -> int:
         print(f"  collision query n and price sums of {len(res_c.rows)} "
               f"groups == port")
 
+        # the join path: each lineitem row's supplier by its key
+        def sup_host(c):
+            return sup[c].column.decode_full()[:n_sup].cpu().numpy() \
+                .astype(np.int64)
+        assert np.array_equal(sup_host("suppkey"), np.arange(1, n_sup + 1))
+        srow = host("suppkey") - 1
+        nation = sup_host("nationkey")[srow]
+        acct = sup_host("acctbal")[srow]
+        n_j1 = np.bincount(nation[year], minlength=25)
+        r_j1 = grouped_sums(nation[year], 25,
+                            price[year] * (100 - disc[year]))
+        for row in results["j1"].rows:
+            c = row[0]
+            assert n_j1[c] == row[2] and r_j1[c] == int(row[1].scaleb(4)), \
+                (row, n_j1[c], r_j1[c])
+        assert len(results["j1"].rows) == int((n_j1 > 0).sum())
+        print(f"  j1 n and unscaled revenue of {len(results['j1'].rows)} "
+              f"nations == port")
+        in7 = nation == 7
+        k_j2 = flag[in7] * 2 + status[in7]
+        n_j2 = np.bincount(k_j2, minlength=6)
+        q_j2 = grouped_sums(k_j2, 6, qty[in7])
+        for row in results["j2"].rows:
+            c = dict_code("returnflag", row[0]) * 2 \
+                + dict_code("linestatus", row[1])
+            assert n_j2[c] == row[3] and q_j2[c] == int(row[2].scaleb(2)), \
+                (row, n_j2[c], q_j2[c])
+        assert len(results["j2"].rows) == int((n_j2 > 0).sum())
+        print(f"  j2 n and sum_qty of {len(results['j2'].rows)} groups "
+              f"== port")
+        hit = acct > 0
+        n_j3 = np.bincount(code, minlength=168)
+        h_j3 = np.bincount(code[hit], minlength=168)
+        b_j3 = grouped_sums(code[hit], 168, acct[hit])
+        for row in results["j3"].rows:
+            c = ((dict_code("returnflag", row[0]) * 2
+                  + dict_code("linestatus", row[1])) * 7
+                 + dict_code("shipmode", row[2])) * 4 \
+                + dict_code("shipinstruct", row[3])
+            bal = None if row[5] is None else int(row[5].scaleb(2))
+            assert (n_j3[c], h_j3[c]) == (row[6], row[4]) and \
+                bal == (b_j3[c] if h_j3[c] else None), \
+                (row, n_j3[c], h_j3[c], b_j3[c])
+        assert len(results["j3"].rows) == int((n_j3 > 0).sum())
+        print(f"  j3 n, hits ({int(hit.sum())} of {n_rows} rows) and "
+              f"balance sums of {len(results['j3'].rows)} groups == port")
+
     summary = {"scan_direct": "q1", "scan_span": "s1", "scan_hash": "h1"}
+    join_summary = {"scan_direct": "j2", "scan_span": "j3", "scan_hash": "j1"}
     sources = {"scan_direct": "scan_direct.cu", "scan_span": "scan_grouped.cu",
                "scan_hash": "scan_grouped.cu"}
     replaces = {"scan_direct": "presto_tpu/exec/kernels/scan_kernel.py:580",
@@ -597,7 +770,7 @@ def main() -> int:
                   f"bound_ms {r['bound_ms']:.4f} plain_ms "
                   f"{r['plain_ms']:.4f} on {card}")
         for name, qname in summary.items():
-            rec = records[qname]
+            rec, jrec = records[qname], records[join_summary[name]]
             kernels.append({
                 "name": name,
                 "route": "cuda",
@@ -612,6 +785,17 @@ def main() -> int:
                 "bound_ms": rec["bound_ms"],
                 "bound_by": "bytes",
                 "library_ms": None,
+                # kernel #5, the fanout-1 join / semi-join probe, runs
+                # inside this kernel's launches (csrc/scan_common.cuh
+                # probe_step); the join path's numbers
+                "carries": "join probe (kernel #5): presto_tpu/exec/"
+                           "kernels/join.py:268 join_appliers, :191 "
+                           "_make_applier",
+                "join_query": join_summary[name],
+                "join_launches": join_launches[name],
+                "join_ms": jrec["ms"],
+                "join_plain_ms": jrec["plain_ms"],
+                "join_bound_ms": jrec["bound_ms"],
             })
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

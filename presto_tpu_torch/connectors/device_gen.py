@@ -5,7 +5,8 @@ row index, so numeric and dictionary-coded columns are produced straight
 into device memory.  Every function mirrors presto_tpu's
 connectors/device_gen.py bit for bit: the same splitmix64, seeds and
 arithmetic, with uint64 emulated in int64 (exec/operators.py splitmix64,
-lsr, umod).  The first slice ports lineitem; other tables are not
+lsr, umod).  Ported: lineitem and the TPC-H dimensions orders, customer,
+part, partsupp and supplier; other tables (nation, region, TPC-DS) are not
 device-generated yet (`supported` says no).
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import tpch as H
-from ..exec.operators import as_int64, splitmix64, umod
+from ..exec.operators import as_int64, lsr, splitmix64, umod
 
 _GOLDEN = as_int64(0x9E3779B97F4A7C15)
 
@@ -136,6 +137,97 @@ def _tpch_lineitem(column: str, idx, sf: float):
 
 
 # ---------------------------------------------------------------------------
+# tpch dimension tables (the join slice's build sides)
+# ---------------------------------------------------------------------------
+
+def _tpch_orders(column: str, idx, sf: float):
+    orderkey = idx + 1
+    if column == "orderkey":
+        return orderkey
+    if column == "custkey":
+        c = H._table_rows("customer", sf)
+        raw = _uniform("orders", "custkey", idx, 1, c // 3 * 2)
+        return raw + (raw - 1) // 2 if c >= 3 else raw
+    if column == "orderstatus":
+        od = _order_date(orderkey)
+        return torch.where(od + 121 <= H.CURRENT_DATE, 0,
+                           torch.where(od > H.CURRENT_DATE, 1, 2)) \
+            .to(torch.int32)
+    if column == "totalprice":
+        return _uniform("orders", "totalprice", idx, 90000, 50000000)
+    if column == "orderdate":
+        return _order_date(orderkey)
+    if column == "orderpriority":
+        return _uniform("orders", "priority", idx, 0, 4).to(torch.int32)
+    if column == "shippriority":
+        return torch.zeros(idx.shape, dtype=torch.int64, device=idx.device)
+    raise KeyError(column)
+
+
+def _tpch_customer(column: str, idx, sf: float):
+    if column == "custkey":
+        return idx + 1
+    if column == "nationkey":
+        return _uniform("customer", "nationkey", idx, 0, 24)
+    if column == "acctbal":
+        return _uniform("customer", "acctbal", idx, -99999, 999999)
+    if column == "mktsegment":
+        return _uniform("customer", "segment", idx, 0, 4).to(torch.int32)
+    raise KeyError(column)
+
+
+def _tpch_part(column: str, idx, sf: float):
+    partkey = idx + 1
+    if column == "partkey":
+        return partkey
+    if column == "mfgr":
+        return (_uniform("part", "mfgr", idx, 1, 5) - 1).to(torch.int32)
+    if column == "brand":
+        m = _uniform("part", "mfgr", idx, 1, 5)
+        b = _uniform("part", "brand", idx, 1, 5)
+        return ((m - 1) * 5 + (b - 1)).to(torch.int32)
+    if column == "type":
+        h = _cell("part", "type", idx)
+        a = umod(h, 6)
+        b = umod(lsr(h, 8), 5)
+        c = umod(lsr(h, 16), 5)
+        return (a * 25 + b * 5 + c).to(torch.int32)
+    if column == "size":
+        return _uniform("part", "size", idx, 1, 50)
+    if column == "container":
+        h = _cell("part", "container", idx)
+        return (umod(h, 5) * 8 + umod(lsr(h, 8), 8)).to(torch.int32)
+    if column == "retailprice":
+        return _retail_price(partkey)
+    raise KeyError(column)
+
+
+def _tpch_partsupp(column: str, idx, sf: float):
+    partkey = idx // 4 + 1
+    if column == "partkey":
+        return partkey
+    if column == "suppkey":
+        s = H._table_rows("supplier", sf)
+        j = idx % 4
+        return ((partkey + j * (s // 4 + (partkey - 1) // s)) % s) + 1
+    if column == "availqty":
+        return _uniform("partsupp", "availqty", idx, 1, 9999)
+    if column == "supplycost":
+        return _uniform("partsupp", "supplycost", idx, 100, 100000)
+    raise KeyError(column)
+
+
+def _tpch_supplier(column: str, idx, sf: float):
+    if column == "suppkey":
+        return idx + 1
+    if column == "nationkey":
+        return _uniform("supplier", "nationkey", idx, 0, 24)
+    if column == "acctbal":
+        return _uniform("supplier", "acctbal", idx, -99999, 999999)
+    raise KeyError(column)
+
+
+# ---------------------------------------------------------------------------
 # registry + public API
 # ---------------------------------------------------------------------------
 
@@ -145,6 +237,18 @@ _TABLES = {
         "extendedprice", "discount", "tax", "shipdate", "commitdate",
         "receiptdate", "returnflag", "linestatus", "shipinstruct",
         "shipmode"}),
+    ("tpch", "orders"): (_tpch_orders, {
+        "orderkey", "custkey", "orderstatus", "totalprice", "orderdate",
+        "orderpriority", "shippriority"}),
+    ("tpch", "customer"): (_tpch_customer, {
+        "custkey", "nationkey", "acctbal", "mktsegment"}),
+    ("tpch", "part"): (_tpch_part, {
+        "partkey", "mfgr", "brand", "type", "size", "container",
+        "retailprice"}),
+    ("tpch", "partsupp"): (_tpch_partsupp, {
+        "partkey", "suppkey", "availqty", "supplycost"}),
+    ("tpch", "supplier"): (_tpch_supplier, {
+        "suppkey", "nationkey", "acctbal"}),
 }
 
 # dictionary value lists for the dict-coded columns above
@@ -153,12 +257,21 @@ _DICTS: Dict[Tuple[str, str, str], tuple] = {
     ("tpch", "lineitem", "linestatus"): tuple(H.STATUSES),
     ("tpch", "lineitem", "shipinstruct"): tuple(H.INSTRUCTIONS),
     ("tpch", "lineitem", "shipmode"): tuple(H.MODES),
+    ("tpch", "orders", "orderstatus"): tuple(H.ORDER_STATUSES),
+    ("tpch", "orders", "orderpriority"): tuple(H.PRIORITIES),
+    ("tpch", "customer", "mktsegment"): tuple(H.SEGMENTS),
+    ("tpch", "part", "mfgr"): tuple(H.MFGRS),
+    ("tpch", "part", "brand"): tuple(H.BRANDS),
+    ("tpch", "part", "type"): tuple(H.TYPES),
+    ("tpch", "part", "container"): tuple(H.CONTAINERS),
 }
 
 # resident-storage encoding hints (storage/encodings.py): lineitem rows
-# are grouped by order, so orderkey is monotone
+# are grouped by order, so orderkey is monotone; shippriority is the
+# constant 0
 _ENCODING_HINTS: Dict[Tuple[str, str, str], str] = {
     ("tpch", "lineitem", "orderkey"): "rle",
+    ("tpch", "orders", "shippriority"): "rle",
 }
 
 

@@ -1,28 +1,124 @@
-"""Fused scan -> filter/project chains (the port of presto_tpu/exec/fused.py
-for the first slice).
+"""Fused scan -> filter/project -> fanout-1 join chains (the port of
+presto_tpu/exec/fused.py).
 
-`assemble_chain` walks a Filter/Project chain down to a device-generated
-TableScan and describes it as a `FusedChain`: the steps in leaf->root
-order plus the scan's metadata (resident columns, zone maps, pushdown).
-The scan kernel (kernels/scan_kernel.py) executes the chain.  Join and
-semi-join probe steps, unique-id steps and the per-chunk torch chain
-(FusedChain.make) are not ported yet; a chain containing them is not
-assembled.
+`assemble_chain` walks a Filter/Project/Join/SemiJoin chain down to a
+device-generated TableScan and describes it as a `FusedChain`: the steps
+in leaf->root order plus the scan's metadata (resident columns, zone
+maps, pushdown).  `FusedChain.prep` materializes every join and semi-join
+build side through the streaming Scan/Filter/Project sources and builds
+its lookup table:
+
+  * DirectTable -- dense integer key: a direct-address int32 slot array
+    keyed by (key - base); the probe is one gather.
+  * the hash-sorted ops.BuildTable -- multi-column or sparse keys; the
+    probe is one binary search over the sorted key hashes.
+
+Build rows with NULL keys are dropped (SQL equi-join: NULL never
+matches); a semi build records whether it held one, for the marker's
+three-valued output.  The scan kernels (kernels/scan_kernel.py,
+kernels/grouped.py) run the chain, join probes included (kernel #5,
+kernels/join.py).  Not ported: the uid step, the per-chunk torch chain
+(FusedChain.make), the fanout-k expansion (_apply_join_expand),
+fused_materialize and fused_stream; a chain that needs them raises
+NotImplementedError or declines with kernelDeclinedJoinShape.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from ..spi import plan as P
+from . import operators as ops
+from .batch import Batch, Column
+
+# absolute cap on a direct-address table (entries), and the max ratio of
+# key span to build rows before the hash-sorted table takes over
+DIRECT_TABLE_MAX = 1 << 26
+DIRECT_TABLE_SPAN_RATIO = 8
+# largest per-join fanout the (reference's) in-loop expansion handles,
+# and the largest combined expansion across a chain
+MAX_EXPAND = 64
+MAX_EXPAND_PRODUCT = 256
+
+
+@dataclass
+class DirectTable:
+    """Direct-address build table for a dense integer key."""
+    slots: torch.Tensor               # int32 build-row index, -1 = absent
+    base: torch.Tensor                # int64 [1]: smallest key
+    columns: Dict[str, Column]        # original build columns
+
+
+def _direct_builder(size: int):
+    def build(values, mask, base: int):
+        k = torch.where(mask, values.to(torch.int64) - base,
+                        torch.full_like(values, size, dtype=torch.int64))
+        k = k.clamp(0, size)                   # size = the drop slot
+        rows = torch.arange(values.shape[0], dtype=torch.int32,
+                            device=values.device)
+        # index_put_ with repeated slots keeps one writer, which one is
+        # unspecified: a join build (allow_dup=False) rejects duplicates
+        # below, and a semi build reads only a slot's existence
+        slots = torch.full((size + 1,), -1, dtype=torch.int32,
+                           device=values.device)
+        slots[k] = rows
+        counts = torch.zeros(size + 1, dtype=torch.int32,
+                             device=values.device)
+        counts.index_add_(0, k, mask.to(torch.int32))
+        return slots[:size], bool((counts[:size] > 1).any())
+    return build
+
+
+def _key_stats(values, mask):
+    """(min, max, live count) of a key column over live rows."""
+    v = values.to(torch.int64)
+    vmin = torch.where(mask, v, torch.full_like(v, ops.INT64_MAX)).min()
+    vmax = torch.where(mask, v, torch.full_like(v, ops.INT64_MIN)).max()
+    return int(vmin), int(vmax), int(mask.sum())
+
+
+def _max_run(table: ops.BuildTable) -> int:
+    """Largest live-key duplicate run (the join's max fanout; padding runs
+    excluded)."""
+    n = table.run_len.shape[0]
+    pos = torch.arange(n, dtype=torch.int32, device=table.run_len.device)
+    return int(torch.where(pos < table.valid_count, table.run_len,
+                           torch.zeros_like(table.run_len)).max())
+
+
+def _build_has_null_key(batch: Batch, key_names: Tuple[str, ...]) -> bool:
+    """Whether any live build row has a NULL key -- needed for the semi-join
+    marker's three-valued output (x IN (...NULL...) is UNKNOWN on a miss)."""
+    for k in key_names:
+        c = batch.columns[k]
+        if c.nulls is not None and bool((batch.mask & c.nulls).any()):
+            return True
+    return False
+
+
+def _drop_null_keys(batch: Batch, key_names: Tuple[str, ...]) -> Batch:
+    """Exclude build rows with NULL keys (SQL equi-join: NULL never
+    matches)."""
+    m = batch.mask
+    for k in key_names:
+        c = batch.columns[k]
+        if c.nulls is not None:
+            m = m & ~c.nulls
+    return batch.with_mask(m)
 
 
 class FusedChain:
-    """A compile-time description of a fusible scan pipeline.
+    """A compile-time description of a fusible probe pipeline.
 
     steps (leaf->root order):
       ("filter", predicate)
       ("project", [(variable, expr), ...])
       ("rename", [(out_name, in_name), ...])
+      ("join", JoinNode)         aux entry: DirectTable | BuildTable
+      ("semi", SemiJoinNode)     aux entry: (DirectTable | BuildTable,
+                                             build-had-null-key)
     """
 
     def __init__(self, compiler, steps: List[tuple], scan_meta: dict):
@@ -30,6 +126,12 @@ class FusedChain:
         self.steps = steps
         self.scan_meta = scan_meta
         self.cap = scan_meta["cap"]
+        # a build subtree with bound parameters: its tables are a function
+        # of the bound constants, so prep re-runs when they change
+        self.build_params = any(
+            '"@type": "parameter"' in P.structural_key(
+                s[1].right if s[0] == "join" else s[1].filtering_source)
+            for s in steps if s[0] in ("join", "semi"))
 
     def leaf_cap(self, expands: Tuple[int, ...]) -> int:
         kprod = 1
@@ -37,10 +139,95 @@ class FusedChain:
             kprod *= k
         return max(1 << 12, self.cap // kprod)
 
+    def prep(self) -> Optional[Tuple[tuple, Tuple[int, ...]]]:
+        """Materialize every build side and construct its lookup table.
+        Returns (aux, expands): aux[0] is the scan's resident columns and
+        aux[ji + 1] the table of the ji-th join or semi step; expands is
+        each join's fanout (1 = unique build keys).  None when a fanout
+        exceeds the expansion limits."""
+        aux: List = [self.scan_meta.get("cached_cols", {})]
+        expands: List[int] = []
+        for step in self.steps:
+            kind = step[0]
+            if kind == "join":
+                node = step[1]
+                res = build_lookup(
+                    self.compiler, node.right,
+                    tuple(r.name for _l, r in node.criteria), for_join=True)
+                if res is None:
+                    return None
+                tbl, k, _ = res
+                aux.append(tbl)
+                expands.append(k)
+            elif kind == "semi":
+                node = step[1]
+                fkey = node.filtering_source_join_variable.name
+                tbl, _k, had_null = build_lookup(
+                    self.compiler, node.filtering_source, (fkey,),
+                    for_join=False)
+                aux.append((tbl, had_null))
+                expands.append(1)
+        kprod = 1
+        for k in expands:
+            kprod *= k
+        if kprod > MAX_EXPAND_PRODUCT:
+            return None
+        return tuple(aux), tuple(expands)
+
+
+def try_direct_table(batch: Batch, key: str,
+                     allow_dup: bool) -> Optional[DirectTable]:
+    """Direct-address table for a dense single integer key, or None when
+    the key is non-integer / sparse / (for joins) duplicated."""
+    col = batch.columns[key]
+    if col.values.dtype not in (torch.int64, torch.int32, torch.int16):
+        return None
+    vmin, vmax, live = _key_stats(col.values, batch.mask)
+    span = vmax - vmin + 1
+    if not (live > 0 and span <= DIRECT_TABLE_MAX
+            and span <= max(1024, DIRECT_TABLE_SPAN_RATIO * live)):
+        return None
+    size = 1 << (span - 1).bit_length()
+    slots, dup = _direct_builder(size)(col.values, batch.mask, vmin)
+    if not allow_dup and dup:
+        return None
+    base = torch.tensor([vmin], dtype=torch.int64, device=col.values.device)
+    return DirectTable(slots, base, dict(batch.columns))
+
+
+def build_lookup(compiler, build_node: P.PlanNode, keys: Tuple[str, ...],
+                 for_join: bool):
+    """Returns (table, fanout, build_had_null_key) -- fanout is the
+    pow2-rounded max key multiplicity (1 = unique keys) -- or None when
+    fanout > MAX_EXPAND.  The null flag is computed only for semi builds
+    (for_join=False); join builds report False (they drop NULL keys
+    either way).  The build side is drained from its streaming source
+    and, like the reference's fused materialization, compacted when
+    mostly dead."""
+    from .pipeline import _maybe_compact
+    batch = compiler._materialize_node(build_node)
+    batch = (_empty_build_batch(build_node, compiler.ctx.device)
+             if batch is None else _maybe_compact(batch))
+    had_null = False if for_join else _build_has_null_key(batch, keys)
+    batch = _drop_null_keys(batch, keys)
+    if len(keys) == 1:
+        dt = try_direct_table(batch, keys[0], allow_dup=not for_join)
+        if dt is not None:
+            return dt, 1, had_null
+    table = ops.build_table(batch, list(keys))
+    if not for_join:
+        return table, 1, had_null
+    kmax = _max_run(table)
+    if kmax <= 1:
+        return table, 1, False
+    if kmax > MAX_EXPAND:
+        return None
+    return table, 1 << (kmax - 1).bit_length(), False
+
 
 def assemble_chain(compiler, node: P.PlanNode) -> Optional[FusedChain]:
-    """Walk a Filter/Project chain down to a device-generated TableScan.
-    Returns None when the plan shape is not fusible."""
+    """Walk a Filter/Project/Join/SemiJoin chain down to a device-generated
+    TableScan.  Returns None when the plan shape is not fusible."""
     steps: List[tuple] = []
     nd = node
     while True:
@@ -58,6 +245,17 @@ def assemble_chain(compiler, node: P.PlanNode) -> Optional[FusedChain]:
             if outer != inner:
                 steps.append(("rename", list(zip(outer, inner))))
             nd = src
+        elif isinstance(nd, P.JoinNode) \
+                and nd.join_type in (P.INNER, P.LEFT) and nd.criteria:
+            steps.append(("join", nd))
+            nd = nd.left
+        elif isinstance(nd, P.SemiJoinNode):
+            steps.append(("semi", nd))
+            nd = nd.source
+        elif isinstance(nd, P.AssignUniqueIdNode):
+            raise NotImplementedError(
+                "the fused chain's uid step (AssignUniqueIdNode) is not "
+                "ported")
         elif isinstance(nd, P.TableScanNode):
             meta = getattr(compiler._compile(nd), "fused_scan", None)
             if meta is None:
@@ -66,3 +264,31 @@ def assemble_chain(compiler, node: P.PlanNode) -> Optional[FusedChain]:
             return FusedChain(compiler, steps, meta)
         else:
             return None
+
+
+def _join_build_cols(node: P.JoinNode, out_names, build_names):
+    """Build columns a join step must gather: join outputs plus any
+    build-side columns the ON filter reads (pruning may have dropped the
+    latter from the output list)."""
+    needed = [n for n in out_names if n in build_names]
+    if node.filter is not None:
+        from ..spi.expr import free_variables
+        for v in free_variables(node.filter):
+            if v.name in build_names and v.name not in needed:
+                needed.append(v.name)
+    return needed
+
+
+def _empty_build_batch(build_node: P.PlanNode, device) -> Batch:
+    """8-row all-masked batch with the build schema (empty build side)."""
+    from ..common.types import CharType, VarcharType
+    from .lowering import torch_dtype
+    cols = {}
+    for v in build_node.output_variables:
+        if isinstance(v.type, (VarcharType, CharType)):
+            cols[v.name] = Column(torch.zeros(8, dtype=torch.int32,
+                                              device=device), None, ("",))
+        else:
+            cols[v.name] = Column(torch.zeros(8, dtype=torch_dtype(v.type),
+                                              device=device))
+    return Batch(cols, torch.zeros(8, dtype=torch.bool, device=device))

@@ -1,8 +1,9 @@
 // Shared by the fused scan kernels (scan_direct.cu, scan_grouped.cu): the
 // plan vector's layout, column decode and the ExprProgram interpreter, so
 // every kernel runs one expression semantics -- the torch evaluator's
-// (exec/lowering.py ExprProgram.run) -- and the warp-level fold of
-// integer rows into accumulators.
+// (exec/lowering.py ExprProgram.run) --, the chain's steps with the join
+// probe (kernel #5, probe_step below), and the warp-level fold of integer
+// rows into accumulators.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -11,10 +12,18 @@
 enum {
   H_N_COLS = 0, H_N_STEPS, H_G, H_N_I, H_N_F, H_N_SPECS, H_N_KEYS,
   H_OFF_COLS, H_OFF_STEPS, H_OFF_KEYS, H_OFF_SPECS, H_OFF_ROWS, H_DEPTH,
-  H_OFF_SRC,
+  H_OFF_SRC, H_N_JOINS, H_OFF_JOINS,
 };
 enum { COL_WORDS = 6, SPEC_WORDS = 7 };
-enum { K_PLAIN = 0, K_DICT = 1, K_RLE = 2 };
+// column kinds: resident encodings, then the probe steps' virtual columns
+// (a gathered build column, a semi-join marker)
+enum { K_PLAIN = 0, K_DICT = 1, K_RLE = 2, K_GATHER = 3, K_SEMI = 4 };
+// a probe step's record (exec/kernels/scan_kernel.py _JOIN_WORDS)
+enum { JOIN_WORDS = 9 };
+enum { J_TABLE = 0, J_FORM, J_N_KEYS, J_KEYS_OFF, J_OP0, J_OP1, J_SIZE,
+       J_BHN, J_TRIPS };
+enum { TBL_DIRECT = 0, TBL_UNIQUE = 1 };
+enum { FORM_INNER = 0, FORM_LEFT = 1, FORM_SEMI = 2 };
 enum { DT_I8 = 0, DT_I16, DT_I32, DT_I64, DT_F64, DT_BOOL };
 enum { S_COUNT_STAR = 0, S_COUNT, S_SUM, S_AVG, S_MIN, S_MAX };
 enum { R_ADD = 0, R_MIN = 1, R_MAX = 2 };
@@ -33,6 +42,23 @@ typedef unsigned long long u64;
 
 __device__ __forceinline__ double as_f(i64 b) { return __longlong_as_double(b); }
 __device__ __forceinline__ i64 as_b(double f) { return __double_as_longlong(f); }
+
+#define GOLDEN 0x9E3779B97F4A7C15ULL
+
+// exec/operators.py splitmix64, in native uint64
+__device__ __forceinline__ u64 splitmix64(u64 x) {
+  x += GOLDEN;
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ULL;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBULL;
+  return x ^ (x >> 31);
+}
+
+// One key's round of exec/operators.py hash_columns (h starts at salt + 1):
+// the group keys of the hash kernel and the unique-table probe keys hash
+// through it alike.
+__device__ __forceinline__ u64 hash_mix(u64 h, i64 v, bool null) {
+  return splitmix64(h * 31ULL + (null ? GOLDEN : splitmix64((u64)v)));
+}
 
 __device__ __forceinline__ i64 load_bits(i64 ptr, i64 i, int dt) {
   switch (dt) {
@@ -86,6 +112,11 @@ struct Tile {
   const i64* params;
   i64* stk;              // value stack, depth x RPT x T
   unsigned* nulls;       // null masks, depth x T
+  // per probe step j: each row's build row (j x RPT x T), the hit mask
+  // and the semi marker's null mask (j x T)
+  int* jrow;
+  unsigned* jhit;
+  unsigned* jnul;
   int T, tid;
   i64 row0;              // absolute row of this thread's row 0
 };
@@ -133,6 +164,36 @@ __device__ __forceinline__ void load_column(const i64* cm, i64 row0, int T,
     dst[r * T] = (active >> r) & 1u ? load_bits(cm[4], raw[r], vdt) : 0;
 }
 
+// A probe step's virtual column `cm` for the rows in `active` into
+// dst[r * T]: a gathered build column reads its values (and NULL flags) at
+// the rows' build rows, NULL on a LEFT join's misses; a semi marker is the
+// hit bit.  Returns the rows' null mask.
+__device__ __forceinline__ unsigned load_joined(const Tile& t, const i64* cm,
+                                                unsigned active, i64* dst) {
+  const int T = t.T, j = (int)cm[3];
+  const unsigned hit = t.jhit[j * T + t.tid];
+  if (cm[0] == K_SEMI) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) dst[r * T] = (hit >> r) & 1u;
+    return t.jnul[j * T + t.tid];
+  }
+  const int* rows = t.jrow + j * RPT * T + t.tid;
+  const int dt = (int)cm[1];
+  const uint8_t* gn = (const uint8_t*)cm[4];
+  unsigned nulls = cm[5] ? ~hit & ((1u << RPT) - 1) : 0u;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    if (!((active >> r) & 1u)) {
+      dst[r * T] = 0;
+      continue;
+    }
+    const int b = rows[r * T];
+    dst[r * T] = load_bits(cm[2], b, dt);
+    if (gn != nullptr && gn[b]) nulls |= 1u << r;
+  }
+  return nulls;
+}
+
 // Interpret the program at plan[off] for the rows in `active` (bit r: row
 // row0 + r * T); the result is left in stack slot 0.
 __device__ void eval_prog(const Tile& t, i64 off, unsigned active) {
@@ -149,8 +210,13 @@ __device__ void eval_prog(const Tile& t, i64 off, unsigned active) {
     i64* top = push - RT;              // the slot on top of the stack
     switch (op) {
       case OP_COL: {
-        load_column(t.cols + COL_WORDS * arg, t.row0, T, active, push);
-        nb[sp * T] = 0;
+        const i64* cm = t.cols + COL_WORDS * arg;
+        if (cm[0] >= K_GATHER) {
+          nb[sp * T] = load_joined(t, cm, active, push);
+        } else {                          // resident columns hold no NULLs
+          load_column(cm, t.row0, T, active, push);
+          nb[sp * T] = 0;
+        }
         ++sp;
         break;
       }
@@ -242,6 +308,131 @@ __device__ __forceinline__ i64 result(const Tile& t, int r) {
 }
 __device__ __forceinline__ unsigned result_nulls(const Tile& t) {
   return t.nulls[t.tid];
+}
+
+// Kernel #5: the fanout-1 join / semi-join probe of the thread's rows in
+// `live` against the build table of record `jr` (probe step j).  Replaces
+// the reference's in-kernel probe, presto_tpu/exec/kernels/join.py
+// _make_applier (:191) / join_appliers (:268), and computes what that
+// applier -- and its plain version here, exec/kernels/join.py -- computes:
+//   direct  k = key - base, in bounds, one int32 slot load; a hit is a
+//           slot >= 0 and a non-NULL key, its build row the slot.
+//   unique  the keys hashed as hash_columns does (hash_mix), the sign bit
+//           flipped, then a fixed-trip lower-bound bisect of
+//           keyhash_sorted; a hit is an equal HASH (the reference's match
+//           rule) with no NULL key, its build row perm[lo].
+// INNER drops the misses from `live`; LEFT keeps them (load_joined reads
+// their gathered columns as NULL); a semi step records its marker's null
+// mask, (miss and build-had-NULL) or NULL probe key.  Build operands stay
+// in device memory: at most 4 MiB (the reference's gate), so they sit in
+// the 50 MB L2 and a plain gather serves.  The rows' loads are issued
+// together, as in load_rows.
+__device__ unsigned probe_step(const Tile& t, const i64* jr, int j,
+                               unsigned live) {
+  const int T = t.T, tid = t.tid;
+  const i64* kofs = t.plan + jr[J_KEYS_OFF];
+  unsigned hit = 0, knull = 0;
+  int row[RPT];
+  if (jr[J_TABLE] == TBL_DIRECT) {
+    eval_prog(t, kofs[0], live);
+    knull = result_nulls(t);
+    const int32_t* slots = (const int32_t*)jr[J_OP0];
+    const i64 base = __ldg((const i64*)jr[J_OP1]);
+    const i64 size = jr[J_SIZE];
+    int s[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const i64 k = (i64)((u64)result(t, r) - (u64)base);
+      s[r] = ((live >> r) & 1u) && k >= 0 && k < size ? __ldg(slots + k)
+                                                       : -1;
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const bool found = s[r] >= 0 && !((knull >> r) & 1u);
+      hit |= (unsigned)found << r;
+      row[r] = found ? s[r] : 0;
+    }
+  } else {
+    u64 h[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) h[r] = 1ULL;      // salt 0, plus one
+    const int n_keys = (int)jr[J_N_KEYS];
+    for (int k = 0; k < n_keys; ++k) {
+      eval_prog(t, kofs[k], live);
+      const unsigned nm = result_nulls(t);
+      knull |= nm;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        h[r] = hash_mix(h[r], result(t, r), (nm >> r) & 1u);
+    }
+    const i64* khs = (const i64*)jr[J_OP0];
+    const int32_t* perm = (const int32_t*)jr[J_OP1];
+    const i64 n = jr[J_SIZE];
+    const int trips = (int)jr[J_TRIPS];
+    i64 kh[RPT], lo[RPT], hi[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      kh[r] = (i64)(h[r] ^ 0x8000000000000000ULL);
+      lo[r] = 0;
+      hi[r] = (live >> r) & 1u ? n : 0;
+    }
+    for (int it = 0; it < trips; ++it) {
+      i64 mid[RPT], v[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        mid[r] = (lo[r] + hi[r]) >> 1;
+        v[r] = lo[r] < hi[r] ? __ldg(khs + mid[r]) : 0;
+      }
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        if (lo[r] >= hi[r]) continue;
+        if (v[r] < kh[r]) lo[r] = mid[r] + 1; else hi[r] = mid[r];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const i64 p = lo[r] < n - 1 ? lo[r] : n - 1;
+      const bool found = ((live >> r) & 1u) && !((knull >> r) & 1u) &&
+                         __ldg(khs + p) == kh[r];
+      hit |= (unsigned)found << r;
+      row[r] = found ? __ldg(perm + p) : 0;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) t.jrow[(j * RPT + r) * T + tid] = row[r];
+  t.jhit[j * T + tid] = hit;
+  const int form = (int)jr[J_FORM];
+  if (form == FORM_SEMI) {
+    const bool bhn = *(const uint8_t*)jr[J_BHN] != 0;
+    t.jnul[j * T + tid] = ((bhn ? ~hit : 0u) | knull) & ((1u << RPT) - 1);
+    return live;
+  }
+  return form == FORM_INNER ? live & hit : live;
+}
+
+// The chain's steps for the thread's rows in `live`: a filter keeps its
+// TRUE rows, a probe step (step word -2 - j) runs probe_step.  Each step's
+// live rows count into cnt[(s + 1) * T + tid].  Returns the rows live after
+// the last step.
+__device__ unsigned run_steps(const Tile& t, int n_steps, unsigned live,
+                              i64* cnt) {
+  const i64* steps = t.plan + t.plan[H_OFF_STEPS];
+  const i64* joins = t.plan + t.plan[H_OFF_JOINS];
+  for (int s = 0; s < n_steps; ++s) {
+    const i64 w = steps[s];
+    if (live && w >= 0) {
+      eval_prog(t, w, live);
+      unsigned ok = 0;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) ok |= (unsigned)(result(t, r) != 0) << r;
+      live &= ok & ~result_nulls(t);
+    } else if (live && w <= -2) {
+      const int j = (int)(-2 - w);
+      live = probe_step(t, joins + JOIN_WORDS * j, j, live);
+    }
+    cnt[(s + 1) * t.T + t.tid] += __popc(live);
+  }
+  return live;
 }
 
 // float min/max that propagates NaN like jnp.minimum / jnp.maximum

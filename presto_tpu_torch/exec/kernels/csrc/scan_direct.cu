@@ -23,7 +23,8 @@
 // - Chain steps are ExprPrograms (exec/lowering.py) interpreted per row on
 //   a stack of (int64-or-float64 bits, null) slots whose depth the plan
 //   fixes; bound parameters come from a device vector, so new literals
-//   reuse the loaded module.  Each thread runs the program over RPT rows
+//   reuse the loaded module.  A fanout-1 join or semi-join step runs its
+//   probe in the same pass (kernel #5, scan_common.cuh probe_step).  Each thread runs the program over RPT rows
 //   at once, so every instruction's fetch and dispatch is paid once per
 //   RPT rows; the stack and row counters sit in shared memory.
 // - No compaction: the TPU kernel's Blelloch compaction only shrinks its
@@ -71,7 +72,7 @@ scan_direct_kernel(const i64* __restrict__ plan_g, int n_plan,
   const int n_steps = (int)plan[H_N_STEPS], G = (int)plan[H_G];
   const int n_i = (int)plan[H_N_I], n_f = (int)plan[H_N_F];
   const int n_specs = (int)plan[H_N_SPECS], n_keys = (int)plan[H_N_KEYS];
-  const i64* steps = plan + plan[H_OFF_STEPS];
+  const int n_joins = (int)plan[H_N_JOINS];
   const i64* keys = plan + plan[H_OFF_KEYS];
   const i64* specs = plan + plan[H_OFF_SPECS];
   const i64* rows = plan + plan[H_OFF_ROWS];   // (init bits, op) per row
@@ -83,6 +84,9 @@ scan_direct_kernel(const i64* __restrict__ plan_g, int n_plan,
   i64* stk = cnt + (1 + n_steps) * T;            // depth x RPT x T
   double* sm_f = (double*)(stk + depth * RPT * T);  // n_f * G x T
   unsigned* nulls = (unsigned*)(sm_f + n_f * G * T);  // depth x T
+  int* jrow = (int*)(nulls + depth * T);            // joins x RPT x T
+  unsigned* jhit = (unsigned*)(jrow + n_joins * RPT * T);  // joins x T
+  unsigned* jnul = jhit + n_joins * T;              // joins x T
   for (int k = tid; k < n_i * G; k += T) sm_i[k] = rows[2 * (k / G)];
   for (int k = tid; k <= n_steps; k += T) sm_cnt[k] = 0;
   for (int k = 0; k <= n_steps; ++k) cnt[k * T + tid] = 0;
@@ -103,6 +107,9 @@ scan_direct_kernel(const i64* __restrict__ plan_g, int n_plan,
   t.params = params;
   t.stk = stk;
   t.nulls = nulls;
+  t.jrow = jrow;
+  t.jhit = jhit;
+  t.jnul = jnul;
   t.T = T;
   t.tid = tid;
   // each pass: rows base + r * T (r < RPT) -- neighbouring threads read
@@ -117,16 +124,7 @@ scan_direct_kernel(const i64* __restrict__ plan_g, int n_plan,
 #pragma unroll
     for (int r = 0; r < RPT; ++r) live |= (unsigned)(base + r * T < hi) << r;
     cnt[tid] += __popc(live);
-    for (int s = 0; s < n_steps; ++s) {
-      if (live && steps[s] >= 0) {
-        eval_prog(t, steps[s], live);
-        unsigned ok = 0;
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) ok |= (unsigned)(result(t, r) != 0) << r;
-        live &= ok & ~result_nulls(t);
-      }
-      cnt[(s + 1) * T + tid] += __popc(live);
-    }
+    live = run_steps(t, n_steps, live, cnt);
     __syncwarp();
     if (!__any_sync(FULL_MASK, live != 0)) continue;
     i64 code[RPT];

@@ -18,8 +18,9 @@
 // - A persistent grid: a fixed number of CTAs (a small multiple of the
 //   SMs) strides over the grid entries' rows_per_cta-row slices, so the
 //   per-CTA partials scale with the CTA count, not with the table.  The
-//   per-row work (decode, chain steps, key programs) is scan_direct's,
-//   from scan_common.cuh.
+//   per-row work (decode, chain steps with their join / semi-join probes
+//   -- kernel #5 --, key programs) is scan_direct's, from
+//   scan_common.cuh.
 // - Span slots: code = sum of key value x stride, rows off the grid drop.
 // - Hash slots: each live row hashes its key values exactly as
 //   exec/operators.py hash_columns(salt) does (splitmix64 over uint64),
@@ -54,19 +55,10 @@
 enum { MODE_SPAN = 0, MODE_HASH = 1 };
 #define PROBE_ROUNDS 16
 #define EMPTY_SLOT 0xffffffffffffffffULL
-#define GOLDEN 0x9E3779B97F4A7C15ULL
 #define REDUCE_THREADS 256
 // groups a hash table must hold before its integer rows fold with one
 // atomic each
 #define SPREAD_GROUPS 128
-
-// exec/operators.py splitmix64, in native uint64
-__device__ __forceinline__ u64 splitmix64(u64 x) {
-  x += GOLDEN;
-  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ULL;
-  x = (x ^ (x >> 27)) * 0x94D049BB133111EBULL;
-  return x ^ (x >> 31);
-}
 
 // Integer rows into dst[code]: one atomic per row when `spread`, else
 // warp_fold's per-slot rounds.  `spread` is warp-uniform, so warp_fold is
@@ -155,8 +147,7 @@ __device__ unsigned probe_rows(const Tile& t, const i64* keys, int n_keys,
     for (int r = 0; r < RPT; ++r) {
       const i64 v = result(t, r);
       kst[(k * RPT + r) * T + tid] = v;
-      const u64 hv = (nm >> r) & 1u ? GOLDEN : splitmix64((u64)v);
-      h[r] = splitmix64(h[r] * 31ULL + hv);
+      h[r] = hash_mix(h[r], v, (nm >> r) & 1u);
     }
   }
   u64 s[RPT];
@@ -219,8 +210,7 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
   const int n_steps = (int)plan[H_N_STEPS];
   const int n_i = (int)plan[H_N_I], n_f = (int)plan[H_N_F];
   const int n_specs = (int)plan[H_N_SPECS], n_keys = (int)plan[H_N_KEYS];
-  const int depth = (int)plan[H_DEPTH];
-  const i64* steps = plan + plan[H_OFF_STEPS];
+  const int depth = (int)plan[H_DEPTH], n_joins = (int)plan[H_N_JOINS];
   const i64* keys = plan + plan[H_OFF_KEYS];
   const i64* specs = plan + plan[H_OFF_SPECS];
   const i64* rows = plan + plan[H_OFF_ROWS];   // (init bits, op) per row
@@ -238,6 +228,9 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
   i64* sm_i = (i64*)(stg_v + (n_f ? RPT * T : 0));
   unsigned* nulls = (unsigned*)(sm_i + (int_smem ? n_i * G : 0));
   unsigned* knull = nulls + depth * T;               // hash: keys x T
+  int* jrow = (int*)(knull + (MODE == MODE_HASH ? n_keys * T : 0));
+  unsigned* jhit = (unsigned*)(jrow + n_joins * RPT * T);  // joins x T
+  unsigned* jnul = jhit + n_joins * T;                     // joins x T
   if (int_smem)
     for (i64 k = tid; k < n_i * G; k += T) sm_i[k] = rows[2 * (k / G)];
   for (int k = tid; k <= n_steps; k += T) sm_cnt[k] = 0;
@@ -260,6 +253,9 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
   t.params = params;
   t.stk = stk;
   t.nulls = nulls;
+  t.jrow = jrow;
+  t.jhit = jhit;
+  t.jnul = jnul;
   t.T = T;
   t.tid = tid;
   const i64 n_items = (i64)n_grid * n_sub;
@@ -281,17 +277,7 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
 #pragma unroll
       for (int r = 0; r < RPT; ++r) live |= (unsigned)(base + r * T < hi) << r;
       cnt[tid] += __popc(live);
-      for (int s = 0; s < n_steps; ++s) {
-        if (live && steps[s] >= 0) {
-          eval_prog(t, steps[s], live);
-          unsigned ok = 0;
-#pragma unroll
-          for (int r = 0; r < RPT; ++r)
-            ok |= (unsigned)(result(t, r) != 0) << r;
-          live &= ok & ~result_nulls(t);
-        }
-        cnt[(s + 1) * T + tid] += __popc(live);
-      }
+      live = run_steps(t, n_steps, live, cnt);
       __syncwarp();
       const bool any = __any_sync(FULL_MASK, live != 0);
       i64 code[RPT];

@@ -23,6 +23,8 @@ of two slot-addressing modes, chosen as the reference chooses them:
 An estimate over twice the table cap, a failed memory reservation or a
 collision at the cap declines with AggGroupCardinality (the caller
 raises: the torch fused chain that would take over is not ported yet).
+A chain's fanout-1 join and semi-join probe steps run inside both modes'
+launches (kernel #5, join.py), as in the direct kernel.
 """
 from __future__ import annotations
 
@@ -34,11 +36,11 @@ import torch
 from .. import operators as ops
 from ..batch import Column
 from .scan_kernel import (GROUPED_SUBTILE_ROWS, KERNEL_HASH_MAX_SLOTS,
-                          LAUNCHES, ScanPlan, aligned_grid, block_rows_for,
-                          cached_plan, chain_eligible, check_launch_inputs,
-                          gather_encoded_arrays, init_outputs,
-                          launch_tensors, meter_kernel_run, plain_row_groups,
-                          stacked_state, state_of)
+                          ScanPlan, aligned_grid, block_rows_for,
+                          cached_plan, check_launch_inputs, count_launch,
+                          gather_encoded_arrays, init_outputs, join_kwargs,
+                          launch_tensors, meter_kernel_run, plan_joins,
+                          plain_row_groups, stacked_state, state_of)
 
 # CTAs of the persistent grouped grid per SM
 CTAS_PER_SM = 2
@@ -90,7 +92,8 @@ def partial_bytes(plan: ScanPlan, n_grid: int, br: int, G: int,
 
 
 def _launch(plan: ScanPlan, columns, grid, br: int, params, *, G: int,
-            acc_i, acc_f, counts, salt: int = 0, table=None) -> None:
+            acc_i, acc_f, counts, salt: int = 0, table=None,
+            joins=None) -> None:
     """One launch of scan_grouped_kernel in the plan's mode (plus its
     reduce) over a persistent grid of CTAs that stride over the grid
     entries' GROUPED_SUBTILE_ROWS-row slices."""
@@ -106,7 +109,7 @@ def _launch(plan: ScanPlan, columns, grid, br: int, params, *, G: int,
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    plan_dev, grid_dev = launch_tensors(plan, columns, grid, device)
+    plan_dev, grid_dev = launch_tensors(plan, columns, grid, device, joins)
     rows_per_cta, n_sub, n_ctas = _grid_shape(plan, len(grid), br, G, device)
     warps = plan.threads // 32
     part_i = (torch.empty((n_ctas, plan.n_i, G), dtype=torch.int64,
@@ -132,33 +135,34 @@ def _launch(plan: ScanPlan, columns, grid, br: int, params, *, G: int,
             f"scan_grouped ({plan.mode}) launch failed: CUDA error {rc}")
 
 
-def scan_span(plan: ScanPlan, columns, grid, br: int, params):
-    """Span-mode fused scan over `grid` entries (bidx, lo, hi).  CUDA
-    tensors launch the kernel; CPU tensors run scan_span_plain.  Returns
+def scan_span(plan: ScanPlan, columns, grid, br: int, params, joins=None):
+    """Span-mode fused scan over `grid` entries (bidx, lo, hi); `joins`
+    (join.JoinPlan) holds the probe steps' build operands.  CUDA tensors
+    launch the kernel; CPU tensors run scan_span_plain.  Returns
     (acc_i (n_i, G), acc_f (max(n_f, 1), G), counts)."""
     device = columns[0].device
     if device.type == "cpu":
-        return scan_span_plain(plan, columns, grid, br, params)
-    check_launch_inputs(columns, params, device)
+        return scan_span_plain(plan, columns, grid, br, params, joins)
+    check_launch_inputs(columns, params, device, plan, joins)
     acc_i, acc_f = init_outputs(plan, device)
     counts = torch.zeros(1 + plan.n_steps, dtype=torch.int64, device=device)
     if grid:
         _launch(plan, columns, grid, br, params, G=plan.G, acc_i=acc_i,
-                acc_f=acc_f, counts=counts)
-        LAUNCHES["scan_span"] += 1
+                acc_f=acc_f, counts=counts, joins=joins)
+        count_launch("scan_span", plan)
     return acc_i, acc_f, counts
 
 
 def scan_hash(plan: ScanPlan, columns, grid, br: int, params,
-              num_slots: int, salt: int) -> HashTable:
+              num_slots: int, salt: int, joins=None) -> HashTable:
     """Hash-mode fused scan into a fresh table of `num_slots` slots keyed
-    by hash_columns(keys, salt).  CUDA tensors launch the kernel; CPU
-    tensors run scan_hash_plain."""
+    by hash_columns(keys, salt); `joins` as in scan_span.  CUDA tensors
+    launch the kernel; CPU tensors run scan_hash_plain."""
     device = columns[0].device
     if device.type == "cpu":
         return scan_hash_plain(plan, columns, grid, br, params, num_slots,
-                               salt)
-    check_launch_inputs(columns, params, device)
+                               salt, joins)
+    check_launch_inputs(columns, params, device, plan, joins)
     n_keys = len(plan.key_programs)
     acc_i, acc_f = init_outputs(plan, device, num_slots)
     counts = torch.zeros(1 + plan.n_steps, dtype=torch.int64, device=device)
@@ -172,8 +176,8 @@ def scan_hash(plan: ScanPlan, columns, grid, br: int, params,
     if grid:
         _launch(plan, columns, grid, br, params, G=num_slots, acc_i=acc_i,
                 acc_f=acc_f, counts=counts, salt=salt,
-                table=(keyhash, keys, keynull, meta))
-        LAUNCHES["scan_hash"] += 1
+                table=(keyhash, keys, keynull, meta), joins=joins)
+        count_launch("scan_hash", plan)
     return HashTable(keyhash, keys, keynull, acc_i, acc_f, counts,
                      meta[0] != 0)
 
@@ -182,20 +186,22 @@ def scan_hash(plan: ScanPlan, columns, grid, br: int, params,
 # plain versions
 # ---------------------------------------------------------------------------
 
-def scan_span_plain(plan: ScanPlan, columns, grid, br: int, params):
+def scan_span_plain(plan: ScanPlan, columns, grid, br: int, params,
+                    joins=None):
     """scan_span in plain torch: decode, the torch ExprProgram
-    evaluator, agg_span_update's scatter."""
+    evaluator, the join appliers, agg_span_update's scatter."""
     device = columns[0].device
     state = ops.agg_span_init(plan.G, plan.specs, device)
     counts = torch.zeros(1 + plan.n_steps, dtype=torch.int64, device=device)
-    for rows in plain_row_groups(plan, columns, grid, br, params, counts):
+    for rows in plain_row_groups(plan, columns, grid, br, params, counts,
+                                 joins):
         state = ops.agg_span_update(state, rows.batch, rows.codes(),
                                     rows.agg_inputs(), plan.specs, plan.G)
     return stacked_state(plan, state) + (counts,)
 
 
 def scan_hash_plain(plan: ScanPlan, columns, grid, br: int, params,
-                    num_slots: int, salt: int) -> HashTable:
+                    num_slots: int, salt: int, joins=None) -> HashTable:
     """scan_hash in plain torch: agg_update's scatter-min probe rounds
     over each group of decoded rows, with __seen counted as one more
     count(*)."""
@@ -206,7 +212,8 @@ def scan_hash_plain(plan: ScanPlan, columns, grid, br: int, params,
     state = ops.agg_init(num_slots, specs, names, (torch.int64,) * n_keys,
                          device)
     counts = torch.zeros(1 + plan.n_steps, dtype=torch.int64, device=device)
-    for rows in plain_row_groups(plan, columns, grid, br, params, counts):
+    for rows in plain_row_groups(plan, columns, grid, br, params, counts,
+                                 joins):
         key_cols = []
         for prog in plan.key_programs:
             c = rows.run(prog)
@@ -250,16 +257,21 @@ def hash_state(plan: ScanPlan, table: HashTable, key_names,
 def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
                             key_dicts, span_info, est_slots, agg_inputs,
                             cache, declined, pool, state_bytes,
-                            runtime_stats=None):
+                            runtime_stats=None, aux=None, expands=()):
     """Run a grouped (G > 64) aggregation chain through the span kernel
     when `span_info` (the caller's _direct_mode_info at
     gmax=KERNEL_SPAN_MAX_GROUPS) is set, else through the hash kernel.
-    Returns (finalized Batch, int64[1 + n_steps] row counters, grid
-    length), or None after metering one kernelDeclined{reason}."""
-    elig = chain_eligible(chain, declined)
+    Fanout-1 join/semi steps run their probes in the launch (join.py);
+    `aux` and `expands` are FusedChain.prep's, and `pool` is charged the
+    build operand bytes for each launch as well.  Returns (finalized
+    Batch, int64[1 + n_steps] row counters, grid length), or None after
+    metering one kernelDeclined{reason}."""
+    from .join import reserve_build_operands
+    elig = plan_joins(chain, aux, expands, declined)
     if elig is None:
         return None
-    cached, colmap = elig
+    cached, colmap, jplan = elig
+    jkw = join_kwargs(jplan)
     br = block_rows_for(chain.leaf_cap(()))
     grid = aligned_grid(chain.scan_meta, br,
                         chain.compiler.ctx.params_fingerprint)
@@ -270,7 +282,7 @@ def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
         doms, G, strides, kdts, kdicts = span_info
         plan = cached_plan(cache, chain, declined, mode="span", specs=specs,
                            key_names=key_names, strides=strides, G=G,
-                           agg_inputs=agg_inputs)
+                           agg_inputs=agg_inputs, jplan=jplan)
         if plan is None:
             return None
         columns = gather_encoded_arrays(cached, colmap, plan.names)
@@ -280,7 +292,15 @@ def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
             declined("AggGroupCardinality")
             return None
         try:
-            acc_i, acc_f, counts = scan_span(plan, columns, grid, br, params)
+            if grid and not reserve_build_operands(pool, jplan.nbytes):
+                declined("JoinBuildSize")
+                return None
+            try:
+                acc_i, acc_f, counts = scan_span(plan, columns, grid, br,
+                                                 params, **jkw)
+            finally:
+                if grid and jplan.nbytes:
+                    pool.free(jplan.nbytes)
             slot = torch.arange(G, dtype=torch.int64, device=acc_i.device)
             key_arrays = {}
             stride = G
@@ -302,7 +322,7 @@ def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
         return None
     plan = cached_plan(cache, chain, declined, mode="hash", specs=specs,
                        key_names=key_names, strides=(0,) * len(key_names),
-                       G=0, agg_inputs=agg_inputs)
+                       G=0, agg_inputs=agg_inputs, jplan=jplan)
     if plan is None:
         return None
     columns = gather_encoded_arrays(cached, colmap, plan.names)
@@ -317,8 +337,15 @@ def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
             declined("AggGroupCardinality")
             return None
         try:
-            table = scan_hash(plan, columns, grid, br, params, num_slots,
-                              salt)
+            if grid and not reserve_build_operands(pool, jplan.nbytes):
+                declined("JoinBuildSize")
+                return None
+            try:
+                table = scan_hash(plan, columns, grid, br, params, num_slots,
+                                  salt, **jkw)
+            finally:
+                if grid and jplan.nbytes:
+                    pool.free(jplan.nbytes)
             if not bool(table.collision):
                 out = ops.agg_finalize(
                     hash_state(plan, table, key_names, key_dtypes), specs,

@@ -11,13 +11,17 @@ row and folds live rows into the aggregation accumulators.
             block index and a block-relative [lo, hi) live row range.
             Zone-map pruning runs over this grid on the host, so pruned
             blocks are never launched.
-  plan      ScanPlan: the chain's filter steps, group keys and aggregate
-            inputs compiled to ExprPrograms over the scan's columns
-            (project steps are substituted into their consumers), the
-            aggregate specs and the accumulator row layout, packed into
-            one int64 vector the kernel reads.  The grouped kernels
-            (grouped.py, csrc/scan_grouped.cu) read the same plan; only
-            its shared-memory layout differs by mode.
+  plan      ScanPlan: the chain's filter steps, join / semi-join probe
+            steps, group keys and aggregate inputs compiled to
+            ExprPrograms over the scan's columns (project steps are
+            substituted into their consumers), the aggregate specs and
+            the accumulator row layout, packed into one int64 vector the
+            kernel reads.  A probe step (kernel #5, join.py) adds the
+            build columns it gathers, or its semi marker, as virtual
+            columns past the scan's, which later programs read like any
+            other column.  The grouped kernels (grouped.py,
+            csrc/scan_grouped.cu) read the same plan; only its
+            shared-memory layout differs by mode.
   wrapper   scan_direct: CUDA tensors launch the kernel (or raise); CPU
             tensors run scan_direct_plain, the same function in torch.
 
@@ -32,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +44,7 @@ import torch
 from .. import operators as ops
 from ..batch import Batch, Column
 from ..lowering import ExprProgram, OP, compile_expr, float_bits
+from ...common.types import BOOLEAN
 from ...spi.expr import (CallExpression, RowExpression,
                          SpecialFormExpression, VariableReferenceExpression)
 
@@ -54,6 +59,10 @@ KERNEL_DECLINE_REASONS = (
     "PlanShape",             # chain step the kernel does not run, or a
     #                          plan/expression shape the port lacks
     "ColumnsNotResident",    # a scanned column is not device-resident
+    "JoinShape",             # fanout-k join, residual ON filter,
+    #                          dictionary build column (join.py)
+    "JoinBuildSize",         # build operands over the byte cap, or a
+    #                          failed operand reservation (join.py)
 )
 
 THREADS = 256
@@ -79,6 +88,9 @@ KERNEL_HASH_MAX_SLOTS = 1 << 16
 # kernel launches per wrapper: each wrapper adds one where it launches its
 # kernel (plain-version runs on CPU tensors are not launches)
 LAUNCHES: Dict[str, int] = {"scan_direct": 0, "scan_span": 0, "scan_hash": 0}
+# of those, the launches whose plan carries a join or semi-join probe step
+# (kernel #5)
+JOIN_LAUNCHES: Dict[str, int] = {k: 0 for k in LAUNCHES}
 
 
 class KernelMetrics:
@@ -200,8 +212,11 @@ def aligned_grid(meta: dict, block_rows: int,
 
 def chain_eligible(chain, declined):
     """Chain step shapes and residency.  Returns (cached, colmap) or None
-    after metering one decline."""
-    if any(s[0] not in ("filter", "project", "rename") for s in chain.steps):
+    after metering one decline.  Join / semi steps pass here; the caller
+    lays them out with join.plan_join_layout, which applies its own Join*
+    gates."""
+    allowed = ("filter", "project", "rename", "join", "semi")
+    if any(s[0] not in allowed for s in chain.steps):
         declined("PlanShape")
         return None
     cached = chain.scan_meta.get("cached_cols") or {}
@@ -238,6 +253,17 @@ _R_ADD, _R_MIN, _R_MAX = 0, 1, 2
 _HEADER = 16
 _COL_WORDS = 6
 _SPEC_WORDS = 7
+# virtual column kinds (csrc/scan_common.cuh K_GATHER, K_SEMI)
+_K_GATHER, _K_SEMI = 3, 4
+# a probe step's record: table kind, form, key count, offset of its key
+# program list, then per launch: operand 0 (slots | keyhash_sorted),
+# operand 1 (base | perm), table size, semi null-key flag, bisect trips
+_JOIN_WORDS = 9
+# header word holding the probe records' offset (scan_common.cuh
+# H_OFF_JOINS)
+_H_OFF_JOINS = 15
+_TABLE_KINDS = {"direct": 0, "unique": 1}
+_FORM_INNER, _FORM_LEFT, _FORM_SEMI = 0, 1, 2
 
 
 def substitute(expr: RowExpression, env: Dict[str, RowExpression]):
@@ -249,6 +275,23 @@ def substitute(expr: RowExpression, env: Dict[str, RowExpression]):
         return dataclasses.replace(
             expr, arguments=[substitute(a, env) for a in expr.arguments])
     return expr
+
+
+class JoinProgram(NamedTuple):
+    """A probe step of the plan: its join.JoinStepPlan and its probe-key
+    programs."""
+    step: object
+    key_programs: Tuple[ExprProgram, ...]
+
+
+class VirtualColumn(NamedTuple):
+    """A column a probe step adds: a gathered build column or a semi
+    marker, read past the scan's columns."""
+    name: str
+    join: int                   # index into ScanPlan.joins
+    kind: str                   # "gather" | "semi"
+    gather: int                 # index into the step's gcols (gather)
+    nullable: bool
 
 
 @dataclasses.dataclass
@@ -271,6 +314,8 @@ class ScanPlan:
     smem_bytes: int
     # span: integer accumulators per CTA in shared memory (else global)
     int_smem: bool = False
+    joins: Tuple[JoinProgram, ...] = ()
+    virtual: Tuple[VirtualColumn, ...] = ()
 
     @property
     def n_i(self) -> int:
@@ -282,17 +327,30 @@ class ScanPlan:
 
 
 def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
-                    agg_inputs: Dict[str, Optional[RowExpression]]
-                    ) -> ScanPlan:
+                    agg_inputs: Dict[str, Optional[RowExpression]],
+                    jplan=None) -> ScanPlan:
     """Compile the chain's static shape into a ScanPlan for `mode`.
+    `jplan` (join.JoinPlan) lays out the chain's join / semi steps.
     Raises NotImplementedError for an expression or shape the kernel
     lacks."""
     meta = chain.scan_meta
     names = tuple(meta["colmap"])
+    col_idx = {n: i for i, n in enumerate(names)}
     env: Dict[str, RowExpression] = {
         n: VariableReferenceExpression(n, meta["types"][n]) for n in names}
+    jsteps = {sp.si: sp for sp in jplan.steps} if jplan is not None else {}
     step_programs: List[Optional[ExprProgram]] = []
-    for step in chain.steps:
+    joins: List[JoinProgram] = []
+    virtual: List[VirtualColumn] = []
+
+    def add_virtual(name, typ, **kw):
+        if name in col_idx:
+            raise NotImplementedError(f"probe output {name} shadows a column")
+        col_idx[name] = len(col_idx)
+        env[name] = VariableReferenceExpression(name, typ)
+        virtual.append(VirtualColumn(name, len(joins) - 1, **kw))
+
+    for si, step in enumerate(chain.steps):
         kind = step[0]
         if kind == "filter":
             step_programs.append(compile_expr(substitute(step[1], env)))
@@ -302,6 +360,18 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
             env = {v.name: substitute(e, env) for v, e in step[1]}
         elif kind == "rename":
             env = {o: env[i] for o, i in step[1]}
+        elif kind in ("join", "semi") and si in jsteps:
+            sp, node = jsteps[si], step[1]
+            joins.append(JoinProgram(sp, tuple(
+                compile_expr(env[k]) for k in sp.probe_keys)))
+            if kind == "semi":
+                add_virtual(sp.out_name, BOOLEAN, kind="semi", gather=-1,
+                            nullable=True)
+                continue
+            btypes = {v.name: v.type for v in node.right.output_variables}
+            for g, (name, has_nulls) in enumerate(sp.gcols):
+                add_virtual(name, btypes[name], kind="gather", gather=g,
+                            nullable=sp.is_left or has_nulls)
         else:
             raise NotImplementedError(f"chain step {kind}")
     key_programs = [compile_expr(env[k]) for k in key_names]
@@ -323,8 +393,7 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
         if spec.name in ("min", "max"):
             ops_of[spec.output] = _R_MIN if spec.name == "min" else _R_MAX
 
-    # -- the static plan vector (layout: csrc/scan_direct.cu) -----------
-    col_idx = {n: i for i, n in enumerate(names)}
+    # -- the static plan vector (layout: csrc/scan_common.cuh) -----------
     progs: List[int] = []
     prog_base = None    # filled once the table sizes are known
 
@@ -337,7 +406,9 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
         return off
 
     step_offs = [-1 if p is None else add_prog(p) for p in step_programs]
+    join_key_offs = [[add_prog(p) for p in jp.key_programs] for jp in joins]
     key_offs = [add_prog(p) for p in key_programs]
+    nullable = {v.name for v in virtual if v.nullable}
     spec_rows = []
     # integer row each row's final value is copied from (the grouped
     # kernels' reduce copies __seen into the counts it stands for)
@@ -352,10 +423,13 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
             rows = flt_names if spec.is_float else int_names
             vrow = rows.index(vkey)
             crow = int_names.index(spec.output + "$count")
-        # the spec's row count is __seen's when its input is never NULL
-        # (resident columns carry no NULLs; only NULL constants make them)
+        # the spec's row count is __seen's when its input is never NULL:
+        # resident columns carry no NULLs; NULL constants, LEFT-join and
+        # NULL-able gathered build columns and semi markers do
         seen_count = p is None or not any(
-            op in (OP["NULL_I"], OP["NULL_F"]) for op, _a in p.ops)
+            op in (OP["NULL_I"], OP["NULL_F"])
+            or (op == OP["COL"] and p.columns[a] in nullable)
+            for op, a in p.ops)
         if seen_count:
             src_rows[vrow if crow < 0 else crow] = 0
         spec_rows.append((_SPEC_KINDS[spec.name], int(spec.is_float), off,
@@ -363,27 +437,39 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
                                                 and p.float_result)),
                           int(seen_count)))
     n_cols, n_steps = len(names), len(chain.steps)
-    n_keys = len(key_programs)
+    n_keys, n_joins = len(key_programs), len(joins)
     off_cols = _HEADER
-    off_steps = off_cols + _COL_WORDS * n_cols
+    off_steps = off_cols + _COL_WORDS * (n_cols + len(virtual))
     off_keys = off_steps + n_steps
     off_specs = off_keys + 2 * n_keys
     off_rows = off_specs + _SPEC_WORDS * len(specs)
     off_src = off_rows + 2 * (len(int_names) + len(flt_names))
-    prog_base = off_src + len(int_names)
+    off_joins = off_src + len(int_names)
+    off_jkeys = off_joins + _JOIN_WORDS * n_joins
+    prog_base = off_jkeys + sum(len(o) for o in join_key_offs)
 
     def rel(off):
         return -1 if off < 0 else prog_base + off
 
     programs = [p for p in step_programs + key_programs
                 + list(agg_programs.values()) if p is not None]
+    programs += [p for jp in joins for p in jp.key_programs]
     depth = max([p.depth for p in programs] + [1])
     words = [n_cols, n_steps, G, len(int_names), len(flt_names), len(specs),
              n_keys, off_cols, off_steps, off_keys, off_specs,
-             off_rows, depth, off_src]
-    words += [0] * (_HEADER - len(words))
-    words += [0] * (_COL_WORDS * n_cols)           # filled per launch
-    words += [rel(o) for o in step_offs]
+             off_rows, depth, off_src, n_joins, off_joins]
+    # the column table: the scan's columns, then the probe steps' virtual
+    # columns (kind, dtype, values, join, nulls, LEFT); pointers and dtypes
+    # are filled per launch
+    words += [0] * (_COL_WORDS * n_cols)
+    for v in virtual:
+        words += [_K_SEMI if v.kind == "semi" else _K_GATHER, 0, 0, v.join,
+                  0, int(joins[v.join].step.is_left)]
+    # a step word: a filter program's offset, -1 for none, -2 - j for the
+    # probe step of join j
+    join_of = {jp.step.si: j for j, jp in enumerate(joins)}
+    words += [-2 - join_of[s] if s in join_of else rel(o)
+              for s, o in enumerate(step_offs)]
     for o, s in zip(key_offs, strides):
         words += [rel(o), int(s)]
     for kind, is_f, off, vrow, crow, in_f, seen in spec_rows:
@@ -393,6 +479,16 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
     for k, v in zip(flt_names, init_f.tolist()):
         words += [float_bits(v), ops_of.get(k, _R_ADD)]
     words += src_rows
+    jkey_at = off_jkeys
+    for jp, offs in zip(joins, join_key_offs):
+        sp = jp.step
+        form = (_FORM_SEMI if sp.kind == "semi"
+                else _FORM_LEFT if sp.is_left else _FORM_INNER)
+        words += [_TABLE_KINDS[sp.table], form, len(offs), jkey_at]
+        words += [0] * (_JOIN_WORDS - 4)           # filled per launch
+        jkey_at += len(offs)
+    for offs in join_key_offs:
+        words += [rel(o) for o in offs]
     words += progs
 
     # shared memory: the staged plan vector and parameters, the CTA's row
@@ -402,11 +498,13 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
     #   span    CTA integer accumulators when they fit (int_smem), else
     #           none: they fold into global memory;
     #   hash    per-thread key values and null masks of the probed rows;
-    #   both    with float rows, the warps' staged (slot, value) pairs.
+    #   both    with float rows, the warps' staged (slot, value) pairs;
+    # and per probe step each row's build-row index, hit and null masks.
     # A wide layout shrinks the CTA rather than exceed the limit.
     # smem_bytes leaves out the parameters, added per launch.
     fixed = 8 * (len(words) + 1 + n_steps)
     per_thread = 8 * (1 + n_steps + depth * ROWS_PER_THREAD) + 4 * depth
+    per_thread += n_joins * (4 * ROWS_PER_THREAD + 8)
     if mode == "direct":
         fixed += 8 * len(int_names) * G
         per_thread += 8 * len(flt_names) * G
@@ -432,7 +530,7 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
                     tuple(strides), G, tuple(specs), agg_programs,
                     int_names, flt_names, init_i, init_f,
                     np.asarray(words, dtype=np.int64), threads, smem,
-                    int_smem)
+                    int_smem, tuple(joins), tuple(virtual))
 
 
 def _column_words(columns) -> List[int]:
@@ -458,9 +556,29 @@ def init_outputs(plan: ScanPlan, device, G: Optional[int] = None):
     return acc_i.contiguous(), acc_f.contiguous()
 
 
-def check_launch_inputs(columns, params, device) -> None:
-    """What every scan kernel takes: columns and parameters on `device`,
-    at most MAX_PARAMS int64 parameters."""
+def step_operands(joins) -> List[tuple]:
+    """A JoinPlan's flat operands cut per probe step."""
+    out, off = [], 0
+    for sp in joins.steps:
+        out.append(joins.arrays[off:off + sp.arr_count])
+        off += sp.arr_count
+    return out
+
+
+def _gathered(sp, arrs) -> List[tuple]:
+    """(values, nulls or None) of each column a join step gathers."""
+    out, i = [], 2
+    for _name, has_nulls in sp.gcols:
+        out.append((arrs[i], arrs[i + 1] if has_nulls else None))
+        i += 2 if has_nulls else 1
+    return out
+
+
+def check_launch_inputs(columns, params, device, plan=None,
+                        joins=None) -> None:
+    """What every scan kernel takes: columns, parameters and the probe
+    steps' build operands (contiguous) on `device`, at most MAX_PARAMS
+    int64 parameters."""
     if device.type != "cuda":
         raise NotImplementedError(f"scan kernel on {device.type}")
     for rc in columns:
@@ -471,14 +589,50 @@ def check_launch_inputs(columns, params, device) -> None:
                                or params.numel() > MAX_PARAMS):
         raise ValueError(f"bound parameters must be at most {MAX_PARAMS} "
                          f"int64 values on the scan device")
+    if plan is not None and plan.joins:
+        if joins is None or len(joins.steps) != len(plan.joins):
+            raise ValueError("the plan's probe steps need their join "
+                             "operands")
+        for a in joins.arrays:
+            if a.device != device or not a.is_contiguous():
+                raise ValueError("join operands must be contiguous on the "
+                                 "scan device")
 
 
-def launch_tensors(plan: ScanPlan, columns, grid, device):
-    """The plan vector with this launch's column table, and the grid as a
-    (3, n_grid) int64 tensor, both on `device`."""
+def _fill_join_words(plan: ScanPlan, words, joins) -> None:
+    """This launch's operand pointers, table sizes and gathered columns'
+    dtypes into the probe records and virtual column entries."""
+    off_joins = int(words[_H_OFF_JOINS])
+    per_step = step_operands(joins)
+    for j, (jp, arrs) in enumerate(zip(plan.joins, per_step)):
+        size = int(arrs[0].numel())
+        bhn = arrs[2].data_ptr() if jp.step.kind == "semi" else 0
+        # the bisect's fixed trip count, ceil(log2(size + 1)) + 1
+        trips = max(1, size.bit_length() + 1)
+        rec = off_joins + _JOIN_WORDS * j
+        words[rec + 4:rec + _JOIN_WORDS] = [
+            arrs[0].data_ptr(), arrs[1].data_ptr(), size, bhn, trips]
+    base = _HEADER + _COL_WORDS * len(plan.names)
+    for k, v in enumerate(plan.virtual):
+        if v.kind != "gather":
+            continue
+        sp = plan.joins[v.join].step
+        vals, nulls = _gathered(sp, per_step[v.join])[v.gather]
+        off = base + _COL_WORDS * k
+        words[off + 1] = _DTYPES[vals.dtype]
+        words[off + 2] = vals.data_ptr()
+        words[off + 4] = 0 if nulls is None else nulls.data_ptr()
+
+
+def launch_tensors(plan: ScanPlan, columns, grid, device, joins=None):
+    """The plan vector with this launch's column table (and probe
+    operands), and the grid as a (3, n_grid) int64 tensor, both on
+    `device`."""
     words = plan.words.copy()
     words[_HEADER:_HEADER + _COL_WORDS * len(columns)] = \
         _column_words(columns)
+    if plan.joins:
+        _fill_join_words(plan, words, joins)
     plan_dev = torch.from_numpy(words).to(device)
     grid_dev = torch.from_numpy(
         np.asarray(grid, dtype=np.int64).T.copy()).to(device)
@@ -489,15 +643,23 @@ def launch_tensors(plan: ScanPlan, columns, grid, device):
 # kernel wrapper and its plain version
 # ---------------------------------------------------------------------------
 
-def scan_direct(plan: ScanPlan, columns, grid, br: int, params):
+def join_kwargs(jplan) -> dict:
+    """The wrappers' keyword for a JoinPlan's operands: none when the
+    chain has no probe step."""
+    return {"joins": jplan} if jplan is not None and jplan.steps else {}
+
+
+def scan_direct(plan: ScanPlan, columns, grid, br: int, params,
+                joins=None):
     """Run the fused scan over `grid` entries (bidx, lo, hi) of the
-    ResidentColumns `columns` (plan.names order).  CUDA tensors launch
-    the kernel; CPU tensors run scan_direct_plain.  Returns (acc_i,
-    acc_f, counts)."""
+    ResidentColumns `columns` (plan.names order); `joins` (join.JoinPlan)
+    holds the probe steps' build operands.  CUDA tensors launch the
+    kernel; CPU tensors run scan_direct_plain.  Returns (acc_i, acc_f,
+    counts)."""
     device = columns[0].device
     if device.type == "cpu":
-        return scan_direct_plain(plan, columns, grid, br, params)
-    check_launch_inputs(columns, params, device)
+        return scan_direct_plain(plan, columns, grid, br, params, joins)
+    check_launch_inputs(columns, params, device, plan, joins)
     from .build import load
     lib = load("scan_direct")
     fn = lib.scan_direct_launch
@@ -513,7 +675,7 @@ def scan_direct(plan: ScanPlan, columns, grid, br: int, params):
     counts = torch.zeros(1 + plan.n_steps, dtype=torch.int64, device=device)
     if n_grid == 0:
         return acc_i, acc_f, counts
-    plan_dev, grid_dev = launch_tensors(plan, columns, grid, device)
+    plan_dev, grid_dev = launch_tensors(plan, columns, grid, device, joins)
     n_plan = int(plan_dev.numel())
     rows_per_cta = min(int(br), ROWS_PER_CTA)
     n_sub = -(-int(br) // rows_per_cta)
@@ -533,8 +695,14 @@ def scan_direct(plan: ScanPlan, columns, grid, br: int, params):
             plan.smem_bytes + 8 * n_params, stream)
     if rc != 0:
         raise RuntimeError(f"scan_direct launch failed: CUDA error {rc}")
-    LAUNCHES["scan_direct"] += 1
+    count_launch("scan_direct", plan)
     return acc_i, acc_f, counts
+
+
+def count_launch(name: str, plan: ScanPlan) -> None:
+    LAUNCHES[name] += 1
+    if plan.joins:
+        JOIN_LAUNCHES[name] += 1
 
 
 def _truthy(c: Column):
@@ -542,14 +710,16 @@ def _truthy(c: Column):
     return keep if c.nulls is None else keep & ~c.nulls
 
 
-def scan_direct_plain(plan: ScanPlan, columns, grid, br: int, params):
+def scan_direct_plain(plan: ScanPlan, columns, grid, br: int, params,
+                      joins=None):
     """The kernel's function in plain torch over the same grid entries:
     index_select / searchsorted decode, the torch ExprProgram evaluator,
-    and agg_direct_update's one-hot grid."""
+    the join appliers (join.py) and agg_direct_update's one-hot grid."""
     device = columns[0].device
     state = ops.agg_direct_init(plan.G, plan.specs, device)
     counts = torch.zeros(1 + plan.n_steps, dtype=torch.int64, device=device)
-    for rows in plain_row_groups(plan, columns, grid, br, params, counts):
+    for rows in plain_row_groups(plan, columns, grid, br, params, counts,
+                                 joins):
         state = ops.agg_direct_update(state, rows.batch, rows.codes(),
                                       rows.agg_inputs(), plan.specs, plan.G)
     return stacked_state(plan, state) + (counts,)
@@ -591,21 +761,29 @@ class PlainRows:
 
 
 def plain_row_groups(plan: ScanPlan, columns, grid, br: int, params,
-                     counts):
+                     counts, joins=None):
     """Yield PlainRows over the grid entries, about PLAIN_ROWS rows at a
-    time, adding each step's live rows to `counts`."""
+    time, adding each step's live rows to `counts`.  `joins` holds the
+    probe steps' operands (join.JoinPlan)."""
+    from .join import join_appliers
+    if plan.joins and (joins is None or len(joins.steps) != len(plan.joins)):
+        raise ValueError("the plan's probe steps need their join operands")
+    appliers = join_appliers(joins, joins.arrays) if plan.joins else {}
     groups, rows = [], 0
     for ent in grid:
         groups.append(ent)
         rows += ent[2] - ent[1]
         if rows >= PLAIN_ROWS:
-            yield _plain_group(plan, columns, groups, br, params, counts)
+            yield _plain_group(plan, columns, groups, br, params, counts,
+                               appliers)
             groups, rows = [], 0
     if groups:
-        yield _plain_group(plan, columns, groups, br, params, counts)
+        yield _plain_group(plan, columns, groups, br, params, counts,
+                           appliers)
 
 
-def _plain_group(plan, columns, entries, br, params, counts) -> PlainRows:
+def _plain_group(plan, columns, entries, br, params, counts,
+                 appliers) -> PlainRows:
     device = columns[0].device
     idx = torch.cat([torch.arange(b * br + lo, b * br + hi, device=device)
                      for b, lo, hi in entries])
@@ -614,8 +792,20 @@ def _plain_group(plan, columns, entries, br, params, counts) -> PlainRows:
             for name, rc in zip(plan.names, columns)}
     mask = torch.ones(n, dtype=torch.bool, device=device)
     counts[0] += n
+    joins = {jp.step.si: (j, jp) for j, jp in enumerate(plan.joins)}
     for s, prog in enumerate(plan.step_programs):
-        if prog is not None:
+        if s in joins:
+            # kernel #5's plain version: the probe keys' programs, then
+            # the step's applier over them
+            j, jp = joins[s]
+            keys = {k: p.run(cols, n, params, device)
+                    for k, p in zip(jp.step.probe_keys, jp.key_programs)}
+            out = appliers[s](Batch(keys, mask))
+            for v in plan.virtual:
+                if v.join == j:
+                    cols[v.name] = out.columns[v.name]
+            mask = out.mask
+        elif prog is not None:
             mask = mask & _truthy(prog.run(cols, n, params, device))
         counts[s + 1] += mask.sum()
     return PlainRows(plan, cols, n, mask, params)
@@ -625,26 +815,57 @@ def _plain_group(plan, columns, entries, br, params, counts) -> PlainRows:
 # pipeline entry
 # ---------------------------------------------------------------------------
 
-def try_direct_scan_kernel(chain, params, *, specs, key_names, strides, G,
-                           agg_inputs, cache, declined, runtime_stats=None):
-    """Run the fused scan chain through the kernel when eligible.
-
-    Returns (agg_direct state dict, int64[1 + n_steps] row counters, grid
-    length), or None after recording one kernelDeclined{reason}."""
+def plan_joins(chain, aux, expands, declined):
+    """chain_eligible with probe steps admitted, then the probe steps'
+    operand layout (join.plan_join_layout under the byte cap).  Returns
+    (cached, colmap, JoinPlan) or None after metering one decline."""
+    from . import join as jk
     elig = chain_eligible(chain, declined)
     if elig is None:
         return None
-    cached, colmap = elig
+    jplan = jk.plan_join_layout(chain.steps, aux, expands, declined,
+                                max_bytes=jk.KERNEL_JOIN_MAX_BUILD_BYTES)
+    if jplan is None:
+        return None
+    return elig + (jplan,)
+
+
+def try_direct_scan_kernel(chain, params, *, specs, key_names, strides, G,
+                           agg_inputs, cache, declined, runtime_stats=None,
+                           aux=None, expands=(), pool=None):
+    """Run the fused scan chain through the kernel when eligible.
+
+    Chains with fanout-1 join/semi steps run their probes in the kernel
+    (join.py); `aux` and `expands` are FusedChain.prep's tables and
+    fanouts, and `pool` the MemoryContext charged the build operand bytes
+    for the launch.  Returns (agg_direct state dict, int64[1 + n_steps]
+    row counters, grid length), or None after recording one
+    kernelDeclined{reason}."""
+    from .join import reserve_build_operands
+    elig = plan_joins(chain, aux, expands, declined)
+    if elig is None:
+        return None
+    cached, colmap, jplan = elig
     plan = cached_plan(cache, chain, declined, mode="direct", specs=specs,
                        key_names=key_names, strides=strides, G=G,
-                       agg_inputs=agg_inputs)
+                       agg_inputs=agg_inputs, jplan=jplan)
     if plan is None:
         return None
     br = block_rows_for(chain.leaf_cap(()))
     grid = aligned_grid(chain.scan_meta, br,
                         chain.compiler.ctx.params_fingerprint)
     columns = gather_encoded_arrays(cached, colmap, plan.names)
-    acc_i, acc_f, counts = scan_direct(plan, columns, grid, br, params)
+    # the reference's gate order: the operand reservation comes last, and
+    # only for a launch
+    if grid and not reserve_build_operands(pool, jplan.nbytes):
+        declined("JoinBuildSize")
+        return None
+    try:
+        acc_i, acc_f, counts = scan_direct(plan, columns, grid, br, params,
+                                           **join_kwargs(jplan))
+    finally:
+        if grid and pool is not None and jplan.nbytes:
+            pool.free(jplan.nbytes)
     if grid:
         meter_kernel_run(runtime_stats, len(grid))
     return state_of(plan, acc_i, acc_f), counts, len(grid)
@@ -652,8 +873,11 @@ def try_direct_scan_kernel(chain, params, *, specs, key_names, strides, G,
 
 def cached_plan(cache, chain, declined, **kw) -> Optional[ScanPlan]:
     """The chain's ScanPlan for these arguments, built once per compiled
-    aggregation; None after metering a PlanShape decline."""
-    key = ("plan", kw["mode"], kw["G"], tuple(kw["strides"]))
+    aggregation and join layout; None after metering a PlanShape
+    decline."""
+    jplan = kw.get("jplan")
+    key = ("plan", kw["mode"], kw["G"], tuple(kw["strides"]),
+           jplan.sig if jplan is not None else ())
     plan = cache.get(key)
     if plan is None:
         try:

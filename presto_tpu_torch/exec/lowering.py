@@ -6,9 +6,14 @@ into a small stack program whose every slot is an int64 or float64 value
 plus a null bit.  Two interpreters run the same program:
 
 - `ExprProgram.run` (torch, here) evaluates it over whole columns -- the
-  streaming Filter/Project path and the scan kernel's plain version;
-- the CUDA scan kernel (kernels/csrc/scan_direct.cu) interprets it per
-  row inside the fused scan.
+  streaming Filter/Project path and the scan kernels' plain versions;
+- the CUDA scan kernels (kernels/csrc/scan_common.cuh eval_prog)
+  interpret it per row inside the fused scan.
+
+A COL instruction may read a column past the scan's: a build column a
+join probe gathered, NULL on a LEFT join's misses or where the build
+column is NULL, or a semi-join marker, NULL by SQL's three-valued IN.
+Both interpreters carry a column's null mask into the program.
 
 So the CPU and the card share one expression semantics, which is the
 reference package's: NULL propagates through scalar calls (result null
@@ -142,7 +147,7 @@ def torch_dtype(typ: Type):
 # the program
 # ---------------------------------------------------------------------------
 
-# Opcodes: the CUDA interpreter (kernels/csrc/scan_direct.cu) uses the
+# Opcodes: the CUDA interpreter (kernels/csrc/scan_common.cuh) uses the
 # same numbers.  Each instruction is (opcode, argument).
 OPS = (
     "COL", "CONST_I", "CONST_F", "NULL_I", "NULL_F", "PARAM_I", "PARAM_F",

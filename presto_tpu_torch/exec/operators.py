@@ -3,8 +3,10 @@
 The subset of presto_tpu/exec/operators.py the port runs: the hash
 mixer and key hashing, filter application, direct-slot, span and hashed
 open-addressing aggregation (init / update / finalize, BASIC aggregates),
-the decimal average, sort permutations and compaction.  Every function
-takes tensors on one device and allocates on that device.
+the decimal average, the join build and probe primitives (the hash-sorted
+BuildTable, the direct-address lookup, the semi-join markers), sort
+permutations and compaction.  Every function takes tensors on one device
+and allocates on that device.
 """
 from __future__ import annotations
 
@@ -450,6 +452,115 @@ def agg_finalize(state: dict, specs: Tuple[AggSpec, ...],
                             key_dicts.get(name))
     _finalize_specs(state, specs, cols)
     return Batch(cols, state["__occupied"])
+
+
+# ---------------------------------------------------------------------------
+# join: hash-sorted build, direct-address lookup, semi-join markers
+# ---------------------------------------------------------------------------
+
+def _orderable_hash(kh):
+    """uint64 hash bits (held in int64) -> order-preserving int64: the
+    sign bit flipped, so signed order is the unsigned order."""
+    return kh ^ INT64_MIN
+
+
+@dataclass
+class BuildTable:
+    """Materialized, hash-sorted build side."""
+    keyhash_sorted: torch.Tensor     # order-preserving int64, padding = max
+    perm: torch.Tensor               # sort permutation (int32)
+    columns: Dict[str, Column]       # original (unsorted) build columns
+    valid_count: torch.Tensor        # scalar int32
+    run_len: torch.Tensor            # per-position equal-key run length
+
+
+def build_table(batch: Batch, key_names: List[str], salt: int = 0
+                ) -> BuildTable:
+    """Sort the build side by key hash (padding rows sort to the end),
+    with per-position run lengths of equal key hashes.  The sort is
+    stable, as the reference's, so equal hashes keep their row order."""
+    key_cols = [batch.columns[k] for k in key_names]
+    kh = _orderable_hash(hash_columns(key_cols, salt))
+    kh = torch.where(batch.mask, kh, torch.full_like(kh, INT64_MAX))
+    perm = torch.argsort(kh, stable=True).to(torch.int32)
+    kh_sorted = kh[perm.long()]
+    n = kh_sorted.shape[0]
+    pos = torch.arange(n, dtype=torch.int32, device=kh.device)
+    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=kh.device),
+                          kh_sorted[1:] != kh_sorted[:-1]])
+    run_start = torch.cummax(torch.where(is_start, pos, torch.zeros_like(pos)),
+                             0).values
+    run_len = _run_end(is_start, n) - run_start
+    return BuildTable(kh_sorted, perm, dict(batch.columns),
+                      batch.mask.sum().to(torch.int32), run_len)
+
+
+def _run_end(is_start, n: int):
+    """Per-position exclusive end of the containing equal-key run: the next
+    run's start, filled backwards (reverse cummin of start positions)."""
+    pos = torch.arange(n, dtype=torch.int32, device=is_start.device)
+    starts_rev = torch.flip(torch.where(is_start, pos,
+                                        torch.full_like(pos, n)), [0])
+    ends = torch.flip(torch.cummin(starts_rev, 0).values, [0])
+    return torch.cat([ends[1:], torch.full((1,), n, dtype=torch.int32,
+                                           device=is_start.device)])
+
+
+def direct_lookup(batch: Batch, dt, probe_key: str):
+    """(hit, build_row_index) for a direct-address table lookup: the slot
+    math shared by the join probe and the direct semi marker.  Misses
+    return index 0 (callers mask or null those rows); NULL probe keys
+    never match."""
+    col = batch.columns[probe_key]
+    v = col.values.to(torch.int64)
+    size = dt.slots.shape[0]
+    k = v - dt.base
+    inb = (k >= 0) & (k < size)
+    slot = dt.slots[k.clamp(0, size - 1)]
+    hit = inb & (slot >= 0)
+    if col.nulls is not None:
+        hit = hit & ~col.nulls
+    return hit, torch.where(hit, slot, torch.zeros_like(slot))
+
+
+def _semi_marker(hit, probe_null, build_has_null) -> Column:
+    """The three-valued semi-join marker: TRUE on a match, NULL when the
+    probe key is NULL or when a miss meets a build side that held a NULL
+    key (x IN (..., NULL) is UNKNOWN, never FALSE), else FALSE."""
+    if probe_null is None and isinstance(build_has_null, bool) \
+            and not build_has_null:
+        return Column(hit, None)
+    nulls = ~hit & build_has_null
+    if probe_null is not None:
+        nulls = nulls | probe_null
+    return Column(hit, nulls)
+
+
+def semi_join_mark_direct(batch: Batch, dt, probe_key: str,
+                          build_has_null=False) -> Column:
+    """semi_join_mark against a direct-address table."""
+    hit, _ = direct_lookup(batch, dt, probe_key)
+    return _semi_marker(hit, batch.columns[probe_key].nulls, build_has_null)
+
+
+def semi_join_mark(batch: Batch, table: BuildTable, probe_keys: List[str],
+                   salt: int = 0, build_has_null=False) -> Column:
+    """SemiJoin marker with SQL three-valued semantics (reference
+    HashSemiJoinOperator) against a hash-sorted build.  Callers exclude
+    NULL build keys before building and pass `build_has_null` (a python
+    bool or a bool tensor) to report them."""
+    kh = _orderable_hash(hash_columns(
+        [batch.columns[k] for k in probe_keys], salt))
+    lo = torch.searchsorted(table.keyhash_sorted, kh, side="left").clamp(
+        0, table.perm.shape[0] - 1)
+    hit = table.keyhash_sorted[lo] == kh
+    probe_null = None
+    for k in probe_keys:
+        nn = batch.columns[k].nulls
+        if nn is not None:
+            hit = hit & ~nn
+            probe_null = nn if probe_null is None else probe_null | nn
+    return _semi_marker(hit, probe_null, build_has_null)
 
 
 # ---------------------------------------------------------------------------

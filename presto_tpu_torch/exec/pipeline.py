@@ -2,12 +2,15 @@
 
 The port of presto_tpu/exec/pipeline.py for the ported slices: a
 TableScan over device-resident encoded columns, streaming Filter/Project,
-an Aggregation whose fused scan -> filter -> project chain runs through
-the hand-written CUDA scan kernels (direct slots for G <= 64,
-exec/kernels/scan_kernel.py; span or hash slots beyond,
-exec/kernels/grouped.py), Sort and Output.  Every tensor is allocated on
-the task's device (TaskContext.device).  A plan shape or option outside
-the slices raises NotImplementedError naming what is missing; nothing
+an Aggregation whose fused scan -> filter -> project -> fanout-1 join /
+semi-join chain runs through the hand-written CUDA scan kernels (direct
+slots for G <= 64, exec/kernels/scan_kernel.py; span or hash slots
+beyond, exec/kernels/grouped.py; the probes inside them,
+exec/kernels/join.py), with the join build sides drained from the
+streaming sources, Sort and Output.  Every tensor is allocated on the
+task's device (TaskContext.device).  A plan shape or option outside the
+slices raises NotImplementedError naming what is missing (a streaming
+Join / SemiJoin outside a fused aggregation chain among them); nothing
 falls back quietly.
 """
 from __future__ import annotations
@@ -314,8 +317,9 @@ class PlanCompiler:
         """Aggregation over a fused scan chain, run by the scan kernels in
         the reference's mode order: direct slots (G <= 64), span slots
         (closed key domains, G <= KERNEL_SPAN_MAX_GROUPS), hashed slots.
-        The streaming (non-fused) aggregation, the XLA-chain span / sort /
-        hash paths and spill are not ported yet."""
+        The chain's fanout-1 join / semi-join probes run inside the same
+        launch.  The streaming (non-fused) aggregation, the XLA-chain
+        span / sort / hash paths and spill are not ported yet."""
         if any(a.mask is not None or a.distinct
                for a in node.aggregations.values()):
             raise NotImplementedError(
@@ -363,11 +367,27 @@ class PlanCompiler:
                 fused_cache["chain"] = assemble_chain(self, src_node)
             return fused_cache["chain"]
 
+        def prep(chain):
+            """The chain's build tables, built once per compiled
+            aggregation (generated data is immutable); a build subtree
+            with bound parameters rebuilds when the values change."""
+            pfp = self.ctx.params_fingerprint if chain.build_params else None
+            res = fused_cache.get("prep")
+            if res is None or fused_cache.get("prep_fp") != pfp:
+                res = chain.prep()
+                if res is None:
+                    raise NotImplementedError(
+                        "a join fanout beyond the fused chain's expansion "
+                        "limits (the streaming join) is not ported")
+                fused_cache["prep"], fused_cache["prep_fp"] = res, pfp
+            return res
+
         def run_fused(chain) -> Batch:
             if self.ctx.memory.limited:
                 raise NotImplementedError(
                     "budgeted aggregation (the streaming path) is not ported")
-            key_cols = _chain_key_columns(chain, key_names)
+            aux, expands = prep(chain)
+            key_cols = _chain_key_columns(chain, key_names, aux)
             info = (_direct_mode_info(key_names, key_cols)
                     if basic else None)
             if cfg.scan_kernel == "xla":
@@ -385,7 +405,8 @@ class PlanCompiler:
                     chain, self.ctx.params, specs=specs,
                     key_names=key_names, strides=strides, G=G,
                     agg_inputs=input_exprs, cache=fused_cache,
-                    declined=declined, runtime_stats=self.ctx.runtime_stats)
+                    declined=declined, runtime_stats=self.ctx.runtime_stats,
+                    aux=aux, expands=expands, pool=self.ctx.memory)
                 if kres is not None:
                     state, _counts, _n_blocks = kres
                     return ops.agg_direct_finalize(
@@ -408,7 +429,8 @@ class PlanCompiler:
                     est_slots=initial_slots, agg_inputs=input_exprs,
                     cache=fused_cache, declined=declined,
                     pool=self.ctx.memory, state_bytes=_agg_state_bytes,
-                    runtime_stats=self.ctx.runtime_stats)
+                    runtime_stats=self.ctx.runtime_stats, aux=aux,
+                    expands=expands)
                 if kres is not None:
                     out, _counts, _n_blocks = kres
                     return _maybe_compact(out)
@@ -451,32 +473,62 @@ def _agg_state_bytes(num_slots: int, key_names, specs) -> int:
     return num_slots * (16 + 12 * len(key_names) + 24 * max(1, len(specs)))
 
 
-def _chain_key_columns(chain, key_names):
+def _chain_key_columns(chain, key_names, aux):
     """Column metadata (dtype / nulls / dictionary) of each group key at
     the top of a fused chain, found by following the steps' definitions
-    back to the scan.  A key computed by an expression has no dictionary
-    (and is direct-eligible only when boolean)."""
+    back to the scan or, through a join, to the build column it gathers
+    (aux: FusedChain.prep's tables).  A gathered column is NULL-able when
+    its join is LEFT or its build column has NULLs, a semi marker always.
+    A key computed by an expression has no dictionary (and is
+    direct-eligible only when boolean); it is NULL-able when it reads a
+    NULL-able gathered column."""
+    from ..spi.expr import free_variables
+    from .fused import _join_build_cols
     from .kernels.scan_kernel import substitute
     meta = chain.scan_meta
     env = {n: VariableReferenceExpression(n, t)
            for n, t in meta["types"].items()}
+    gathered = {}       # probe output name -> (dtype, nullable, dictionary)
+    ji = 0
     for step in chain.steps:
-        if step[0] == "project":
+        kind = step[0]
+        if kind == "project":
             env = {v.name: substitute(e, env) for v, e in step[1]}
-        elif step[0] == "rename":
+        elif kind == "rename":
             env = {o: env[i] for o, i in step[1]}
+        elif kind == "join":
+            node, tbl = step[1], aux[ji + 1]
+            ji += 1
+            right = {v.name: v for v in node.right.output_variables}
+            for n in _join_build_cols(node, [v.name for v in node.outputs],
+                                      set(right)):
+                c = tbl.columns[n]
+                gathered[n] = (c.values.dtype,
+                               node.join_type == P.LEFT
+                               or c.nulls is not None, c.dictionary)
+                env[n] = right[n]
+        elif kind == "semi":
+            out = step[1].semi_join_output
+            ji += 1
+            gathered[out.name] = (torch.bool, True, None)
+            env[out.name] = out
     out = []
     for k in key_names:
         e = env[k]
-        dictionary = None
-        if isinstance(e, VariableReferenceExpression):
+        dictionary, nullable = None, False
+        if isinstance(e, VariableReferenceExpression) and e.name in gathered:
+            dtype, nullable, dictionary = gathered[e.name]
+        elif isinstance(e, VariableReferenceExpression):
             dictionary = meta["dicts"].get(e.name)
             rc = meta["cached_cols"].get(meta["colmap"][e.name])
             dtype = rc.dtype if rc is not None else torch_dtype(e.type)
         else:
             dtype = torch_dtype(e.type)
+            nullable = any(gathered.get(v.name, (0, False))[1]
+                           for v in free_variables(e))
         out.append(SimpleNamespace(values=SimpleNamespace(dtype=dtype),
-                                   nulls=None, dictionary=dictionary))
+                                   nulls=True if nullable else None,
+                                   dictionary=dictionary))
     return out
 
 

@@ -1,5 +1,6 @@
 """Device column generation: the port's torch generators (uint64 emulated
-in int64) are bit-identical to the reference package's jnp generators."""
+in int64) are bit-identical to the reference package's jnp generators,
+for lineitem and the TPC-H dimensions the join slice builds from."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +17,9 @@ INT64_MAX = np.iinfo(np.int64).max
 EDGES = np.array([0, -1, 1, INT64_MIN, INT64_MAX, INT64_MIN + 1,
                   INT64_MAX - 1, 1 << 32, -(1 << 32)], dtype=np.int64)
 LINEITEM = sorted(tgen._TABLES[("tpch", "lineitem")][1])
+DIMENSIONS = [(t, c) for t in ("orders", "customer", "part", "partsupp",
+                               "supplier")
+              for c in sorted(tgen._TABLES[("tpch", t)][1])]
 
 
 def _values():
@@ -45,11 +49,11 @@ def test_unsigned_remainder(n):
     np.testing.assert_array_equal(got, want)
 
 
-def _compare(column, sf, lo, hi):
+def _compare(column, sf, lo, hi, table="lineitem"):
     idx = np.arange(lo, hi, dtype=np.int64)
-    want = np.asarray(jgen.column("tpch", "lineitem", column, sf,
+    want = np.asarray(jgen.column("tpch", table, column, sf,
                                   jnp.asarray(idx)))
-    got = tgen.column("tpch", "lineitem", column, sf,
+    got = tgen.column("tpch", table, column, sf,
                       torch.from_numpy(idx)).numpy()
     assert got.dtype == want.dtype, (column, got.dtype, want.dtype)
     np.testing.assert_array_equal(got, want)
@@ -68,11 +72,28 @@ def test_lineitem_sf10_window_bit_exact(column):
     _compare(column, 10.0, n - (1 << 20), n)
 
 
+@pytest.mark.parametrize("table,column", DIMENSIONS,
+                         ids=[f"{t}.{c}" for t, c in DIMENSIONS])
+def test_dimension_sf001_bit_exact(table, column):
+    n = jcatalog.table_row_count(table, 0.01, "tpch")
+    _compare(column, 0.01, 0, n, table)
+
+
+@pytest.mark.parametrize("table,column", DIMENSIONS,
+                         ids=[f"{t}.{c}" for t, c in DIMENSIONS])
+def test_dimension_sf10_window_bit_exact(table, column):
+    """The last 64K rows of each dimension at SF10."""
+    n = jcatalog.table_row_count(table, 10.0, "tpch")
+    _compare(column, 10.0, max(0, n - (1 << 16)), n, table)
+
+
 def test_dictionaries_and_support_match_reference():
-    for c in LINEITEM:
-        assert tgen.supported("tpch", "lineitem", c)
-        assert tgen.dictionary("tpch", "lineitem", c) == \
-            jgen.dictionary("tpch", "lineitem", c)
-        assert tgen.encoding_hint("tpch", "lineitem", c) == \
-            jgen.encoding_hint("tpch", "lineitem", c)
-    assert not tgen.supported("tpch", "orders", "orderkey")
+    for t, c in [("lineitem", c) for c in LINEITEM] + DIMENSIONS:
+        assert tgen.supported("tpch", t, c)
+        assert tgen.dictionary("tpch", t, c) == \
+            jgen.dictionary("tpch", t, c)
+        assert tgen.encoding_hint("tpch", t, c) == \
+            jgen.encoding_hint("tpch", t, c)
+    for t in ("orders", "customer", "part", "partsupp", "supplier"):
+        assert tgen._TABLES[("tpch", t)][1] == jgen._TABLES[("tpch", t)][1]
+    assert not tgen.supported("tpch", "nation", "nationkey")
