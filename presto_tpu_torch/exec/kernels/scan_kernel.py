@@ -63,6 +63,12 @@ KERNEL_DECLINE_REASONS = (
     #                          dictionary build column (join.py)
     "JoinBuildSize",         # build operands over the byte cap, or a
     #                          failed operand reservation (join.py)
+    "WindowFunctionShape",   # a window function outside the kernel's
+    #                          set, an explicit frame, constant extras, or
+    #                          float sum / avg (window.py)
+    "WindowInputSize",       # a failed reservation of the window launch's
+    #                          sorted batch, scratch and outputs
+    #                          (window.py); the query raises
 )
 
 THREADS = 256
@@ -85,12 +91,15 @@ KERNEL_SPAN_MAX_GROUPS = 1 << 15
 # hash mode's table cap
 KERNEL_HASH_MAX_SLOTS = 1 << 16
 
+# the fused scan kernels' wrappers
+SCAN_KERNELS = ("scan_direct", "scan_span", "scan_hash")
 # kernel launches per wrapper: each wrapper adds one where it launches its
-# kernel (plain-version runs on CPU tensors are not launches)
-LAUNCHES: Dict[str, int] = {"scan_direct": 0, "scan_span": 0, "scan_hash": 0}
-# of those, the launches whose plan carries a join or semi-join probe step
-# (kernel #5)
-JOIN_LAUNCHES: Dict[str, int] = {k: 0 for k in LAUNCHES}
+# kernel (plain-version runs on CPU tensors are not launches); window_scan
+# is the window kernel's (window.py)
+LAUNCHES: Dict[str, int] = {k: 0 for k in SCAN_KERNELS + ("window_scan",)}
+# of the scan kernels' launches, those whose plan carries a join or
+# semi-join probe step (kernel #5)
+JOIN_LAUNCHES: Dict[str, int] = {k: 0 for k in SCAN_KERNELS}
 
 
 class KernelMetrics:
@@ -100,6 +109,7 @@ class KernelMetrics:
         self._lock = threading.Lock()
         self.declined: Dict[str, int] = {}
         self.scan_programs = 0
+        self.window_programs = 0
 
     def record_declined(self, reason: str) -> None:
         with self._lock:
@@ -109,10 +119,15 @@ class KernelMetrics:
         with self._lock:
             self.scan_programs += 1
 
+    def record_window_run(self) -> None:
+        with self._lock:
+            self.window_programs += 1
+
     def snapshot(self) -> dict:
         with self._lock:
             return {"declined": dict(self.declined),
-                    "scan_programs": self.scan_programs}
+                    "scan_programs": self.scan_programs,
+                    "window_programs": self.window_programs}
 
 
 KERNEL_METRICS = KernelMetrics()

@@ -1,0 +1,265 @@
+"""Prefix-scan window kernel, host side: gates, sort, wrapper.
+
+The port of presto_tpu/exec/kernels/window.py.  Every window function of
+one WindowNode that shares a (partition, order) spec and runs over the
+default frame (RANGE UNBOUNDED PRECEDING .. CURRENT ROW) is evaluated in
+ONE launch of a hand-written CUDA kernel (csrc/window_scan.cu) over the
+sorted run:
+
+  sort      stays OUTSIDE the kernel: ops.sort_indices is the single
+            definition of order semantics (dictionary ranks, NULL
+            sentinels, padding last), shared with ops.window_batch so
+            both paths see the same permutation.
+  segments  partition / peer boundaries from null-aware change flags
+            over the sorted key columns (ops._row_change's rule), plus the
+            live -> padding mask transition; segment starts and peer ends
+            are max / min prefix scans over the flagged indices.
+  frames    running count / sum / avg read two points of an inclusive
+            prefix sum: incl[fe] - incl[fs] + contrib[fs].
+
+Parity contract: every scan is an int64 max, min or add, exact under any
+association, so the kernel, its plain version (window_scan_plain) and the
+reference's Pallas kernel give bit-identical live rows whatever the
+tiling.  Float sum / avg would re-associate, so they decline
+(WindowFunctionShape), as in the reference.
+
+Gates (kernelDeclined reasons, scan_kernel.KERNEL_DECLINE_REASONS), in
+the reference's order:
+  WindowFunctionShape  a function outside _SUPPORTED, an explicit frame,
+                       constant extras, or float sum / avg
+  WindowInputSize      the task's memory context cannot reserve the
+                       sorted batch, the kernel's scratch and its outputs
+                       (window_bytes); the reference's 8 MiB VMEM cap has
+                       no counterpart on a multi-CTA scan over device
+                       memory
+The reference's WindowKeyShape (lazy columns) cannot fire: the port's
+Column has no late-materialized form.  After WindowFunctionShape the
+caller runs ops.window_batch; WindowInputSize raises, since window_batch
+would allocate more than the launch, with nothing reserved.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from .. import operators as ops
+from ..batch import Batch, Column
+from .scan_kernel import _DTYPES, KERNEL_METRICS, LAUNCHES
+
+_SUPPORTED = ("row_number", "rank", "dense_rank", "count", "count_star",
+              "sum", "avg")
+# csrc/window_scan.cu K_* spec kinds
+_KINDS = {"row_number": 0, "rank": 1, "dense_rank": 2, "count": 3,
+          "count_star": 3, "sum": 4, "avg": 5}
+# rows of one tile of the kernel's tile and scan passes: 256 threads of
+# 16 consecutive rows (csrc/window_scan.cu TILE)
+TILE_ROWS = 256 * 16
+# per-tile aggregates before the per-slot (count, sum) pairs: max
+# partition start, max peer start, min peer start, peer-start count
+_FIXED_FIELDS = 4
+# descriptor words the kernel stages in shared memory (csrc MAX_DESC)
+MAX_DESC = 1024
+
+
+def _needed(partition_names, orderings, specs) -> List[str]:
+    """The kernel's column operands, in input order, without repeats."""
+    out: List[str] = []
+    for nm in (tuple(partition_names) + tuple(o for o, _ in orderings)
+               + tuple(s.arg for s in specs if s.arg)):
+        if nm not in out:
+            out.append(nm)
+    return out
+
+
+def _slots(specs) -> Tuple[List[Tuple[Optional[str], bool]], List[int]]:
+    """The prefix-sum slots the count / sum / avg specs read, one per
+    argument (None for count(*)): [(arg, needs the value sum)], and each
+    spec's slot index (-1 for ranking functions)."""
+    slots: List[Tuple[Optional[str], bool]] = []
+    of_spec = []
+    for s in specs:
+        if s.name in ("row_number", "rank", "dense_rank"):
+            of_spec.append(-1)
+            continue
+        arg = None if s.name == "count_star" else s.arg
+        need_sum = s.name in ("sum", "avg")
+        k = next((i for i, (a, _) in enumerate(slots) if a == arg), None)
+        if k is None:
+            k = len(slots)
+            slots.append((arg, need_sum))
+        elif need_sum:
+            slots[k] = (arg, True)
+        of_spec.append(k)
+    return slots, of_spec
+
+
+def window_bytes(n: int, columns: Dict[str, tuple], specs) -> int:
+    """Device bytes of one window launch over n rows: the permutation and
+    the sorted batch (mask, and the values and nulls of every column in
+    `columns`, {name: (values, nulls or None)}: the gather moves them all,
+    the kernel's operands among them), the kernel's scratch (row flags,
+    two per-tile aggregate tables, the segment, peer and dense-rank scans
+    and a count and sum scan per slot) and the outputs (int64 values,
+    plus a null byte for sum / avg)."""
+    operands = n + 8 * n
+    for v, nl in columns.values():
+        operands += n * (v.element_size() + (1 if nl is not None else 0))
+    n_slots = len(_slots(specs)[0])
+    n_tiles = -(-n // TILE_ROWS)
+    scratch = n + 8 * (2 * n_tiles * (_FIXED_FIELDS + 2 * n_slots)
+                       + n * (4 + 2 * n_slots))
+    outputs = sum(n * (9 if s.name in ("sum", "avg") else 8) for s in specs)
+    return operands + scratch + outputs
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper and its plain version
+# ---------------------------------------------------------------------------
+
+def window_scan(mask, arrays: Dict[str, tuple], partition_names, orderings,
+                specs):
+    """Window outputs of a sorted run: `mask` (N,) bool, `arrays` {name:
+    (values, nulls or None)} for every partition / order key and argument
+    column, in sorted order.  CUDA tensors launch csrc/window_scan.cu (or
+    raise); CPU tensors run window_scan_plain.  Returns one (int64
+    values, bool nulls or None) per spec; nulls only for sum / avg."""
+    if mask.device.type == "cpu":
+        return window_scan_plain(mask, arrays, partition_names, orderings,
+                                 specs)
+    device = mask.device
+    if device.type != "cuda":
+        raise NotImplementedError(f"window kernel on {device.type}")
+    names = _needed(partition_names, orderings, specs)
+    for t in [mask] + [a for nm in names for a in arrays[nm]
+                       if a is not None]:
+        if t.device != device or not t.is_contiguous():
+            raise ValueError("window operands must be contiguous on one "
+                             "device")
+    if mask.dtype != torch.bool or any(
+            arrays[nm][1] is not None and arrays[nm][1].dtype != torch.bool
+            for nm in names):
+        raise ValueError("the mask and null flags must be bool")
+    if any(s.name in ("sum", "avg") and arrays[s.arg][0].is_floating_point()
+           for s in specs):
+        raise ValueError("the window kernel sums integers only")
+    N = int(mask.numel())
+    outs = [(torch.empty(N, dtype=torch.int64, device=device),
+             torch.empty(N, dtype=torch.bool, device=device)
+             if s.name in ("sum", "avg") else None) for s in specs]
+    if N == 0:
+        return outs
+    slots, of_spec = _slots(specs)
+    n_tiles = -(-N // TILE_ROWS)
+    n_fields = _FIXED_FIELDS + 2 * len(slots)
+    words = [N, len(names), len(partition_names), len(orderings),
+             len(slots), len(specs), n_tiles, mask.data_ptr()]
+    for nm in names:
+        v, nl = arrays[nm]
+        if v.dtype not in _DTYPES:
+            raise ValueError(f"window operand {nm}: dtype {v.dtype}")
+        words += [_DTYPES[v.dtype], v.data_ptr(),
+                  0 if nl is None else nl.data_ptr()]
+    words += [names.index(p) for p in partition_names]
+    words += [names.index(o) for o, _ in orderings]
+    for arg, need_sum in slots:
+        words += [-1 if arg is None else names.index(arg), int(need_sum)]
+    for spec, k, (vals, nulls) in zip(specs, of_spec, outs):
+        words += [_KINDS[spec.name], k, vals.data_ptr(),
+                  0 if nulls is None else nulls.data_ptr()]
+    if len(words) > MAX_DESC:
+        raise ValueError(f"window descriptor of {len(words)} words over "
+                         f"{MAX_DESC}")
+    desc = torch.tensor(words, dtype=torch.int64).to(device)
+    flags = torch.empty(N, dtype=torch.uint8, device=device)
+    scratch = torch.empty(2 * n_tiles * n_fields + N * (4 + 2 * len(slots)),
+                          dtype=torch.int64, device=device)
+    from .build import load
+    fn = load("window_scan").window_scan_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(desc.data_ptr(), len(words), N, n_tiles, n_fields, len(slots),
+            flags.data_ptr(), scratch.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"window_scan launch failed: CUDA error {rc}")
+    LAUNCHES["window_scan"] += 1
+    return outs
+
+
+def window_scan_plain(mask, arrays: Dict[str, tuple], partition_names,
+                      orderings, specs):
+    """The kernel's function in plain torch (the reference's
+    _build_runner body, presto_tpu/exec/kernels/window.py:132-200), with
+    torch.cummax / cummin / cumsum for the pairing scans: exact for int64
+    under any association."""
+    cols = {nm: Column(v, nl) for nm, (v, nl) in arrays.items()}
+    part_start, peer_start = ops.window_flags(mask, cols, partition_names,
+                                              orderings)
+    seg_start, peer_start_idx, peer_end = ops.segment_bounds(part_start,
+                                                             peer_start)
+    return [ops.default_frame_window(spec, mask, cols, seg_start, peer_start,
+                                     peer_start_idx, peer_end)
+            for spec in specs]
+
+
+# ---------------------------------------------------------------------------
+# pipeline entry
+# ---------------------------------------------------------------------------
+
+def try_window_kernel(batch: Batch, partition_names, orderings, specs, *,
+                      declined, runtime_stats=None, pool=None):
+    """Evaluate a WindowNode's shared-spec functions through the window
+    kernel when eligible.  Returns the output Batch (sorted row order, the
+    same contract as ops.window_batch), or None after metering
+    kernelDeclinedWindowFunctionShape: ops.window_batch takes over only
+    for the functions the kernel does not compute.  `pool` (the task's
+    MemoryContext) is charged window_bytes for the launch; when it cannot
+    hold them, kernelDeclinedWindowInputSize is metered and the call
+    raises (window_batch would allocate more, unaccounted)."""
+    for spec in specs:
+        if (spec.name not in _SUPPORTED or spec.frame is not None
+                or spec.extra):
+            declined("WindowFunctionShape")
+            return None
+        if spec.name in ("sum", "avg") and spec.is_float:
+            # float cumsum re-associates the reduction tree; declining
+            # keeps the bit-identity contract
+            declined("WindowFunctionShape")
+            return None
+    names = _needed(partition_names, orderings, specs)
+    n = batch.capacity
+    nbytes = window_bytes(
+        n, {nm: (c.values, c.nulls) for nm, c in batch.columns.items()},
+        specs)
+    if pool is not None and not pool.try_reserve(nbytes):
+        declined("WindowInputSize")
+        raise NotImplementedError(
+            f"kernelDeclinedWindowInputSize: the window launch needs "
+            f"{nbytes} bytes beyond the task's memory budget (a spilling "
+            f"window is not ported)")
+    try:
+        # the sort and gather are shared with window_batch: one definition
+        # of order semantics, one permutation
+        sort_keys = [(p, "ASC_NULLS_FIRST") for p in partition_names] \
+            + list(orderings)
+        perm = ops.sort_indices(batch, sort_keys)
+        cols = {nm: c.gather(perm) for nm, c in batch.columns.items()}
+        mask = batch.mask[perm]
+        outs = window_scan(mask, {nm: (cols[nm].values, cols[nm].nulls)
+                                  for nm in names},
+                           tuple(partition_names), tuple(orderings),
+                           tuple(specs))
+    finally:
+        if pool is not None:
+            pool.free(nbytes)
+    out = dict(cols)
+    for spec, (vals, nulls) in zip(specs, outs):
+        out[spec.output] = Column(vals, nulls)
+    KERNEL_METRICS.record_window_run()
+    if runtime_stats is not None:
+        runtime_stats.add("kernelWindowPrograms", 1)
+    return Batch(out, mask)

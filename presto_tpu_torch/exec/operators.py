@@ -5,8 +5,10 @@ mixer and key hashing, filter application, direct-slot, span and hashed
 open-addressing aggregation (init / update / finalize, BASIC aggregates),
 the decimal average, the join build and probe primitives (the hash-sorted
 BuildTable, the direct-address lookup, the semi-join markers), sort
-permutations and compaction.  Every function takes tensors on one device
-and allocates on that device.
+permutations, TopN and Limit, window functions (default_frame_window,
+the window kernel's function; window_batch, the path after its
+WindowFunctionShape decline) and compaction.  Every function takes
+tensors on one device and allocates on that device.
 """
 from __future__ import annotations
 
@@ -605,10 +607,377 @@ def sort_indices(batch: Batch, keys: List[Tuple[str, str]]):
     return perm
 
 
+def topn(batch: Batch, keys: List[Tuple[str, str]], n: int) -> Batch:
+    """Take first n rows by sort order; result capacity = min(n, rows)."""
+    perm = sort_indices(batch, keys)[:n]
+    cols = {name: c.gather(perm) for name, c in batch.columns.items()}
+    return Batch(cols, batch.mask[perm])
+
+
 def sort_batch(batch: Batch, keys: List[Tuple[str, str]]) -> Batch:
     perm = sort_indices(batch, keys)
     cols = {name: c.gather(perm) for name, c in batch.columns.items()}
     return Batch(cols, batch.mask[perm])
+
+
+def limit(batch: Batch, n: int, already_consumed) -> Tuple[Batch, object]:
+    """Keep first n valid rows across batches; returns new consumed count."""
+    rank = torch.cumsum(batch.mask.to(torch.int64), 0) + already_consumed
+    keep = batch.mask & (rank <= n)
+    return (batch.with_mask(keep),
+            already_consumed + batch.mask.to(torch.int64).sum())
+
+
+# ---------------------------------------------------------------------------
+# window functions
+# (reference: presto-main-base/.../operator/WindowOperator.java:69; default
+#  frame RANGE UNBOUNDED PRECEDING .. CURRENT ROW, i.e. running aggregates
+#  include the current row's full peer group)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class WindowSpec:
+    """One window function over the node's shared (partition, order) spec.
+
+    frame: None = default (RANGE UNBOUNDED PRECEDING .. CURRENT ROW) or a
+    normalized tuple (type, start_kind, start_off, end_kind, end_off) per
+    the reference WindowFrame (presto-main-base/.../operator/window/).
+    extra: constant arguments (lag/lead offset + default, nth_value n,
+    ntile n)."""
+    name: str
+    output: str
+    arg: Optional[str] = None   # input column (None for ranking / count(*))
+    is_float: bool = False      # float accumulation (vs int64 / decimal)
+    frame: Optional[tuple] = None
+    extra: tuple = ()
+
+
+def _row_change(col: Column):
+    """[i] = row i differs from row i-1 (null-aware: two NULLs are equal,
+    NaN equals NaN — grouping semantics, not comparison semantics)."""
+    v = col.values
+    a, b = v[1:], v[:-1]
+    if v.is_floating_point():
+        eq = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    else:
+        eq = a == b
+    if col.nulls is not None:
+        na, nb = col.nulls[1:], col.nulls[:-1]
+        eq = torch.where(na | nb, na & nb, eq)
+    return torch.cat([torch.ones(1, dtype=torch.bool, device=v.device), ~eq])
+
+
+def segment_bounds(part_start, peer_start):
+    """(seg_start, peer_start_idx, peer_end) row indices of the sorted
+    run from its partition-start and peer-start flags: inclusive max
+    scans of the flagged indices, and the next peer group's start (a
+    reverse min scan) less one.  Integer scans: exact in any order."""
+    n = part_start.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=part_start.device)
+    zero = torch.zeros_like(idx)
+    seg_start = torch.cummax(torch.where(part_start, idx, zero), 0).values
+    peer_start_idx = torch.cummax(torch.where(peer_start, idx, zero),
+                                  0).values
+    return seg_start, peer_start_idx, _next_start(peer_start, idx) - 1
+
+
+def _next_start(starts, idx):
+    """[i] = the first flagged index after i (n when none)."""
+    n = idx.shape[0]
+    at_or_after = torch.flip(torch.cummin(torch.flip(
+        torch.where(starts, idx, torch.full_like(idx, n)), [0]), 0).values,
+        [0])
+    return torch.cat([at_or_after[1:],
+                      torch.full((1,), n, dtype=torch.int64,
+                                 device=idx.device)])
+
+
+def window_flags(mask, arrays, partition_names, orderings):
+    """(part_start, peer_start) of a sorted run: the first row, the
+    live -> padding transition (so padding never joins, or extends the
+    frame of, the last real partition) and each partition key's change
+    start a partition; each order key's change also starts a peer group.
+    `arrays`: {name: Column} of the sorted run."""
+    n = mask.shape[0]
+    part_start = torch.zeros(n, dtype=torch.bool, device=mask.device)
+    if n:
+        part_start[0] = True
+        part_start[1:] |= mask[1:] != mask[:-1]
+        for p in partition_names:
+            part_start |= _row_change(arrays[p])
+    peer_start = part_start.clone()
+    if n:
+        for o, _ in orderings:
+            peer_start |= _row_change(arrays[o])
+    return part_start, peer_start
+
+
+def default_frame_window(spec: WindowSpec, mask, cols, seg_start,
+                         peer_start, peer_start_idx, peer_end):
+    """(int64 values, nulls or None) of a ranking function, or of an
+    integer count / sum / avg over the default frame (RANGE UNBOUNDED
+    PRECEDING .. CURRENT ROW), over a sorted run: the window kernel's
+    function (kernels/window.py), shared by its plain version and
+    window_batch.  Frame aggregates read two points of an inclusive
+    prefix sum, incl[fe] - incl[fs] + contrib[fs]; int64 throughout, so
+    exact under any association.  `cols`: {name: Column} of the run."""
+    n = mask.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=mask.device)
+    if spec.name == "row_number":
+        return idx - seg_start + 1, None
+    if spec.name == "rank":
+        return peer_start_idx - seg_start + 1, None
+    if spec.name == "dense_rank":
+        cp = torch.cumsum(peer_start.to(torch.int64), 0)
+        return cp - cp[seg_start] + 1, None
+    fs, fe = seg_start, peer_end
+    empty = fe < fs
+    fs_c = fs.clamp(0, max(n - 1, 0))
+    fe_c = fe.clamp(0, max(n - 1, 0))
+    zero = torch.zeros_like(idx)
+    if spec.name == "count_star":
+        contrib = mask
+    else:
+        c = cols[spec.arg]
+        contrib = mask if c.nulls is None else (mask & ~c.nulls)
+    ci = contrib.to(torch.int64)
+    cnt_incl = torch.cumsum(ci, 0)
+    frame_cnt = torch.where(empty, zero,
+                            cnt_incl[fe_c] - cnt_incl[fs_c] + ci[fs_c])
+    if spec.name in ("count", "count_star"):
+        return frame_cnt, None
+    xv = torch.where(contrib, cols[spec.arg].values.to(torch.int64), zero)
+    sum_incl = torch.cumsum(xv, 0)
+    frame_sum = torch.where(empty, zero,
+                            sum_incl[fe_c] - sum_incl[fs_c] + xv[fs_c])
+    isempty = frame_cnt == 0     # SQL: aggregate of no rows is NULL
+    if spec.name == "sum":
+        return frame_sum, isempty
+    return _decimal_avg(frame_sum, frame_cnt, isempty), isempty
+
+
+def _range_reduce(x, fs, fe, is_min: bool, ident):
+    """Per-row min/max of x over index range [fs, fe] (sparse doubling
+    table: log2(n) precomputed levels, two gathers per query row).  Empty
+    ranges (fe < fs) return ident."""
+    n = x.shape[0]
+    fill = torch.full((), ident, dtype=x.dtype, device=x.device)
+    pick = torch.minimum if is_min else torch.maximum
+    levels = [x]
+    size = 1
+    while size < n:
+        cur = levels[-1]
+        shifted = torch.cat([cur[size:], fill.expand(size)])
+        levels.append(pick(cur, shifted))
+        size <<= 1
+    stacked = torch.stack(levels)                       # (L, n)
+    length = torch.clamp(fe - fs + 1, min=1)
+    # floor(log2(length)), exact for lengths below 2**53
+    j = torch.frexp(length.to(torch.float64)).exponent.to(torch.int64) - 1
+    fs_c = fs.clamp(0, n - 1)
+    hi = (fe - (torch.ones_like(j) << j) + 1).clamp(0, n - 1)
+    r = pick(stacked[j, fs_c], stacked[j, hi])
+    return torch.where(fe < fs, fill, r)
+
+
+def window_batch(batch: Batch, partition_names: Tuple[str, ...],
+                 orderings: Tuple[Tuple[str, str], ...],
+                 specs: Tuple[WindowSpec, ...]) -> Batch:
+    """Evaluate all window functions sharing one (partition, order) spec.
+
+    Sorts the whole batch by (partition keys, order keys) — padding rows
+    last, forming their own segment — then computes every function with
+    segmented prefix scans / sparse-table range reductions: no
+    per-partition loop.  Frames per reference WindowOperator.java:69 +
+    operator/window/: ROWS with offsets, RANGE with unbounded/current-row
+    bounds.  Output row order is the sorted order (SQL does not guarantee
+    WindowNode output order).  The window kernel (kernels/window.py) runs
+    the functions it supports; this is the path for the others, after a
+    WindowFunctionShape decline."""
+    sort_keys = [(p, "ASC_NULLS_FIRST") for p in partition_names] \
+        + list(orderings)
+    perm = sort_indices(batch, sort_keys)   # [] keys still sorts padding last
+    cols = {n: c.gather(perm) for n, c in batch.columns.items()}
+    mask = batch.mask[perm]
+
+    n = batch.capacity
+    device = mask.device
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    part_start, peer_start = window_flags(mask, cols, partition_names,
+                                          orderings)
+    seg_start, peer_start_idx, peer_end = segment_bounds(part_start,
+                                                         peer_start)
+    seg_end = _next_start(part_start, idx) - 1
+
+    def frame_bounds(spec: WindowSpec):
+        """(fs, fe) row index bounds of the spec's frame, clamped to the
+        partition; empty frames have fe < fs."""
+        f = spec.frame
+        if f is None:
+            return seg_start, peer_end
+        ftype, sk, so, ek, eo = f
+        if ftype == "RANGE":
+            fs = {"UNBOUNDED_PRECEDING": seg_start,
+                  "CURRENT": peer_start_idx}.get(sk)
+            fe = {"CURRENT": peer_end,
+                  "UNBOUNDED_FOLLOWING": seg_end}.get(ek)
+            if fs is None or fe is None:
+                raise NotImplementedError(
+                    "RANGE frame bounds with offsets")
+            return fs, fe
+        fs = {"UNBOUNDED_PRECEDING": seg_start, "CURRENT": idx,
+              "PRECEDING": idx - (so or 0),
+              "FOLLOWING": idx + (so or 0),
+              "UNBOUNDED_FOLLOWING": seg_end + 1}[sk]
+        fe = {"UNBOUNDED_FOLLOWING": seg_end, "CURRENT": idx,
+              "PRECEDING": idx - (eo or 0),
+              "FOLLOWING": idx + (eo or 0),
+              "UNBOUNDED_PRECEDING": seg_start - 1}[ek]
+        return torch.maximum(fs, seg_start), torch.minimum(fe, seg_end)
+
+    out = dict(cols)
+    for spec in specs:
+        if spec.name in ("row_number", "rank", "dense_rank") or (
+                spec.frame is None and (
+                    spec.name in ("count", "count_star")
+                    or (spec.name in ("sum", "avg") and not spec.is_float))):
+            out[spec.output] = Column(*default_frame_window(
+                spec, mask, cols, seg_start, peer_start, peer_start_idx,
+                peer_end))
+            continue
+        if spec.name == "percent_rank":
+            size = seg_end - seg_start + 1
+            rank = peer_start_idx - seg_start + 1
+            denom = torch.clamp(size - 1, min=1)
+            v = (rank - 1).to(torch.float64) / denom
+            out[spec.output] = Column(
+                torch.where(size <= 1, torch.zeros_like(v), v), None)
+            continue
+        if spec.name == "cume_dist":
+            size = seg_end - seg_start + 1
+            thru = peer_end - seg_start + 1
+            out[spec.output] = Column(
+                thru.to(torch.float64) / torch.clamp(size, min=1), None)
+            continue
+        if spec.name == "ntile":
+            nt = int(spec.extra[0])
+            size = seg_end - seg_start + 1
+            rn = idx - seg_start
+            q, r = size // nt, size % nt
+            big = r * (q + 1)
+            bucket = torch.where(
+                rn < big, rn // torch.clamp(q + 1, min=1),
+                r + (rn - big) // torch.clamp(q, min=1))
+            out[spec.output] = Column(bucket + 1, None)
+            continue
+
+        if spec.name in ("lag", "lead", "first_value", "last_value",
+                         "nth_value"):
+            col = cols[spec.arg]
+            fs, fe = frame_bounds(spec)
+            if spec.name in ("lag", "lead"):
+                off = int(spec.extra[0] if spec.extra else 1)
+                src = idx - off if spec.name == "lag" else idx + off
+                valid = (src >= seg_start) & (src <= seg_end) & mask
+            elif spec.name == "first_value":
+                src = fs
+                valid = (fe >= fs) & mask
+            elif spec.name == "last_value":
+                src = fe
+                valid = (fe >= fs) & mask
+            else:   # nth_value(x, k)
+                k = int(spec.extra[0] if spec.extra else 1)
+                src = fs + k - 1
+                valid = (src >= fs) & (src <= fe) & mask
+            src_c = src.clamp(0, max(n - 1, 0))
+            vals = col.values[src_c]
+            nulls = col.null_mask()[src_c] | ~valid
+            default = spec.extra[1] if (spec.name in ("lag", "lead")
+                                        and len(spec.extra) > 1) else None
+            if default is not None:
+                if col.dictionary is not None:
+                    raise NotImplementedError(
+                        "lag/lead default over string columns")
+                vals = torch.where(valid, vals, torch.full_like(vals,
+                                                                default))
+                nulls = torch.where(valid, col.null_mask()[src_c],
+                                    torch.zeros_like(valid))
+            out[spec.output] = Column(vals, nulls, col.dictionary)
+            continue
+
+        # frame aggregates
+        fs, fe = frame_bounds(spec)
+        empty = fe < fs
+        fs_c = fs.clamp(0, max(n - 1, 0))
+        fe_c = fe.clamp(0, max(n - 1, 0))
+        if spec.name == "count_star":
+            contrib = mask
+            x = contrib.to(torch.int64)
+        else:
+            c = cols[spec.arg]
+            contrib = mask if c.nulls is None else (mask & ~c.nulls)
+            x = c.values
+        zero1 = torch.zeros(1, dtype=torch.int64, device=device)
+        cnt0 = torch.cat([zero1, torch.cumsum(contrib.to(torch.int64), 0)])
+        frame_cnt = torch.where(empty, torch.zeros_like(fs),
+                                cnt0[fe_c + 1] - cnt0[fs_c])
+        if spec.name in ("count", "count_star"):
+            out[spec.output] = Column(frame_cnt, None)
+        elif spec.name in ("sum", "avg"):
+            dt = torch.float64 if spec.is_float else torch.int64
+            xv = torch.where(contrib, x.to(dt), torch.zeros((), dtype=dt,
+                                                            device=device))
+            ps0 = torch.cat([zero1.to(dt), torch.cumsum(xv, 0)])
+            frame_sum = torch.where(empty, torch.zeros((), dtype=dt,
+                                                       device=device),
+                                    ps0[fe_c + 1] - ps0[fs_c])
+            isempty = frame_cnt == 0     # SQL: aggregate of no rows is NULL
+            if spec.name == "sum":
+                out[spec.output] = Column(frame_sum, isempty)
+            elif spec.is_float:
+                safe = torch.where(isempty, torch.ones_like(frame_cnt),
+                                   frame_cnt)
+                out[spec.output] = Column(frame_sum / safe, isempty)
+            else:
+                out[spec.output] = Column(
+                    _decimal_avg(frame_sum, frame_cnt, isempty), isempty)
+        elif spec.name in ("min", "max"):
+            is_min = spec.name == "min"
+            col = cols[spec.arg]
+            was_bool = x.dtype == torch.bool
+            # string columns: dictionary codes compare by LEXICAL rank,
+            # not code value
+            code_of_rank = None
+            if col.dictionary is not None:
+                d = np.array(col.dictionary)
+                rank_of_code = np.argsort(np.argsort(d)).astype(np.int64)
+                code_of_rank = torch.from_numpy(
+                    np.argsort(rank_of_code)).to(device)
+                x = torch.from_numpy(rank_of_code).to(device)[
+                    x.to(torch.int64)]
+            if was_bool:
+                x = x.to(torch.int8)
+            if x.is_floating_point():
+                ident = float("inf") if is_min else float("-inf")
+            else:
+                info = torch.iinfo(x.dtype)
+                ident = info.max if is_min else info.min
+            xv = torch.where(contrib, x, torch.full_like(x, ident))
+            vals = _range_reduce(xv, fs, fe, is_min, ident)
+            isempty = frame_cnt == 0
+            if was_bool:
+                vals = vals.to(torch.bool)
+            if col.dictionary is not None:
+                # rank -> code; empty frames hold the identity sentinel,
+                # clamp before the gather (the result is NULL there)
+                vals = code_of_rank[torch.where(isempty,
+                                                torch.zeros_like(vals), vals)]
+                out[spec.output] = Column(vals, isempty, col.dictionary)
+            else:
+                out[spec.output] = Column(vals, isempty)
+        else:
+            raise NotImplementedError(f"window function {spec.name}")
+    return Batch(out, mask)
 
 
 def compact(batch: Batch, out_capacity: Optional[int] = None) -> Batch:

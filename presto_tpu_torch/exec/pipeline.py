@@ -7,11 +7,14 @@ semi-join chain runs through the hand-written CUDA scan kernels (direct
 slots for G <= 64, exec/kernels/scan_kernel.py; span or hash slots
 beyond, exec/kernels/grouped.py; the probes inside them,
 exec/kernels/join.py), with the join build sides drained from the
-streaming sources, Sort and Output.  Every tensor is allocated on the
-task's device (TaskContext.device).  A plan shape or option outside the
-slices raises NotImplementedError naming what is missing (a streaming
-Join / SemiJoin outside a fused aggregation chain among them); nothing
-falls back quietly.
+streaming sources, Sort, TopN, Limit, Window (every function of a
+WindowNode in one launch of the CUDA window kernel over the sorted run,
+exec/kernels/window.py; operators.window_batch after its metered
+WindowFunctionShape decline) and Output.  Every tensor is allocated on the task's device
+(TaskContext.device).  A plan shape or option outside the slices raises
+NotImplementedError naming what is missing (a streaming Join / SemiJoin
+outside a fused aggregation chain among them); nothing falls back
+quietly.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from ..spi import plan as P
 from ..spi.expr import VariableReferenceExpression
 from . import operators as ops
 from .batch import Batch, Column, batch_to_page
-from .lowering import Lowering, canonical_name, expr_has_params, torch_dtype
+from .lowering import (Lowering, canonical_name, constant_device_value,
+                       expr_has_params, torch_dtype)
 from .memory import MemoryContext, MemoryPool
 
 DEFAULT_CAPACITY = 1 << 20
@@ -67,9 +71,10 @@ class ExecutionConfig:
     storage_zone_rows: int = 1 << 16
     storage_encodings: bool = True
     # -- fused scan kernel (exec/kernels) --------------------------------
-    # "auto" and "kernel" run the hand-written CUDA kernel (its plain
-    # torch version for CPU tensors); "xla" names the reference's jnp
-    # chain, whose torch counterpart is not ported yet
+    # "auto" and "kernel" run the hand-written CUDA kernels (their plain
+    # torch versions for CPU tensors); "xla" names the reference's jnp
+    # paths, not ported: a window or an aggregation meters
+    # kernelDeclinedDisabled and raises
     scan_kernel: str = "auto"
     # staging discipline of the kernel's input slabs; "double" (a
     # cp.async/TMA stage ring) is not ported yet
@@ -168,6 +173,15 @@ class PlanCompiler:
 
     def _params_for(self, expr) -> Optional[torch.Tensor]:
         return self.ctx.params if expr_has_params(expr) else None
+
+    def _meter_declined(self, reason: str) -> None:
+        """One kernelDeclined{reason}: the process roll-up and the query's
+        RuntimeStats."""
+        from .kernels.scan_kernel import KERNEL_METRICS
+        KERNEL_METRICS.record_declined(reason)
+        rs = self.ctx.runtime_stats
+        if rs is not None:
+            rs.add(f"kernelDeclined{reason}", 1)
 
     # -- leaves -----------------------------------------------------------
     def _compile_TableScanNode(self, node: P.TableScanNode) -> BatchSource:
@@ -312,6 +326,94 @@ class PlanCompiler:
             yield ops.sort_batch(merged, keys)
         return BatchSource(gen, names, types)
 
+    # -- limit / topn / window --------------------------------------------
+    def _compile_LimitNode(self, node: P.LimitNode) -> BatchSource:
+        src = self._compile(node.source)
+        n = node.count
+
+        def gen():
+            consumed = torch.zeros((), dtype=torch.int64,
+                                   device=self.ctx.device)
+            for b in src.batches():
+                out, consumed = ops.limit(b, n, consumed)
+                yield out
+                if int(consumed) >= n:
+                    break
+        return BatchSource(gen, src.names, src.types)
+
+    def _compile_TopNNode(self, node: P.TopNNode) -> BatchSource:
+        """A streaming buffer merge: each batch is concatenated to the
+        running top n and cut back to n rows."""
+        src = self._compile(node.source)
+        keys = [(v.name, order) for v, order in node.ordering_scheme.orderings]
+        n = node.count
+
+        def gen():
+            buf = None
+            for b in src.batches():
+                merged = b if buf is None else _concat([buf, b])
+                buf = ops.topn(merged, keys, n)
+            if buf is not None:
+                yield buf
+        return BatchSource(gen, src.names, src.types)
+
+    def _compile_WindowNode(self, node: P.WindowNode) -> BatchSource:
+        """Materialize the source, then every window function of the node
+        in one launch of the window kernel (kernels/window.py) over the
+        sorted run.  After a metered WindowFunctionShape decline
+        ops.window_batch computes them, as in the reference; a failed
+        memory reservation (WindowInputSize) and scan_kernel="xla"
+        (Disabled) are metered and raise."""
+        src = self._compile(node.source)
+        part_names = tuple(v.name for v in node.partition_by)
+        orderings = tuple((v.name, o) for v, o in
+                          node.ordering_scheme.orderings) \
+            if node.ordering_scheme else ()
+        specs = []
+        for v, wf in node.window_functions.items():
+            fname = canonical_name(wf.call.display_name)
+            args = wf.call.arguments
+            arg = None
+            extra = ()
+            if fname == "count" and not args:
+                fname = "count_star"
+            elif fname == "ntile":
+                extra = (int(args[0].value),)
+            elif args:
+                arg = args[0].name
+                extra = tuple(constant_device_value(a.value, a.type)
+                              for a in args[1:])
+            frame = None
+            if wf.frame:
+                f = wf.frame
+                frame = (f["type"], f["startKind"], f["startOffset"],
+                         f["endKind"], f["endOffset"])
+            is_float = isinstance(v.type, (DoubleType, RealType))
+            specs.append(ops.WindowSpec(fname, v.name, arg, is_float,
+                                        frame, extra))
+        specs = tuple(specs)
+        out_names = src.names + [v.name for v in node.window_functions]
+        out_types = src.types + [v.type for v in node.window_functions]
+
+        def gen():
+            merged = self._materialize_node(node.source)
+            if merged is None:
+                return
+            if self.ctx.config.scan_kernel == "xla":
+                self._meter_declined("Disabled")
+                raise NotImplementedError(
+                    "kernelDeclinedDisabled: the reference's XLA window "
+                    "path (scan_kernel=xla) is not ported")
+            from .kernels import window as wk
+            kres = wk.try_window_kernel(
+                merged, part_names, orderings, specs,
+                declined=self._meter_declined,
+                runtime_stats=self.ctx.runtime_stats,
+                pool=self.ctx.memory)
+            yield kres if kres is not None else ops.window_batch(
+                merged, part_names, orderings, specs)
+        return BatchSource(gen, out_names, out_types)
+
     # -- aggregation ------------------------------------------------------
     def _compile_AggregationNode(self, node: P.AggregationNode) -> BatchSource:
         """Aggregation over a fused scan chain, run by the scan kernels in
@@ -348,11 +450,7 @@ class PlanCompiler:
         initial_slots = _initial_slots(node, key_names)
 
         def declined(reason: str) -> None:
-            from .kernels.scan_kernel import KERNEL_METRICS
-            KERNEL_METRICS.record_declined(reason)
-            rs = self.ctx.runtime_stats
-            if rs is not None:
-                rs.add(f"kernelDeclined{reason}", 1)
+            self._meter_declined(reason)
             fused_cache["declined"] = reason
 
         def refuse(reason: str):
