@@ -28,6 +28,10 @@ Phases, each printed with its wall time:
      them: Q3_SHAPE (hash kernel, orders build), Q18_SHAPE, an IN
      subquery, the lineitem -> orders -> customer two-probe chain and the
      two-column partsupp probe (unique table);
+  7b. the expression forms the reference's kernels run (benchmarks/
+     expr_queries.py: negate, abs, date parts, divide and modulus, CASE,
+     COALESCE, IS NULL, IN, casts) through LocalQueryRunner, one kernel
+     launch and no decline each, over all three scan kernels;
   8. each kernel against its plain torch version on the exact inputs of
      the main path's and the join path's launches (and of a
      float64-accumulator query, the wide span query S2, a span and a hash
@@ -51,11 +55,20 @@ Phases, each printed with its wall time:
      prefetched tile copies; and Q1, S1, H1, J1 run once more on grid
      entries that start and end off every 16-byte boundary (the ring's
      ragged heads and tails), double equal to single and, for the direct
-     and span kernels, to the plain version's integers;
+     and span kernels, to the plain version's integers.  For every grouped
+     case the path its tables took (on chip: each CTA's tables in shared
+     memory; or device memory), threads, CTAs, shared memory and the
+     scan / reduce split under torch.profiler (benchmarks/hash_split.py);
+     hash floats bit-identical across two launches and to the double
+     launch; and the reduce's fixed order (grouped.reduce_partials) held
+     bit for bit on the partials of H2, the span float query and the
+     collision loop's last launch.  The main path's H1 and H2 must keep
+     their tables on chip (grouped.ONCHIP_LAUNCHES);
   9. an independent numpy computation of Q6, Q1's counts and quantity
      sums, S1's counts and quantity sums, H1's counts and revenue, H2's
-     counts, the collision query's counts and price sums, and J1's, J2's
-     and J3's counts and sums from the decoded resident columns;
+     counts, the collision query's counts and price sums, J1's, J2's
+     and J3's counts and sums, and every expression-form query of 7b from
+     the decoded resident columns;
  10. generate and encode TPC-H orders (o_orderkey, o_custkey,
      o_totalprice, o_orderdate, o_orderpriority) at the scale factor;
  11. the window path: W1, W2 and W3 (presto_tpu_torch/benchmarks/
@@ -100,6 +113,7 @@ Imports nothing of JAX or of the presto_tpu reference package.
 """
 import argparse
 import json
+import struct
 import subprocess
 import sys
 import time
@@ -119,17 +133,6 @@ SPAN_MINMAX_QUERY = (
     "sum(cast(l_extendedprice as double)) as s, min(l_quantity) as mn, "
     "max(cast(l_discount as double)) as mx, max(l_orderkey) as mo, "
     "count(l_tax) as c from lineitem group by 1, 2, 3, 4")
-HASH_MINMAX_QUERY = (
-    "select l_quantity, l_linenumber, min(l_extendedprice) as mn, "
-    "max(cast(l_tax as double)) as mx, avg(cast(l_discount as double)) as a, "
-    "min(l_orderkey) as mo from lineitem where l_shipdate > date '1995-06-17' "
-    "group by 1, 2")
-# 50 x 11 x 9 = 4950 groups: more than AGG_SLOTS, so a table started there
-# must collide
-COLLIDE_QUERY = (
-    "select l_quantity, l_discount, l_tax, count(*) as n, "
-    "sum(l_extendedprice) as s, sum(cast(l_extendedprice as double)) as sf "
-    "from lineitem group by 1, 2, 3")
 UNIT_ROUNDOFF = 2.0 ** -53
 
 
@@ -275,6 +278,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import numpy as np
+    from presto_tpu_torch.benchmarks import expr_queries as EQ
+    from presto_tpu_torch.benchmarks import hash_split as HS
     from presto_tpu_torch.benchmarks import join_queries as JQ
     from presto_tpu_torch.benchmarks.grouped_queries import H1, H2, S1, S2
     from presto_tpu_torch.benchmarks.tpch_queries import Q1, Q6
@@ -315,7 +320,7 @@ def main() -> int:
     sf = float(args.sf)
     cols = ("quantity", "extendedprice", "discount", "tax", "returnflag",
             "linestatus", "shipdate", "shipmode", "shipinstruct",
-            "linenumber", "suppkey")
+            "linenumber", "suppkey", "orderkey")
     with phase(f"generate + encode lineitem and supplier at {schema}"):
         store = get_store(cfg.storage_budget_bytes,
                           cfg.storage_max_column_bytes, device)
@@ -370,6 +375,8 @@ def main() -> int:
     with phase("main path: Q6, Q1, S1, H1, H2 through LocalQueryRunner"):
         for k in sk.LAUNCHES:
             sk.LAUNCHES[k] = 0
+        for k in gk.ONCHIP_LAUNCHES:
+            gk.ONCHIP_LAUNCHES[k] = 0
         for qname, sql, kernel in main_queries:
             before = sk.LAUNCHES[kernel]
             res = runner.execute(sql)          # warm-up
@@ -397,20 +404,25 @@ def main() -> int:
                         for k, v in rs.items() if k.endswith("WallNanos")}
             print(f"  {qname}: last run walls (ms) {walls_ms}")
         main_launches = {k: sk.LAUNCHES[k] for k in sk.SCAN_KERNELS}
+        main_onchip = dict(gk.ONCHIP_LAUNCHES)
         for row in results["q1"].rows:
             print(f"  q1 {row}")
         print(f"  q6 {results['q6'].rows}")
         for qname in ("s1", "h1", "h2"):
             print(f"  {qname}: first rows {results[qname].rows[:2]}")
-    print(f"  main-path launches {main_launches}")
+    print(f"  main-path launches {main_launches}, with their tables on "
+          f"chip {main_onchip}")
     assert all(v > 0 for v in main_launches.values()), main_launches
+    # H1's and H2's 4096-slot tables stay in shared memory
+    assert main_onchip["scan_hash"] == launches["h1"] + launches["h2"], \
+        main_onchip
     res_f = runner.execute(FLOAT_QUERY)
     q_calls["float"] = ("scan_direct", calls["scan_direct"][-1])
     res_s2 = runner.execute(S2)
     q_calls["s2"] = ("scan_span", calls["scan_span"][-1])
     runner.execute(SPAN_MINMAX_QUERY)
     q_calls["span_minmax"] = ("scan_span", calls["scan_span"][-1])
-    runner.execute(HASH_MINMAX_QUERY)
+    runner.execute(HS.HASH_F)
     q_calls["hash_minmax"] = ("scan_hash", calls["scan_hash"][-1])
 
     with phase("hash collision loop through LocalQueryRunner"):
@@ -418,7 +430,8 @@ def main() -> int:
         StatsCalculator.rows = lambda self, node: 1.0
         n_calls, before = len(calls["scan_hash"]), sk.LAUNCHES["scan_hash"]
         try:
-            res_c = runner.execute(COLLIDE_QUERY)
+            # 50 x 11 x 9 = 4950 groups: more than AGG_SLOTS
+            res_c = runner.execute(HS.COLLIDE)
         finally:
             StatsCalculator.rows = real_rows
         tables = [(a[5], a[6]) for a, _kw in calls["scan_hash"][n_calls:]]
@@ -515,6 +528,35 @@ def main() -> int:
             print(f"  {qname} at sf{s_sf}: {kernel}, rows {len(res.rows)}, "
                   f"probes {[(jp.step.kind, jp.step.table) for jp in plan.joins]}"
                   f", build operands {kw['joins'].nbytes} bytes")
+    # -- the scan kernels' expression set (the reference's numeric set) --
+    expr_kernels = {}
+    with phase(f"expression forms at {schema} through LocalQueryRunner: "
+               f"{len(EQ.QUERIES)} queries over the direct, span and hash "
+               f"kernels"):
+        for qname, sql in EQ.QUERIES.items():
+            n0 = {k: len(v) for k, v in calls.items()}
+            if sf >= 1 and qname in EQ.DECLINED_AT_SCALE:
+                reason = EQ.DECLINED_AT_SCALE[qname]
+                try:
+                    runner.execute(sql)
+                    raise AssertionError(f"{qname} should decline {reason}")
+                except NotImplementedError as e:
+                    assert f"kernelDeclined{reason}" in str(e), e
+                print(f"  {qname}: declines {reason} at {schema}")
+                continue
+            res = runner.execute(sql)
+            rs = res.runtime_stats
+            declined = [k for k in rs if k.startswith("kernelDeclined")]
+            assert not declined, f"{qname}: {declined}"
+            assert rs.get("kernelScanPrograms", {}).get("sum") == 1, rs
+            (kernel,) = [k for k in calls if len(calls[k]) > n0[k]]
+            expr_kernels[qname] = kernel
+            q_calls["x_" + qname] = (kernel, calls[kernel][-1])
+            results["x_" + qname] = res
+            print(f"  {qname}: {kernel}, rows {len(res.rows)}, first "
+                  f"{res.rows[:2]}")
+        assert set(expr_kernels.values()) == set(sk.SCAN_KERNELS), \
+            expr_kernels
     for k, (mod, attr) in wrappers.items():
         setattr(mod, attr, real[k])
 
@@ -718,10 +760,68 @@ def main() -> int:
     def unslotted(plan, table):
         return {k: v[:2] for k, v in hash_groups(plan, table).items()}
 
+    def float_bits(plan, table):
+        """{group: its float rows' bit patterns}: equal iff bit-identical."""
+        occ = torch.nonzero(table.keyhash != ops.EMPTY_SLOT).flatten()
+        keys = torch.cat([table.keys[:, occ], table.keynull[:, occ].long()])
+        bits = table.acc_f[:plan.n_f, occ].contiguous().view(torch.int64)
+        return dict(zip(map(tuple, keys.T.tolist()), map(tuple,
+                                                        bits.T.tolist())))
+
+    def check_reduce_order(qname, call):
+        """One grouped launch whose partials come back: every folded
+        integer row and every float row of the result equals
+        grouped.reduce_partials over them bit for bit (the reduce's fixed
+        order)."""
+        kernel, (a, kw) = call
+        plan, columns, grid, br, params = a[:5]
+        slots = a[5] if kernel == "scan_hash" else plan.G
+        acc_i, acc_f = sk.init_outputs(plan, device, slots)
+        counts = torch.zeros(1 + plan.n_steps, dtype=torch.int64,
+                             device=device)
+        table = None
+        if kernel == "scan_hash":
+            nk = len(plan.key_programs)
+            table = (torch.full((slots,), ops.EMPTY_SLOT, dtype=torch.int64,
+                                device=device),
+                     torch.zeros((nk, slots), dtype=torch.int64,
+                                 device=device),
+                     torch.zeros((nk, slots), dtype=torch.int8,
+                                 device=device),
+                     torch.zeros(2, dtype=torch.int32, device=device))
+        part_i, part_f = gk._launch(
+            plan, columns, grid, br, params, G=slots, acc_i=acc_i,
+            acc_f=acc_f, counts=counts, salt=a[6] if table else 0,
+            table=table, **kw)
+        torch.cuda.synchronize()
+        off_rows = int(plan.words[11])
+        rows = plan.words[off_rows:off_rows + 2 * (plan.n_i + plan.n_f)]
+        checked = 0
+        for fr in range(plan.n_f):
+            init = struct.unpack("<d", struct.pack(
+                "<q", int(rows[2 * (plan.n_i + fr)])))[0]
+            want = gk.reduce_partials(part_f[:, fr], int(
+                rows[2 * (plan.n_i + fr) + 1]), init)
+            assert torch.equal(acc_f[fr].view(torch.int64),
+                               want.view(torch.int64)), (qname, fr)
+            checked += 1
+        q = 0
+        for r, sr in enumerate(plan.src_rows):
+            if r != sr or part_i is None:
+                continue
+            want = gk.reduce_partials(part_i[:, q], int(rows[2 * r + 1]),
+                                      int(rows[2 * r]))
+            assert torch.equal(acc_i[r], want), (qname, r)
+            q += 1
+            checked += 1
+        print(f"  {qname}: {checked} rows of the reduce == reduce_partials "
+              f"over {part_f.shape[0] if part_f is not None else part_i.shape[0]}"
+              f" partials, bit for bit")
+
     records = {}
-    with phase("kernels vs plain on the main and join paths' inputs "
-               "(+ 10 more), each also with the stage ring against the "
-               "single launch"):
+    with phase("kernels vs plain on the main, join and expression paths' "
+               "inputs (+ 10 more), each also with the stage ring against "
+               "the single launch"):
         for qname, (kernel, call) in q_calls.items():
             launch = real[kernel]
             plain = {"scan_direct": sk.scan_direct_plain,
@@ -735,14 +835,16 @@ def main() -> int:
                 pt = plain(*a, **kw)
                 torch.cuda.synchronize()
                 err, n_groups = compare_hash(qname, plan, call, kt, pt)
-                assert unslotted(plan, kt) == unslotted(plan, kt2), \
+                assert unslotted(plan, kt) == unslotted(plan, kt2) and \
+                    float_bits(plan, kt) == float_bits(plan, kt2), \
                     f"{qname}: two launches differ"
                 kc = kt.counts
                 table_bytes = slots * (8 * (1 + len(plan.key_programs)
                                             + plan.n_i + plan.n_f)
                                        + len(plan.key_programs))
                 detail = (f"slots {slots}, salt {salt}, groups {n_groups}, "
-                          f"keyhash == hash_columns")
+                          f"keyhash == hash_columns, "
+                          f"{'on chip' if plan.on_chip(slots) else 'device memory'}")
             else:
                 ki, kf, kc = launch(*a, **kw)
                 ki2, kf2, kc2 = launch(*a, **kw)
@@ -768,7 +870,7 @@ def main() -> int:
                 table_bytes = 8 * (plan.n_i + max(plan.n_f, 1)) * plan.G
                 detail = f"G={plan.G}"
                 if kernel == "scan_span":
-                    detail += f", int_smem {plan.int_smem}"
+                    detail += f", on chip {plan.on_chip(plan.G)}"
             # the stage ring (kernel #2): the same launch in double
             # mode, every output bit-identical to the single launch
             kwd = dict(kw, dma="double")
@@ -776,6 +878,7 @@ def main() -> int:
                 dt = launch(*a, **kwd)
                 torch.cuda.synchronize()
                 assert unslotted(plan, dt) == unslotted(plan, kt) and \
+                    float_bits(plan, dt) == float_bits(plan, kt) and \
                     torch.equal(dt.counts, kt.counts) and \
                     bool(dt.collision) == bool(kt.collision), \
                     f"{qname}: double differs from single"
@@ -804,6 +907,26 @@ def main() -> int:
                                   plain_ms=plain_ms, bound_ms=bound,
                                   bytes=nbytes, ms_double=ms_double,
                                   staged=staged)
+            if kernel != "scan_direct":
+                # the launch's geometry and its scan / reduce split
+                n_params = 0 if a[4] is None else int(a[4].numel())
+                geo = dict(
+                    path="on chip" if plan.on_chip(n_slots)
+                    else "device memory",
+                    threads=plan.threads,
+                    ctas=gk._grid_shape(plan, len(grid), a[3], n_slots,
+                                        device)[2],
+                    smem=plan.smem_bytes + plan.table_bytes(n_slots)
+                    + 8 * n_params)
+                geo.update(HS.split_ms(lambda: launch(*a, **kw), 10))
+                records[qname].update(geo)
+                print(f"  {qname}: {geo['path']}, {geo['threads']} threads "
+                      f"x {geo['ctas']} CTAs, {geo['smem']} B shared "
+                      f"memory (single); torch.profiler per launch: "
+                      f"scan_grouped_kernel "
+                      f"{geo['scan_grouped_kernel']:.4f} ms, "
+                      f"scan_grouped_reduce "
+                      f"{geo['scan_grouped_reduce']:.4f} ms")
             if plan.joins:
                 detail += (f", probes "
                            f"{[(jp.step.kind, jp.step.table) for jp in plan.joins]}")
@@ -820,6 +943,17 @@ def main() -> int:
                   f"staged {staged[0]} prefetched {staged[1]} tile copies "
                   f"of {len(sk.staged_indices(columns))} arrays")
         print(f"  float query: {res_f.rows}; s2: {len(res_s2.rows)} groups")
+        # H1, H2 and J1 keep their 4096-slot tables on chip; HASH_F and the
+        # collision loop's last table take the device-memory path
+        paths = {q: records[q]["path"] for q in
+                 ("h1", "h2", "j1", "hash_minmax", "collide")}
+        assert paths == {"h1": "on chip", "h2": "on chip", "j1": "on chip",
+                         "hash_minmax": "device memory",
+                         "collide": "device memory"}, paths
+        # the reduce's order on the card, on chip (H2, the span float query)
+        # and on the device-memory path (the collision loop's last table)
+        for qname in ("h2", "span_minmax", "collide"):
+            check_reduce_order(qname, q_calls[qname])
         # a table with fewer slots than H1's groups must flag a collision,
         # and the next launch starts with a clear flag
         h1 = q_calls["h1"][1][0]
@@ -989,6 +1123,81 @@ def main() -> int:
         assert len(results["j3"].rows) == int((n_j3 > 0).sum())
         print(f"  j3 n, hits ({int(hit.sum())} of {n_rows} rows) and "
               f"balance sums of {len(results['j3'].rows)} groups == port")
+
+    with phase("numpy check of the expression-form queries at " + schema):
+        okey = host("orderkey")
+        days = ship.astype("datetime64[D]")
+        years = days.astype("datetime64[Y]").astype(np.int64) + 1970
+        months = days.astype("datetime64[M]").astype(np.int64) % 12 + 1
+
+        def rows_of(qname):
+            return results["x_" + qname].rows
+
+        def unscaled(d, scale=2):
+            assert -d.as_tuple().exponent == scale, d
+            return int(d.scaleb(scale))
+
+        hit = np.isin(qty, [1, 2, 3])         # the unscaled quantity
+        (n_in, s_in), = rows_of("in_list")
+        assert n_in == int(hit.sum()) and (
+            s_in is None if not n_in else unscaled(s_in)
+            == int(price[hit].sum())), (n_in, s_in)
+        assert unscaled(rows_of("negate")[0][0]) == -int(price.sum())
+        for f, v in rows_of("abs"):
+            g = flag == dict_code("returnflag", f)
+            assert unscaled(v) == int(np.abs(price[g] - 5000000).sum()), f
+        assert len(rows_of("abs")) == len(np.unique(flag))
+        if "x_extract_year" in results:           # below SF1
+            ys, n_y = np.unique(years, return_counts=True)
+            assert sorted(map(tuple, rows_of("extract_year"))) == \
+                list(zip(ys.tolist(), n_y.tolist()))
+        want = float((price / 100.0 / 3.0).sum())
+        got = rows_of("cast_double_div")[0][0]
+        assert abs(got - want) <= 1e-9 * abs(want), (got, want)
+        assert rows_of("int_div_mod") == [[int((line // 2).sum()),
+                                           int((line % 3).sum())]]
+        assert unscaled(rows_of("case")[0][0]) == int(price[disc > 5].sum())
+        assert unscaled(rows_of("coalesce")[0][0]) == int(price.sum())
+        assert rows_of("is_not_null") == [[n_rows]]
+        if "x_mod_group_key" in results:          # below SF1
+            ks, n_k = np.unique(okey % 5, return_counts=True)
+            assert sorted(map(tuple, rows_of("mod_group_key"))) == \
+                list(zip(ks.tolist(), n_k.tolist()))
+
+        assert rows_of("cast_dec_int") == [[int(price.sum())]]
+        # CASE over a decimal divide rounding half up, NULL_IF in a count
+        def bin_sums(codes, n_codes, values):
+            # float64 bins of integers, exact below 2**53
+            assert int(np.abs(values).sum()) < 2 ** 53
+            return np.bincount(codes, weights=values.astype(np.float64),
+                               minlength=n_codes).astype(np.int64)
+        q7 = (price + 3) // 7
+        val = np.where(qty > 2500, q7, -price)
+        s_val = bin_sums(code, 168, val)
+        n_not1 = np.bincount(code[line != 1], minlength=168)
+        for row in rows_of("span_case"):
+            c = ((dict_code("returnflag", row[0]) * 2
+                  + dict_code("linestatus", row[1])) * 7
+                 + dict_code("shipmode", row[2])) * 4 \
+                + dict_code("shipinstruct", row[3])
+            assert unscaled(row[4]) == s_val[c] and row[5] == n_not1[c], row
+        assert len(rows_of("span_case")) == int(
+            (np.bincount(code, minlength=168) > 0).sum())
+        sel = (months == 1) | (months == 6)
+        quarters = (months + 2) // 3
+        mdays = (days - days.astype("datetime64[M]")).astype(np.int64) + 1
+        k_dp = (line * 4 + flag)[sel]
+        n_k = 8 * 4
+        sums = [bin_sums(k_dp, n_k, x[sel]) for x in
+                (qty % 700, years, quarters, mdays)]
+        n_dp = np.bincount(k_dp, minlength=n_k)
+        for ln, f, m7, ys_, qs_, ds_, n in rows_of("hash_date_parts"):
+            c = ln * 4 + dict_code("returnflag", f)
+            assert (n, unscaled(m7), ys_, qs_, ds_) == (
+                n_dp[c], *(int(x[c]) for x in sums)), (ln, f)
+        assert len(rows_of("hash_date_parts")) == int((n_dp > 0).sum())
+        print(f"  {sum(k.startswith('x_') for k in results)} "
+              f"expression-form queries == numpy over the decoded columns")
 
     # -- the window path (kernel #6) ---------------------------------------
     o_cols = ("orderkey", "custkey", "totalprice", "orderdate",
@@ -1354,6 +1563,16 @@ def main() -> int:
                 "join_plain_ms": jrec["plain_ms"],
                 "join_bound_ms": jrec["bound_ms"],
             })
+            if name != "scan_direct":
+                # main-path launches whose tables stayed in shared memory,
+                # and every case's path, geometry and scan / reduce split
+                kernels[-1]["onchip_launches"] = main_onchip[name]
+                kernels[-1]["cases"] = {
+                    q: {k: r[k] for k in (
+                        "path", "threads", "ctas", "smem", "ms",
+                        "ms_double", "plain_ms", "bound_ms",
+                        "scan_grouped_kernel", "scan_grouped_reduce")}
+                    for q, r in records.items() if r["kernel"] == name}
         for qname, r in records.items():
             print(f"  stage ring {qname} ({r['kernel']}): single_ms "
                   f"{r['ms']:.4f} double_ms {r['ms_double']:.4f} staged "

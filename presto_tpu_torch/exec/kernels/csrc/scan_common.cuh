@@ -41,6 +41,11 @@ enum {
   OP_LT_I, OP_LTE_I, OP_GT_I, OP_GTE_I, OP_EQ_I, OP_NEQ_I,
   OP_LT_F, OP_LTE_F, OP_GT_F, OP_GTE_F, OP_EQ_F, OP_NEQ_F,
   OP_AND, OP_OR, OP_NOT,
+  OP_NEG_I, OP_NEG_F, OP_ABS_I, OP_ABS_F, OP_YEAR, OP_MONTH, OP_DAY,
+  OP_QUARTER, OP_MULC_F, OP_RINT_I,
+  OP_DIV_I, OP_MOD_I, OP_DIVQ_I, OP_DIV_F, OP_MOD_F,
+  OP_IS_NULL, OP_IF, OP_COALESCE, OP_NULLIF_I, OP_NULLIF_F,
+  OP_IN_I, OP_IN_F, OP_LIT,
 };
 
 typedef long long i64;
@@ -101,6 +106,81 @@ __device__ __forceinline__ i64 div_round_half_up(i64 v, i64 d) {
   const u64 mag = v < 0 ? 0ULL - (u64)v : (u64)v;
   const i64 q = (i64)((mag + (u64)(d / 2)) / (u64)d);
   return v < 0 ? -q : (v > 0 ? q : 0);
+}
+
+// Integer helpers of the expression semantics (exec/lowering.py): floor
+// division and modulus as Python's // and % (b never -1 here: divisors are
+// constants or absolute values), sign, abs and the int32 wrap in
+// two's-complement int64.
+__device__ __forceinline__ i64 floor_div(i64 a, i64 b) {
+  const i64 q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+__device__ __forceinline__ i64 floor_mod(i64 a, i64 b) {
+  const i64 r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+__device__ __forceinline__ i64 isign(i64 v) { return (i64)(v > 0) - (v < 0); }
+__device__ __forceinline__ i64 iabs(i64 v) {
+  return v < 0 ? (i64)(0ULL - (u64)v) : v;
+}
+__device__ __forceinline__ i64 imul(i64 a, i64 b) {
+  return (i64)((u64)a * (u64)b);
+}
+__device__ __forceinline__ i64 wrap32(i64 v) {
+  return (i64)(int32_t)(uint32_t)(u64)v;
+}
+
+// year / month / day / quarter of a date (days since the epoch): the
+// reference's _civil_from_days, every division a floor division
+__device__ i64 date_part(i64 days, int op) {
+  const i64 z = days + 719468;
+  const i64 era = floor_div(z >= 0 ? z : z - 146096, 146097);
+  const i64 doe = z - era * 146097;
+  const i64 yoe = floor_div(doe - floor_div(doe, 1460) +
+                                floor_div(doe, 36524) -
+                                floor_div(doe, 146096),
+                            365);
+  const i64 doy = doe - (365 * yoe + floor_div(yoe, 4) - floor_div(yoe, 100));
+  const i64 mp = floor_div(5 * doy + 2, 153);
+  const i64 m = mp < 10 ? mp + 3 : mp - 9;
+  if (op == OP_YEAR) return yoe + era * 400 + (m <= 2);
+  if (op == OP_MONTH) return m;
+  if (op == OP_QUARTER) return floor_div(m + 2, 3);
+  return doy - floor_div(153 * mp + 2, 5) + 1;
+}
+
+// The reference's integer-domain divide / modulus of a by b (b != 0: the
+// caller divides by 1 where b is 0 and makes the row NULL): the quotient
+// truncates toward zero, the remainder takes a's sign.  Bit 0 of `narrow`
+// marks an int32 dividend, bit 1 an int32 divisor: the reference keeps
+// each in its dtype, so its abs wraps at 32 bits and the result takes the
+// dividend's.
+__device__ __forceinline__ i64 int_divide(i64 a, i64 b, int narrow,
+                                          bool modulus) {
+  i64 aa = iabs(a), ab = iabs(b);
+  if (narrow & 1) aa = wrap32(aa);
+  if (narrow & 2) ab = wrap32(ab);
+  const i64 out = modulus ? imul(isign(a), floor_mod(aa, ab))
+                          : imul(imul(isign(a), isign(b)), floor_div(aa, ab));
+  return narrow & 1 ? wrap32(out) : out;
+}
+
+// the reference's decimal quotient after the numerator's rescale: rounds
+// half away from zero (b != 0 and `narrow` as above)
+__device__ __forceinline__ i64 dec_quotient(i64 num, i64 b, int narrow) {
+  i64 an = iabs(num), ab = iabs(b);
+  if (narrow & 1) an = wrap32(an);
+  if (narrow & 2) ab = wrap32(ab);
+  const i64 q = imul(imul(isign(num), isign(b)),
+                     floor_div((i64)((u64)an + (u64)floor_div(ab, 2)), ab));
+  return narrow & 1 ? wrap32(q) : q;
+}
+
+// jnp.mod of doubles: C's fmod moved to the divisor's sign
+__device__ __forceinline__ double float_mod(double a, double b) {
+  const double m = fmod(a, b);
+  return (m != 0.0 && ((m < 0.0) != (b < 0.0))) ? __dadd_rn(m, b) : m;
 }
 
 // Rows a thread carries through one pass of the interpreter: every
@@ -323,12 +403,110 @@ __device__ __forceinline__ unsigned load_joined(const Tile& t, const i64* cm,
   return nulls;
 }
 
-// Interpret the program at plan[off] for the rows in `active` (bit r: row
-// row0 + r * T); the result is left in stack slot 0.
-template <int S>
-__device__ void eval_prog(const Tile& t, i64 off, unsigned active) {
-  const i64* p = t.plan + off;
-  const int len = (int)p[0];
+// The opcodes beyond the TPC-H Q1 / Q6 set (negate, abs, date parts, the
+// double multiply and round, divide and modulus, IS_NULL, IF, COALESCE,
+// NULL_IF, IN), out of line: their temporaries (64-bit divisions, the
+// civil calendar) stay out of the interpreter loop's registers.  `sv` is
+// the thread's stack (slot k row r at sv[(k * RPT + r) * T]), `nb` its
+// null masks (slot k at nb[k * T]), `lits` the arguments of the LIT
+// instructions after an IN (stride 2).  Returns the new stack depth.
+__device__ __noinline__ int eval_ext(int op, i64 arg, const i64* lits,
+                                     i64* sv, unsigned* nb, int sp, int T) {
+  const int RT = RPT * T;
+  i64* top = sv + (sp - 1) * RT;
+  unsigned* n1 = nb + (sp - 1) * T;           // the top slot's nulls
+  unsigned* n2 = n1 - T;                      // the slot below it
+  switch (op) {
+    case OP_NEG_I: case OP_NEG_F: case OP_ABS_I: case OP_ABS_F:
+    case OP_YEAR: case OP_MONTH: case OP_DAY: case OP_QUARTER:
+    case OP_MULC_F: case OP_RINT_I:
+      for (int r = 0; r < RPT; ++r) {
+        const i64 v = top[r * T];
+        i64 o;
+        switch (op) {
+          case OP_NEG_I: o = (i64)(0ULL - (u64)v); break;
+          case OP_NEG_F: o = (i64)((u64)v ^ 0x8000000000000000ULL); break;
+          case OP_ABS_I: o = iabs(v); break;
+          case OP_ABS_F: o = (i64)((u64)v & 0x7fffffffffffffffULL); break;
+          case OP_MULC_F: o = as_b(__dmul_rn(as_f(v), as_f(arg))); break;
+          case OP_RINT_I: o = (i64)rint(as_f(v)); break;
+          default: o = date_part(v, op); break;
+        }
+        top[r * T] = o;
+      }
+      return sp;
+    case OP_IS_NULL:
+      for (int r = 0; r < RPT; ++r) top[r * T] = (*n1 >> r) & 1u;
+      *n1 = 0;
+      return sp;
+    case OP_IN_I: case OP_IN_F:         // IN over the k LIT constants
+      for (int r = 0; r < RPT; ++r) {
+        const i64 v = top[r * T];
+        bool hit = false;
+        for (int j = 0; j < (int)arg; ++j)
+          hit |= op == OP_IN_I ? v == lits[2 * j]
+                               : as_f(v) == as_f(lits[2 * j]);
+        top[r * T] = hit;
+      }
+      return sp;
+    case OP_IF: {      // IF(cond, then, else): a select, no branch per row
+      i64* c_ = top - 2 * RT;
+      unsigned* n3 = n2 - T;
+      unsigned pred = 0;
+      for (int r = 0; r < RPT; ++r) {
+        const bool p_ = c_[r * T] != 0 && !((*n3 >> r) & 1u);
+        pred |= (unsigned)p_ << r;
+        c_[r * T] = p_ ? top[r * T - RT] : top[r * T];
+      }
+      *n3 = (pred & *n2) | (~pred & *n1);
+      return sp - 2;
+    }
+    case OP_COALESCE:
+      for (int r = 0; r < RPT; ++r)
+        if ((*n2 >> r) & 1u) top[r * T - RT] = top[r * T];
+      *n2 &= *n1;
+      return sp - 1;
+    case OP_NULLIF_I: case OP_NULLIF_F: {   // a, NULL where a == b, no NULL
+      unsigned eq = 0;
+      for (int r = 0; r < RPT; ++r) {
+        const i64 a = top[r * T - RT], b = top[r * T];
+        eq |= (unsigned)(op == OP_NULLIF_I ? a == b : as_f(a) == as_f(b))
+              << r;
+      }
+      *n2 |= eq & ~*n2 & ~*n1;
+      return sp - 1;
+    }
+    case OP_DIV_F: case OP_MOD_F:
+      for (int r = 0; r < RPT; ++r) {
+        const double a = as_f(top[r * T - RT]), b = as_f(top[r * T]);
+        top[r * T - RT] = as_b(op == OP_DIV_F ? __ddiv_rn(a, b)
+                                              : float_mod(a, b));
+      }
+      *n2 |= *n1;
+      return sp - 1;
+    default: {         // DIV_I / MOD_I / DIVQ_I: a zero divisor divides
+      unsigned zero = 0;              // by 1 and makes the row NULL
+      const int narrow = (int)arg;
+      for (int r = 0; r < RPT; ++r) {
+        const i64 a = narrow & 1 ? wrap32(top[r * T - RT]) : top[r * T - RT];
+        const i64 b = narrow & 2 ? wrap32(top[r * T]) : top[r * T];
+        zero |= (unsigned)(b == 0) << r;
+        const i64 sb = b == 0 ? 1 : b;
+        top[r * T - RT] = op == OP_DIVQ_I
+                              ? dec_quotient(a, sb, narrow)
+                              : int_divide(a, sb, narrow, op == OP_MOD_I);
+      }
+      *n2 |= *n1 | zero;
+      return sp - 1;
+    }
+  }
+}
+
+// The interpreter loop over the `len` instructions at p[1..]: EXT adds
+// the opcodes of eval_ext.
+template <int S, bool EXT>
+__device__ __forceinline__ void interpret(const Tile& t, const i64* p,
+                                          int len, unsigned active) {
   const int T = t.T, RT = RPT * T;
   i64* sv = t.stk + t.tid;
   unsigned* nb = t.nulls + t.tid;
@@ -383,7 +561,7 @@ __device__ void eval_prog(const Tile& t, i64 off, unsigned active) {
       UNARY(OP_DIVR_I, div_round_half_up(v, arg))
       UNARY(OP_I2F, as_b((double)v))
       UNARY(OP_DIVC_F, as_b(__ddiv_rn(as_f(v), as_f(arg))))
-      UNARY(OP_WRAP32, (i64)(int32_t)(uint32_t)(u64)v)
+      UNARY(OP_WRAP32, wrap32(v))
       UNARY(OP_NOT, (i64)(v == 0))
       BINARY(OP_ADD_I, (i64)((u64)a + (u64)b))
       BINARY(OP_SUB_I, (i64)((u64)a - (u64)b))
@@ -405,7 +583,7 @@ __device__ void eval_prog(const Tile& t, i64 off, unsigned active) {
       BINARY(OP_NEQ_F, (i64)(as_f(a) != as_f(b)))
 #undef UNARY
 #undef BINARY
-      default: {                          // OP_AND / OP_OR, Kleene logic
+      case OP_AND: case OP_OR: {          // Kleene logic
         i64* a_ = top - RT;
         const unsigned bn = nb[(sp - 1) * T], an = nb[(sp - 2) * T];
         unsigned av = 0, bv = 0;
@@ -429,8 +607,27 @@ __device__ void eval_prog(const Tile& t, i64 off, unsigned active) {
         --sp;
         break;
       }
+      default:                            // the forms beyond Q1 / Q6
+        if (EXT) {
+          sp = eval_ext(op, arg, p + 2 + 2 * (i + 1), sv, nb, sp, T);
+          if (op == OP_IN_I || op == OP_IN_F) i += (int)arg;
+        }
+        break;
     }
   }
+}
+
+// By value: a reference would put the caller's Tile in local memory for
+// the whole kernel.
+// Interpret the program at plan[off] for the rows in `active` (bit r: row
+// row0 + r * T); the result is left in stack slot 0.  X: the kernel
+// instance for plans that use an opcode beyond the TPC-H Q1 / Q6 set
+// (ScanPlan.ext); the other instances keep that set's loop and registers.
+template <int S, bool X>
+__device__ __forceinline__ void eval_prog(const Tile& t, i64 off,
+                                          unsigned active) {
+  const i64* p = t.plan + off;
+  interpret<S, X>(t, p, (int)p[0], active);
 }
 
 // value of row r in stack slot 0 after eval_prog
@@ -458,7 +655,7 @@ __device__ __forceinline__ unsigned result_nulls(const Tile& t) {
 // in device memory: at most 4 MiB (the reference's gate), so they sit in
 // the 50 MB L2 and a plain gather serves.  The rows' loads are issued
 // together, as in load_rows.
-template <int S>
+template <int S, bool X>
 __device__ unsigned probe_step(const Tile& t, const i64* jr, int j,
                                unsigned live) {
   const int T = t.T, tid = t.tid;
@@ -466,7 +663,7 @@ __device__ unsigned probe_step(const Tile& t, const i64* jr, int j,
   unsigned hit = 0, knull = 0;
   int row[RPT];
   if (jr[J_TABLE] == TBL_DIRECT) {
-    eval_prog<S>(t, kofs[0], live);
+    eval_prog<S, X>(t, kofs[0], live);
     knull = result_nulls(t);
     const int32_t* slots = (const int32_t*)jr[J_OP0];
     const i64 base = __ldg((const i64*)jr[J_OP1]);
@@ -490,7 +687,7 @@ __device__ unsigned probe_step(const Tile& t, const i64* jr, int j,
     for (int r = 0; r < RPT; ++r) h[r] = 1ULL;      // salt 0, plus one
     const int n_keys = (int)jr[J_N_KEYS];
     for (int k = 0; k < n_keys; ++k) {
-      eval_prog<S>(t, kofs[k], live);
+      eval_prog<S, X>(t, kofs[k], live);
       const unsigned nm = result_nulls(t);
       knull |= nm;
 #pragma unroll
@@ -546,7 +743,7 @@ __device__ unsigned probe_step(const Tile& t, const i64* jr, int j,
 // TRUE rows, a probe step (step word -2 - j) runs probe_step.  Each step's
 // live rows count into cnt[(s + 1) * T + tid].  Returns the rows live after
 // the last step.
-template <int S>
+template <int S, bool X>
 __device__ unsigned run_steps(const Tile& t, int n_steps, unsigned live,
                               i64* cnt) {
   const i64* steps = t.plan + t.plan[H_OFF_STEPS];
@@ -554,14 +751,14 @@ __device__ unsigned run_steps(const Tile& t, int n_steps, unsigned live,
   for (int s = 0; s < n_steps; ++s) {
     const i64 w = steps[s];
     if (live && w >= 0) {
-      eval_prog<S>(t, w, live);
+      eval_prog<S, X>(t, w, live);
       unsigned ok = 0;
 #pragma unroll
       for (int r = 0; r < RPT; ++r) ok |= (unsigned)(result(t, r) != 0) << r;
       live &= ok & ~result_nulls(t);
     } else if (live && w <= -2) {
       const int j = (int)(-2 - w);
-      live = probe_step<S>(t, joins + JOIN_WORDS * j, j, live);
+      live = probe_step<S, X>(t, joins + JOIN_WORDS * j, j, live);
     }
     cnt[(s + 1) * t.T + t.tid] += __popc(live);
   }

@@ -55,7 +55,9 @@
 
 #define REDUCE_THREADS 256
 
-template <int STAGES>
+// EXT: the instance for plans whose programs use an opcode beyond the
+// TPC-H Q1 / Q6 set (ScanPlan.ext)
+template <int STAGES, bool EXT>
 __global__ void __launch_bounds__(256, 3)
 scan_direct_kernel(const i64* __restrict__ plan_g, int n_plan,
                                    const i64* __restrict__ grid, int n_grid,
@@ -155,14 +157,14 @@ scan_direct_kernel(const i64* __restrict__ plan_g, int n_plan,
 #pragma unroll
     for (int r = 0; r < RPT; ++r) live |= (unsigned)(base + r * T < hi) << r;
     cnt[tid] += __popc(live);
-    live = run_steps<STAGES>(t, n_steps, live, cnt);
+    live = run_steps<STAGES, EXT>(t, n_steps, live, cnt);
     __syncwarp();
     if (!__any_sync(FULL_MASK, live != 0)) continue;
     i64 code[RPT];
 #pragma unroll
     for (int r = 0; r < RPT; ++r) code[r] = 0;
     for (int k = 0; k < n_keys; ++k) {
-      eval_prog<STAGES>(t, keys[2 * k], live);
+      eval_prog<STAGES, EXT>(t, keys[2 * k], live);
 #pragma unroll
       for (int r = 0; r < RPT; ++r) code[r] += result(t, r) * keys[2 * k + 1];
     }
@@ -180,7 +182,7 @@ scan_direct_kernel(const i64* __restrict__ plan_g, int n_plan,
       if ((kind == S_COUNT_STAR || kind == S_COUNT) && seen_count) continue;
       unsigned take = live;
       if (kind != S_COUNT_STAR) {
-        eval_prog<STAGES>(t, sp[2], live);
+        eval_prog<STAGES, EXT>(t, sp[2], live);
         take &= ~result_nulls(t);
       }
       if (kind == S_COUNT_STAR || kind == S_COUNT) {
@@ -280,7 +282,8 @@ typedef void (*direct_kernel_t)(const i64*, int, const i64*, int, i64, i64,
 
 // Launch both kernels on `stream`; returns cudaGetLastError().  stages 2
 // runs the stage ring of stage_bytes per stage (stage table at plan word
-// stage_tab); smem_bytes includes the ring.
+// stage_tab); smem_bytes includes the ring; ext picks the instance for
+// the opcodes beyond the Q1 / Q6 set.
 extern "C" int scan_direct_launch(const void* plan, int n_plan,
                                   const void* grid, int n_grid, long long br,
                                   long long rows_per_cta, int n_sub,
@@ -289,10 +292,13 @@ extern "C" int scan_direct_launch(const void* plan, int n_plan,
                                   void* part_f, void* counts, void* acc_i,
                                   void* acc_f, int n_slots, int threads,
                                   int stages, int stage_tab, int stage_bytes,
-                                  int smem_bytes, void* stream) {
+                                  int smem_bytes, int ext, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const direct_kernel_t kernel = stages == 2 ? scan_direct_kernel<2>
-                                             : scan_direct_kernel<1>;
+  const direct_kernel_t kernel =
+      ext ? (stages == 2 ? scan_direct_kernel<2, true>
+                         : scan_direct_kernel<1, true>)
+          : (stages == 2 ? scan_direct_kernel<2, false>
+                         : scan_direct_kernel<1, false>);
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -14,13 +14,12 @@
 // counters exactly, float64 sums within rounding, and the hash table's
 // groups keyed by their key values (its slot layout is its own).
 //
-// Design (a first kernel that is right and simple):
-// - A persistent grid: a fixed number of CTAs (a small multiple of the
-//   SMs) strides over the grid entries' rows_per_cta-row slices, so the
-//   per-CTA partials scale with the CTA count, not with the table.  The
-//   per-row work (decode, chain steps with their join / semi-join probes
-//   -- kernel #5 --, key programs) is scan_direct's, from
-//   scan_common.cuh.
+// Design:
+// - A persistent grid: a fixed number of CTAs strides over the grid
+//   entries' rows_per_cta-row slices, so the per-CTA partials scale with
+//   the CTA count, not with the rows.  The per-row work (decode, chain
+//   steps with their join / semi-join probes -- kernel #5 --, key
+//   programs) is scan_direct's, from scan_common.cuh.
 // - Span slots: code = sum of key value x stride, rows off the grid drop.
 // - Hash slots: each live row hashes its key values exactly as
 //   exec/operators.py hash_columns(salt) does (splitmix64 over uint64),
@@ -29,26 +28,50 @@
 //   claiming row writes the slot's key values and counts one group.  A
 //   row left unplaced sets the collision flag; the host doubles the table
 //   and relaunches.
-// - Integer accumulators: into the CTA's shared accumulators when n_i x G
-//   fits (span), else into the global table, with int64 add / min / max
-//   atomics, which are exact and order-free.  Each row issues its own
-//   atomic, except while a hash table holds fewer than SPREAD_GROUPS
-//   groups: then the warp first folds its rows per slot (warp_fold: one
-//   round per distinct slot) and one lane issues one atomic -- a few hot
-//   global slots would otherwise serialize across the SMs.
-// - Float64 accumulators: never unordered float atomics.  Each warp owns
-//   a partial table in global memory.  For each of a thread's RPT row
-//   positions, the lanes holding rows of one slot fold them in lane order
-//   (a __match_any_sync group) into shared-memory staging, and the
-//   warp's lanes apply the staged (slot, value) pairs -- distinct slots
-//   within a row position -- to its table with plain loads and stores.
-//   A second launch folds the warps' partials in (CTA, warp) order, so two
+// - On chip (`onchip`, when the plan's tables fit: ScanPlan.on_chip).
+//   The reference keeps its whole table in VMEM across its sequential
+//   grid (grouped.py:63-100); here each CTA keeps its own, keyed by the
+//   global slot, in shared memory, and the CTAs merge once at the end:
+//   * hash: a mirror of the table's key hashes.  A claimed slot never
+//     changes, so a non-EMPTY mirror entry is final: a row probes the
+//     mirror first, goes to device memory (__ldcg) only on a mirror
+//     EMPTY and to atomicCAS only on a device EMPTY, and copies what it
+//     learns into the mirror.  A hot group costs a shared-memory load.
+//   * the integer rows the kernel folds (ScanPlan.n_fold: a count equal
+//     to __seen is copied by the reduce) fold with shared-memory atomics
+//     (exact, order-free) and go to part_i once per CTA.
+//   * float rows: never unordered float atomics.  Each warp stages its
+//     rows per row position (warp_stage_float: a slot's lanes fold in
+//     lane order).  Where a table per warp fits (ScanPlan.warp_floats:
+//     small tables, such as span mode's), the warp applies its pairs to
+//     its own table, row positions in order, as on the device-memory
+//     path.  Otherwise, after a CTA barrier, the staged pairs apply to
+//     the CTA's one table in (warp, row position) order -- warp w
+//     applies the slots = w mod warps, with __syncwarp between positions
+//     -- and a second barrier frees the staging: the barriers cost H2
+//     more than per-warp device-memory tables do at the same occupancy.
+//     The tables go to part_f once per CTA.
+//   * CTA width: an on-chip hash table of 4096 slots leaves room for one
+//     CTA per SM; with 256 threads that CTA ran H1 3x slower than the
+//     device-memory path at two CTAs per SM.  A hash plan therefore takes
+//     the widest CTA (up to 512 threads) whose table still fits, and the
+//     claiming rows re-evaluate their keys instead of every row stashing
+//     them in shared memory.
+// - On the device-memory path (tables too large for shared memory):
+//   integer rows fold into acc_i with global atomics, each
+//   row its own once the table holds SPREAD_GROUPS groups, else one per
+//   warp and slot (warp_fold); each warp owns a float table in part_f.
+// - The reduce (scan_grouped_reduce) folds each slot's partials in
+//   REDUCE_LANES interleaved sequences, then a pairwise tree over them
+//   (exec/kernels/grouped.py reduce_partials): a fixed order, so two
 //   launches on the same inputs give bit-identical floats.
 // - STAGES = 2 (scan_kernel_dma = "double", kernel #2): a CTA copies the
 //   per-row arrays of its next tile -- the next pass of this work item, or
 //   the first of its next non-empty item -- into a two-stage ring in
 //   shared memory while this tile computes (scan_common.cuh stage_tile).
-//   STAGES = 1 is the unstaged kernel.
+//   STAGES = 1 is the unstaged kernel.  Both take the same path and grid
+//   (the on-chip fit counts the ring either way), so they agree bit for
+//   bit.
 //
 // Bound: like scan_direct, the encoded bytes of the scanned columns once
 // plus the table once, over the device memory rate (3.35 TB/s on an H100
@@ -60,9 +83,10 @@
 enum { MODE_SPAN = 0, MODE_HASH = 1 };
 #define PROBE_ROUNDS 16
 #define EMPTY_SLOT 0xffffffffffffffffULL
-#define REDUCE_THREADS 256
-// groups a hash table must hold before its integer rows fold with one
-// atomic each
+// the reduce: 32 slots x REDUCE_LANES partial sequences per block
+#define REDUCE_LANES 8
+// device-memory path: groups a hash table must hold before its integer
+// rows fold with one atomic each
 #define SPREAD_GROUPS 128
 
 // Integer rows into dst[code]: one atomic per row when `spread`, else
@@ -89,6 +113,43 @@ __device__ __forceinline__ void int_fold(bool spread, unsigned take,
     if (op == R_MIN) atomicMin(p, v);
     else if (op == R_MAX) atomicMax(p, v);
     else atomicAdd((u64*)p, (u64)v);
+  }
+}
+
+// On chip: an int64 add into shared memory as two native 32-bit atomics
+// (a 64-bit shared-memory add is a compare-and-swap loop): the low words
+// add, the add that wraps them carries one into the high word with its
+// own high half.  The sum is exact modulo 2^64, like the int64 add.
+__device__ __forceinline__ void shared_add64(i64* p, i64 v) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  const unsigned lo = (unsigned)(u64)v;
+  unsigned old;
+  asm volatile("atom.shared.add.u32 %0, [%1], %2;"
+               : "=r"(old) : "r"(a), "r"(lo) : "memory");
+  const unsigned hi = (unsigned)((u64)v >> 32) + (old + lo < old ? 1u : 0u);
+  if (hi) asm volatile("red.shared.add.u32 [%0], %1;"
+                       :: "r"(a + 4), "r"(hi) : "memory");
+}
+
+// Integer rows into the CTA's table dst[code] in shared memory (on chip),
+// one add (or 64-bit min / max) per row.
+__device__ __forceinline__ void shared_fold(unsigned take,
+                                            const i64 (&code)[RPT],
+                                            const Tile& t, bool count, int op,
+                                            bool in_float, i64* dst) {
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    if (!((take >> r) & 1u)) continue;
+    i64* p = dst + code[r];
+    if (count) {
+      shared_add64(p, 1);
+      continue;
+    }
+    const i64 x = result(t, r);
+    const i64 v = in_float ? (i64)as_f(x) : x;
+    if (op == R_MIN) atomicMin(p, v);
+    else if (op == R_MAX) atomicMax(p, v);
+    else shared_add64(p, v);
   }
 }
 
@@ -131,43 +192,57 @@ __device__ __forceinline__ void warp_stage_float(unsigned take,
   __syncwarp();
 }
 
-// Hash the live rows' key values (stashed per thread in kst / knull) and
-// place each row: its slot goes to code[r].  The rows probe in lockstep,
-// their table loads issued together; a row that claims a slot counts one
-// more group in meta[1].  Returns the rows placed.
-template <int STAGES>
+// Hash the live rows' key values and place each row: its slot goes to
+// code[r].  The rows probe in lockstep, their table loads issued together;
+// a row that claims a slot counts one more group in meta[1], and the
+// claiming rows' key values are evaluated again after the probe and
+// written to the slot (claims are rare: a stash of every row's keys would
+// cost shared memory a wider CTA needs).  With a `mirror` (on chip) a row
+// reads the CTA's copy of the key hashes first and device memory only
+// where the copy is still EMPTY.  Returns the rows placed.
+template <int STAGES, bool EXT>
 __device__ unsigned probe_rows(const Tile& t, const i64* keys, int n_keys,
                                unsigned live, i64 (&code)[RPT], i64 S,
-                               u64 salt, i64* kst, unsigned* knull,
-                               u64* keyhash, i64* keyvals, int8_t* keynull,
-                               int* meta) {
-  const int T = t.T, tid = t.tid;
+                               u64 salt, u64* keyhash, i64* keyvals,
+                               int8_t* keynull, int* meta, u64* mirror) {
   u64 h[RPT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) h[r] = salt + 1;
   for (int k = 0; k < n_keys; ++k) {
-    eval_prog<STAGES>(t, keys[2 * k], live);
+    eval_prog<STAGES, EXT>(t, keys[2 * k], live);
     const unsigned nm = result_nulls(t);
-    knull[k * T + tid] = nm;
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const i64 v = result(t, r);
-      kst[(k * RPT + r) * T + tid] = v;
-      h[r] = hash_mix(h[r], v, (nm >> r) & 1u);
-    }
+    for (int r = 0; r < RPT; ++r)
+      h[r] = hash_mix(h[r], result(t, r), (nm >> r) & 1u);
   }
   u64 s[RPT];
+  // the host's tables have power-of-two sizes: a mask, not a 64-bit
+  // division, picks the first slot
+  const bool pow2 = (S & (S - 1)) == 0;
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     if (h[r] == EMPTY_SLOT) h[r] = 0;            // EMPTY is reserved
-    s[r] = h[r] % (u64)S;
+    s[r] = pow2 ? h[r] & (u64)(S - 1) : h[r] % (u64)S;
   }
-  unsigned pending = live;
+  unsigned pending = live, claimed = 0;
   for (int round = 0; round < PROBE_ROUNDS && pending; ++round) {
     u64 cur[RPT];
+    unsigned fresh = 0;
+    if (mirror != nullptr) {
 #pragma unroll
-    for (int r = 0; r < RPT; ++r)
-      cur[r] = (pending >> r) & 1u ? __ldcg(keyhash + s[r]) : 0;
+      for (int r = 0; r < RPT; ++r)
+        cur[r] = (pending >> r) & 1u ? mirror[s[r]] : 0;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        if ((pending >> r) & 1u && cur[r] == EMPTY_SLOT) {
+          cur[r] = __ldcg(keyhash + s[r]);
+          fresh |= 1u << r;
+        }
+    } else {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        cur[r] = (pending >> r) & 1u ? __ldcg(keyhash + s[r]) : 0;
+    }
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       if (!((pending >> r) & 1u)) continue;
@@ -175,13 +250,12 @@ __device__ unsigned probe_rows(const Tile& t, const i64* keys, int n_keys,
         cur[r] = atomicCAS(keyhash + s[r], EMPTY_SLOT, h[r]);
         if (cur[r] == EMPTY_SLOT) {   // claimed: this row writes the keys
           atomicAdd(meta + 1, 1);
-          for (int k = 0; k < n_keys; ++k) {
-            keyvals[k * S + s[r]] = kst[(k * RPT + r) * T + tid];
-            keynull[k * S + s[r]] = (int8_t)((knull[k * T + tid] >> r) & 1u);
-          }
+          claimed |= 1u << r;
           cur[r] = h[r];
         }
       }
+      // a hash learned from device memory is final: keep it on chip
+      if ((fresh >> r) & 1u) mirror[s[r]] = cur[r];
       if (cur[r] == h[r]) {
         code[r] = (i64)s[r];
         pending &= ~(1u << r);
@@ -191,6 +265,18 @@ __device__ unsigned probe_rows(const Tile& t, const i64* keys, int n_keys,
     }
   }
   if (pending) meta[0] = 1;             // collision
+  if (__any_sync(FULL_MASK, claimed != 0)) {
+    for (int k = 0; k < n_keys; ++k) {
+      eval_prog<STAGES, EXT>(t, keys[2 * k], claimed);
+      const unsigned nm = result_nulls(t);
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        if ((claimed >> r) & 1u) {
+          keyvals[k * S + code[r]] = result(t, r);
+          keynull[k * S + code[r]] = (int8_t)((nm >> r) & 1u);
+        }
+    }
+  }
   return live & ~pending;
 }
 
@@ -206,20 +292,49 @@ __device__ __forceinline__ void item_rows(const i64* grid, int n_grid,
   hi = min(grid[2 * n_grid + e], lo + rows_per_cta);
 }
 
-template <int MODE, int STAGES>
-__global__ void __launch_bounds__(256, 2)
+// integer rows the kernel folds (the others copy __seen: src[r] != r)
+__device__ __forceinline__ int n_fold_rows(const i64* src, int n_i) {
+  int n = 0;
+  for (int r = 0; r < n_i; ++r) n += src[r] == r;
+  return n;
+}
+
+// Fold float rows staged by every warp (wsc / wsv: per warp RPT x 32
+// (slot, value) pairs, distinct slots within one warp and row position)
+// into the CTA's table `dst`, in (warp, row position) order.  Warp w
+// applies the slots = w mod warps; __syncwarp orders its positions.  The
+// caller's __syncthreads precede and follow it.
+__device__ __forceinline__ void apply_staged(const i64* sc, const double* sv,
+                                             int n_warps, int op,
+                                             double* dst) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = 0; k < n_warps * RPT; ++k) {
+    const i64 c = sc[k * 32 + lane];
+    if (c >= 0 && (int)c % n_warps == warp)
+      dst[c] = fcombine(dst[c], sv[k * 32 + lane], op);
+    __syncwarp();
+  }
+}
+
+// ONCHIP: the tables live in shared memory.  Every instance fits 512
+// threads of an SM at 128 registers each: two CTAs of 256 threads, or one
+// wider CTA, which a hash plan takes when its on-chip table leaves room
+// for one CTA per SM (ScanPlan.threads).
+template <int MODE, int STAGES, bool ONCHIP, bool EXT>
+__global__ void __launch_bounds__(512, 1)
 scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
                     const i64* __restrict__ grid, int n_grid, i64 br,
                     i64 rows_per_cta, int n_sub,
                     const i64* __restrict__ params_g, int n_params, i64 G,
-                    i64* __restrict__ part_i, i64* __restrict__ acc_i,
-                    double* __restrict__ part_f, u64* __restrict__ counts,
-                    u64* __restrict__ keyhash, i64* __restrict__ keyvals,
-                    int8_t* __restrict__ keynull, int* __restrict__ meta,
-                    u64 salt, int stage_tab, int stage_bytes) {
+                    int f_tables, i64* __restrict__ part_i,
+                    i64* __restrict__ acc_i, double* __restrict__ part_f,
+                    u64* __restrict__ counts, u64* __restrict__ keyhash,
+                    i64* __restrict__ keyvals, int8_t* __restrict__ keynull,
+                    int* __restrict__ meta, u64 salt, int stage_tab,
+                    int stage_bytes) {
   extern __shared__ __align__(16) i64 smem[];
   const int T = blockDim.x, tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int warp = tid >> 5, n_warps = T >> 5;
   // the stage ring (STAGES > 1) comes first, 16-byte aligned
   unsigned char* ring = (unsigned char*)smem;
   i64* plan = smem + (STAGES > 1 ? STAGES * stage_bytes / 8 : 0);  // n_plan
@@ -234,36 +349,52 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
   const i64* keys = plan + plan[H_OFF_KEYS];
   const i64* specs = plan + plan[H_OFF_SPECS];
   const i64* rows = plan + plan[H_OFF_ROWS];   // (init bits, op) per row
-  // span: integer accumulators of this CTA in shared memory when given
-  // partials to write them to; otherwise they fold into acc_i
-  const bool int_smem = part_i != nullptr;
+  const i64* src = plan + plan[H_OFF_SRC];     // row a row is copied from
+  const bool onchip = ONCHIP, mirrored = ONCHIP && MODE == MODE_HASH;
 
   i64* sm_cnt = params + n_params;                   // 1 + n_steps
   i64* cnt = sm_cnt + 1 + n_steps;                   // (1 + n_steps) x T
   i64* stk = cnt + (1 + n_steps) * T;                // depth x RPT x T
-  i64* kst = stk + depth * RPT * T;                  // hash: keys x RPT x T
   // float staging, RPT x 32 (slot, value) pairs per warp
-  i64* stg_c = kst + (MODE == MODE_HASH ? n_keys * RPT * T : 0);
+  i64* stg_c = stk + depth * RPT * T;
   double* stg_v = (double*)(stg_c + (n_f ? RPT * T : 0));
-  i64* sm_i = (i64*)(stg_v + (n_f ? RPT * T : 0));
-  unsigned* nulls = (unsigned*)(sm_i + (int_smem ? n_i * G : 0));
-  unsigned* knull = nulls + depth * T;               // hash: keys x T
-  int* jrow = (int*)(knull + (MODE == MODE_HASH ? n_keys * T : 0));
+  // on chip: the key-hash mirror (hash), the folded integer rows and the
+  // float rows (f_tables tables: one per warp, or one for the CTA), G
+  // slots each
+  u64* mirror = (u64*)(stg_v + (n_f ? RPT * T : 0));
+  i64* sm_i = (i64*)(mirror + (mirrored ? G : 0));
+  double* sm_f = (double*)(sm_i + (onchip ? n_fold_rows(src, n_i) * G : 0));
+  unsigned* nulls = (unsigned*)(sm_f + (onchip ? f_tables * n_f * G : 0));
+  int* jrow = (int*)(nulls + depth * T);
   unsigned* jhit = (unsigned*)(jrow + n_joins * RPT * T);  // joins x T
   unsigned* jnul = jhit + n_joins * T;                     // joins x T
-  if (int_smem)
-    for (i64 k = tid; k < n_i * G; k += T) sm_i[k] = rows[2 * (k / G)];
+  int* ipos = (int*)(jnul + n_joins * T);  // n_i: a row's on-chip position
+  if (tid == 0)
+    for (int r = 0, q = 0; r < n_i; ++r) ipos[r] = src[r] == r ? q++ : -1;
   for (int k = tid; k <= n_steps; k += T) sm_cnt[k] = 0;
   for (int k = 0; k <= n_steps; ++k) cnt[k * T + tid] = 0;
-  // this warp's float partials, in global memory
-  const int lane = tid & 31;
-  double* pf = n_f ? part_f + ((size_t)blockIdx.x * (T >> 5) + warp) *
-                                  n_f * G
-                   : nullptr;
-  for (i64 s = lane; s < n_f * G; s += 32)
-    __stcg(pf + s, as_f(rows[2 * (n_i + s / G)]));
+  if (mirrored)
+    for (i64 k = tid; k < G; k += T) mirror[k] = EMPTY_SLOT;
+  if (onchip)
+    for (i64 k = tid; k < f_tables * n_f * G; k += T)
+      sm_f[k] = as_f(rows[2 * (n_i + (k / G) % n_f)]);
   __syncthreads();
-  i64* iacc = int_smem ? sm_i : acc_i;
+  if (onchip)
+    for (int r = 0; r < n_i; ++r)
+      if (ipos[r] >= 0)
+        for (i64 k = tid; k < G; k += T) sm_i[ipos[r] * G + k] = rows[2 * r];
+  // this warp's float table: the CTA's or its own in shared memory (on
+  // chip), its own in part_f (device memory)
+  const int lane = tid & 31;
+  const bool cta_floats = ONCHIP && f_tables == 1;
+  double* pf = !n_f ? nullptr
+               : cta_floats ? sm_f
+               : onchip ? sm_f + (size_t)warp * n_f * G
+               : part_f + ((size_t)blockIdx.x * n_warps + warp) * n_f * G;
+  if (!onchip)
+    for (i64 s = lane; s < n_f * G; s += 32)
+      __stcg(pf + s, as_f(rows[2 * (n_i + s / G)]));
+  __syncthreads();
   i64* wsc = stg_c + warp * RPT * 32;
   double* wsv = stg_v + warp * RPT * 32;
 
@@ -280,6 +411,16 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
   t.tid = tid;
   t.stab = STAGES > 1 ? plan + stage_tab : nullptr;
   t.stage = nullptr;
+  // integer row r's folds: on chip, at its fold position in shared
+  // memory; else into acc_i with global atomics (warp_fold's rounds while
+  // a hash table holds fewer than SPREAD_GROUPS groups)
+  auto fold = [&](bool spread, unsigned take, const i64 (&code)[RPT],
+                  bool count, int op, bool in_float, int r) {
+    if (ONCHIP)
+      shared_fold(take, code, t, count, op, in_float, sm_i + ipos[r] * G);
+    else
+      int_fold(spread, take, code, t, count, op, in_float, acc_i + r * G);
+  };
   const i64 n_items = (i64)n_grid * n_sub, tile = (i64)RPT * T;
   const int n_cols = (int)plan[H_N_COLS];
   // the stage ring: the first pass of the CTA's first non-empty work item
@@ -307,7 +448,8 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
     const int n_pass =
         span > 0 ? (int)((span + RPT * T - 1) / (RPT * T)) : 0;
     // every thread of the CTA runs every pass (the folds need whole
-    // warps); rows past `hi` are simply not live
+    // warps, the on-chip float fold the whole CTA); rows past `hi` are
+    // simply not live
     for (int pass = 0; pass < n_pass; ++pass) {
       const i64 base = lo + (i64)pass * RPT * T + tid;
       t.row0 = bidx * br + base;
@@ -346,17 +488,19 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
 #pragma unroll
       for (int r = 0; r < RPT; ++r) live |= (unsigned)(base + r * T < hi) << r;
       cnt[tid] += __popc(live);
-      live = run_steps<STAGES>(t, n_steps, live, cnt);
+      live = run_steps<STAGES, EXT>(t, n_steps, live, cnt);
       __syncwarp();
       const bool any = __any_sync(FULL_MASK, live != 0);
       i64 code[RPT];
 #pragma unroll
       for (int r = 0; r < RPT; ++r) code[r] = 0;
+      // device memory: one atomic per row in span mode; the hash path
+      // spreads by its group count
       bool spread = MODE == MODE_SPAN;
       if (any) {
         if (MODE == MODE_SPAN) {
           for (int k = 0; k < n_keys; ++k) {
-            eval_prog<STAGES>(t, keys[2 * k], live);
+            eval_prog<STAGES, EXT>(t, keys[2 * k], live);
 #pragma unroll
             for (int r = 0; r < RPT; ++r)
               code[r] += result(t, r) * keys[2 * k + 1];
@@ -365,13 +509,14 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
           for (int r = 0; r < RPT; ++r)
             if (code[r] < 0 || code[r] >= G) live &= ~(1u << r);
         } else {
-          live = probe_rows<STAGES>(t, keys, n_keys, live, code, G, salt,
-                                    kst, knull,
-                            keyhash, keyvals, keynull, meta);
-          spread = __shfl_sync(FULL_MASK, __ldcg(meta + 1), 0) >=
-                   SPREAD_GROUPS;
+          live = probe_rows<STAGES, EXT>(t, keys, n_keys, live, code, G, salt,
+                                    keyhash, keyvals, keynull, meta,
+                                    mirrored ? mirror : nullptr);
+          if (!ONCHIP)
+            spread = __shfl_sync(FULL_MASK, __ldcg(meta + 1), 0) >=
+                     SPREAD_GROUPS;
         }
-        int_fold(spread, live, code, t, true, R_ADD, false, iacc);  // __seen
+        fold(spread, live, code, true, R_ADD, false, 0);
       }
       for (int s = 0; s < n_specs; ++s) {
         const i64* sp = specs + SPEC_WORDS * s;
@@ -384,17 +529,24 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
         if (is_count && seen_count) continue;
         unsigned take = live;
         if (any && kind != S_COUNT_STAR) {
-          eval_prog<STAGES>(t, sp[2], live);
+          eval_prog<STAGES, EXT>(t, sp[2], live);
           take &= ~result_nulls(t);
         }
         if (is_count) {
           if (any)
-            int_fold(spread, take, code, t, true, R_ADD, false,
-                     iacc + vrow * G);
+            fold(spread, take, code, true, R_ADD, false, vrow);
           continue;
         }
         const int op = kind == S_MIN ? R_MIN : kind == S_MAX ? R_MAX : R_ADD;
-        if (acc_float) {
+        if (acc_float && cta_floats) {
+          // every warp stages (no rows: all slots -1); the CTA applies
+          // the pairs only when some warp had rows
+          warp_stage_float(take, code, t, op, in_float, wsc, wsv);
+          if (__syncthreads_or(any)) {
+            apply_staged(stg_c, stg_v, n_warps, op, pf + vrow * G);
+            __syncthreads();
+          }
+        } else if (acc_float) {
           if (!any) continue;
           warp_stage_float(take, code, t, op, in_float, wsc, wsv);
           // within one row position the staged slots are distinct: the
@@ -402,18 +554,20 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
           double* dst = pf + vrow * G;
           for (int r = 0; r < RPT; ++r) {
             const i64 c = wsc[r * 32 + lane];
-            if (c >= 0)
-              __stcg(dst + c, fcombine(__ldcg(dst + c), wsv[r * 32 + lane],
-                                       op));
+            if (c >= 0) {
+              if (ONCHIP)
+                dst[c] = fcombine(dst[c], wsv[r * 32 + lane], op);
+              else
+                __stcg(dst + c, fcombine(__ldcg(dst + c),
+                                         wsv[r * 32 + lane], op));
+            }
             __syncwarp();
           }
         } else if (any) {
-          int_fold(spread, take, code, t, false, op, in_float,
-                   iacc + vrow * G);
+          fold(spread, take, code, false, op, in_float, vrow);
         }
         if (any && !seen_count)
-          int_fold(spread, take, code, t, true, R_ADD, false,
-                   iacc + crow * G);
+          fold(spread, take, code, true, R_ADD, false, crow);
       }
     }
   }
@@ -428,74 +582,119 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
   __syncthreads();
   for (int k = tid; k <= n_steps; k += T)
     if (sm_cnt[k]) atomicAdd(&counts[k], (u64)sm_cnt[k]);
-  if (int_smem)
-    for (i64 k = tid; k < n_i * G; k += T)
-      part_i[(size_t)blockIdx.x * n_i * G + k] = sm_i[k];
+  if (onchip) {
+    const i64 ni = n_fold_rows(src, n_i) * G;
+    for (i64 k = tid; k < ni; k += T)
+      part_i[(size_t)blockIdx.x * ni + k] = sm_i[k];
+    const i64 nf = (i64)f_tables * n_f * G;
+    for (i64 k = tid; k < nf; k += T)
+      part_f[(size_t)blockIdx.x * nf + k] = sm_f[k];
+  }
 }
 
-// Final accumulators, one thread per (row, slot).  Integer rows fold the
-// per-CTA partials (span, shared-memory accumulators) or already hold
-// their atomic sums; a row standing for __seen copies it.  Float rows fold
-// the per-warp partials in (CTA, warp) order -- the same order on every
-// run.
+// Final accumulators.  Block (blockIdx.x, blockIdx.y): 32 slots of
+// accumulator row blockIdx.y (the n_i integer rows, then the n_f float
+// rows); thread (x, y) folds the slot's partials b = y, y + REDUCE_LANES,
+// ... in order from the row op's identity, the REDUCE_LANES sequences
+// combine as a pairwise tree, and the row's initial value comes first
+// (exec/kernels/grouped.py reduce_partials).  An integer row's partials
+// are part_i's (on chip: one per CTA, at the row's fold position), or
+// none: its atomic sums are in acc_i already.  A row standing for __seen
+// folds (or copies) __seen's.
 __global__ void scan_grouped_reduce(const i64* __restrict__ plan, i64 G,
-                                    int n_parts, int n_fparts,
+                                    int n_iparts, int n_fparts,
                                     const i64* __restrict__ part_i,
                                     i64* __restrict__ acc_i,
                                     const double* __restrict__ part_f,
                                     double* __restrict__ acc_f) {
+  __shared__ i64 red[REDUCE_LANES][32];
   const int n_i = (int)plan[H_N_I], n_f = (int)plan[H_N_F];
   const i64* rows = plan + plan[H_OFF_ROWS];
   const i64* src = plan + plan[H_OFF_SRC];
-  const i64 k = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < n_i * G) {
-    const int r = (int)(k / G);
-    const i64 g = k - r * G;
-    const int sr = (int)src[r];
-    if (part_i != nullptr) {
-      const int op = (int)rows[2 * sr + 1];
-      i64 acc = rows[2 * sr];
-      for (int b = 0; b < n_parts; ++b)
-        acc = icombine(acc, part_i[((size_t)b * n_i + sr) * G + g], op);
-      acc_i[k] = acc;
-    } else if (sr != r) {
-      acc_i[k] = acc_i[sr * G + g];
+  const int row = blockIdx.y, x = threadIdx.x, y = threadIdx.y;
+  const i64 g = (i64)blockIdx.x * 32 + x;
+  const bool in = g < G;
+  if (row < n_i) {
+    const int sr = (int)src[row];
+    if (part_i == nullptr) {                 // block-uniform
+      if (y == 0 && in && sr != row) acc_i[row * G + g] = acc_i[sr * G + g];
+      return;
     }
-  } else if (k < (n_i + n_f) * G) {
-    const i64 s0 = k - n_i * G;
-    const int fr = (int)(s0 / G);
-    const int op = (int)rows[2 * (n_i + fr) + 1];
-    double acc = as_f(rows[2 * (n_i + fr)]);
-    for (int b = 0; b < n_fparts; ++b)
-      acc = fcombine(acc, part_f[(size_t)b * n_f * G + s0], op);
-    acc_f[s0] = acc;
+    int q = 0;                               // sr's fold position
+    for (int r = 0; r < sr; ++r) q += src[r] == r;
+    const int n_fold = n_fold_rows(src, n_i);
+    const int op = (int)rows[2 * sr + 1];
+    i64 acc = op == R_MIN ? I64_MAX : op == R_MAX ? I64_MIN : 0;
+    if (in)
+      for (int b = y; b < n_iparts; b += REDUCE_LANES)
+        acc = icombine(acc, part_i[((size_t)b * n_fold + q) * G + g], op);
+    red[y][x] = acc;
+    for (int w = 1; w < REDUCE_LANES; w <<= 1) {
+      __syncthreads();
+      if ((y & (2 * w - 1)) == 0)
+        red[y][x] = icombine(red[y][x], red[y + w][x], op);
+    }
+    if (y == 0 && in) acc_i[row * G + g] = icombine(rows[2 * sr], red[0][x], op);
+    return;
   }
+  const int fr = row - n_i;
+  if (fr >= n_f) return;
+  const int op = (int)rows[2 * (n_i + fr) + 1];
+  double acc = op == R_MIN ? as_f(0x7ff0000000000000LL)
+               : op == R_MAX ? as_f((i64)0xfff0000000000000ULL) : 0.0;
+  if (in)
+    for (int b = y; b < n_fparts; b += REDUCE_LANES)
+      acc = fcombine(acc, part_f[((size_t)b * n_f + fr) * G + g], op);
+  double* fred = (double*)&red[0][0];
+  fred[y * 32 + x] = acc;
+  for (int w = 1; w < REDUCE_LANES; w <<= 1) {
+    __syncthreads();
+    if ((y & (2 * w - 1)) == 0)
+      fred[y * 32 + x] = fcombine(fred[y * 32 + x], fred[(y + w) * 32 + x],
+                                  op);
+  }
+  if (y == 0 && in)
+    acc_f[fr * G + g] = fcombine(as_f(rows[2 * (n_i + fr)]), fred[x], op);
 }
 
 typedef void (*grouped_kernel_t)(const i64*, int, const i64*, int, i64, i64,
-                                 int, const i64*, int, i64, i64*, i64*,
+                                 int, const i64*, int, i64, int, i64*, i64*,
                                  double*, u64*, u64*, i64*, int8_t*, int*,
                                  u64, int, int);
 
+template <int MODE, bool EXT>
+static grouped_kernel_t pick(int stages, int onchip) {
+  if (onchip)
+    return stages == 2 ? scan_grouped_kernel<MODE, 2, true, EXT>
+                       : scan_grouped_kernel<MODE, 1, true, EXT>;
+  return stages == 2 ? scan_grouped_kernel<MODE, 2, false, EXT>
+                     : scan_grouped_kernel<MODE, 1, false, EXT>;
+}
+
 // Launch the scan kernel in `mode` over n_ctas persistent CTAs, then the
-// reduce, on `stream`; returns cudaGetLastError().  part_f holds
-// n_ctas x threads / 32 warp partials.  stages 2 runs the stage ring of
-// stage_bytes per stage (stage table at plan word stage_tab); smem_bytes
-// includes the ring.
+// reduce, on `stream`; returns cudaGetLastError().  onchip: the CTAs keep
+// their tables in shared memory and write them to part_i (n_ctas x
+// n_fold x G); otherwise part_i is null.  part_f holds n_ctas x f_tables
+// float tables (n_f x G each): f_tables is threads / 32 (one per warp)
+// or, on chip without room for those, 1.  stages 2 runs the
+// stage ring of stage_bytes per stage (stage table at plan word
+// stage_tab); smem_bytes includes the ring and the on-chip tables; ext
+// picks the instance for the opcodes beyond the Q1 / Q6 set.
 extern "C" int scan_grouped_launch(
     int mode, const void* plan, int n_plan, const void* grid, int n_grid,
     long long br, long long rows_per_cta, int n_sub, const void* params,
-    int n_params, long long G, int n_i, int n_f, void* part_i, void* acc_i,
-    void* part_f, void* acc_f, void* counts, void* keyhash, void* keyvals,
-    void* keynull, void* table_meta, long long salt, int n_ctas, int threads,
-    int stages, int stage_tab, int stage_bytes, int smem_bytes,
-    void* stream) {
+    int n_params, long long G, int n_i, int n_f, int onchip, int f_tables,
+    void* part_i,
+    void* acc_i, void* part_f, void* acc_f, void* counts, void* keyhash,
+    void* keyvals, void* keynull, void* table_meta, long long salt,
+    int n_ctas, int threads, int stages, int stage_tab, int stage_bytes,
+    int smem_bytes, int ext, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const grouped_kernel_t kernel =
-      mode == MODE_HASH ? (stages == 2 ? scan_grouped_kernel<MODE_HASH, 2>
-                                       : scan_grouped_kernel<MODE_HASH, 1>)
-                        : (stages == 2 ? scan_grouped_kernel<MODE_SPAN, 2>
-                                       : scan_grouped_kernel<MODE_SPAN, 1>);
+      mode == MODE_HASH ? (ext ? pick<MODE_HASH, true>(stages, onchip)
+                               : pick<MODE_HASH, false>(stages, onchip))
+                        : (ext ? pick<MODE_SPAN, true>(stages, onchip)
+                               : pick<MODE_SPAN, false>(stages, onchip));
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -504,18 +703,15 @@ extern "C" int scan_grouped_launch(
   }
   kernel<<<n_ctas, threads, smem_bytes, st>>>(
       (const i64*)plan, n_plan, (const i64*)grid, n_grid, br, rows_per_cta,
-      n_sub, (const i64*)params, n_params, G, (i64*)part_i, (i64*)acc_i,
-      (double*)part_f, (u64*)counts, (u64*)keyhash, (i64*)keyvals,
-      (int8_t*)keynull, (int*)table_meta, (u64)salt, stage_tab,
-      stage_bytes);
+      n_sub, (const i64*)params, n_params, G, f_tables, (i64*)part_i,
+      (i64*)acc_i, (double*)part_f, (u64*)counts, (u64*)keyhash,
+      (i64*)keyvals, (int8_t*)keynull, (int*)table_meta, (u64)salt,
+      stage_tab, stage_bytes);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long n_slots = (long long)(n_i + n_f) * G;
-  scan_grouped_reduce<<<(unsigned)((n_slots + REDUCE_THREADS - 1) /
-                                   REDUCE_THREADS),
-                        REDUCE_THREADS, 0, st>>>(
-      (const i64*)plan, G, n_ctas, n_ctas * (threads / 32),
-      (const i64*)part_i, (i64*)acc_i,
-      (const double*)part_f, (double*)acc_f);
+  const dim3 rgrid((unsigned)((G + 31) / 32), (unsigned)(n_i + n_f));
+  scan_grouped_reduce<<<rgrid, dim3(32, REDUCE_LANES), 0, st>>>(
+      (const i64*)plan, G, n_ctas, n_ctas * f_tables, (const i64*)part_i,
+      (i64*)acc_i, (const double*)part_f, (double*)acc_f);
   return (int)cudaGetLastError();
 }

@@ -38,20 +38,33 @@ import torch
 
 from .. import operators as ops
 from ..batch import Column
+from . import scan_kernel as sk
 from .scan_kernel import (GROUPED_SUBTILE_ROWS, KERNEL_HASH_MAX_SLOTS,
-                          ScanPlan, aligned_grid, block_rows_for,
+                          MAX_PARAMS, ScanPlan, aligned_grid, block_rows_for,
                           cached_plan, check_launch_inputs, count_launch,
                           gather_encoded_arrays, init_outputs, join_kwargs,
                           check_dma, launch_tensors, meter_kernel_run,
                           plan_joins, plain_row_groups, stacked_state,
                           stage_ring_counts, state_of)
 
-# CTAs of the persistent grouped grid per SM
-CTAS_PER_SM = 2
-# device memory the per-warp float partials may take; past it the grid
-# has fewer CTAs
+# threads of the persistent grouped grid per SM (the kernel's launch
+# bounds: 128 registers each): two CTAs of 256 threads, one wider CTA, or
+# fewer where the on-chip tables leave room for fewer
+RESIDENT_THREADS = 512
+# shared memory of one SM (H100: 228 KB, of which each resident CTA's
+# share carries 1 KB the runtime reserves)
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED_PER_CTA = 1024
+# device memory the device-memory path's per-warp float partials may take;
+# past it the grid has fewer CTAs
 FLOAT_PARTIAL_BYTES = 1 << 29
+# the reduce folds each slot's partials in REDUCE_LANES interleaved
+# sequences, then a pairwise tree over them (csrc/scan_grouped.cu
+# scan_grouped_reduce; reduce_partials)
+REDUCE_LANES = 8
 _MODE_IDS = {"span": 0, "hash": 1}
+# grouped launches per wrapper whose tables stayed in shared memory
+ONCHIP_LAUNCHES = {"scan_span": 0, "scan_hash": 0}
 
 
 class HashTable(NamedTuple):
@@ -71,13 +84,27 @@ class HashTable(NamedTuple):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def ctas_per_sm(plan: ScanPlan, G: int) -> int:
+    """Resident CTAs per SM of a launch into G slots: as many as the
+    kernel's registers hold (RESIDENT_THREADS) and, on chip, as many as
+    the tables leave room for, counted with the double mode's ring and the
+    most parameters, so that a single and a double launch run the same
+    grid and fold in the same order."""
+    per_sm = max(1, RESIDENT_THREADS // plan.threads)
+    if not plan.on_chip(G):
+        return per_sm
+    need = plan.smem_bytes + plan.table_bytes(G) + plan.ring_reserve \
+        + 8 * MAX_PARAMS + SMEM_RESERVED_PER_CTA
+    return max(1, min(per_sm, SMEM_PER_SM // need))
+
+
 def _grid_shape(plan: ScanPlan, n_grid: int, br: int, G: int, device):
     """(rows per CTA slice, slices per grid entry, CTAs) of a launch."""
     rows_per_cta = min(int(br), GROUPED_SUBTILE_ROWS)
     n_sub = -(-int(br) // rows_per_cta)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_ctas = min(n_grid * n_sub, CTAS_PER_SM * sms)
-    if plan.n_f:
+    n_ctas = min(n_grid * n_sub, ctas_per_sm(plan, G) * sms)
+    if plan.n_f and not plan.on_chip(G):
         n_ctas = min(n_ctas, FLOAT_PARTIAL_BYTES
                      // (8 * (plan.threads // 32) * plan.n_f * G))
     return rows_per_cta, n_sub, max(1, n_ctas)
@@ -85,14 +112,22 @@ def _grid_shape(plan: ScanPlan, n_grid: int, br: int, G: int, device):
 
 def partial_bytes(plan: ScanPlan, n_grid: int, br: int, G: int,
                   device) -> int:
-    """Device bytes of a launch's per-CTA integer and per-warp float
-    partials (none for the plain versions on the CPU)."""
+    """Device bytes of a launch's partials: on chip, each CTA's integer
+    tables; each warp's float tables, or on chip without room for them,
+    each CTA's (none for the plain versions on the CPU)."""
     if device.type != "cuda" or not n_grid:
         return 0
     _rows, _sub, n_ctas = _grid_shape(plan, n_grid, br, G, device)
-    per_cta = plan.n_i if plan.int_smem else 0
-    per_cta += (plan.threads // 32) * plan.n_f
-    return 8 * n_ctas * per_cta * G
+    return 8 * n_ctas * G * (plan.n_fold * plan.on_chip(G)
+                             + plan.n_f * _float_tables(plan, G))
+
+
+def _float_tables(plan: ScanPlan, G: int) -> int:
+    """Float partial tables per CTA: one per warp, unless on chip with one
+    per CTA."""
+    if plan.on_chip(G) and not plan.warp_floats(G):
+        return 1
+    return plan.threads // 32
 
 
 def stage_counts(plan: ScanPlan, columns, grid, br: int, G: int,
@@ -108,10 +143,13 @@ def stage_counts(plan: ScanPlan, columns, grid, br: int, G: int,
 
 def _launch(plan: ScanPlan, columns, grid, br: int, params, *, G: int,
             acc_i, acc_f, counts, salt: int = 0, table=None,
-            joins=None, dma: str = "single") -> None:
+            joins=None, dma: str = "single"):
     """One launch of scan_grouped_kernel in the plan's mode (plus its
     reduce) over a persistent grid of CTAs that stride over the grid
-    entries' GROUPED_SUBTILE_ROWS-row slices."""
+    entries' GROUPED_SUBTILE_ROWS-row slices.  Returns the partials the
+    reduce folded, (part_i or None, part_f or None): on chip, the
+    integer rows per CTA; the float rows per warp (warp_floats, and on
+    the device-memory path) or per CTA."""
     device = acc_i.device
     from .build import load
     fn = load("scan_grouped").scan_grouped_launch
@@ -119,19 +157,20 @@ def _launch(plan: ScanPlan, columns, grid, br: int, params, *, G: int,
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_int]
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 9
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     n_params = 0 if params is None else int(params.numel())
-    ln = launch_tensors(plan, columns, grid, device, joins, dma, n_params)
+    on_chip = plan.on_chip(G)
+    ln = launch_tensors(plan, columns, grid, device, joins, dma, n_params,
+                        plan.table_bytes(G))
     rows_per_cta, n_sub, n_ctas = _grid_shape(plan, len(grid), br, G, device)
-    warps = plan.threads // 32
-    part_i = (torch.empty((n_ctas, plan.n_i, G), dtype=torch.int64,
-                          device=device) if plan.int_smem else None)
-    # one float partial table per warp
-    part_f = (torch.empty((n_ctas * warps, plan.n_f, G), dtype=torch.float64,
+    n_fparts = n_ctas * _float_tables(plan, G)
+    part_i = (torch.empty((n_ctas, plan.n_fold, G), dtype=torch.int64,
+                          device=device) if on_chip else None)
+    part_f = (torch.empty((n_fparts, plan.n_f, G), dtype=torch.float64,
                           device=device) if plan.n_f else None)
 
     def ptr(t):
@@ -141,13 +180,50 @@ def _launch(plan: ScanPlan, columns, grid, br: int, params, *, G: int,
     rc = fn(_MODE_IDS[plan.mode], ln.plan.data_ptr(), int(ln.plan.numel()),
             ln.grid.data_ptr(), len(grid), int(br), rows_per_cta, n_sub,
             ptr(params) if n_params else None, n_params, int(G), plan.n_i,
-            plan.n_f, ptr(part_i), acc_i.data_ptr(), ptr(part_f),
-            acc_f.data_ptr(), counts.data_ptr(), ptr(keyhash), ptr(keys),
-            ptr(keynull), ptr(meta), int(salt), n_ctas, plan.threads,
-            ln.stages, ln.stage_tab, ln.stage_bytes, ln.smem_bytes, stream)
+            plan.n_f, int(on_chip), n_fparts // n_ctas, ptr(part_i),
+            acc_i.data_ptr(),
+            ptr(part_f), acc_f.data_ptr(), counts.data_ptr(), ptr(keyhash),
+            ptr(keys), ptr(keynull), ptr(meta), int(salt), n_ctas,
+            plan.threads, ln.stages, ln.stage_tab, ln.stage_bytes,
+            ln.smem_bytes, int(plan.ext), stream)
     if rc != 0:
         raise RuntimeError(
             f"scan_grouped ({plan.mode}) launch failed: CUDA error {rc}")
+    return part_i, part_f
+
+
+def reduce_partials(parts, op: int, init):
+    """The reduce's fold of one accumulator row over its partials, in
+    plain torch: parts (P, S) -> (S,).  Partial b joins sequence b mod
+    REDUCE_LANES, each sequence folds in order from the op's identity,
+    the sequences combine as a pairwise tree, ((0 1) (2 3)) ((4 5) (6 7)),
+    and the row's initial value comes first.  The order depends only on
+    P, so two launches give bit-identical floats."""
+    is_f = parts.is_floating_point()
+    ident = {sk._R_ADD: 0,
+             sk._R_MIN: float("inf") if is_f else ops.INT64_MAX,
+             sk._R_MAX: float("-inf") if is_f else ops.INT64_MIN}[op]
+
+    def combine(acc, x):
+        if op == sk._R_ADD:
+            return acc + x
+        pick = x < acc if op == sk._R_MIN else x > acc
+        if is_f:    # csrc/scan_common.cuh fcombine: a NaN wins
+            pick = torch.isnan(x) | (pick & ~torch.isnan(acc))
+        return torch.where(pick, x, acc)
+    lanes = []
+    for p in range(REDUCE_LANES):
+        acc = torch.full(parts.shape[1:], ident, dtype=parts.dtype,
+                         device=parts.device)
+        for b in range(p, parts.shape[0], REDUCE_LANES):
+            acc = combine(acc, parts[b])
+        lanes.append(acc)
+    w = 1
+    while w < REDUCE_LANES:
+        for p in range(0, REDUCE_LANES, 2 * w):
+            lanes[p] = combine(lanes[p], lanes[p + w])
+        w *= 2
+    return combine(torch.full_like(lanes[0], init), lanes[0])
 
 
 def scan_span(plan: ScanPlan, columns, grid, br: int, params, joins=None,
@@ -168,6 +244,7 @@ def scan_span(plan: ScanPlan, columns, grid, br: int, params, joins=None,
         _launch(plan, columns, grid, br, params, G=plan.G, acc_i=acc_i,
                 acc_f=acc_f, counts=counts, joins=joins, dma=dma)
         count_launch("scan_span", plan, dma)
+        ONCHIP_LAUNCHES["scan_span"] += plan.on_chip(plan.G)
     return acc_i, acc_f, counts
 
 
@@ -198,6 +275,7 @@ def scan_hash(plan: ScanPlan, columns, grid, br: int, params,
                 acc_f=acc_f, counts=counts, salt=salt,
                 table=(keyhash, keys, keynull, meta), joins=joins, dma=dma)
         count_launch("scan_hash", plan, dma)
+        ONCHIP_LAUNCHES["scan_hash"] += plan.on_chip(num_slots)
     return HashTable(keyhash, keys, keynull, acc_i, acc_f, counts,
                      meta[0] != 0)
 
@@ -304,7 +382,7 @@ def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
         doms, G, strides, kdts, kdicts = span_info
         plan = cached_plan(cache, chain, declined, mode="span", specs=specs,
                            key_names=key_names, strides=strides, G=G,
-                           agg_inputs=agg_inputs, jplan=jplan, dma=dma)
+                           agg_inputs=agg_inputs, jplan=jplan)
         if plan is None:
             return None
         columns = gather_encoded_arrays(cached, colmap, plan.names)
@@ -345,7 +423,7 @@ def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
         return None
     plan = cached_plan(cache, chain, declined, mode="hash", specs=specs,
                        key_names=key_names, strides=(0,) * len(key_names),
-                       G=0, agg_inputs=agg_inputs, jplan=jplan, dma=dma)
+                       G=0, agg_inputs=agg_inputs, jplan=jplan)
     if plan is None:
         return None
     columns = gather_encoded_arrays(cached, colmap, plan.names)

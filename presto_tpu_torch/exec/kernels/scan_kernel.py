@@ -79,13 +79,16 @@ KERNEL_DECLINE_REASONS = (
 )
 
 THREADS = 256
+# the widest CTA of a hash plan whose table stays on chip (the grouped
+# kernel's launch bounds: 512 threads of 128 registers per SM)
+HASH_MAX_THREADS = 512
 # rows each kernel thread interprets per instruction dispatch
 # (csrc/scan_direct.cu RPT)
 ROWS_PER_THREAD = 4
 # rows of a grid block one CTA takes (a 64K-row block is cut in 8)
 ROWS_PER_CTA = 8192
-# dynamic shared memory the kernel may ask for (H100: 227 KB a block)
-MAX_SMEM_BYTES = 200 * 1024
+# dynamic shared memory a kernel may ask for (H100: 227 KB a block)
+MAX_SMEM_BYTES = 227 * 1024
 # bound parameters a launch may stage in shared memory
 MAX_PARAMS = 256
 # rows the plain version decodes at once
@@ -435,8 +438,19 @@ class ScanPlan:
     words: np.ndarray                      # static plan vector (int64)
     threads: int
     smem_bytes: int
-    # span: integer accumulators per CTA in shared memory (else global)
-    int_smem: bool = False
+    # per integer row, the row its final value is copied from: itself when
+    # the kernel folds it, 0 (__seen) for a count that equals __seen
+    src_rows: Tuple[int, ...] = ()
+    # grouped modes: the largest slot count whose per-CTA tables fit in
+    # shared memory (0: none) -- on_chip -- beside the double mode's ring
+    # and stage table (ring_reserve bytes); and the largest whose float
+    # rows fit once per warp (warp_floats)
+    onchip_slots: int = 0
+    ring_reserve: int = 0
+    warp_float_slots: int = 0
+    # a program uses an opcode past the Q1 / Q6 set: the kernels' EXT
+    # instances run the plan
+    ext: bool = False
     joins: Tuple[JoinProgram, ...] = ()
     virtual: Tuple[VirtualColumn, ...] = ()
 
@@ -448,15 +462,41 @@ class ScanPlan:
     def n_f(self) -> int:
         return len(self.flt_names)
 
+    @property
+    def n_fold(self) -> int:
+        """Integer rows the kernel folds (the others copy __seen)."""
+        return sum(1 for r, sr in enumerate(self.src_rows) if r == sr)
+
+    def on_chip(self, slots: int) -> bool:
+        """Whether a grouped launch into `slots` slots keeps its tables in
+        each CTA's shared memory (csrc/scan_grouped.cu)."""
+        return 0 < slots <= self.onchip_slots
+
+    def warp_floats(self, slots: int) -> bool:
+        """Whether an on-chip launch into `slots` slots keeps a float table
+        per warp (no CTA barrier) rather than one per CTA."""
+        return self.n_f > 0 and 0 < slots <= self.warp_float_slots
+
+    def table_bytes(self, slots: int) -> int:
+        """Shared-memory bytes of a launch's on-chip tables: per slot the
+        folded integer rows, the hash mode's key-hash mirror and the float
+        rows, per warp where they fit (warp_floats), else per CTA; 0 on
+        the device-memory path."""
+        if not self.on_chip(slots):
+            return 0
+        f_tables = self.threads // 32 if self.warp_floats(slots) else 1
+        return 8 * slots * (self.n_fold + (self.mode == "hash")
+                            + f_tables * self.n_f)
+
 
 def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
                     agg_inputs: Dict[str, Optional[RowExpression]],
-                    jplan=None, dma: str = "single") -> ScanPlan:
+                    jplan=None) -> ScanPlan:
     """Compile the chain's static shape into a ScanPlan for `mode`.
     `jplan` (join.JoinPlan) lays out the chain's join / semi steps.  The
-    span mode's choice of shared-memory accumulators leaves room for the
-    stage ring of `dma`.  Raises NotImplementedError for an expression or
-    shape the kernel lacks."""
+    grouped modes' on-chip table size (onchip_slots) leaves room for the
+    double mode's stage ring.  Raises NotImplementedError for an
+    expression or shape the kernel lacks."""
     meta = chain.scan_meta
     names = tuple(meta["colmap"])
     col_idx = {n: i for i, n in enumerate(names)}
@@ -499,8 +539,9 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
         else:
             raise NotImplementedError(f"chain step {kind}")
     key_programs = [compile_expr(env[k]) for k in key_names]
+    nullable = {v.name for v in virtual if v.nullable}
     agg_programs = {out: (None if e is None
-                          else compile_expr(substitute(e, env)))
+                          else compile_expr(substitute(e, env), nullable))
                     for out, e in agg_inputs.items()}
 
     template = ops.agg_direct_init(max(G, 1), specs, "cpu")
@@ -532,7 +573,6 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
     step_offs = [-1 if p is None else add_prog(p) for p in step_programs]
     join_key_offs = [[add_prog(p) for p in jp.key_programs] for jp in joins]
     key_offs = [add_prog(p) for p in key_programs]
-    nullable = {v.name for v in virtual if v.nullable}
     spec_rows = []
     # integer row each row's final value is copied from (the grouped
     # kernels' reduce copies __seen into the counts it stands for)
@@ -549,11 +589,9 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
             crow = int_names.index(spec.output + "$count")
         # the spec's row count is __seen's when its input is never NULL:
         # resident columns carry no NULLs; NULL constants, LEFT-join and
-        # NULL-able gathered build columns and semi markers do
-        seen_count = p is None or not any(
-            op in (OP["NULL_I"], OP["NULL_F"])
-            or (op == OP["COL"] and p.columns[a] in nullable)
-            for op, a in p.ops)
+        # NULL-able gathered build columns, semi markers, divides and
+        # NULL_IF can make one
+        seen_count = p is None or not p.nullable
         if seen_count:
             src_rows[vrow if crow < 0 else crow] = 0
         spec_rows.append((_SPEC_KINDS[spec.name], int(spec.is_float), off,
@@ -579,6 +617,9 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
                 + list(agg_programs.values()) if p is not None]
     programs += [p for jp in joins for p in jp.key_programs]
     depth = max([p.depth for p in programs] + [1])
+    # an opcode past the TPC-H Q1 / Q6 set (NEG_I on) takes the kernels'
+    # EXT instances (csrc/scan_common.cuh eval_prog)
+    ext = any(op >= OP["NEG_I"] for p in programs for op, _ in p.ops)
     words = [n_cols, n_steps, G, len(int_names), len(flt_names), len(specs),
              n_keys, off_cols, off_steps, off_keys, off_specs,
              off_rows, depth, off_src, n_joins, off_joins]
@@ -619,24 +660,44 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
     # counters, per-thread row counters, stack slots (values for
     # ROWS_PER_THREAD rows, one null mask) and, by mode:
     #   direct  CTA integer accumulators and per-thread float slots;
-    #   span    CTA integer accumulators when they fit (int_smem), else
-    #           none: they fold into global memory;
-    #   hash    per-thread key values and null masks of the probed rows;
-    #   both    with float rows, the warps' staged (slot, value) pairs;
+    #   span, hash  with float rows, the warps' staged (slot, value) pairs;
+    #           the integer rows' fold positions (one int each);
     # and per probe step each row's build-row index, hit and null masks.
     # A wide layout shrinks the CTA rather than exceed the limit.
-    # smem_bytes leaves out the parameters, added per launch.
+    # smem_bytes leaves out the parameters and a grouped launch's on-chip
+    # tables (table_bytes), added per launch.
     fixed = 8 * (len(words) + 1 + n_steps)
     per_thread = 8 * (1 + n_steps + depth * ROWS_PER_THREAD) + 4 * depth
     per_thread += n_joins * (4 * ROWS_PER_THREAD + 8)
     if mode == "direct":
         fixed += 8 * len(int_names) * G
         per_thread += 8 * len(flt_names) * G
-    elif flt_names:
-        per_thread += 16 * ROWS_PER_THREAD
-    if mode == "hash":
-        per_thread += 8 * n_keys * ROWS_PER_THREAD + 4 * n_keys
+    else:
+        fixed += 4 * len(int_names)
+        if flt_names:
+            per_thread += 16 * ROWS_PER_THREAD
+    cached = meta.get("cached_cols") or {}
+    resident = [cached.get(meta["colmap"][n]) for n in names]
+
+    def ring_at(threads):
+        """The double mode's ring and stage table for CTAs of `threads`."""
+        if not names or None in resident:
+            return 0
+        return ring_bytes(resident, threads, "double") + 8 * len(names)
+    n_fold = sum(1 for r, sr in enumerate(src_rows) if r == sr)
+    slot_bytes = 8 * (n_fold + len(flt_names) + (mode == "hash"))
     threads = THREADS
+    if mode == "hash":
+        # an on-chip hash table leaves room for one CTA per SM: the widest
+        # CTA whose table still holds the host's first table size
+        # (pipeline.AGG_SLOTS), beside the double mode's ring, keeps as
+        # many warps per SM as two CTAs of THREADS would
+        from ..pipeline import AGG_SLOTS
+        for t in range(HASH_MAX_THREADS, THREADS, -32):
+            if (fixed + per_thread * t + ring_at(t) + 8 * MAX_PARAMS
+                    + AGG_SLOTS * slot_bytes <= MAX_SMEM_BYTES):
+                threads = t
+                break
     while threads > 32 and fixed + 8 * MAX_PARAMS + per_thread * threads \
             > MAX_SMEM_BYTES:
         threads -= 32
@@ -645,23 +706,24 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
         raise NotImplementedError(
             f"accumulator layout of {smem} bytes exceeds the kernel's "
             f"shared memory")
-    int_smem = False
-    if mode == "span":
-        ring = 0
-        if check_dma(dma) > 1:
-            cached = meta.get("cached_cols") or {}
-            # the ring and its stage table (one word per column)
-            ring = ring_bytes([cached[meta["colmap"][n]] for n in names],
-                              threads, dma) + 8 * len(names)
-        if (smem + ring + 8 * len(int_names) * G + 8 * MAX_PARAMS
-                <= MAX_SMEM_BYTES):
-            int_smem = True
-            smem += 8 * len(int_names) * G
+    onchip_slots = ring = warp_float_slots = 0
+    if mode != "direct":
+        # the largest table whose per-CTA accumulators (hash: with the
+        # key-hash mirror) fit beside this layout, the double mode's stage
+        # ring and its stage table, and the parameters -- so a single and
+        # a double launch take the same path and fold in the same order
+        ring = ring_at(threads)
+        room = max(0, MAX_SMEM_BYTES - smem - ring - 8 * MAX_PARAMS)
+        onchip_slots = room // slot_bytes
+        if flt_names:
+            warp_float_slots = room // (slot_bytes + 8 * len(flt_names)
+                                        * (threads // 32 - 1))
     return ScanPlan(mode, names, n_steps, step_programs, key_programs,
                     tuple(strides), G, tuple(specs), agg_programs,
                     int_names, flt_names, init_i, init_f,
                     np.asarray(words, dtype=np.int64), threads, smem,
-                    int_smem, tuple(joins), tuple(virtual))
+                    tuple(src_rows), onchip_slots, ring, warp_float_slots,
+                    ext, tuple(joins), tuple(virtual))
 
 
 def _column_words(columns) -> List[int]:
@@ -770,18 +832,20 @@ class Launch(NamedTuple):
 
 
 def launch_tensors(plan: ScanPlan, columns, grid, device, joins=None,
-                   dma: str = "single", n_params: int = 0) -> Launch:
-    """The launch's device inputs (Launch).  Raises NotImplementedError
-    naming the bytes when the stage ring does not fit the kernel's shared
-    memory beside the plan's layout: a launch never runs unstaged while
-    asked for "double"."""
+                   dma: str = "single", n_params: int = 0,
+                   table_bytes: int = 0) -> Launch:
+    """The launch's device inputs (Launch); `table_bytes` of on-chip tables
+    join its shared memory.  Raises NotImplementedError naming the bytes
+    when the stage ring does not fit the kernel's shared memory beside the
+    plan's layout: a launch never runs unstaged while asked for
+    "double"."""
     stages = check_dma(dma)
     words = plan.words.copy()
     words[_HEADER:_HEADER + _COL_WORDS * len(columns)] = \
         _column_words(columns)
     if plan.joins:
         _fill_join_words(plan, words, joins)
-    smem = plan.smem_bytes + 8 * n_params
+    smem = plan.smem_bytes + 8 * n_params + table_bytes
     stage_tab = stage_bytes = 0
     if stages > 1:
         offsets, stage_bytes = stage_layout(columns, plan.threads)
@@ -840,7 +904,7 @@ def scan_direct(plan: ScanPlan, columns, grid, br: int, params,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n_grid = len(grid)
     acc_i, acc_f = init_outputs(plan, device)
@@ -862,7 +926,8 @@ def scan_direct(plan: ScanPlan, columns, grid, br: int, params,
             part_i.data_ptr(), part_f.data_ptr(), counts.data_ptr(),
             acc_i.data_ptr(), acc_f.data_ptr(),
             (plan.n_i + plan.n_f) * plan.G, plan.threads, ln.stages,
-            ln.stage_tab, ln.stage_bytes, ln.smem_bytes, stream)
+            ln.stage_tab, ln.stage_bytes, ln.smem_bytes, int(plan.ext),
+            stream)
     if rc != 0:
         raise RuntimeError(f"scan_direct launch failed: CUDA error {rc}")
     count_launch("scan_direct", plan, dma)
@@ -1022,7 +1087,7 @@ def try_direct_scan_kernel(chain, params, *, specs, key_names, strides, G,
     cached, colmap, jplan = elig
     plan = cached_plan(cache, chain, declined, mode="direct", specs=specs,
                        key_names=key_names, strides=strides, G=G,
-                       agg_inputs=agg_inputs, jplan=jplan, dma=dma)
+                       agg_inputs=agg_inputs, jplan=jplan)
     if plan is None:
         return None
     br = block_rows_for(chain.leaf_cap(()))
@@ -1052,15 +1117,17 @@ def try_direct_scan_kernel(chain, params, *, specs, key_names, strides, G,
 def cached_plan(cache, chain, declined, **kw) -> Optional[ScanPlan]:
     """The chain's ScanPlan for these arguments, built once per compiled
     aggregation and join layout; None after metering a PlanShape
-    decline."""
+    decline, with the plan build's message in cache["plan_error"]."""
     jplan = kw.get("jplan")
     key = ("plan", kw["mode"], kw["G"], tuple(kw["strides"]),
-           jplan.sig if jplan is not None else (), kw.get("dma", "single"))
+           jplan.sig if jplan is not None else ())
     plan = cache.get(key)
     if plan is None:
         try:
             plan = build_scan_plan(chain, **kw)
-        except NotImplementedError:
+        except NotImplementedError as e:
+            # the caller's raise names what the plan lacks
+            cache["plan_error"] = str(e)
             declined("PlanShape")
             return None
         cache[key] = plan

@@ -21,10 +21,16 @@ reference package's: NULL propagates through scalar calls (result null
 unscaled int64 with scales taken from the planner's expression types,
 and rescaling down rounds half away from zero.
 
-Supported here (the TPC-H Q1/Q6 set plus CAST to double): variable
-references, constants, bound parameters, add/subtract/multiply, the six
-comparisons, BETWEEN, NOT, CAST, and the AND/OR special forms.  Anything
-else raises NotImplementedError naming the missing piece.
+Supported here (the reference kernels' numeric set): variable
+references, constants, bound parameters, add / subtract / multiply /
+divide / modulus in the integer, decimal and double domains (a zero
+divisor gives NULL outside the double domain), negate, abs, year / month /
+day / quarter of a date, the six comparisons, BETWEEN, NOT, CAST between
+the numeric types, and the AND / OR / IS_NULL / IF / COALESCE / NULL_IF /
+IN special forms (IN over numeric constants).  IF and COALESCE are
+selects over evaluated slots: every row runs every instruction.
+Anything else -- varchar literals and predicates among them -- raises
+NotImplementedError naming the missing piece.
 """
 from __future__ import annotations
 
@@ -70,6 +76,76 @@ def _div_round_half_up(num, den_const: int):
     """Divide by positive constant, rounding half away from zero."""
     return (torch.sign(num) * ((torch.abs(num) + den_const // 2)
                                // den_const)).to(num.dtype)
+
+
+def _floor_div(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _wrap32(v):
+    return v.to(torch.int32).to(torch.int64)
+
+
+def civil_from_days(z):
+    """Days since the epoch -> (year, month, day): the reference's
+    _civil_from_days (Hinnant's algorithm), every division a floor
+    division in int64."""
+    z = z.to(torch.int64) + 719468
+    era = _floor_div(torch.where(z >= 0, z, z - 146096), 146097)
+    doe = z - era * 146097
+    yoe = _floor_div(doe - _floor_div(doe, 1460) + _floor_div(doe, 36524)
+                     - _floor_div(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _floor_div(yoe, 4) - _floor_div(yoe, 100))
+    mp = _floor_div(5 * doy + 2, 153)
+    d = doy - _floor_div(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y, m, d
+
+
+def _narrow_pair(a, b, arg: int):
+    """The operands of DIV_I / MOD_I / DIVQ_I as the reference holds them:
+    bit 0 of `arg` says `a` is an int32 (INTEGER / DATE) operand, bit 1
+    `b`; jnp keeps each in its own dtype, so its abs wraps at 32 bits, and
+    the result takes a's dtype.  Returns (a, b, wrap of a's, wrap of
+    b's)."""
+    wa = _wrap32 if arg & 1 else (lambda x: x)
+    wb = _wrap32 if arg & 2 else (lambda x: x)
+    return wa(a), wb(b), wa, wb
+
+
+def _int_divide(a, b, arg: int, modulus: bool):
+    """The reference's integer-domain divide / modulus (_arith): a zero
+    divisor divides by 1 and makes the row NULL; the quotient truncates
+    toward zero and the remainder takes the dividend's sign."""
+    a, b, wa, wb = _narrow_pair(a, b, arg)
+    zero = b == 0
+    sb = torch.where(zero, torch.ones_like(b), b)
+    aa, ab = wa(torch.abs(a)), wb(torch.abs(sb))
+    if modulus:
+        out = torch.sign(a) * torch.remainder(aa, ab)
+    else:
+        out = torch.sign(a) * torch.sign(sb) * _floor_div(aa, ab)
+    return wa(out), zero
+
+
+def _decimal_quotient(num, b, arg: int):
+    """The reference's decimal divide after the numerator's rescale: round
+    half away from zero, NULL on a zero divisor."""
+    num, b, wa, wb = _narrow_pair(num, b, arg)
+    zero = b == 0
+    sb = torch.where(zero, torch.ones_like(b), b)
+    ab = wb(torch.abs(sb))
+    q = torch.sign(num) * torch.sign(sb) * _floor_div(
+        wa(torch.abs(num)) + _floor_div(ab, 2), ab)
+    return wa(q), zero
+
+
+def _float_mod(a, b):
+    """jnp.mod: C's fmod, moved to the divisor's sign."""
+    m = torch.fmod(a, b)
+    return torch.where((m != 0) & ((m < 0) != (b < 0)), m + b, m)
 
 
 def _common_super(t1: Type, t2: Type) -> Type:
@@ -149,6 +225,16 @@ def torch_dtype(typ: Type):
 
 # Opcodes: the CUDA interpreter (kernels/csrc/scan_common.cuh) uses the
 # same numbers.  Each instruction is (opcode, argument).
+#
+# Arguments: COL a column index; CONST_* / LIT a value (float64 bits for
+# _F); PARAM_* a parameter index; MULC_* / DIVR_I / DIVC_F a constant;
+# DIV_I / MOD_I / DIVQ_I bit 0 (1) for an int32 (INTEGER / DATE) dividend
+# and bit 1 (2) for an int32 divisor, which the reference keeps in int32;
+# IN_*
+# the count k of LIT instructions that follow it, its constant list.
+# Stack effects: IF pops (cond, then, else); COALESCE, NULLIF_* and the
+# other binary ops pop two; IS_NULL, IN_* and the unary ops pop one; each
+# pushes one.  DIV_I, MOD_I, DIVQ_I and NULLIF_* can make a row NULL.
 OPS = (
     "COL", "CONST_I", "CONST_F", "NULL_I", "NULL_F", "PARAM_I", "PARAM_F",
     "MULC_I", "DIVR_I", "I2F", "DIVC_F", "WRAP32",
@@ -156,14 +242,29 @@ OPS = (
     "LT_I", "LTE_I", "GT_I", "GTE_I", "EQ_I", "NEQ_I",
     "LT_F", "LTE_F", "GT_F", "GTE_F", "EQ_F", "NEQ_F",
     "AND", "OR", "NOT",
+    "NEG_I", "NEG_F", "ABS_I", "ABS_F", "YEAR", "MONTH", "DAY", "QUARTER",
+    "MULC_F", "RINT_I",
+    "DIV_I", "MOD_I", "DIVQ_I", "DIV_F", "MOD_F",
+    "IS_NULL", "IF", "COALESCE", "NULLIF_I", "NULLIF_F",
+    "IN_I", "IN_F", "LIT",
 )
 OP = {name: i for i, name in enumerate(OPS)}
+_UNARY = frozenset(("MULC_I", "DIVR_I", "I2F", "DIVC_F", "WRAP32", "NOT",
+                    "NEG_I", "NEG_F", "ABS_I", "ABS_F", "YEAR", "MONTH",
+                    "DAY", "QUARTER", "MULC_F", "RINT_I"))
+_NULLING = frozenset(("DIV_I", "MOD_I", "DIVQ_I", "NULLIF_I", "NULLIF_F"))
 # deepest stack a program may need (it sizes the scan kernel's
 # shared-memory stack)
 MAX_STACK = 16
 
 _CMP = ("lt", "lte", "gt", "gte", "eq", "neq")
-_ARITH = {"add": "ADD", "subtract": "SUB", "multiply": "MUL"}
+_ARITH = {"add": "ADD", "subtract": "SUB", "multiply": "MUL",
+          "divide": "DIV", "modulus": "MOD"}
+_DATE_PARTS = ("year", "month", "day", "quarter")
+
+
+def _bits_float(arg: int) -> float:
+    return struct.unpack("<d", struct.pack("<q", arg))[0]
 
 
 @dataclass(frozen=True)
@@ -177,6 +278,10 @@ class ExprProgram:
     dtype: torch.dtype
     depth: int
     uses_params: bool
+    # whether a row's result can be NULL (the reference's static rule: a
+    # NULL-able column or constant, a divide / modulus outside the double
+    # domain, NULL_IF; IS_NULL, COALESCE and IF narrow it)
+    nullable: bool = False
 
     def run(self, columns: Dict[str, Column], n: int, params,
             device) -> Column:
@@ -196,7 +301,10 @@ class ExprProgram:
                 return b
             return a if b is None else a | b
 
-        for op, arg in self.ops:
+        i = 0
+        while i < len(self.ops):
+            op, arg = self.ops[i]
+            i += 1
             name = OPS[op]
             if name == "COL":
                 c = columns[self.columns[arg]]
@@ -214,22 +322,39 @@ class ExprProgram:
                 p = params[arg].expand(n)
                 stack.append((p.view(torch.float64) if name == "PARAM_F"
                               else p, None))
-            elif name in ("MULC_I", "DIVR_I", "I2F", "DIVC_F", "WRAP32",
-                          "NOT"):
+            elif name in _UNARY:
                 v, nl = stack.pop()
-                if name == "MULC_I":
-                    v = v * arg
-                elif name == "DIVR_I":
-                    v = _div_round_half_up(v, arg)
-                elif name == "I2F":
-                    v = v.to(torch.float64)
-                elif name == "DIVC_F":
-                    v = v / struct.unpack("<d", struct.pack("<q", arg))[0]
-                elif name == "WRAP32":
-                    v = v.to(torch.int32).to(torch.int64)
+                stack.append((_unary(name, arg, v), nl))
+            elif name == "IS_NULL":
+                _v, nl = stack.pop()
+                stack.append((torch.zeros(n, dtype=torch.int64, device=device)
+                              if nl is None else nl.to(torch.int64), None))
+            elif name in ("IN_I", "IN_F"):
+                v, nl = stack.pop()
+                hit = torch.zeros(n, dtype=torch.bool, device=device)
+                for _lit, bits in self.ops[i:i + arg]:
+                    hit = hit | (v == (_bits_float(bits) if name == "IN_F"
+                                       else bits))
+                i += arg
+                stack.append((hit.to(torch.int64), nl))
+            elif name == "IF":
+                (f, fn), (t, tn), (c, cn) = (stack.pop(), stack.pop(),
+                                             stack.pop())
+                pred = c != 0
+                if cn is not None:
+                    pred = pred & ~cn
+                nulls = None
+                if tn is not None or fn is not None:
+                    nulls = torch.where(pred, _mask(tn, n, device),
+                                        _mask(fn, n, device))
+                stack.append((torch.where(pred, t, f), nulls))
+            elif name == "COALESCE":
+                (b, bn), (a, an) = stack.pop(), stack.pop()
+                if an is None:
+                    stack.append((a, None))
                 else:
-                    v = (v == 0).to(torch.int64)
-                stack.append((v, nl))
+                    stack.append((torch.where(an, b, a),
+                                  None if bn is None else an & bn))
             elif name in ("AND", "OR"):
                 (b, bn), (a, an) = stack.pop(), stack.pop()
                 av, bv = a != 0, b != 0
@@ -250,19 +375,104 @@ class ExprProgram:
             else:
                 (b, bn), (a, an) = stack.pop(), stack.pop()
                 base = name[:-2]
+                made = None           # rows the op itself makes NULL
                 if base == "ADD":
                     v = a + b
                 elif base == "SUB":
                     v = a - b
                 elif base == "MUL":
                     v = a * b
+                elif name in ("DIV_I", "MOD_I"):
+                    v, made = _int_divide(a, b, arg, name == "MOD_I")
+                elif name == "DIVQ_I":
+                    v, made = _decimal_quotient(a, b, arg)
+                elif name == "DIV_F":
+                    v = a / b
+                elif name == "MOD_F":
+                    v = _float_mod(a, b)
+                elif base == "NULLIF":
+                    v = a
+                    made = (a == b) & ~_mask(an, n, device) \
+                        & ~_mask(bn, n, device)
+                    bn = None
                 else:
                     v = {"LT": torch.lt, "LTE": torch.le, "GT": torch.gt,
                          "GTE": torch.ge, "EQ": torch.eq,
                          "NEQ": torch.ne}[base](a, b).to(torch.int64)
-                stack.append((v, orn(an, bn)))
+                stack.append((v, orn(orn(an, bn), made)))
         v, nl = stack.pop()
         return Column(v.to(self.dtype), nl)
+
+
+def _mask(nulls, n, device):
+    return (torch.zeros(n, dtype=torch.bool, device=device)
+            if nulls is None else nulls)
+
+
+def _unary(name: str, arg: int, v):
+    if name == "MULC_I":
+        return v * arg
+    if name == "DIVR_I":
+        return _div_round_half_up(v, arg)
+    if name == "I2F":
+        return v.to(torch.float64)
+    if name == "DIVC_F":
+        return v / _bits_float(arg)
+    if name == "MULC_F":
+        return v * _bits_float(arg)
+    if name == "RINT_I":
+        return torch.round(v).to(torch.int64)      # half to even
+    if name == "WRAP32":
+        return _wrap32(v)
+    if name == "NOT":
+        return (v == 0).to(torch.int64)
+    if name in ("NEG_I", "NEG_F"):
+        return -v
+    if name in ("ABS_I", "ABS_F"):
+        return torch.abs(v)
+    y, m, d = civil_from_days(v)
+    return {"YEAR": y, "MONTH": m, "DAY": d,
+            "QUARTER": _floor_div(m + 2, 3)}[name]
+
+
+def program_nullable(ops, columns, nullable_cols) -> bool:
+    """Whether the program's result can be NULL, by the reference's static
+    rule, walking its stack of may-be-NULL flags."""
+    st: List[bool] = []
+    i = 0
+    while i < len(ops):
+        op, arg = ops[i]
+        i += 1
+        name = OPS[op]
+        if name == "COL":
+            st.append(columns[arg] in nullable_cols)
+        elif name in ("CONST_I", "CONST_F", "PARAM_I", "PARAM_F"):
+            st.append(False)
+        elif name in ("NULL_I", "NULL_F"):
+            st.append(True)
+        elif name in _UNARY:
+            pass
+        elif name == "IS_NULL":
+            st[-1] = False
+        elif name in ("IN_I", "IN_F"):
+            i += arg
+        elif name == "IF":
+            f, t, _c = st.pop(), st.pop(), st.pop()
+            st.append(t or f)
+        elif name == "COALESCE":
+            b, a = st.pop(), st.pop()
+            st.append(a and b)
+        else:
+            b, a = st.pop(), st.pop()
+            st.append(a or b or name in _NULLING)
+    return st[-1]
+
+
+def _narrow_bits(ta: Type, tb: Type) -> int:
+    """DIV_I / MOD_I / DIVQ_I's argument: which operands are int32."""
+    def narrow(t):
+        return isinstance(t, (IntegerType, DateType))
+    return int(narrow(ta)) | int(narrow(tb)) << 1
 
 
 def _domain_is_float(t: Type) -> bool:
@@ -302,16 +512,89 @@ class _Emitter:
         elif isinstance(expr, CallExpression):
             self._call(expr)
         elif isinstance(expr, SpecialFormExpression):
-            if expr.form not in ("AND", "OR"):
-                raise NotImplementedError(
-                    f"special form {expr.form} is not ported yet")
-            self.emit(expr.arguments[0])
-            for a in expr.arguments[1:]:
-                self.emit(a)
-                self._op(expr.form, 0, -1)
+            self._special(expr)
         else:
             raise NotImplementedError(
                 f"{type(expr).__name__} is not ported yet")
+
+    def _emit_as(self, expr: RowExpression, is_f: bool) -> None:
+        """`expr` in the integer or double domain of a select's result:
+        an integer slot joins a double one by value, as jnp.where
+        promotes it."""
+        if isinstance(expr.type, (VarcharType, CharType)):
+            raise NotImplementedError(
+                "varchar operands of IF / COALESCE / NULL_IF in the port")
+        self.emit(expr)
+        if _domain_is_float(expr.type) == is_f:
+            return
+        if not is_f:
+            raise NotImplementedError("a double operand of an exact select")
+        self._op("I2F")
+
+    def _special(self, expr: SpecialFormExpression) -> None:
+        """The reference's _special: Kleene AND / OR, IS_NULL, IF (what the
+        planner makes of CASE), COALESCE, NULL_IF and IN."""
+        form, args = expr.form, expr.arguments
+        if form in ("AND", "OR"):
+            self.emit(args[0])
+            for a in args[1:]:
+                self.emit(a)
+                self._op(form, 0, -1)
+        elif form == "IS_NULL":
+            self.emit(args[0])
+            self._op("IS_NULL")
+        elif form == "IF":
+            is_f = _domain_is_float(expr.type)
+            self.emit(args[0])
+            self._emit_as(args[1], is_f)
+            self._emit_as(args[2], is_f)
+            self._op("IF", 0, -2)
+        elif form == "COALESCE":
+            self._coalesce(args, expr.type)
+        elif form == "NULL_IF":
+            fa, fb = (_domain_is_float(a.type) for a in args)
+            if fa != fb:
+                raise NotImplementedError("NULL_IF of an integer and a double")
+            self._emit_as(args[0], fa)
+            self._emit_as(args[1], fa)
+            self._op("NULLIF_F" if fa else "NULLIF_I", 0, -1)
+        elif form == "IN":
+            self._in(args[0], args[1:])
+        else:
+            raise NotImplementedError(
+                f"special form {form} is not ported yet")
+
+    def _coalesce(self, args, typ: Type) -> None:
+        # a left fold: coalesce(coalesce(a, b), c) picks the same value and
+        # NULL flag as the reference's right fold, with two stack slots
+        is_f = _domain_is_float(typ)
+        self._emit_as(args[0], is_f)
+        for a in args[1:]:
+            self._emit_as(a, is_f)
+            self._op("COALESCE", 0, -1)
+
+    def _in(self, value: RowExpression, items) -> None:
+        """The reference's _in over a numeric value: each constant in the
+        value's domain (constant_device_value with the VALUE's type, as
+        the reference converts it), compared for equality; the value's
+        NULLs stay, and a NULL-free list never makes one."""
+        if isinstance(value.type, (VarcharType, CharType)):
+            raise NotImplementedError("varchar IN lists in the port")
+        if not all(isinstance(e, ConstantExpression) for e in items):
+            raise NotImplementedError("IN with a non-constant list")
+        consts = [constant_device_value(e.value, value.type) for e in items]
+        if any(c is None for c in consts):
+            raise NotImplementedError("IN with a NULL in its list")
+        if not all(isinstance(c, (bool, int, float)) for c in consts):
+            raise NotImplementedError("IN with a non-numeric constant")
+        is_f = _domain_is_float(value.type) or any(
+            isinstance(c, float) for c in consts)
+        self.emit(value)
+        if is_f and not _domain_is_float(value.type):
+            self._op("I2F")
+        self._op("IN_F" if is_f else "IN_I", len(consts))
+        for c in consts:
+            self._op("LIT", float_bits(c) if is_f else int(c))
 
     def _constant(self, expr: ConstantExpression) -> None:
         if isinstance(expr.type, (VarcharType, CharType)):
@@ -360,6 +643,21 @@ class _Emitter:
         elif name == "not":
             self.emit(args[0])
             self._op("NOT")
+        elif name in ("negate", "abs"):
+            self.emit(args[0])
+            is_f = _domain_is_float(args[0].type)
+            self._op(("NEG" if name == "negate" else "ABS")
+                     + ("_F" if is_f else "_I"))
+            if not is_f and isinstance(expr.type, (IntegerType, DateType)):
+                self._op("WRAP32")     # int32 negation / abs wrap
+        elif name in _DATE_PARTS:
+            if not isinstance(args[0].type, DateType):
+                raise NotImplementedError(
+                    f"{name} of {args[0].type} is not ported yet")
+            self.emit(args[0])
+            self._op(name.upper())
+        elif name == "coalesce":
+            self._coalesce(args, expr.type)
         elif name == "cast":
             self._cast(args[0], expr.type)
         else:
@@ -367,6 +665,10 @@ class _Emitter:
                 f"function {name} is not ported yet")
 
     def _arith(self, name: str, expr: CallExpression) -> None:
+        """The reference's _arith: the double domain converts both
+        operands; decimals align scales (a divide scales its numerator to
+        the result's scale plus the divisor's, then rounds half up); the
+        integer domain divides truncating toward zero."""
         a, b = expr.arguments
         ta, tb, tr = a.type, b.type, expr.type
         if _domain_is_float(tr):
@@ -376,7 +678,8 @@ class _Emitter:
             self._op(_ARITH[name] + "_F", 0, -1)
             return
         if _domain_is_float(ta) or _domain_is_float(tb):
-            raise NotImplementedError("double operand of an exact result")
+            raise NotImplementedError(
+                f"{name} of a double operand into an exact result")
         if _is_decimal(tr):
             sa = ta.scale if _is_decimal(ta) else 0
             sb = tb.scale if _is_decimal(tb) else 0
@@ -386,15 +689,23 @@ class _Emitter:
                 self._op("MUL_I", 0, -1)
                 self._rescale(sa + sb, tr.scale)
                 return
+            if name == "divide":
+                self.emit(a)
+                self._rescale(sa, tr.scale + sb)
+                self.emit(b)
+                self._op("DIVQ_I", _narrow_bits(ta, tb), -1)
+                return
             self.emit(a)
             self._rescale(sa, tr.scale)
             self.emit(b)
             self._rescale(sb, tr.scale)
-            self._op(_ARITH[name] + "_I", 0, -1)
+            self._op(_ARITH[name] + "_I",
+                     _narrow_bits(ta, tb) if name == "modulus" else 0, -1)
             return
         self.emit(a)
         self.emit(b)
-        self._op(_ARITH[name] + "_I", 0, -1)
+        self._op(_ARITH[name] + "_I", _narrow_bits(ta, tb)
+                 if name in ("divide", "modulus") else 0, -1)
         if isinstance(tr, (IntegerType, DateType)):
             self._op("WRAP32")     # int32 arithmetic wraps at 32 bits
 
@@ -409,16 +720,21 @@ class _Emitter:
         self._op(name.upper() + suffix, 0, -1)
 
     def _cast(self, arg: RowExpression, to: Type) -> None:
+        """The reference's _cast over the numeric types.  A decimal cast
+        to INTEGER keeps its UNSCALED value, wrapped to 32 bits
+        (presto_tpu/exec/lowering.py _cast), where Presto rescales."""
         frm = arg.type
         self.emit(arg)
         if frm.signature == to.signature:
             return
         if isinstance(to, DoubleType):
             self._convert(frm, to)
-        elif _is_decimal(to) and not _domain_is_float(frm):
+        elif _is_decimal(to) and _domain_is_float(frm):
+            self._op("MULC_F", float_bits(float(10 ** to.scale)))
+            self._op("RINT_I")         # jnp.round: half to even
+        elif _is_decimal(to):
             self._convert(frm, to)
-        elif isinstance(to, IntegerType) and not _domain_is_float(frm) \
-                and not _is_decimal(frm):
+        elif isinstance(to, IntegerType) and not _domain_is_float(frm):
             self._op("WRAP32")
         elif isinstance(to, BigintType) and not _domain_is_float(frm):
             if _is_decimal(frm):
@@ -427,7 +743,9 @@ class _Emitter:
             raise NotImplementedError(f"cast {frm} -> {to} is not ported yet")
 
 
-def compile_expr(expr: RowExpression) -> ExprProgram:
+def compile_expr(expr: RowExpression, nullable_cols=()) -> ExprProgram:
+    """`expr` as an ExprProgram; `nullable_cols` names the input columns
+    that can hold NULLs (for ExprProgram.nullable)."""
     em = _Emitter()
     em.emit(expr)
     if em.max_depth > MAX_STACK:
@@ -435,8 +753,10 @@ def compile_expr(expr: RowExpression) -> ExprProgram:
             f"expression needs {em.max_depth} stack slots "
             f"(the kernel interpreter keeps {MAX_STACK})")
     cols = tuple(sorted(em.columns, key=em.columns.get))
-    return ExprProgram(tuple(em.ops), cols, _domain_is_float(expr.type),
-                       torch_dtype(expr.type), em.max_depth, em.uses_params)
+    ops = tuple(em.ops)
+    return ExprProgram(ops, cols, _domain_is_float(expr.type),
+                       torch_dtype(expr.type), em.max_depth, em.uses_params,
+                       program_nullable(ops, cols, frozenset(nullable_cols)))
 
 
 class Lowering:

@@ -31,8 +31,8 @@ from ..spi import plan as P
 from ..spi.expr import VariableReferenceExpression
 from . import operators as ops
 from .batch import Batch, Column, batch_to_page
-from .lowering import (Lowering, canonical_name, constant_device_value,
-                       expr_has_params, torch_dtype)
+from .lowering import (Lowering, canonical_name, compile_expr,
+                       constant_device_value, expr_has_params, torch_dtype)
 from .memory import MemoryContext, MemoryPool
 
 DEFAULT_CAPACITY = 1 << 20
@@ -551,9 +551,13 @@ class PlanCompiler:
                 if kres is not None:
                     out, _counts, _n_blocks = kres
                     return _maybe_compact(out)
+            reason = fused_cache["declined"]
+            detail = (f" ({fused_cache['plan_error']})"
+                      if reason == "PlanShape" and "plan_error" in fused_cache
+                      else "")
             raise NotImplementedError(
-                f"kernelDeclined{fused_cache['declined']}: the torch "
-                f"fused chain is not ported yet")
+                f"kernelDeclined{reason}{detail}: the torch fused chain is "
+                f"not ported yet")
 
         def gen():
             chain = get_fused()
@@ -598,7 +602,8 @@ def _chain_key_columns(chain, key_names, aux):
     its join is LEFT or its build column has NULLs, a semi marker always.
     A key computed by an expression has no dictionary (and is
     direct-eligible only when boolean); it is NULL-able when it reads a
-    NULL-able gathered column."""
+    NULL-able gathered column or can make a NULL itself
+    (ExprProgram.nullable: a divide, NULL_IF, a NULL branch)."""
     from ..spi.expr import free_variables
     from .fused import _join_build_cols
     from .kernels.scan_kernel import substitute
@@ -641,8 +646,13 @@ def _chain_key_columns(chain, key_names, aux):
             dtype = rc.dtype if rc is not None else torch_dtype(e.type)
         else:
             dtype = torch_dtype(e.type)
-            nullable = any(gathered.get(v.name, (0, False))[1]
-                           for v in free_variables(e))
+            maybe_null = {v.name for v in free_variables(e)
+                          if gathered.get(v.name, (0, False))[1]}
+            try:
+                nullable = compile_expr(e, maybe_null).nullable
+            except NotImplementedError:
+                # the plan build raises it, naming what is missing
+                nullable = bool(maybe_null)
         out.append(SimpleNamespace(values=SimpleNamespace(dtype=dtype),
                                    nulls=True if nullable else None,
                                    dictionary=dictionary))

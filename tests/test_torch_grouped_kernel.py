@@ -30,6 +30,7 @@ from presto_tpu_torch.exec import memory as tmem
 from presto_tpu_torch.exec import operators as tops
 from presto_tpu_torch.exec import pipeline as tpipe
 from presto_tpu_torch.exec.kernels import grouped as tgk
+from presto_tpu_torch.exec.kernels import scan_kernel as tsk
 from presto_tpu_torch.exec.lowering import param_vector
 from presto_tpu_torch.storage.encodings import resident_from_numpy
 
@@ -230,27 +231,54 @@ def test_span_mode_matches_pallas_kernel(keys):
     _assert_groups_equal(got, want)
 
 
+def _layout_plan(mode, src_rows, n_f, smem_bytes, onchip_slots,
+                 ring_reserve=0):
+    """A ScanPlan carrying only the fields the launch geometry reads."""
+    n_i = len(src_rows)
+    return tsk.ScanPlan(
+        mode, (), 0, [], [], (), 0, (), {},
+        tuple(f"i{k}" for k in range(n_i)), tuple(f"f{k}" for k in range(n_f)),
+        torch.zeros(n_i, dtype=torch.int64), torch.zeros(n_f),
+        np.zeros(0, dtype=np.int64), 256, smem_bytes, tuple(src_rows),
+        onchip_slots, ring_reserve)
+
+
 def test_partial_bytes_follow_the_launch_grid(monkeypatch):
     """The bytes try_grouped_scan_kernel reserves for a launch's partials:
-    per-CTA integer rows (span with shared-memory integers) and per-warp
-    float rows, over a grid of at most CTAS_PER_SM CTAs per SM, fewer when
-    the float partials would pass FLOAT_PARTIAL_BYTES; none on the CPU."""
+    on chip, each CTA's folded integer rows and float rows, over as many
+    CTAs per SM (at most RESIDENT_THREADS of threads) as the tables leave
+    room for; on the device-memory path, per-warp float rows over
+    RESIDENT_THREADS / threads CTAs per SM, fewer when they would pass
+    FLOAT_PARTIAL_BYTES; none on the CPU."""
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda _d: SimpleNamespace(multi_processor_count=132))
     card = SimpleNamespace(type="cuda")
-    span = SimpleNamespace(n_i=3, n_f=2, threads=256, int_smem=True)
+    # three integer rows, the third a count copied from __seen: two folded
+    span = _layout_plan("span", (0, 1, 0), 2, 50000, 1000)
+    assert span.n_fold == 2 and span.on_chip(168)
+    assert tgk.ctas_per_sm(span, 168) == 2
     # 10 entries of 65536 rows: 80 slices of 8192 rows, one CTA each
-    assert tgk.partial_bytes(span, 10, 65536, 21504, card) \
-        == 8 * 80 * (3 + 8 * 2) * 21504
-    hash_plan = SimpleNamespace(n_i=2, n_f=4, threads=256, int_smem=False)
+    assert tgk.partial_bytes(span, 10, 65536, 168, card) \
+        == 8 * 80 * (2 + 2) * 168
+    hash_plan = _layout_plan("hash", (0, 1), 4, 50000, 0)
     # 2 * 132 CTAs would hold 264 * 8 * 4 * 65536 * 8 bytes: capped at 32
     assert tgk.partial_bytes(hash_plan, 1000, 65536, 65536, card) \
         == tgk.FLOAT_PARTIAL_BYTES == 8 * 32 * 8 * 4 * 65536
-    ints_only = SimpleNamespace(n_i=2, n_f=0, threads=256, int_smem=False)
+    ints_only = _layout_plan("hash", (0, 1), 0, 50000, 0)
     assert tgk.partial_bytes(ints_only, 1000, 65536, 4096, card) == 0
-    assert tgk.partial_bytes(span, 10, 65536, 21504,
+    # a table too large for two CTAs' shared memory: one CTA per SM
+    big = _layout_plan("hash", (0, 1, 0, 0), 1, 100000, 4096, 10000)
+    assert big.table_bytes(4096) == 8 * 4096 * (2 + 1 + 1)
+    assert tgk.ctas_per_sm(big, 4096) == 1
+    assert tgk.partial_bytes(big, 1000, 65536, 4096, card) \
+        == 8 * 132 * (2 + 1) * 4096
+    # past onchip_slots the launch takes the device-memory path
+    assert not big.on_chip(8192) and big.table_bytes(8192) == 0
+    assert tgk.partial_bytes(big, 1000, 65536, 8192, card) \
+        == 8 * 264 * 8 * 1 * 8192
+    assert tgk.partial_bytes(span, 10, 65536, 168,
                              torch.device("cpu")) == 0
-    assert tgk.partial_bytes(span, 0, 65536, 21504, card) == 0
+    assert tgk.partial_bytes(span, 0, 65536, 168, card) == 0
 
 
 @pytest.mark.parametrize("span", [True, False], ids=["span", "hash"])
