@@ -5,8 +5,10 @@
 
 Phases, each printed with its wall time:
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the port with nvcc (one process per
-     source, started together);
+  2. build every CUDA source of the port with nvcc (one process per
+     source, started together); the direct kernel (#1) is generated per
+     chain shape (exec/kernels/codegen.py) and compiled with NVRTC at its
+     first launch, its compile ms printed per shape in phase 8;
   3. generate and encode TPC-H lineitem and supplier at the scale factor
      on the card;
   4. the main path: TPC-H Q6 and Q1 (direct kernel), S1 (span kernel), H1
@@ -46,8 +48,11 @@ Phases, each printed with its wall time:
      version's, and their float sums are held to the exact sum of their
      float64 inputs, computed in integers: the kernel's within rtol 1e-12,
      the plain version's (an unordered sum on the card) within recursive
-     summation's bound (n + 1) 2**-53 sum |x|.  Kernel and plain times
-     with CUDA events, and each kernel's byte bound (for a join query the
+     summation's bound (n + 1) 2**-53 sum |x|.  Kernel device ms per
+     call under torch.profiler (benchmarks/kernel_times.py device_ms),
+     the wrapper's call ms and the plain version's ms with CUDA events,
+     the generated direct kernel's compile ms, registers and local bytes
+     per shape and mode, and each kernel's byte bound (for a join query the
      scan bytes plus the build operands once).  Every case also launches
      with dma="double" (the stage ring, kernel #2): every output
      bit-identical to the single launch (hash tables group by group), its
@@ -87,8 +92,9 @@ Phases, each printed with its wall time:
      row, values and null flags, and two launches bit-identical), on the
      recorded inputs of W1-W3 and of the two edge queries and on a
      batch built here with NULL keys and arguments, NaN float64 keys and
-     interleaved dead rows; kernel and plain times with CUDA events and
-     the byte bound (the sorted mask, key / argument values and nulls
+     interleaved dead rows; the kernel's device ms per call and its
+     launches per call under torch.profiler (two: the forward pass and the
+     fix-up), call and plain ms with CUDA events, and the byte bound (the sorted mask, key / argument values and nulls
      read once, 8 bytes per function per row written, 9 for sum / avg);
  13. an independent numpy computation of W1, W2, W3, W1 with lag and the
      two edge queries from the decoded resident orders columns.
@@ -280,11 +286,13 @@ def main() -> int:
     import numpy as np
     from presto_tpu_torch.benchmarks import expr_queries as EQ
     from presto_tpu_torch.benchmarks import hash_split as HS
+    from presto_tpu_torch.benchmarks import kernel_times as KT
     from presto_tpu_torch.benchmarks import join_queries as JQ
     from presto_tpu_torch.benchmarks.grouped_queries import H1, H2, S1, S2
     from presto_tpu_torch.benchmarks.tpch_queries import Q1, Q6
     from presto_tpu_torch.benchmarks import window_queries as WQ
     from presto_tpu_torch.connectors import catalog, device_gen
+    from presto_tpu_torch.exec import lowering
     from presto_tpu_torch.exec import operators as ops
     from presto_tpu_torch.exec import pipeline
     from presto_tpu_torch.exec.batch import Batch, Column
@@ -307,7 +315,8 @@ def main() -> int:
         card = smi.stdout.strip().splitlines()[0]
         print(f"card: {card}")
 
-    with phase("build kernels (nvcc)"):
+    with phase("build kernels (nvcc; the direct kernel: NVRTC per shape "
+               "at first use)"):
         build.build_all()
         for name in build.SOURCES:
             for line in build.build_log(name).splitlines():
@@ -575,23 +584,37 @@ def main() -> int:
 
     def bound_bytes(plan, columns, counts, table_bytes, joins=None):
         """Bytes the function must move for this run's data: a column is
-        read for the rows live when it is first needed (the filter's and
+        read (where its values are used) for the rows live when it is
+        first needed (the filter's and
         probe keys' columns for the rows live at their step, the others
         for the rows that passed every step), whole dictionary / run arrays
         once, a probe step's build operands once, the accumulator table and
         the counters once."""
         counts = counts.tolist()
+        is_null = lowering.OP["IS_NULL"]
+
+        def value_columns(prog):
+            """The columns whose values the program reads: a resident
+            column tested only by IS NULL is never NULL, so the generated
+            kernel does not load it."""
+            out = []
+            for k, (op, arg) in enumerate(prog.ops):
+                if op == lowering.OP["COL"] and not (
+                        k + 1 < len(prog.ops)
+                        and prog.ops[k + 1][0] == is_null):
+                    out.append(prog.columns[arg])
+            return out
         first = {}
         for s, p in enumerate(plan.step_programs):
             progs = [p] if p is not None else []
             progs += [kp for jp in plan.joins if jp.step.si == s
                       for kp in jp.key_programs]
-            for c in (c for q in progs for c in q.columns):
+            for c in (c for q in progs for c in value_columns(q)):
                 first.setdefault(c, counts[s])
         later = [p for p in plan.key_programs] + \
             [p for p in plan.agg_programs.values() if p is not None]
         for p in later:
-            for c in p.columns:
+            for c in value_columns(p):
                 first.setdefault(c, counts[-1])
         nbytes = table_bytes + 8 * len(counts)
         if joins is not None:
@@ -892,18 +915,41 @@ def main() -> int:
                     f"{qname}: double differs from single"
                 n_slots = plan.G
             if kernel == "scan_direct":
-                staged = sk.stage_ring_counts(plan, columns, grid, a[3],
-                                              *sk.direct_geometry(a[3]))
+                staged = sk.direct_stage_counts(plan, columns, grid, a[3],
+                                                kw.get("joins"))
+                # the generated kernel of each mode: compile ms at its
+                # first use, registers and local (spill) bytes
+                gen = {}
+                for m in ("single", "double"):
+                    kern = sk.direct_kernel(plan, columns, kw.get("joins"), m)
+                    mod = build.load_generated(kern.source, 0)
+                    gen[m] = dict(compile_ms=build.COMPILE_MS[mod.key],
+                                  **mod.attributes("scan_gen"))
+                    if m == "single":
+                        gen_smem = kern.smem_bytes
+                print(f"  {qname}: generated direct kernel "
+                      f"{'registers' if kern.registers else 'warp sweep'} "
+                      f"partials, {kern.ctas_per_sm} CTAs per SM; "
+                      + "; ".join(f"{m}: compile {g['compile_ms']:.1f} ms, "
+                                  f"{g['registers']} registers, "
+                                  f"{g['local_bytes']} B local"
+                                  for m, g in gen.items()))
             else:
                 staged = gk.stage_counts(plan, columns, grid, a[3], n_slots,
                                          "double")
-            ms = events_ms(lambda: launch(*a, **kw), 20)
-            ms_double = events_ms(lambda: launch(*a, **kwd), 20)
+            # device ms: the kernels' own time under torch.profiler; call
+            # ms: CUDA events around the wrapper (host gaps included)
+            call_ms = events_ms(lambda: launch(*a, **kw), 20)
+            dev = KT.device_ms(lambda: launch(*a, **kw), 20)
+            ms = dev["kernels"]
+            ms_double = KT.device_ms(lambda: launch(*a, **kwd), 20)["kernels"]
             plain_ms = events_ms(lambda: plain(*a, **kw), 2)
             nbytes = bound_bytes(plan, columns, kc, table_bytes,
                                  kw.get("joins"))
             bound = nbytes / HBM_BYTES_PER_S * 1e3
             records[qname] = dict(kernel=kernel, err=err, ms=ms,
+                                  call_ms=call_ms, copies_ms=dev["copies"],
+                                  kernel_launches=dev["launches"],
                                   plain_ms=plain_ms, bound_ms=bound,
                                   bytes=nbytes, ms_double=ms_double,
                                   staged=staged)
@@ -934,10 +980,15 @@ def main() -> int:
                   f"n_i={plan.n_i}, n_f={plan.n_f}, counts {kc.tolist()}, "
                   f"integers exact, counts exact, max |float diff| {err}, "
                   f"two launches identical")
-            print(f"  {qname}: kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
+            print(f"  {qname}: device_ms {ms:.4f} in "
+                  f"{dev['launches']:.0f} kernel launches (call_ms "
+                  f"{call_ms:.4f}, copies {dev['copies']:.4f} ms), plain_ms "
+                  f"{plain_ms:.4f}, "
                   f"bound_ms {bound:.4f} ({nbytes} bytes at 3.35 TB/s), "
-                  f"threads {plan.threads}, smem {plan.smem_bytes} B")
-            print(f"  {qname}: dma=double bit-identical to single; kernel_ms "
+                  f"threads {plan.threads}, smem "
+                  f"{gen_smem if kernel == 'scan_direct' else plan.smem_bytes}"
+                  f" B")
+            print(f"  {qname}: dma=double bit-identical to single; device_ms "
                   f"single {ms:.4f} double {ms_double:.4f}, ring "
                   f"{sk.ring_bytes(columns, plan.threads, 'double')} B, "
                   f"staged {staged[0]} prefetched {staged[1]} tile copies "
@@ -1383,11 +1434,20 @@ def main() -> int:
                         f"{qname}: {spec.output} null flags differ"
                 if kv.numel():
                     err = max(err, float((kv - pv).abs().max()))
-            ms = events_ms(lambda: w_real["scan"](*a), 10)
+            call_ms = events_ms(lambda: w_real["scan"](*a), 10)
+            dev = KT.device_ms(lambda: w_real["scan"](*a), 10)
+            ms = dev["kernels"]
+            # the forward pass and the fix-up
+            assert dev.get("window_forward", 0) > 0 and \
+                dev.get("window_fixup", 0) > 0 and dev["launches"] == 2, dev
             plain_ms = events_ms(lambda: wk.window_scan_plain(*a), 2)
             nbytes = window_bound_bytes(mask, arrays, specs)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
-            rec = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            rec = dict(err=err, ms=ms, call_ms=call_ms,
+                       kernel_launches=dev["launches"],
+                       split={k: v for k, v in dev.items() if k not in (
+                           "kernels", "copies", "launches")},
+                       plain_ms=plain_ms, bound_ms=bound,
                        bytes=nbytes, rows=int(mask.numel()))
             if qname in w_rec:
                 batch, b_parts, b_orderings = w_rec[qname][1]
@@ -1398,7 +1458,9 @@ def main() -> int:
                   f"{orderings}, specs {[s.name for s in specs]}: every row "
                   f"equal to plain (values and nulls), two launches "
                   f"identical")
-            print(f"  {qname}: kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
+            print(f"  {qname}: device_ms {ms:.4f} in {dev['launches']:.0f} "
+                  f"kernel launches per call {rec['split']} (call_ms "
+                  f"{call_ms:.4f}), plain_ms {plain_ms:.4f}, "
                   f"bound_ms {bound:.4f} ({nbytes} bytes at 3.35 TB/s)"
                   + (f", sort + gather ms {rec['sort_ms']:.4f}"
                      if "sort_ms" in rec else ""))
@@ -1524,15 +1586,17 @@ def main() -> int:
 
     summary = {"scan_direct": "q1", "scan_span": "s1", "scan_hash": "h1"}
     join_summary = {"scan_direct": "j2", "scan_span": "j3", "scan_hash": "j1"}
-    sources = {"scan_direct": "scan_direct.cu", "scan_span": "scan_grouped.cu",
-               "scan_hash": "scan_grouped.cu"}
+    sources = {"scan_direct": "codegen.py",
+               "scan_span": "csrc/scan_grouped.cu",
+               "scan_hash": "csrc/scan_grouped.cu"}
     replaces = {"scan_direct": "presto_tpu/exec/kernels/scan_kernel.py:580",
                 "scan_span": "presto_tpu/exec/kernels/grouped.py:213",
                 "scan_hash": "presto_tpu/exec/kernels/grouped.py:63"}
     kernels = []
     with phase("kernel summary"):
         for qname, r in records.items():
-            print(f"  {r['kernel']} {qname}: kernel_ms {r['ms']:.4f} "
+            print(f"  {r['kernel']} {qname}: device_ms {r['ms']:.4f} "
+                  f"call_ms {r['call_ms']:.4f} "
                   f"bound_ms {r['bound_ms']:.4f} plain_ms "
                   f"{r['plain_ms']:.4f} on {card}")
         for name, qname in summary.items():
@@ -1540,13 +1604,14 @@ def main() -> int:
             kernels.append({
                 "name": name,
                 "route": "cuda",
-                "source": "presto_tpu_torch/exec/kernels/csrc/"
+                "source": "presto_tpu_torch/exec/kernels/"
                           + sources[name],
                 "replaces": replaces[name],
                 "launches": main_launches[name],
                 "max_abs_err": max(r["err"] for r in records.values()
                                    if r["kernel"] == name),
                 "ms": rec["ms"],
+                "call_ms": rec["call_ms"],
                 "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"],
                 "bound_by": "bytes",
@@ -1605,7 +1670,8 @@ def main() -> int:
                       for q, r in records.items()},
         })
         for qname, r in w_records.items():
-            print(f"  window_scan {qname}: kernel_ms {r['ms']:.4f} bound_ms "
+            print(f"  window_scan {qname}: device_ms {r['ms']:.4f} in "
+                  f"{r['kernel_launches']:.0f} launches, bound_ms "
                   f"{r['bound_ms']:.4f} plain_ms {r['plain_ms']:.4f}"
                   + (f" sort_gather_ms {r['sort_ms']:.4f}"
                      if "sort_ms" in r else "") + f" on {card}")
@@ -1618,12 +1684,15 @@ def main() -> int:
             "launches": window_launches,
             "max_abs_err": max(r["err"] for r in w_records.values()),
             "ms": wr["ms"],
+            "call_ms": wr["call_ms"],
+            "kernel_launches_per_call": wr["kernel_launches"],
             "plain_ms": wr["plain_ms"],
             "bound_ms": wr["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
             # the window path's other queries and the edge cases
-            "queries": {q: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+            "queries": {q: {k: r[k] for k in ("ms", "call_ms", "plain_ms",
+                                              "bound_ms",
                                               "sort_ms") if k in r}
                         for q, r in w_records.items()},
         })

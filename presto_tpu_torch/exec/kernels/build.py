@@ -5,8 +5,15 @@ plain C interface (sm_90a, -O3), loaded with ctypes.  Libraries land in
 build/presto_tpu_torch/ at the repository root (listed in .gitignore),
 named by a hash of the source, the shared headers (csrc/*.cuh) and the
 flags, so an edited source or header rebuilds and an unchanged one is
-loaded as built.  Nothing here runs at import time: the first launch of
-a kernel builds it.
+loaded as built.
+
+Generated kernels (the direct scan kernel, one per chain shape:
+codegen.py) compile at first use with NVRTC, the CUDA toolkit's runtime
+compiler (libnvrtc, bound with ctypes), for sm_90a, and load through the
+driver API (libcuda: cuModuleLoadData, cuLaunchKernel).  Each cubin and
+its source are cached under build/presto_tpu_torch/gen/, named by a hash
+of the source, the shared headers and the options.  A failed compile or
+load raises with the compiler's log.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -16,8 +23,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "presto_tpu_torch"
@@ -26,7 +34,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "presto_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-SOURCES = ("scan_direct", "scan_grouped", "window_scan")
+SOURCES = ("scan_grouped", "window_scan")
+GEN_DIR = BUILD_DIR / "gen"
+# NVRTC's options for a generated kernel (the nvcc flags' counterparts)
+NVRTC_OPTIONS = ("--gpu-architecture=sm_90a", "-std=c++17", "--fmad=false",
+                 f"-I{CSRC}")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -99,3 +111,212 @@ def load(name: str) -> ctypes.CDLL:
             build_all((name,))
             lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+# ---------------------------------------------------------------------------
+# generated kernels: NVRTC + the driver API
+# ---------------------------------------------------------------------------
+
+CUDA_HOME = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+# the driver API's attribute and limit numbers (cuda.h)
+_CU_FUNC_ATTRIBUTE_NUM_REGS = 4
+_CU_FUNC_ATTRIBUTE_LOCAL_SIZE_BYTES = 3
+_CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES = 8
+_CU_DEVICE_ATTRIBUTE_MULTIPROCESSOR_COUNT = 16
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_MODULES: Dict[Tuple[str, int], "GenModule"] = {}
+# compile ms per generated source hash (first use in this process: an
+# NVRTC compile, or 0.0 when the cubin came from the cache directory)
+COMPILE_MS: Dict[str, float] = {}
+
+
+def _nvrtc() -> ctypes.CDLL:
+    """libnvrtc of the CUDA toolkit (CUDA_HOME, default /usr/local/cuda)."""
+    lib = _libs.get("nvrtc")
+    if lib is None:
+        found = sorted((CUDA_HOME / "lib64").glob("libnvrtc.so*"))
+        if not found:
+            raise RuntimeError(f"libnvrtc not found under {CUDA_HOME}/lib64: "
+                               f"the generated kernels compile only where "
+                               f"the CUDA toolkit is installed")
+        lib = _libs["nvrtc"] = ctypes.CDLL(str(found[0]))
+        lib.nvrtcGetErrorString.restype = ctypes.c_char_p
+    return lib
+
+
+def _cuda() -> ctypes.CDLL:
+    lib = _libs.get("cuda")
+    if lib is None:
+        lib = _libs["cuda"] = ctypes.CDLL("libcuda.so.1")
+    return lib
+
+
+def _check_cu(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = ctypes.c_char_p()
+        _cuda().cuGetErrorString(rc, ctypes.byref(msg))
+        raise RuntimeError(f"{what} failed: CUDA driver error {rc} "
+                           f"({(msg.value or b'').decode()})")
+
+
+_GEN_KEYS: Dict[str, str] = {}
+
+
+def gen_key(source: str) -> str:
+    """The cache key of a generated source: its hash with the shared
+    headers' and the options' (kept per source for the process, so a
+    launch does not reread the headers)."""
+    key = _GEN_KEYS.get(source)
+    if key is None:
+        key = _GEN_KEYS[source] = _hash_source(source)
+    return key
+
+
+def _hash_source(source: str) -> str:
+    h = hashlib.sha256(source.encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVRTC_OPTIONS[:-1]).encode())
+    return h.hexdigest()[:20]
+
+
+def compile_cubin(source: str, name: str = "gen.cu") -> bytes:
+    """NVRTC: the sm_90a cubin of `source`; raises with the log."""
+    nv = _nvrtc()
+    prog = ctypes.c_void_p()
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what}: {nv.nvrtcGetErrorString(rc).decode()}")
+    check(nv.nvrtcCreateProgram(ctypes.byref(prog), source.encode(),
+                                name.encode(), 0, None, None),
+          "nvrtcCreateProgram")
+    try:
+        opts = [o.encode() for o in NVRTC_OPTIONS]
+        arr = (ctypes.c_char_p * len(opts))(*opts)
+        rc = nv.nvrtcCompileProgram(prog, len(opts), arr)
+        size = ctypes.c_size_t()
+        nv.nvrtcGetProgramLogSize(prog, ctypes.byref(size))
+        log = ctypes.create_string_buffer(size.value + 1)
+        nv.nvrtcGetProgramLog(prog, log)
+        if rc != 0:
+            raise RuntimeError(f"NVRTC failed for {name} "
+                               f"({nv.nvrtcGetErrorString(rc).decode()}):\n"
+                               f"{log.value.decode(errors='replace')}")
+        check(nv.nvrtcGetCUBINSize(prog, ctypes.byref(size)),
+              "nvrtcGetCUBINSize")
+        cubin = ctypes.create_string_buffer(size.value)
+        check(nv.nvrtcGetCUBIN(prog, cubin), "nvrtcGetCUBIN")
+        return cubin.raw
+    finally:
+        nv.nvrtcDestroyProgram(ctypes.byref(prog))
+
+
+def _ensure_context(device_index: int) -> None:
+    """Make the device's primary context (the one PyTorch uses) current on
+    this thread."""
+    cu = _cuda()
+    ctx = ctypes.c_void_p()
+    _check_cu(cu.cuCtxGetCurrent(ctypes.byref(ctx)), "cuCtxGetCurrent")
+    if ctx.value:
+        return
+    dev = ctypes.c_int()
+    _check_cu(cu.cuDeviceGet(ctypes.byref(dev), device_index), "cuDeviceGet")
+    _check_cu(cu.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev),
+              "cuDevicePrimaryCtxRetain")
+    _check_cu(cu.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+
+
+class GenModule:
+    """A loaded generated module: its kernels by name, each launched with
+    one by-value argument (an int64 word array)."""
+
+    def __init__(self, key: str, cubin: bytes, device_index: int):
+        self.key = key
+        self.device_index = device_index
+        cu = _cuda()
+        _ensure_context(device_index)
+        self._image = ctypes.create_string_buffer(cubin, len(cubin))
+        self.handle = ctypes.c_void_p()
+        _check_cu(cu.cuModuleLoadData(ctypes.byref(self.handle), self._image),
+                  f"cuModuleLoadData ({key})")
+        self._fns: Dict[str, ctypes.c_void_p] = {}
+        self._smem: Dict[str, int] = {}
+
+    def function(self, name: str) -> ctypes.c_void_p:
+        fn = self._fns.get(name)
+        if fn is None:
+            fn = ctypes.c_void_p()
+            _check_cu(_cuda().cuModuleGetFunction(
+                ctypes.byref(fn), self.handle, name.encode()),
+                f"cuModuleGetFunction {name}")
+            self._fns[name] = fn
+        return fn
+
+    def attributes(self, name: str) -> Dict[str, int]:
+        """Registers per thread and local (spill) bytes of a kernel."""
+        fn, out = self.function(name), {}
+        for k, a in (("registers", _CU_FUNC_ATTRIBUTE_NUM_REGS),
+                     ("local_bytes", _CU_FUNC_ATTRIBUTE_LOCAL_SIZE_BYTES)):
+            v = ctypes.c_int()
+            _check_cu(_cuda().cuFuncGetAttribute(ctypes.byref(v), a, fn),
+                      "cuFuncGetAttribute")
+            out[k] = v.value
+        return out
+
+    def launch(self, name: str, grid: int, threads: int, smem: int,
+               stream: int, words) -> None:
+        """Launch kernel `name` on `stream` with its argument array `words`
+        (a ctypes int64 array); raises on a refused launch."""
+        cu = _cuda()
+        _ensure_context(self.device_index)
+        fn = self.function(name)
+        if smem > 48 * 1024 and self._smem.get(name, 0) < smem:
+            _check_cu(cu.cuFuncSetAttribute(
+                fn, _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES, smem),
+                f"cuFuncSetAttribute {name}")
+            self._smem[name] = smem
+        params = (ctypes.c_void_p * 1)(ctypes.addressof(words))
+        _check_cu(cu.cuLaunchKernel(fn, grid, 1, 1, threads, 1, 1, smem,
+                                    ctypes.c_void_p(stream), params, None),
+                  f"cuLaunchKernel {name}")
+
+
+def load_generated(source: str, device_index: int) -> GenModule:
+    """The loaded module of a generated source, compiled with NVRTC on
+    first use (or read from the cache directory) and loaded once per
+    device."""
+    key = gen_key(source)
+    with _LOCK:
+        mod = _MODULES.get((key, device_index))
+        if mod is not None:
+            return mod
+        cubin_path = GEN_DIR / f"{key}.cubin"
+        if cubin_path.exists():
+            cubin = cubin_path.read_bytes()
+            COMPILE_MS.setdefault(key, 0.0)
+        else:
+            GEN_DIR.mkdir(parents=True, exist_ok=True)
+            (GEN_DIR / f"{key}.cu").write_text(source)
+            t0 = time.perf_counter()
+            cubin = compile_cubin(source, f"{key}.cu")
+            COMPILE_MS[key] = (time.perf_counter() - t0) * 1e3
+            tmp = cubin_path.with_suffix(f".{os.getpid()}.tmp")
+            tmp.write_bytes(cubin)
+            os.replace(tmp, cubin_path)
+        mod = _MODULES[(key, device_index)] = GenModule(key, cubin,
+                                                        device_index)
+        return mod
+
+
+def multiprocessors(device_index: int) -> int:
+    """The device's SM count (driver API)."""
+    cu = _cuda()
+    _ensure_context(device_index)
+    v, dev = ctypes.c_int(), ctypes.c_int()
+    _check_cu(cu.cuDeviceGet(ctypes.byref(dev), device_index), "cuDeviceGet")
+    _check_cu(cu.cuDeviceGetAttribute(
+        ctypes.byref(v), _CU_DEVICE_ATTRIBUTE_MULTIPROCESSOR_COUNT, dev),
+        "cuDeviceGetAttribute")
+    return v.value

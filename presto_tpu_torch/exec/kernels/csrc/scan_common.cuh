@@ -1,8 +1,10 @@
-// Shared by the fused scan kernels (scan_direct.cu, scan_grouped.cu): the
-// plan vector's layout, column decode and the ExprProgram interpreter, so
-// every kernel runs one expression semantics -- the torch evaluator's
-// (exec/lowering.py ExprProgram.run) --, the chain's steps with the join
-// probe (kernel #5, probe_step below), the stage ring of
+// Shared by the fused scan kernels (scan_grouped.cu, and the direct kernel
+// generated per chain by exec/kernels/codegen.py, compiled with NVRTC):
+// the plan vector's layout, column decode, one function per ExprProgram
+// opcode (op_*) and the interpreter that the grouped kernels run over
+// them, so every kernel runs one expression semantics -- the torch
+// evaluator's (exec/lowering.py ExprProgram.run) --, the chain's steps
+// with the join probe (kernel #5, probe_step below), the stage ring of
 // scan_kernel_dma = "double" (kernel #2, stage_tile below), and the
 // warp-level fold of integer rows into accumulators.
 //
@@ -11,8 +13,18 @@
 // __ldg from device memory), S = 2 reads plain values and dictionary codes
 // from the tile's stage in shared memory.
 #pragma once
+#ifdef __CUDACC_RTC__
+// NVRTC (the direct kernel generated per chain, exec/kernels/codegen.py)
+// has no host headers: the fixed-width types it needs
+typedef signed char int8_t;
+typedef short int16_t;
+typedef int int32_t;
+typedef unsigned char uint8_t;
+typedef unsigned int uint32_t;
+#else
 #include <cuda_runtime.h>
 #include <stdint.h>
+#endif
 
 // plan header words (exec/kernels/scan_kernel.py build_scan_plan)
 enum {
@@ -81,6 +93,18 @@ __device__ __forceinline__ i64 load_bits(i64 ptr, i64 i, int dt) {
   }
 }
 
+// RLE: the run of absolute row a, searchsorted(run_starts, a,
+// side="right") - 1 clipped to the n runs (the reference's _bisect_right)
+__device__ __forceinline__ i64 rle_run(const i64* starts, i64 n, i64 a) {
+  i64 lo = 0, hi = n;
+  while (lo < hi) {
+    const i64 mid = (lo + hi) >> 1;
+    if (starts[mid] <= a) lo = mid + 1; else hi = mid;
+  }
+  const i64 ri = lo - 1;
+  return ri < 0 ? 0 : (ri > n - 1 ? n - 1 : ri);
+}
+
 // logical value (int64, or float64 bits) of column `c` at absolute row `a`
 __device__ i64 decode(const i64* cm, i64 a) {
   const int kind = (int)cm[0];
@@ -89,17 +113,7 @@ __device__ i64 decode(const i64* cm, i64 a) {
     const i64 code = load_bits(cm[2], a, (int)cm[1]);
     return load_bits(cm[4], code, (int)cm[3]);
   }
-  // RLE: searchsorted(run_starts, a, side="right") - 1, clipped
-  const i64* starts = (const i64*)cm[4];
-  const i64 n = cm[5];
-  i64 lo = 0, hi = n;
-  while (lo < hi) {
-    const i64 mid = (lo + hi) >> 1;
-    if (starts[mid] <= a) lo = mid + 1; else hi = mid;
-  }
-  i64 ri = lo - 1;
-  ri = ri < 0 ? 0 : (ri > n - 1 ? n - 1 : ri);
-  return load_bits(cm[2], ri, (int)cm[1]);
+  return load_bits(cm[2], rle_run((const i64*)cm[4], cm[5], a), (int)cm[1]);
 }
 
 __device__ __forceinline__ i64 div_round_half_up(i64 v, i64 d) {
@@ -183,6 +197,164 @@ __device__ __forceinline__ double float_mod(double a, double b) {
   return (m != 0.0 && ((m < 0.0) != (b < 0.0))) ? __dadd_rn(m, b) : m;
 }
 
+// ---------------------------------------------------------------------------
+// One function per opcode of exec/lowering.py OPS, on one row's value bits
+// (int64, or float64 bits): the interpreter below (interpret / eval_ext)
+// and the direct kernel generated per chain (exec/kernels/codegen.py) both
+// call these, so the two run one expression semantics.  Null flags are
+// masks (bit r: row r NULL); the generated code passes one row's flag as
+// bit 0.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ i64 op_MULC_I(i64 v, i64 c) {
+  return (i64)((u64)v * (u64)c);
+}
+__device__ __forceinline__ i64 op_DIVR_I(i64 v, i64 c) {
+  return div_round_half_up(v, c);
+}
+__device__ __forceinline__ i64 op_I2F(i64 v) { return as_b((double)v); }
+__device__ __forceinline__ i64 op_DIVC_F(i64 v, i64 c) {
+  return as_b(__ddiv_rn(as_f(v), as_f(c)));
+}
+__device__ __forceinline__ i64 op_WRAP32(i64 v) { return wrap32(v); }
+__device__ __forceinline__ i64 op_NOT(i64 v) { return (i64)(v == 0); }
+__device__ __forceinline__ i64 op_ADD_I(i64 a, i64 b) {
+  return (i64)((u64)a + (u64)b);
+}
+__device__ __forceinline__ i64 op_SUB_I(i64 a, i64 b) {
+  return (i64)((u64)a - (u64)b);
+}
+__device__ __forceinline__ i64 op_MUL_I(i64 a, i64 b) {
+  return (i64)((u64)a * (u64)b);
+}
+__device__ __forceinline__ i64 op_ADD_F(i64 a, i64 b) {
+  return as_b(__dadd_rn(as_f(a), as_f(b)));
+}
+__device__ __forceinline__ i64 op_SUB_F(i64 a, i64 b) {
+  return as_b(__dsub_rn(as_f(a), as_f(b)));
+}
+__device__ __forceinline__ i64 op_MUL_F(i64 a, i64 b) {
+  return as_b(__dmul_rn(as_f(a), as_f(b)));
+}
+__device__ __forceinline__ i64 op_LT_I(i64 a, i64 b) { return (i64)(a < b); }
+__device__ __forceinline__ i64 op_LTE_I(i64 a, i64 b) { return (i64)(a <= b); }
+__device__ __forceinline__ i64 op_GT_I(i64 a, i64 b) { return (i64)(a > b); }
+__device__ __forceinline__ i64 op_GTE_I(i64 a, i64 b) { return (i64)(a >= b); }
+__device__ __forceinline__ i64 op_EQ_I(i64 a, i64 b) { return (i64)(a == b); }
+__device__ __forceinline__ i64 op_NEQ_I(i64 a, i64 b) { return (i64)(a != b); }
+__device__ __forceinline__ i64 op_LT_F(i64 a, i64 b) {
+  return (i64)(as_f(a) < as_f(b));
+}
+__device__ __forceinline__ i64 op_LTE_F(i64 a, i64 b) {
+  return (i64)(as_f(a) <= as_f(b));
+}
+__device__ __forceinline__ i64 op_GT_F(i64 a, i64 b) {
+  return (i64)(as_f(a) > as_f(b));
+}
+__device__ __forceinline__ i64 op_GTE_F(i64 a, i64 b) {
+  return (i64)(as_f(a) >= as_f(b));
+}
+__device__ __forceinline__ i64 op_EQ_F(i64 a, i64 b) {
+  return (i64)(as_f(a) == as_f(b));
+}
+__device__ __forceinline__ i64 op_NEQ_F(i64 a, i64 b) {
+  return (i64)(as_f(a) != as_f(b));
+}
+// Kleene AND / OR over value bits av, bv (nonzero: true) and null masks
+// an, bn: returns the value bits, sets n to the result's null mask
+__device__ __forceinline__ unsigned op_AND(unsigned av, unsigned an,
+                                           unsigned bv, unsigned bn,
+                                           unsigned& n) {
+  const unsigned value = (av | an) & (bv | bn);   // no definite false
+  n = value & (an | bn);
+  return value & ~n;
+}
+__device__ __forceinline__ unsigned op_OR(unsigned av, unsigned an,
+                                          unsigned bv, unsigned bn,
+                                          unsigned& n) {
+  const unsigned v = (av & ~an) | (bv & ~bn);
+  n = ~v & (an | bn);
+  return v;
+}
+__device__ __forceinline__ i64 op_NEG_I(i64 v) { return (i64)(0ULL - (u64)v); }
+__device__ __forceinline__ i64 op_NEG_F(i64 v) {
+  return (i64)((u64)v ^ 0x8000000000000000ULL);
+}
+__device__ __forceinline__ i64 op_ABS_I(i64 v) { return iabs(v); }
+__device__ __forceinline__ i64 op_ABS_F(i64 v) {
+  return (i64)((u64)v & 0x7fffffffffffffffULL);
+}
+__device__ __forceinline__ i64 op_YEAR(i64 v) { return date_part(v, OP_YEAR); }
+__device__ __forceinline__ i64 op_MONTH(i64 v) {
+  return date_part(v, OP_MONTH);
+}
+__device__ __forceinline__ i64 op_DAY(i64 v) { return date_part(v, OP_DAY); }
+__device__ __forceinline__ i64 op_QUARTER(i64 v) {
+  return date_part(v, OP_QUARTER);
+}
+__device__ __forceinline__ i64 op_MULC_F(i64 v, i64 c) {
+  return as_b(__dmul_rn(as_f(v), as_f(c)));
+}
+__device__ __forceinline__ i64 op_RINT_I(i64 v) { return (i64)rint(as_f(v)); }
+// DIV_I / MOD_I / DIVQ_I: `narrow` as int_divide's; a zero divisor divides
+// by 1 and sets `zero` (the row turns NULL)
+__device__ __forceinline__ i64 int_div_op(i64 a, i64 b, int narrow,
+                                          int op, unsigned& zero) {
+  if (narrow & 1) a = wrap32(a);
+  if (narrow & 2) b = wrap32(b);
+  zero = b == 0;
+  const i64 sb = b == 0 ? 1 : b;
+  return op == OP_DIVQ_I ? dec_quotient(a, sb, narrow)
+                         : int_divide(a, sb, narrow, op == OP_MOD_I);
+}
+__device__ __forceinline__ i64 op_DIV_I(i64 a, i64 b, int narrow,
+                                        unsigned& zero) {
+  return int_div_op(a, b, narrow, OP_DIV_I, zero);
+}
+__device__ __forceinline__ i64 op_MOD_I(i64 a, i64 b, int narrow,
+                                        unsigned& zero) {
+  return int_div_op(a, b, narrow, OP_MOD_I, zero);
+}
+__device__ __forceinline__ i64 op_DIVQ_I(i64 a, i64 b, int narrow,
+                                         unsigned& zero) {
+  return int_div_op(a, b, narrow, OP_DIVQ_I, zero);
+}
+__device__ __forceinline__ i64 op_DIV_F(i64 a, i64 b) {
+  return as_b(__ddiv_rn(as_f(a), as_f(b)));
+}
+__device__ __forceinline__ i64 op_MOD_F(i64 a, i64 b) {
+  return as_b(float_mod(as_f(a), as_f(b)));
+}
+// IS_NULL: the value is the null flag, the result never NULL
+__device__ __forceinline__ i64 op_IS_NULL(unsigned vn) { return (i64)(vn & 1u); }
+// IF(cond, then, else) of one row: a definite TRUE cond takes `then`
+__device__ __forceinline__ i64 op_IF(i64 c, unsigned cn, i64 t, unsigned tn,
+                                     i64 f, unsigned fn, unsigned& n) {
+  const bool p = c != 0 && !(cn & 1u);
+  n = p ? tn : fn;
+  return p ? t : f;
+}
+__device__ __forceinline__ i64 op_COALESCE(i64 a, unsigned an, i64 b,
+                                           unsigned bn, unsigned& n) {
+  n = an & bn;
+  return an & 1u ? b : a;
+}
+// NULL_IF(a, b): a, NULL where a == b and neither is NULL
+__device__ __forceinline__ i64 op_NULLIF_I(i64 a, unsigned an, i64 b,
+                                           unsigned bn, unsigned& n) {
+  n = an | ((unsigned)(a == b) & ~an & ~bn & 1u);
+  return a;
+}
+__device__ __forceinline__ i64 op_NULLIF_F(i64 a, unsigned an, i64 b,
+                                           unsigned bn, unsigned& n) {
+  n = an | ((unsigned)(as_f(a) == as_f(b)) & ~an & ~bn & 1u);
+  return a;
+}
+// one constant of IN's list (the LIT instructions after it)
+__device__ __forceinline__ bool op_IN_I(i64 v, i64 lit) { return v == lit; }
+__device__ __forceinline__ bool op_IN_F(i64 v, i64 lit) {
+  return as_f(v) == as_f(lit);
+}
+
 // Rows a thread carries through one pass of the interpreter: every
 // instruction is fetched and dispatched once for RPT rows, whose values sit
 // side by side in the thread's stack slots.
@@ -232,6 +404,30 @@ __device__ __forceinline__ void stage_rows(const unsigned char* sb, int tid,
 #pragma unroll
   for (int r = 0; r < RPT; ++r)
     out[r] = (active >> r) & 1u ? (i64)p[tid + r * T] : 0;
+}
+
+// A dictionary's values at the rows' codes (x[r] holds the code on entry):
+// a gather through the cache-resident values array.
+template <typename V>
+__device__ __forceinline__ void dict_values(i64 vals, unsigned active,
+                                            i64 (&x)[RPT]) {
+  const V* p = (const V*)vals;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+    x[r] = (active >> r) & 1u ? (i64)__ldg(p + x[r]) : 0;
+}
+
+// An RLE column's values at rows row0 + r * T: a binary search per row.
+template <typename V>
+__device__ __forceinline__ void rle_rows(i64 vals, i64 starts, i64 n,
+                                         i64 row0, int T, unsigned active,
+                                         i64 (&out)[RPT]) {
+  const V* p = (const V*)vals;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+    out[r] = (active >> r) & 1u
+                 ? (i64)p[rle_run((const i64*)starts, n, row0 + r * T)]
+                 : 0;
 }
 
 // Decode column `cm` at rows row0 + r * T (r < RPT, live in `active`) into
@@ -328,10 +524,38 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// The offset, modulo 16, at which column `cm`'s tile starting at absolute
-// row a0 sits in its stage region (its offset in device memory).
+// The offset, modulo 16, at which the tile of an array of es-byte
+// elements at `ptr` starting at absolute row a0 sits in its stage region
+// (its offset in device memory).
+__device__ __forceinline__ int stage_shift_at(u64 ptr, int es, i64 a0) {
+  return (int)((ptr + (u64)a0 * (u64)es) & 15u);
+}
 __device__ __forceinline__ int stage_shift(const i64* cm, i64 a0) {
-  return (int)(((u64)cm[2] + (u64)a0 * (u64)dt_bytes((int)cm[1])) & 15u);
+  return stage_shift_at((u64)cm[2], dt_bytes((int)cm[1]), a0);
+}
+
+// Issue the copies of rows [a0, a0 + n) of the array of es-byte elements
+// at `ptr` into its stage region `region`; every thread of the CTA takes
+// part.
+__device__ __forceinline__ void stage_array(u64 ptr, int es,
+                                            unsigned char* region, i64 a0,
+                                            int n, int T, int tid) {
+  const u64 src = ptr + (u64)a0 * (u64)es;
+  const u64 end = src + (u64)n * (u64)es;
+  unsigned char* dst = region + (src & 15u);
+  u64 ci = (src + 15u) & ~(u64)15u;              // aligned interior
+  if (ci > end) ci = end;
+  u64 ce = end & ~(u64)15u;
+  if (ce < ci) ce = ci;
+  const int n16 = (int)((ce - ci) >> 4);
+  for (int k = tid; k < n16; k += T)
+    cp_async16(dst + (ci - src) + 16 * (u64)k,
+               (const void*)(ci + 16 * (u64)k));
+  const int head = (int)(ci - src), tail = (int)(end - ce);
+  for (int b = tid; b < head + tail; b += T) {
+    const u64 a = b < head ? src + b : ce + (b - head);
+    dst[a - src] = *(const unsigned char*)a;
+  }
 }
 
 // Issue the copies of the staged columns' rows [a0, a0 + n) into stage
@@ -343,23 +567,7 @@ __device__ void stage_tile(const i64* cols, const i64* stab, int n_cols,
     const i64 off = stab[c];
     if (off < 0) continue;
     const i64* cm = cols + COL_WORDS * c;
-    const u64 es = (u64)dt_bytes((int)cm[1]);
-    const u64 src = (u64)cm[2] + (u64)a0 * es;
-    const u64 end = src + (u64)n * es;
-    unsigned char* dst = st + off + (src & 15u);
-    u64 ci = (src + 15u) & ~(u64)15u;              // aligned interior
-    if (ci > end) ci = end;
-    u64 ce = end & ~(u64)15u;
-    if (ce < ci) ce = ci;
-    const int n16 = (int)((ce - ci) >> 4);
-    for (int k = tid; k < n16; k += T)
-      cp_async16(dst + (ci - src) + 16 * (u64)k,
-                 (const void*)(ci + 16 * (u64)k));
-    const int head = (int)(ci - src), tail = (int)(end - ce);
-    for (int b = tid; b < head + tail; b += T) {
-      const u64 a = b < head ? src + b : ce + (b - head);
-      dst[a - src] = *(const unsigned char*)a;
-    }
+    stage_array((u64)cm[2], dt_bytes((int)cm[1]), st + off, a0, n, T, tid);
   }
 }
 
@@ -371,6 +579,29 @@ __device__ __forceinline__ const unsigned char* staged_base(const Tile& t,
                                                             i64 arg) {
   if (S < 2 || t.stab[arg] < 0) return nullptr;
   return t.stage + t.stab[arg] + stage_shift(cm, t.row0 - t.tid);
+}
+
+// A gathered build column's values at the rows' build rows row[r] (rows
+// in `active`); returns their null mask: the build column's NULL flags
+// (gn, or none) and, for a LEFT join (left_nulls), the misses.
+template <typename V>
+__device__ __forceinline__ unsigned gather_rows(i64 vals, const uint8_t* gn,
+                                                const int (&row)[RPT],
+                                                unsigned active, unsigned hit,
+                                                bool left_nulls,
+                                                i64 (&out)[RPT]) {
+  const V* p = (const V*)vals;
+  unsigned nulls = left_nulls ? ~hit & ((1u << RPT) - 1) : 0u;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    if (!((active >> r) & 1u)) {
+      out[r] = 0;
+      continue;
+    }
+    out[r] = (i64)__ldg(p + row[r]);
+    if (gn != nullptr && gn[row[r]]) nulls |= 1u << r;
+  }
+  return nulls;
 }
 
 // A probe step's virtual column `cm` for the rows in `active` into
@@ -386,20 +617,22 @@ __device__ __forceinline__ unsigned load_joined(const Tile& t, const i64* cm,
     for (int r = 0; r < RPT; ++r) dst[r * T] = (hit >> r) & 1u;
     return t.jnul[j * T + t.tid];
   }
-  const int* rows = t.jrow + j * RPT * T + t.tid;
-  const int dt = (int)cm[1];
-  const uint8_t* gn = (const uint8_t*)cm[4];
-  unsigned nulls = cm[5] ? ~hit & ((1u << RPT) - 1) : 0u;
+  int row[RPT];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    if (!((active >> r) & 1u)) {
-      dst[r * T] = 0;
-      continue;
-    }
-    const int b = rows[r * T];
-    dst[r * T] = load_bits(cm[2], b, dt);
-    if (gn != nullptr && gn[b]) nulls |= 1u << r;
+  for (int r = 0; r < RPT; ++r) row[r] = t.jrow[(j * RPT + r) * T + t.tid];
+  const uint8_t* gn = (const uint8_t*)cm[4];
+  const bool left = cm[5] != 0;
+  i64 out[RPT];
+  unsigned nulls;
+  switch ((int)cm[1]) {
+    case DT_I8: nulls = gather_rows<int8_t>(cm[2], gn, row, active, hit, left, out); break;
+    case DT_I16: nulls = gather_rows<int16_t>(cm[2], gn, row, active, hit, left, out); break;
+    case DT_I32: nulls = gather_rows<int32_t>(cm[2], gn, row, active, hit, left, out); break;
+    case DT_BOOL: nulls = gather_rows<uint8_t>(cm[2], gn, row, active, hit, left, out); break;
+    default: nulls = gather_rows<i64>(cm[2], gn, row, active, hit, left, out); break;
   }
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) dst[r * T] = out[r];
   return nulls;
 }
 
@@ -424,19 +657,22 @@ __device__ __noinline__ int eval_ext(int op, i64 arg, const i64* lits,
         const i64 v = top[r * T];
         i64 o;
         switch (op) {
-          case OP_NEG_I: o = (i64)(0ULL - (u64)v); break;
-          case OP_NEG_F: o = (i64)((u64)v ^ 0x8000000000000000ULL); break;
-          case OP_ABS_I: o = iabs(v); break;
-          case OP_ABS_F: o = (i64)((u64)v & 0x7fffffffffffffffULL); break;
-          case OP_MULC_F: o = as_b(__dmul_rn(as_f(v), as_f(arg))); break;
-          case OP_RINT_I: o = (i64)rint(as_f(v)); break;
-          default: o = date_part(v, op); break;
+          case OP_NEG_I: o = op_NEG_I(v); break;
+          case OP_NEG_F: o = op_NEG_F(v); break;
+          case OP_ABS_I: o = op_ABS_I(v); break;
+          case OP_ABS_F: o = op_ABS_F(v); break;
+          case OP_MULC_F: o = op_MULC_F(v, arg); break;
+          case OP_RINT_I: o = op_RINT_I(v); break;
+          case OP_YEAR: o = op_YEAR(v); break;
+          case OP_MONTH: o = op_MONTH(v); break;
+          case OP_DAY: o = op_DAY(v); break;
+          default: o = op_QUARTER(v); break;
         }
         top[r * T] = o;
       }
       return sp;
     case OP_IS_NULL:
-      for (int r = 0; r < RPT; ++r) top[r * T] = (*n1 >> r) & 1u;
+      for (int r = 0; r < RPT; ++r) top[r * T] = op_IS_NULL(*n1 >> r);
       *n1 = 0;
       return sp;
     case OP_IN_I: case OP_IN_F:         // IN over the k LIT constants
@@ -444,57 +680,52 @@ __device__ __noinline__ int eval_ext(int op, i64 arg, const i64* lits,
         const i64 v = top[r * T];
         bool hit = false;
         for (int j = 0; j < (int)arg; ++j)
-          hit |= op == OP_IN_I ? v == lits[2 * j]
-                               : as_f(v) == as_f(lits[2 * j]);
+          hit |= op == OP_IN_I ? op_IN_I(v, lits[2 * j])
+                               : op_IN_F(v, lits[2 * j]);
         top[r * T] = hit;
       }
       return sp;
-    case OP_IF: {      // IF(cond, then, else): a select, no branch per row
+    case OP_IF: {      // IF(cond, then, else)
       i64* c_ = top - 2 * RT;
       unsigned* n3 = n2 - T;
-      unsigned pred = 0;
+      unsigned out = 0;
       for (int r = 0; r < RPT; ++r) {
-        const bool p_ = c_[r * T] != 0 && !((*n3 >> r) & 1u);
-        pred |= (unsigned)p_ << r;
-        c_[r * T] = p_ ? top[r * T - RT] : top[r * T];
+        unsigned n;
+        c_[r * T] = op_IF(c_[r * T], *n3 >> r, top[r * T - RT], *n2 >> r,
+                          top[r * T], *n1 >> r, n);
+        out |= (n & 1u) << r;
       }
-      *n3 = (pred & *n2) | (~pred & *n1);
+      *n3 = out;
       return sp - 2;
     }
-    case OP_COALESCE:
-      for (int r = 0; r < RPT; ++r)
-        if ((*n2 >> r) & 1u) top[r * T - RT] = top[r * T];
-      *n2 &= *n1;
-      return sp - 1;
-    case OP_NULLIF_I: case OP_NULLIF_F: {   // a, NULL where a == b, no NULL
-      unsigned eq = 0;
+    case OP_COALESCE: case OP_NULLIF_I: case OP_NULLIF_F: {
+      unsigned out = 0;
       for (int r = 0; r < RPT; ++r) {
         const i64 a = top[r * T - RT], b = top[r * T];
-        eq |= (unsigned)(op == OP_NULLIF_I ? a == b : as_f(a) == as_f(b))
-              << r;
+        const unsigned an = *n2 >> r, bn = *n1 >> r;
+        unsigned n;
+        top[r * T - RT] = op == OP_COALESCE ? op_COALESCE(a, an, b, bn, n)
+                          : op == OP_NULLIF_I ? op_NULLIF_I(a, an, b, bn, n)
+                                              : op_NULLIF_F(a, an, b, bn, n);
+        out |= (n & 1u) << r;
       }
-      *n2 |= eq & ~*n2 & ~*n1;
+      *n2 = out;
       return sp - 1;
     }
     case OP_DIV_F: case OP_MOD_F:
       for (int r = 0; r < RPT; ++r) {
-        const double a = as_f(top[r * T - RT]), b = as_f(top[r * T]);
-        top[r * T - RT] = as_b(op == OP_DIV_F ? __ddiv_rn(a, b)
-                                              : float_mod(a, b));
+        const i64 a = top[r * T - RT], b = top[r * T];
+        top[r * T - RT] = op == OP_DIV_F ? op_DIV_F(a, b) : op_MOD_F(a, b);
       }
       *n2 |= *n1;
       return sp - 1;
     default: {         // DIV_I / MOD_I / DIVQ_I: a zero divisor divides
       unsigned zero = 0;              // by 1 and makes the row NULL
-      const int narrow = (int)arg;
       for (int r = 0; r < RPT; ++r) {
-        const i64 a = narrow & 1 ? wrap32(top[r * T - RT]) : top[r * T - RT];
-        const i64 b = narrow & 2 ? wrap32(top[r * T]) : top[r * T];
-        zero |= (unsigned)(b == 0) << r;
-        const i64 sb = b == 0 ? 1 : b;
-        top[r * T - RT] = op == OP_DIVQ_I
-                              ? dec_quotient(a, sb, narrow)
-                              : int_divide(a, sb, narrow, op == OP_MOD_I);
+        unsigned z;
+        top[r * T - RT] = int_div_op(top[r * T - RT], top[r * T], (int)arg,
+                                     op, z);
+        zero |= z << r;
       }
       *n2 |= *n1 | zero;
       return sp - 1;
@@ -557,30 +788,30 @@ __device__ __forceinline__ void interpret(const Tile& t, const i64* p,
         nb[(sp - 2) * T] |= nb[(sp - 1) * T];                         \
         --sp;                                                         \
         break;
-      UNARY(OP_MULC_I, (i64)((u64)v * (u64)arg))
-      UNARY(OP_DIVR_I, div_round_half_up(v, arg))
-      UNARY(OP_I2F, as_b((double)v))
-      UNARY(OP_DIVC_F, as_b(__ddiv_rn(as_f(v), as_f(arg))))
-      UNARY(OP_WRAP32, wrap32(v))
-      UNARY(OP_NOT, (i64)(v == 0))
-      BINARY(OP_ADD_I, (i64)((u64)a + (u64)b))
-      BINARY(OP_SUB_I, (i64)((u64)a - (u64)b))
-      BINARY(OP_MUL_I, (i64)((u64)a * (u64)b))
-      BINARY(OP_ADD_F, as_b(__dadd_rn(as_f(a), as_f(b))))
-      BINARY(OP_SUB_F, as_b(__dsub_rn(as_f(a), as_f(b))))
-      BINARY(OP_MUL_F, as_b(__dmul_rn(as_f(a), as_f(b))))
-      BINARY(OP_LT_I, (i64)(a < b))
-      BINARY(OP_LTE_I, (i64)(a <= b))
-      BINARY(OP_GT_I, (i64)(a > b))
-      BINARY(OP_GTE_I, (i64)(a >= b))
-      BINARY(OP_EQ_I, (i64)(a == b))
-      BINARY(OP_NEQ_I, (i64)(a != b))
-      BINARY(OP_LT_F, (i64)(as_f(a) < as_f(b)))
-      BINARY(OP_LTE_F, (i64)(as_f(a) <= as_f(b)))
-      BINARY(OP_GT_F, (i64)(as_f(a) > as_f(b)))
-      BINARY(OP_GTE_F, (i64)(as_f(a) >= as_f(b)))
-      BINARY(OP_EQ_F, (i64)(as_f(a) == as_f(b)))
-      BINARY(OP_NEQ_F, (i64)(as_f(a) != as_f(b)))
+      UNARY(OP_MULC_I, op_MULC_I(v, arg))
+      UNARY(OP_DIVR_I, op_DIVR_I(v, arg))
+      UNARY(OP_I2F, op_I2F(v))
+      UNARY(OP_DIVC_F, op_DIVC_F(v, arg))
+      UNARY(OP_WRAP32, op_WRAP32(v))
+      UNARY(OP_NOT, op_NOT(v))
+      BINARY(OP_ADD_I, op_ADD_I(a, b))
+      BINARY(OP_SUB_I, op_SUB_I(a, b))
+      BINARY(OP_MUL_I, op_MUL_I(a, b))
+      BINARY(OP_ADD_F, op_ADD_F(a, b))
+      BINARY(OP_SUB_F, op_SUB_F(a, b))
+      BINARY(OP_MUL_F, op_MUL_F(a, b))
+      BINARY(OP_LT_I, op_LT_I(a, b))
+      BINARY(OP_LTE_I, op_LTE_I(a, b))
+      BINARY(OP_GT_I, op_GT_I(a, b))
+      BINARY(OP_GTE_I, op_GTE_I(a, b))
+      BINARY(OP_EQ_I, op_EQ_I(a, b))
+      BINARY(OP_NEQ_I, op_NEQ_I(a, b))
+      BINARY(OP_LT_F, op_LT_F(a, b))
+      BINARY(OP_LTE_F, op_LTE_F(a, b))
+      BINARY(OP_GT_F, op_GT_F(a, b))
+      BINARY(OP_GTE_F, op_GTE_F(a, b))
+      BINARY(OP_EQ_F, op_EQ_F(a, b))
+      BINARY(OP_NEQ_F, op_NEQ_F(a, b))
 #undef UNARY
 #undef BINARY
       case OP_AND: case OP_OR: {          // Kleene logic
@@ -592,15 +823,9 @@ __device__ __forceinline__ void interpret(const Tile& t, const i64* p,
           av |= (unsigned)(a_[r * T] != 0) << r;
           bv |= (unsigned)(top[r * T] != 0) << r;
         }
-        unsigned v, n;
-        if (op == OP_AND) {       // false unless no definite false
-          const unsigned value = (av | an) & (bv | bn);
-          n = value & (an | bn);
-          v = value & ~n;
-        } else {
-          v = (av & ~an) | (bv & ~bn);
-          n = ~v & (an | bn);
-        }
+        unsigned n;
+        const unsigned v = op == OP_AND ? op_AND(av, an, bv, bn, n)
+                                        : op_OR(av, an, bv, bn, n);
 #pragma unroll
         for (int r = 0; r < RPT; ++r) a_[r * T] = (v >> r) & 1u;
         nb[(sp - 2) * T] = n & ((1u << RPT) - 1);
@@ -655,32 +880,98 @@ __device__ __forceinline__ unsigned result_nulls(const Tile& t) {
 // in device memory: at most 4 MiB (the reference's gate), so they sit in
 // the 50 MB L2 and a plain gather serves.  The rows' loads are issued
 // together, as in load_rows.
+//
+// The two table lookups are shared with the direct kernel generated per
+// chain (exec/kernels/codegen.py), which computes the probe keys itself.
+// probe_direct: the rows' key values key[r] (NULL in knull) against a
+// DirectTable (int32 slots, base key at *base_p, `size` slots); returns
+// the hit mask and each hit's build row in row[r] (0 for a miss).
+__device__ __forceinline__ unsigned probe_direct(const i64 (&key)[RPT],
+                                                 unsigned knull,
+                                                 unsigned live,
+                                                 const int32_t* slots,
+                                                 const i64* base_p, i64 size,
+                                                 int (&row)[RPT]) {
+  const i64 base = __ldg(base_p);
+  int s[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const i64 k = (i64)((u64)key[r] - (u64)base);
+    s[r] = ((live >> r) & 1u) && k >= 0 && k < size ? __ldg(slots + k) : -1;
+  }
+  unsigned hit = 0;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const bool found = s[r] >= 0 && !((knull >> r) & 1u);
+    hit |= (unsigned)found << r;
+    row[r] = found ? s[r] : 0;
+  }
+  return hit;
+}
+
+// probe_unique: the rows' key hashes h[r] (hash_mix from 1 over the keys)
+// against a unique table (keyhash_sorted khs of n entries, perm), by a
+// fixed-trip lower-bound bisect; returns the hit mask and build rows.
+__device__ __forceinline__ unsigned probe_unique(const u64 (&h)[RPT],
+                                                 unsigned knull,
+                                                 unsigned live,
+                                                 const i64* khs,
+                                                 const int32_t* perm, i64 n,
+                                                 int trips, int (&row)[RPT]) {
+  i64 kh[RPT], lo[RPT], hi[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    kh[r] = (i64)(h[r] ^ 0x8000000000000000ULL);
+    lo[r] = 0;
+    hi[r] = (live >> r) & 1u ? n : 0;
+  }
+  for (int it = 0; it < trips; ++it) {
+    i64 mid[RPT], v[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      mid[r] = (lo[r] + hi[r]) >> 1;
+      v[r] = lo[r] < hi[r] ? __ldg(khs + mid[r]) : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      if (lo[r] >= hi[r]) continue;
+      if (v[r] < kh[r]) lo[r] = mid[r] + 1; else hi[r] = mid[r];
+    }
+  }
+  unsigned hit = 0;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const i64 p = lo[r] < n - 1 ? lo[r] : n - 1;
+    const bool found = ((live >> r) & 1u) && !((knull >> r) & 1u) &&
+                       __ldg(khs + p) == kh[r];
+    hit |= (unsigned)found << r;
+    row[r] = found ? __ldg(perm + p) : 0;
+  }
+  return hit;
+}
+
+// A semi marker's null mask: a miss against a build side that held a NULL
+// key, or a NULL probe key.
+__device__ __forceinline__ unsigned semi_nulls(unsigned hit, unsigned knull,
+                                               const uint8_t* bhn) {
+  return ((*bhn != 0 ? ~hit : 0u) | knull) & ((1u << RPT) - 1);
+}
+
 template <int S, bool X>
 __device__ unsigned probe_step(const Tile& t, const i64* jr, int j,
                                unsigned live) {
   const int T = t.T, tid = t.tid;
   const i64* kofs = t.plan + jr[J_KEYS_OFF];
-  unsigned hit = 0, knull = 0;
+  unsigned hit, knull = 0;
   int row[RPT];
   if (jr[J_TABLE] == TBL_DIRECT) {
     eval_prog<S, X>(t, kofs[0], live);
     knull = result_nulls(t);
-    const int32_t* slots = (const int32_t*)jr[J_OP0];
-    const i64 base = __ldg((const i64*)jr[J_OP1]);
-    const i64 size = jr[J_SIZE];
-    int s[RPT];
+    i64 key[RPT];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const i64 k = (i64)((u64)result(t, r) - (u64)base);
-      s[r] = ((live >> r) & 1u) && k >= 0 && k < size ? __ldg(slots + k)
-                                                       : -1;
-    }
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const bool found = s[r] >= 0 && !((knull >> r) & 1u);
-      hit |= (unsigned)found << r;
-      row[r] = found ? s[r] : 0;
-    }
+    for (int r = 0; r < RPT; ++r) key[r] = result(t, r);
+    hit = probe_direct(key, knull, live, (const int32_t*)jr[J_OP0],
+                       (const i64*)jr[J_OP1], jr[J_SIZE], row);
   } else {
     u64 h[RPT];
 #pragma unroll
@@ -694,46 +985,16 @@ __device__ unsigned probe_step(const Tile& t, const i64* jr, int j,
       for (int r = 0; r < RPT; ++r)
         h[r] = hash_mix(h[r], result(t, r), (nm >> r) & 1u);
     }
-    const i64* khs = (const i64*)jr[J_OP0];
-    const int32_t* perm = (const int32_t*)jr[J_OP1];
-    const i64 n = jr[J_SIZE];
-    const int trips = (int)jr[J_TRIPS];
-    i64 kh[RPT], lo[RPT], hi[RPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      kh[r] = (i64)(h[r] ^ 0x8000000000000000ULL);
-      lo[r] = 0;
-      hi[r] = (live >> r) & 1u ? n : 0;
-    }
-    for (int it = 0; it < trips; ++it) {
-      i64 mid[RPT], v[RPT];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        mid[r] = (lo[r] + hi[r]) >> 1;
-        v[r] = lo[r] < hi[r] ? __ldg(khs + mid[r]) : 0;
-      }
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        if (lo[r] >= hi[r]) continue;
-        if (v[r] < kh[r]) lo[r] = mid[r] + 1; else hi[r] = mid[r];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const i64 p = lo[r] < n - 1 ? lo[r] : n - 1;
-      const bool found = ((live >> r) & 1u) && !((knull >> r) & 1u) &&
-                         __ldg(khs + p) == kh[r];
-      hit |= (unsigned)found << r;
-      row[r] = found ? __ldg(perm + p) : 0;
-    }
+    hit = probe_unique(h, knull, live, (const i64*)jr[J_OP0],
+                       (const int32_t*)jr[J_OP1], jr[J_SIZE],
+                       (int)jr[J_TRIPS], row);
   }
 #pragma unroll
   for (int r = 0; r < RPT; ++r) t.jrow[(j * RPT + r) * T + tid] = row[r];
   t.jhit[j * T + tid] = hit;
   const int form = (int)jr[J_FORM];
   if (form == FORM_SEMI) {
-    const bool bhn = *(const uint8_t*)jr[J_BHN] != 0;
-    t.jnul[j * T + tid] = ((bhn ? ~hit : 0u) | knull) & ((1u << RPT) - 1);
+    t.jnul[j * T + tid] = semi_nulls(hit, knull, (const uint8_t*)jr[J_BHN]);
     return live;
   }
   return form == FORM_INNER ? live & hit : live;
@@ -763,6 +1024,19 @@ __device__ unsigned run_steps(const Tile& t, int n_steps, unsigned live,
     cnt[(s + 1) * t.T + t.tid] += __popc(live);
   }
   return live;
+}
+
+// The block-relative rows [lo, hi) of block bidx that work item `item`
+// covers: slice item % n_sub of grid entry item / n_sub.
+__device__ __forceinline__ void item_rows(const i64* grid, int n_grid,
+                                          i64 rows_per_cta, int n_sub,
+                                          i64 item, i64& bidx, i64& lo,
+                                          i64& hi) {
+  const int e = (int)(item / n_sub), sub = (int)(item % n_sub);
+  bidx = grid[e];
+  lo = grid[n_grid + e] + (i64)sub * rows_per_cta;
+  const i64 end = grid[2 * n_grid + e];
+  hi = end < lo + rows_per_cta ? end : lo + rows_per_cta;
 }
 
 // float min/max that propagates NaN like jnp.minimum / jnp.maximum

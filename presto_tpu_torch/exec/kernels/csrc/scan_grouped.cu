@@ -280,18 +280,6 @@ __device__ unsigned probe_rows(const Tile& t, const i64* keys, int n_keys,
   return live & ~pending;
 }
 
-// The block-relative rows [lo, hi) of block bidx that work item `item`
-// covers: slice item % n_sub of grid entry item / n_sub.
-__device__ __forceinline__ void item_rows(const i64* grid, int n_grid,
-                                          i64 rows_per_cta, int n_sub,
-                                          i64 item, i64& bidx, i64& lo,
-                                          i64& hi) {
-  const int e = (int)(item / n_sub), sub = (int)(item % n_sub);
-  bidx = grid[e];
-  lo = grid[n_grid + e] + (i64)sub * rows_per_cta;
-  hi = min(grid[2 * n_grid + e], lo + rows_per_cta);
-}
-
 // integer rows the kernel folds (the others copy __seen: src[r] != r)
 __device__ __forceinline__ int n_fold_rows(const i64* src, int n_i) {
   int n = 0;

@@ -2,9 +2,10 @@
 
 The port of presto_tpu/exec/kernels/scan_kernel.py.  The hot path of a
 direct-slot aggregation over a fused scan -> filter -> project chain runs
-as ONE hand-written CUDA kernel (csrc/scan_direct.cu) that decodes the
-resident encoded columns, interprets the chain's expression programs per
-row and folds live rows into the aggregation accumulators.
+as ONE CUDA kernel generated for the chain's shape (codegen.py, compiled
+with NVRTC at first use) that decodes the resident encoded columns,
+evaluates the chain's expression programs as straight-line code and folds
+live rows into the aggregation accumulators.
 
   grid      one entry per SURVIVING block of `br` rows (br = the pow2
             ceiling of the chain's chunk capacity); each entry carries its
@@ -24,6 +25,11 @@ row and folds live rows into the aggregation accumulators.
             shared-memory layout differs by mode.
   wrapper   scan_direct: CUDA tensors launch the kernel (or raise); CPU
             tensors run scan_direct_plain, the same function in torch.
+  uploads   a launch leaves the stream asynchronous: a plan's words and
+            initial rows stay on the device with the plan (ScanPlan.dev),
+            and what changes per launch (the grid, a new column or build
+            operand table) goes through pinned host memory with
+            non_blocking copies (to_device).
   staging   dma="double" (scan_kernel_dma, kernel #2): the kernels copy
             the next tile's per-row arrays (staged_indices) into a
             two-stage ring in shared memory while the current tile
@@ -82,8 +88,7 @@ THREADS = 256
 # the widest CTA of a hash plan whose table stays on chip (the grouped
 # kernel's launch bounds: 512 threads of 128 registers per SM)
 HASH_MAX_THREADS = 512
-# rows each kernel thread interprets per instruction dispatch
-# (csrc/scan_direct.cu RPT)
+# rows each kernel thread carries per pass (csrc/scan_common.cuh RPT)
 ROWS_PER_THREAD = 4
 # rows of a grid block one CTA takes (a 64K-row block is cut in 8)
 ROWS_PER_CTA = 8192
@@ -453,6 +458,11 @@ class ScanPlan:
     ext: bool = False
     joins: Tuple[JoinProgram, ...] = ()
     virtual: Tuple[VirtualColumn, ...] = ()
+    # per device: the plan's words as launched and its initial rows, and
+    # the direct kernels generated for it (to_device, init_outputs,
+    # direct_kernel); a replaced plan starts empty
+    dev: dict = dataclasses.field(default_factory=dict, init=False,
+                                  repr=False, compare=False)
 
     @property
     def n_i(self) -> int:
@@ -739,12 +749,31 @@ def _column_words(columns) -> List[int]:
     return out
 
 
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """`arr` on `device` through pinned host memory, copied without
+    blocking the host: the caching host allocator keeps the pinned block
+    until the copy has run."""
+    host = torch.from_numpy(np.array(arr, copy=True, order="C"))
+    if torch.device(device).type != "cuda":
+        return host
+    host = host.pin_memory()
+    out = torch.empty(host.shape, dtype=host.dtype, device=device)
+    out.copy_(host, non_blocking=True)
+    return out
+
+
 def init_outputs(plan: ScanPlan, device, G: Optional[int] = None):
     """acc_i (n_i, G) and acc_f (max(n_f, 1), G) filled with each row's
-    initial value (G defaults to the plan's)."""
+    initial value (G defaults to the plan's).  The initial rows are copied
+    to the device once per plan."""
     G = plan.G if G is None else G
-    acc_i = plan.init_i.to(device)[:, None].repeat(1, G)
-    acc_f = (plan.init_f.to(device)[:, None].repeat(1, G) if plan.n_f
+    init = plan.dev.get(("init", device))
+    if init is None:
+        init = plan.dev[("init", device)] = (
+            to_device(plan.init_i.numpy(), device),
+            to_device(plan.init_f.numpy(), device))
+    acc_i = init[0][:, None].repeat(1, G)
+    acc_f = (init[1][:, None].repeat(1, G) if plan.n_f
              else torch.zeros((1, G), dtype=torch.float64, device=device))
     return acc_i.contiguous(), acc_f.contiguous()
 
@@ -858,10 +887,27 @@ def launch_tensors(plan: ScanPlan, columns, grid, device, joins=None,
                 f"not fit beside the kernel's {smem}-byte shared-memory "
                 f"layout ({MAX_SMEM_BYTES} bytes at most)")
         smem += ring + 8 * len(offsets)
-    plan_dev = torch.from_numpy(words).to(device)
-    grid_dev = torch.from_numpy(
-        np.asarray(grid, dtype=np.int64).T.copy()).to(device)
-    return Launch(plan_dev, grid_dev, stages, stage_tab, stage_bytes, smem)
+    return Launch(_plan_words(plan, words, device),
+                  to_device(np.asarray(grid, dtype=np.int64).T, device),
+                  stages, stage_tab, stage_bytes, smem)
+
+
+# launched word vectors a plan keeps on the device (per column and build
+# operand table)
+_WORDS_KEPT = 8
+
+
+def _plan_words(plan: ScanPlan, words: np.ndarray, device) -> torch.Tensor:
+    """The launch's plan vector on the device: kept with the plan while its
+    columns and build operands stay where they are, else uploaded."""
+    kept = plan.dev.setdefault(("words", device), {})
+    key = words.tobytes()
+    dev = kept.get(key)
+    if dev is None:
+        if len(kept) >= _WORDS_KEPT:
+            kept.pop(next(iter(kept)))
+        dev = kept[key] = to_device(words, device)
+    return dev
 
 
 # ---------------------------------------------------------------------------
@@ -878,9 +924,85 @@ def join_kwargs(jplan, dma: str = "single") -> dict:
 
 
 def direct_geometry(br: int) -> Tuple[int, int]:
-    """(rows per CTA slice, slices per grid entry) of a direct launch."""
+    """(rows per work item, work items per grid entry) of a direct
+    launch."""
     rows_per_cta = min(int(br), ROWS_PER_CTA)
     return rows_per_cta, -(-int(br) // rows_per_cta)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def direct_kernel(plan: ScanPlan, columns, joins=None, dma: str = "single"):
+    """The generated direct kernel (codegen.DirectKernel) of the plan over
+    these columns' encodings, built once per plan and shape."""
+    from . import codegen
+    stages = check_dma(dma)
+    shape = codegen.column_shape(plan, columns, joins)
+    key = ("direct", shape, stages)
+    kern = plan.dev.get(key)
+    if kern is None:
+        offsets, stage_bytes = stage_layout(columns, plan.threads)
+        kern = plan.dev[key] = codegen.generate(
+            plan, shape, stages, offsets, stages * stage_bytes * (stages > 1),
+            2 * stage_bytes)
+    return kern
+
+
+def direct_ctas(kern, n_items: int, device) -> int:
+    """CTAs of a direct launch: the persistent grid, SMs x the kernel's
+    CTAs per SM (never more than work items)."""
+    idx = device.index if device.index is not None else 0
+    if idx not in _SMS:
+        from .build import multiprocessors
+        _SMS[idx] = multiprocessors(idx)
+    return max(1, min(n_items, _SMS[idx] * kern.ctas_per_sm))
+
+
+def direct_stage_counts(plan: ScanPlan, columns, grid, br: int,
+                        joins=None) -> Tuple[int, int]:
+    """The stage ring's (staged, prefetched) tile copies of a double-mode
+    direct launch over `grid`."""
+    rows_per_cta, n_sub = direct_geometry(br)
+    kern = direct_kernel(plan, columns, joins, "double")
+    n_ctas = direct_ctas(kern, len(grid) * n_sub, columns[0].device)
+    return stage_ring_counts(plan, columns, grid, br, rows_per_cta, n_sub,
+                             n_ctas)
+
+
+def _word_values(kern, plan: ScanPlan, columns, joins, fixed: dict):
+    """The launch's argument words, by the kernel's recipe."""
+    per_step = step_operands(joins) if plan.joins else []
+    out = []
+    for rec in kern.words:
+        kind = rec[0]
+        if kind in fixed:
+            out.append(fixed[kind])
+        elif kind == "lit":
+            out.append(rec[1])
+        elif kind in ("col0", "col1", "rle_n"):
+            arrays = columns[rec[1]].arrays
+            a1 = arrays[1] if len(arrays) > 1 else arrays[0]
+            out.append(arrays[0].data_ptr() if kind == "col0"
+                       else a1.data_ptr() if kind == "col1"
+                       else int(a1.shape[0]))
+        elif kind == "join":
+            j, field = rec[1], rec[2]
+            arrs = per_step[j]
+            size = int(arrs[0].numel())
+            out.append({"op0": arrs[0].data_ptr, "op1": arrs[1].data_ptr,
+                        "size": lambda: size,
+                        "bhn": lambda: arrs[2].data_ptr(),
+                        # the bisect's fixed trip count, ceil(log2(n+1))+1
+                        "trips": lambda: max(1, size.bit_length() + 1)
+                        }[field]())
+        else:                                      # gval / gnull
+            v = plan.virtual[rec[1]]
+            vals, nulls = _gathered(plan.joins[v.join].step,
+                                    per_step[v.join])[v.gather]
+            t = vals if kind == "gval" else nulls
+            out.append(0 if t is None else t.data_ptr())
+    return (ctypes.c_longlong * len(out))(*out)
 
 
 def scan_direct(plan: ScanPlan, columns, grid, br: int, params,
@@ -888,48 +1010,44 @@ def scan_direct(plan: ScanPlan, columns, grid, br: int, params,
     """Run the fused scan over `grid` entries (bidx, lo, hi) of the
     ResidentColumns `columns` (plan.names order); `joins` (join.JoinPlan)
     holds the probe steps' build operands; dma="double" runs the stage
-    ring.  CUDA tensors launch the kernel; CPU tensors run
-    scan_direct_plain.  Returns (acc_i, acc_f, counts)."""
+    ring.  CUDA tensors launch the kernel generated for the plan's shape
+    (codegen.py) and its reduce; CPU tensors run scan_direct_plain.
+    Returns (acc_i, acc_f, counts)."""
     device = columns[0].device
     check_dma(dma)
     if device.type == "cpu":
         return scan_direct_plain(plan, columns, grid, br, params, joins)
     check_launch_inputs(columns, params, device, plan, joins)
-    from .build import load
-    lib = load("scan_direct")
-    fn = lib.scan_direct_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    n_grid = len(grid)
-    acc_i, acc_f = init_outputs(plan, device)
     counts = torch.zeros(1 + plan.n_steps, dtype=torch.int64, device=device)
-    if n_grid == 0:
-        return acc_i, acc_f, counts
-    n_params = 0 if params is None else int(params.numel())
-    ln = launch_tensors(plan, columns, grid, device, joins, dma, n_params)
+    if not len(grid):
+        return init_outputs(plan, device) + (counts,)
+    from .build import load_generated
+    kern = direct_kernel(plan, columns, joins, dma)
+    mod = load_generated(kern.source, device.index or 0)
     rows_per_cta, n_sub = direct_geometry(br)
-    n_parts = n_grid * n_sub
-    part_i = torch.empty((n_parts, plan.n_i, plan.G), dtype=torch.int64,
+    n_ctas = direct_ctas(kern, len(grid) * n_sub, device)
+    G = plan.G
+    acc_i = torch.empty((plan.n_i, G), dtype=torch.int64, device=device)
+    acc_f = (torch.empty((plan.n_f, G), dtype=torch.float64, device=device)
+             if plan.n_f else
+             torch.zeros((1, G), dtype=torch.float64, device=device))
+    part_i = torch.empty((n_ctas, kern.n_fold, G), dtype=torch.int64,
                          device=device)
-    part_f = torch.empty((n_parts, max(plan.n_f, 1), plan.G),
-                         dtype=torch.float64, device=device)
+    part_f = torch.empty((n_ctas, max(plan.n_f, 1), G), dtype=torch.float64,
+                         device=device)
+    grid_dev = to_device(np.asarray(grid, dtype=np.int64).T, device)
+    n_params = 0 if params is None else int(params.numel())
+    words = _word_values(kern, plan, columns, joins, {
+        "grid": grid_dev.data_ptr(), "n_grid": len(grid), "br": int(br),
+        "rows_per_cta": rows_per_cta, "n_sub": n_sub,
+        "params": params.data_ptr() if n_params else 0,
+        "part_i": part_i.data_ptr(), "part_f": part_f.data_ptr(),
+        "counts": counts.data_ptr(), "acc_i": acc_i.data_ptr(),
+        "acc_f": acc_f.data_ptr(), "n_parts": n_ctas})
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(ln.plan.data_ptr(), int(ln.plan.numel()), ln.grid.data_ptr(),
-            n_grid, int(br), rows_per_cta, n_sub,
-            params.data_ptr() if n_params else None, n_params,
-            part_i.data_ptr(), part_f.data_ptr(), counts.data_ptr(),
-            acc_i.data_ptr(), acc_f.data_ptr(),
-            (plan.n_i + plan.n_f) * plan.G, plan.threads, ln.stages,
-            ln.stage_tab, ln.stage_bytes, ln.smem_bytes, int(plan.ext),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"scan_direct launch failed: CUDA error {rc}")
+    mod.launch("scan_gen", n_ctas, kern.threads, kern.smem_bytes, stream,
+               words)
+    mod.launch("scan_gen_reduce", kern.n_slots, 256, 0, stream, words)
     count_launch("scan_direct", plan, dma)
     return acc_i, acc_f, counts
 
@@ -1108,8 +1226,7 @@ def try_direct_scan_kernel(chain, params, *, specs, key_names, strides, G,
     if grid:
         staged = (0, 0)
         if dma == "double" and columns[0].device.type == "cuda":
-            staged = stage_ring_counts(plan, columns, grid, br,
-                                       *direct_geometry(br))
+            staged = direct_stage_counts(plan, columns, grid, br, jplan)
         meter_kernel_run(runtime_stats, len(grid), *staged)
     return state_of(plan, acc_i, acc_f), counts, len(grid)
 

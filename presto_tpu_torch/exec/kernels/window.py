@@ -12,10 +12,16 @@ sorted run:
             both paths see the same permutation.
   segments  partition / peer boundaries from null-aware change flags
             over the sorted key columns (ops._row_change's rule), plus the
-            live -> padding mask transition; segment starts and peer ends
-            are max / min prefix scans over the flagged indices.
-  frames    running count / sum / avg read two points of an inclusive
-            prefix sum: incl[fe] - incl[fs] + contrib[fs].
+            live -> padding mask transition.
+  kernel    one forward launch scans the run with decoupled look-back
+            over tiles of tile_rows_for(slots) rows, carrying a segmented
+            state (last partition start, last peer start, and per
+            partition the peer starts, contributing rows and their sum per
+            slot); a second launch fills the frames of peer groups still
+            open at a tile's end.  Scratch is per tile (window_scratch).
+  frames    running count / sum / avg are the state at the peer group's
+            last row (the plain version: incl[fe] - incl[fs] +
+            contrib[fs]).
 
 Parity contract: every scan is an int64 max, min or add, exact under any
 association, so the kernel, its plain version (window_scan_plain) and the
@@ -42,6 +48,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import operators as ops
@@ -53,14 +60,17 @@ _SUPPORTED = ("row_number", "rank", "dense_rank", "count", "count_star",
 # csrc/window_scan.cu K_* spec kinds
 _KINDS = {"row_number": 0, "rank": 1, "dense_rank": 2, "count": 3,
           "count_star": 3, "sum": 4, "avg": 5}
-# rows of one tile of the kernel's tile and scan passes: 256 threads of
-# 16 consecutive rows (csrc/window_scan.cu TILE)
-TILE_ROWS = 256 * 16
-# per-tile aggregates before the per-slot (count, sum) pairs: max
-# partition start, max peer start, min peer start, peer-start count
-_FIXED_FIELDS = 4
+# rows of one tile of the forward launch, most to least: the largest
+# whose shared memory (forward_smem_bytes) stays within FORWARD_SMEM_BYTES,
+# so two CTAs fit on an SM (csrc/window_scan.cu window_forward)
+TILE_ROWS = (2048, 1024, 512, 256)
+FORWARD_SMEM_BYTES = 96 * 1024
+# the kernel's slot bounds (window_forward<MS> instances); a call with more
+# prefix-sum slots runs one launch per group of at most 8
+SLOT_BOUNDS = (1, 2, 4, 8)
 # descriptor words the kernel stages in shared memory (csrc MAX_DESC)
 MAX_DESC = 1024
+_WARPS = 8
 
 
 def _needed(partition_names, orderings, specs) -> List[str]:
@@ -95,21 +105,69 @@ def _slots(specs) -> Tuple[List[Tuple[Optional[str], bool]], List[int]]:
     return slots, of_spec
 
 
+def forward_smem_bytes(tile_rows: int, n_slots: int) -> int:
+    """Dynamic shared memory of the forward launch: the frame values at
+    each peer group's end (2 words per slot per tile row, plus the leading
+    group's), the warps' states and the look-back window (F = 3 + 2 x
+    slots words each), the exclusive prefix, and each row's group-start
+    slot (int16) and flags (a byte)."""
+    F = 3 + 2 * n_slots
+    return 8 * ((tile_rows + 1) * 2 * n_slots + (_WARPS + 32 + 1) * F) \
+        + 3 * tile_rows
+
+
+def tile_rows_for(n_slots: int) -> int:
+    """The forward launch's tile for `n_slots` prefix-sum slots."""
+    for t in TILE_ROWS:
+        if forward_smem_bytes(t, n_slots) <= FORWARD_SMEM_BYTES:
+            return t
+    return TILE_ROWS[-1]
+
+
+def window_scratch(n: int, n_slots: int) -> Tuple[int, int, int]:
+    """(tile rows, int32 words, int64 words) of a launch's scratch over n
+    rows: the ticket and one status word per tile; per tile the aggregate
+    and inclusive states (F words each), the open peer group's start and
+    one (count, sum) record per slot.  Nothing per row."""
+    tile = tile_rows_for(n_slots)
+    n_tiles = -(-n // tile)
+    F = 3 + 2 * n_slots
+    return tile, 1 + n_tiles, n_tiles * (2 * F + 1 + 2 * n_slots)
+
+
+def _slot_groups(specs) -> List[Tuple[int, ...]]:
+    """Spec indices split so that each launch sums at most SLOT_BOUNDS[-1]
+    slots; the ranking functions ride with the first group."""
+    groups: List[list] = [[]]
+    args: List[set] = [set()]
+    for i, s in enumerate(specs):
+        if s.name in ("row_number", "rank", "dense_rank"):
+            groups[0].append(i)
+            continue
+        arg = None if s.name == "count_star" else s.arg
+        if arg not in args[-1] and len(args[-1]) == SLOT_BOUNDS[-1]:
+            groups.append([])
+            args.append(set())
+        args[-1].add(arg)
+        groups[-1].append(i)
+    return [tuple(g) for g in groups if g]
+
+
 def window_bytes(n: int, columns: Dict[str, tuple], specs) -> int:
     """Device bytes of one window launch over n rows: the permutation and
     the sorted batch (mask, and the values and nulls of every column in
     `columns`, {name: (values, nulls or None)}: the gather moves them all,
-    the kernel's operands among them), the kernel's scratch (row flags,
-    two per-tile aggregate tables, the segment, peer and dense-rank scans
-    and a count and sum scan per slot) and the outputs (int64 values,
+    the kernel's operands among them), the kernel's scratch (per tile,
+    window_scratch: no per-row scratch) and the outputs (int64 values,
     plus a null byte for sum / avg)."""
     operands = n + 8 * n
     for v, nl in columns.values():
         operands += n * (v.element_size() + (1 if nl is not None else 0))
-    n_slots = len(_slots(specs)[0])
-    n_tiles = -(-n // TILE_ROWS)
-    scratch = n + 8 * (2 * n_tiles * (_FIXED_FIELDS + 2 * n_slots)
-                       + n * (4 + 2 * n_slots))
+    scratch = 0
+    for group in _slot_groups(specs):
+        _tile, n32, n64 = window_scratch(
+            n, len(_slots([specs[i] for i in group])[0]))
+        scratch = max(scratch, 4 * n32 + 8 * n64)
     outputs = sum(n * (9 if s.name in ("sum", "avg") else 8) for s in specs)
     return operands + scratch + outputs
 
@@ -150,9 +208,19 @@ def window_scan(mask, arrays: Dict[str, tuple], partition_names, orderings,
              if s.name in ("sum", "avg") else None) for s in specs]
     if N == 0:
         return outs
+    for group in _slot_groups(specs):
+        _launch(mask, arrays, names, partition_names, orderings,
+                [specs[i] for i in group], [outs[i] for i in group])
+    return outs
+
+
+def _launch(mask, arrays, names, partition_names, orderings, specs, outs):
+    """One forward launch and its fix-up over the sorted run."""
+    from .scan_kernel import to_device
+    device, N = mask.device, int(mask.numel())
     slots, of_spec = _slots(specs)
-    n_tiles = -(-N // TILE_ROWS)
-    n_fields = _FIXED_FIELDS + 2 * len(slots)
+    tile, n32, n64 = window_scratch(N, len(slots))
+    n_tiles = -(-N // tile)
     words = [N, len(names), len(partition_names), len(orderings),
              len(slots), len(specs), n_tiles, mask.data_ptr()]
     for nm in names:
@@ -171,23 +239,23 @@ def window_scan(mask, arrays: Dict[str, tuple], partition_names, orderings,
     if len(words) > MAX_DESC:
         raise ValueError(f"window descriptor of {len(words)} words over "
                          f"{MAX_DESC}")
-    desc = torch.tensor(words, dtype=torch.int64).to(device)
-    flags = torch.empty(N, dtype=torch.uint8, device=device)
-    scratch = torch.empty(2 * n_tiles * n_fields + N * (4 + 2 * len(slots)),
-                          dtype=torch.int64, device=device)
+    desc = to_device(np.asarray(words, dtype=np.int64), device)
+    status = torch.zeros(n32, dtype=torch.int32, device=device)
+    scratch = torch.empty(n64, dtype=torch.int64, device=device)
+    bound = next(b for b in SLOT_BOUNDS if b >= max(len(slots), 1))
     from .build import load
     fn = load("window_scan").window_scan_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(desc.data_ptr(), len(words), N, n_tiles, n_fields, len(slots),
-            flags.data_ptr(), scratch.data_ptr(), stream)
+    rc = fn(desc.data_ptr(), len(words), n_tiles, tile, len(slots), bound,
+            forward_smem_bytes(tile, len(slots)), status.data_ptr(),
+            scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"window_scan launch failed: CUDA error {rc}")
     LAUNCHES["window_scan"] += 1
-    return outs
 
 
 def window_scan_plain(mask, arrays: Dict[str, tuple], partition_names,

@@ -1,7 +1,9 @@
 """The kernel builder names each library by a digest of its source, the
 shared headers and the flags: an edited shared header rebuilds every
 kernel that includes it, an edited source rebuilds only its own kernel.
-The edits go to a temporary copy of csrc/, never to the package."""
+Generated kernels (the direct kernel, one per chain shape) are keyed by
+their source and the shared headers alike.  The edits go to a temporary
+copy of csrc/, never to the package."""
 import shutil
 
 import pytest
@@ -43,4 +45,21 @@ def test_source_edit_changes_only_its_digest(csrc_copy):
     src.write_bytes(src.read_bytes() + b"\n// edited\n")
     after = _paths()
     assert after["scan_grouped"] != before["scan_grouped"]
-    assert after["scan_direct"] == before["scan_direct"]
+    assert after["window_scan"] == before["window_scan"]
+
+
+def test_generated_key_follows_source_and_header(csrc_copy):
+    src = '#include "scan_common.cuh"\nextern "C" __global__ void k() {}\n'
+    key = build._hash_source(src)
+    # the key a launch uses is this hash, kept per source for the process
+    assert build.gen_key(src) == key == build._hash_source(src)
+    assert build._hash_source(src + "// other\n") != key
+    header = csrc_copy / "scan_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    assert build._hash_source(src) != key
+
+
+def test_generated_modules_compile_for_sm_90a():
+    assert "--gpu-architecture=sm_90a" in build.NVRTC_OPTIONS
+    assert f"-I{build.CSRC}" in build.NVRTC_OPTIONS
+    assert build.GEN_DIR.parent == build.BUILD_DIR
