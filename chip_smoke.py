@@ -6,26 +6,31 @@
 Phases, each printed with its wall time:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA source of the port with nvcc (one process per
-     source, started together); the direct kernel (#1) is generated per
-     chain shape (exec/kernels/codegen.py) and compiled with NVRTC at its
-     first launch, its compile ms printed per shape in phase 8;
+     source, started together: the hash kernel and the window kernel);
+     the direct kernel (#1) and the span kernel (#3) are generated per
+     chain shape (exec/kernels/codegen.py) and compiled with NVRTC at
+     their first launch, their compile ms and registers printed per shape
+     in phase 8;
   3. generate and encode TPC-H lineitem and supplier at the scale factor
      on the card;
   4. the main path: TPC-H Q6 and Q1 (direct kernel), S1 (span kernel), H1
      and H2 (hash kernel) through LocalQueryRunner (one warm-up, then
      timed runs), with every kernel's launch counter set to 0 just before
-     and read just after;
+     and read just after; every span launch runs a generated kernel;
   5. the hash kernel's collision loop through LocalQueryRunner: a group
      estimate of 1 starts the table below the query's 4950 groups, so
      the kernel must flag a collision and the runner relaunch it with
      the table doubled and the next salt until the groups fit;
   6. the join path: J1 (hash kernel, INNER probe of the supplier
      DirectTable), J2 (direct kernel, semi-join probe of a hash-sorted
-     unique table) and J3 (span kernel, LEFT probe) through
-     LocalQueryRunner, each launch carrying kernel #5, with the launch
-     counters (and the counters of launches that carry a probe) set to 0
-     just before and read just after; J3 gathering a second build column
-     must decline with kernelDeclinedJoinBuildSize at SF10;
+     unique table through its bucket directory) and J3 (span kernel, LEFT
+     probe) through LocalQueryRunner, each launch carrying kernel #5, with
+     the launch counters (and the counters of launches that carry a
+     probe) set to 0 just before and read just after; J3 gathering a
+     second build column must decline with kernelDeclinedJoinBuildSize at
+     SF10; each unique table's directory size and its largest bucket's
+     bisect trips are printed, and torch.searchsorted over J2's probe
+     hashes is timed as the lookup step's library time;
   7. the reference's join shapes at the largest scale its gates admit
      them: Q3_SHAPE (hash kernel, orders build), Q18_SHAPE, an IN
      subquery, the lineitem -> orders -> customer two-probe chain and the
@@ -37,8 +42,10 @@ Phases, each printed with its wall time:
   8. each kernel against its plain torch version on the exact inputs of
      the main path's and the join path's launches (and of a
      float64-accumulator query, the wide span query S2, a span and a hash
-     query with float sums and integer / float min and max, the collision
-     loop's last launch and the small join shapes):
+     query with float sums and integer / float min and max, a span float
+     query whose float table fits once per CTA (SPAN_F_CTA), the collision
+     loop's last launch, the small join shapes and J2_NOPROBE, J2 without
+     its probe):
      integers and row counters exact, floats bit-identical across two
      launches, hash tables compared group by group (keyed by key values)
      and their keyhashes against exec/operators.py hash_columns; a
@@ -51,10 +58,11 @@ Phases, each printed with its wall time:
      summation's bound (n + 1) 2**-53 sum |x|.  Kernel device ms per
      call under torch.profiler (benchmarks/kernel_times.py device_ms),
      the wrapper's call ms and the plain version's ms with CUDA events,
-     the generated direct kernel's compile ms, registers and local bytes
-     per shape and mode, and each kernel's byte bound (for a join query the
-     scan bytes plus the build operands once).  Every case also launches
-     with dma="double" (the stage ring, kernel #2): every output
+     the generated direct and span kernels' compile ms, registers and
+     local bytes per shape and mode, and each kernel's byte bound (for a
+     join query the scan bytes plus the build operands once).  Every
+     case also launches with dma="double" (the stage ring, kernel #2):
+     every output
      bit-identical to the single launch (hash tables group by group), its
      CUDA-event time beside the single launch's, and its staged and
      prefetched tile copies; and Q1, S1, H1, J1 run once more on grid
@@ -66,9 +74,9 @@ Phases, each printed with its wall time:
      scan / reduce split under torch.profiler (benchmarks/hash_split.py);
      hash floats bit-identical across two launches and to the double
      launch; and the reduce's fixed order (grouped.reduce_partials) held
-     bit for bit on the partials of H2, the span float query and the
-     collision loop's last launch.  The main path's H1 and H2 must keep
-     their tables on chip (grouped.ONCHIP_LAUNCHES);
+     bit for bit on the partials of H2, the two span float queries and
+     the collision loop's last launch.  The main path's S1, H1 and H2 must
+     keep their tables on chip (grouped.ONCHIP_LAUNCHES);
   9. an independent numpy computation of Q6, Q1's counts and quantity
      sums, S1's counts and quantity sums, H1's counts and revenue, H2's
      counts, the collision query's counts and price sums, J1's, J2's
@@ -131,14 +139,6 @@ HBM_BYTES_PER_S = 3.35e12
 
 FLOAT_QUERY = ("select sum(cast(l_extendedprice as double)) as s "
                "from lineitem where l_discount > 0.05")
-# the grouped kernels' float and min/max folds, which the main path's
-# grouped queries leave out (checked against the plain versions and the
-# exact float sums only)
-SPAN_MINMAX_QUERY = (
-    "select l_returnflag, l_linestatus, l_shipmode, l_shipinstruct, "
-    "sum(cast(l_extendedprice as double)) as s, min(l_quantity) as mn, "
-    "max(cast(l_discount as double)) as mx, max(l_orderkey) as mo, "
-    "count(l_tax) as c from lineitem group by 1, 2, 3, 4")
 UNIT_ROUNDOFF = 2.0 ** -53
 
 
@@ -288,7 +288,8 @@ def main() -> int:
     from presto_tpu_torch.benchmarks import hash_split as HS
     from presto_tpu_torch.benchmarks import kernel_times as KT
     from presto_tpu_torch.benchmarks import join_queries as JQ
-    from presto_tpu_torch.benchmarks.grouped_queries import H1, H2, S1, S2
+    from presto_tpu_torch.benchmarks.grouped_queries import (
+        H1, H2, S1, S2, SPAN_F, SPAN_F_CTA)
     from presto_tpu_torch.benchmarks.tpch_queries import Q1, Q6
     from presto_tpu_torch.benchmarks import window_queries as WQ
     from presto_tpu_torch.connectors import catalog, device_gen
@@ -422,15 +423,31 @@ def main() -> int:
     print(f"  main-path launches {main_launches}, with their tables on "
           f"chip {main_onchip}")
     assert all(v > 0 for v in main_launches.values()), main_launches
-    # H1's and H2's 4096-slot tables stay in shared memory
+    # H1's and H2's 4096-slot tables and S1's 168 slots stay in shared
+    # memory
     assert main_onchip["scan_hash"] == launches["h1"] + launches["h2"], \
         main_onchip
+    assert main_onchip["scan_span"] == launches["s1"], main_onchip
+    # S1 launched the span kernel generated for its chain (its module is
+    # loaded: nothing else runs a span launch)
+    (a, kw) = q_calls["s1"][1]
+    s1_kern = gk.span_kernel(a[0], a[1], kw.get("joins"))
+    assert (build.gen_key(s1_kern.source), 0) in build._MODULES
+    print(f"  s1: generated span kernel {build.gen_key(s1_kern.source)}, "
+          f"layout {a[0].layout(a[0].G)}")
     res_f = runner.execute(FLOAT_QUERY)
     q_calls["float"] = ("scan_direct", calls["scan_direct"][-1])
     res_s2 = runner.execute(S2)
     q_calls["s2"] = ("scan_span", calls["scan_span"][-1])
-    runner.execute(SPAN_MINMAX_QUERY)
+    # the grouped kernels' float and min/max folds, which the main path's
+    # grouped queries leave out (checked against the plain versions and
+    # the exact float sums only)
+    runner.execute(SPAN_F)
     q_calls["span_minmax"] = ("scan_span", calls["scan_span"][-1])
+    # a float table per CTA (not per warp): the ordered apply between
+    # barriers
+    runner.execute(SPAN_F_CTA)
+    q_calls["span_f_cta"] = ("scan_span", calls["scan_span"][-1])
     runner.execute(HS.HASH_F)
     q_calls["hash_minmax"] = ("scan_hash", calls["scan_hash"][-1])
 
@@ -493,6 +510,36 @@ def main() -> int:
             print(f"  {qname}: first rows {results[qname].rows[:3]}")
     print(f"  join-path launches carrying kernel #5 {join_launches}")
     assert all(v > 0 for v in join_launches.values()), join_launches
+    # J2 without its probe: J2 - J2_NOPROBE is the probe's share
+    res = runner.execute(JQ.J2_NOPROBE)
+    assert not [k for k in res.runtime_stats
+                if k.startswith("kernelDeclined")], res.runtime_stats
+    assert not calls["scan_direct"][-1][0][0].joins
+    q_calls["j2_noprobe"] = ("scan_direct", calls["scan_direct"][-1])
+    results["j2_noprobe"] = res
+    # each unique table's bucket directory (kernel #5): its size and the
+    # bisect trips of its fullest bucket
+    probe_dirs = {}
+
+    def directory_info(qname):
+        jplan = q_calls[qname][1][1]["joins"]
+        for jp, d in zip(jplan.steps, jplan.dirs):
+            if d is None:
+                continue
+            occ = (d[1:] - d[:-1]).long()
+            top = int(occ.max())
+            info = dict(entries=int(d.numel()), bytes=4 * int(d.numel()),
+                        table_rows=int(d[-1]), fullest_bucket=top,
+                        max_trips=top.bit_length(),
+                        mean_nonempty=float(occ[occ > 0].float().mean()))
+            probe_dirs[qname] = info
+            print(f"  {qname}: {jp.kind} probe of a unique table through a "
+                  f"{info['entries']}-entry directory ({info['bytes']} B) "
+                  f"over {info['table_rows']} rows; fullest bucket "
+                  f"{top} rows ({info['max_trips']} bisect trips), mean "
+                  f"non-empty bucket {info['mean_nonempty']:.3f} rows")
+    if sf >= 1:
+        directory_info("j2")
     # J2's build is a unique table from SF1 up (at smaller scales the
     # 1024-slot floor makes it a DirectTable)
     want_tables = {"j1": ("direct", "inner"),
@@ -520,6 +567,7 @@ def main() -> int:
     small = (("q3_shape", JQ.Q3_SHAPE, "0.02", "scan_hash"),
              ("q18_shape", JQ.Q18_SHAPE, "0.01", "scan_hash"),
              ("semi", JQ.SEMI, "0.1", "scan_direct"),
+             ("semi_unique", JQ.SEMI_UNIQUE, "0.1", "scan_direct"),
              ("multi_probe", JQ.MULTI_PROBE, "0.1", "scan_direct"),
              ("partsupp", JQ.PARTSUPP, "0.05", "scan_direct"))
     with phase("join shapes at small scale through LocalQueryRunner"):
@@ -537,6 +585,9 @@ def main() -> int:
             print(f"  {qname} at sf{s_sf}: {kernel}, rows {len(res.rows)}, "
                   f"probes {[(jp.step.kind, jp.step.table) for jp in plan.joins]}"
                   f", build operands {kw['joins'].nbytes} bytes")
+            directory_info(qname)
+        # the unique tables' probes run through their directories
+        assert {"semi_unique", "partsupp"} <= set(probe_dirs), probe_dirs
     # -- the scan kernels' expression set (the reference's numeric set) --
     expr_kernels = {}
     with phase(f"expression forms at {schema} through LocalQueryRunner: "
@@ -867,7 +918,7 @@ def main() -> int:
                                        + len(plan.key_programs))
                 detail = (f"slots {slots}, salt {salt}, groups {n_groups}, "
                           f"keyhash == hash_columns, "
-                          f"{'on chip' if plan.on_chip(slots) else 'device memory'}")
+                          f"{'on chip' if plan.layout(slots).on_chip else 'device memory'}")
             else:
                 ki, kf, kc = launch(*a, **kw)
                 ki2, kf2, kc2 = launch(*a, **kw)
@@ -893,7 +944,7 @@ def main() -> int:
                 table_bytes = 8 * (plan.n_i + max(plan.n_f, 1)) * plan.G
                 detail = f"G={plan.G}"
                 if kernel == "scan_span":
-                    detail += f", on chip {plan.on_chip(plan.G)}"
+                    detail += f", on chip {plan.layout(plan.G).on_chip}"
             # the stage ring (kernel #2): the same launch in double
             # mode, every output bit-identical to the single launch
             kwd = dict(kw, dma="double")
@@ -917,26 +968,33 @@ def main() -> int:
             if kernel == "scan_direct":
                 staged = sk.direct_stage_counts(plan, columns, grid, a[3],
                                                 kw.get("joins"))
+            else:
+                staged = gk.stage_counts(plan, columns, grid, a[3], n_slots,
+                                         "double")
+            gen = {}
+            if kernel != "scan_hash":
                 # the generated kernel of each mode: compile ms at its
                 # first use, registers and local (spill) bytes
-                gen = {}
+                make, entry = ((sk.direct_kernel, "scan_gen")
+                               if kernel == "scan_direct"
+                               else (gk.span_kernel, "scan_span_gen"))
                 for m in ("single", "double"):
-                    kern = sk.direct_kernel(plan, columns, kw.get("joins"), m)
+                    kern = make(plan, columns, kw.get("joins"), m)
                     mod = build.load_generated(kern.source, 0)
                     gen[m] = dict(compile_ms=build.COMPILE_MS[mod.key],
-                                  **mod.attributes("scan_gen"))
+                                  **mod.attributes(entry))
                     if m == "single":
                         gen_smem = kern.smem_bytes
-                print(f"  {qname}: generated direct kernel "
-                      f"{'registers' if kern.registers else 'warp sweep'} "
-                      f"partials, {kern.ctas_per_sm} CTAs per SM; "
+                how = (("registers" if kern.registers else "warp sweep")
+                       + " partials" if kernel == "scan_direct" else
+                       "tables " + ("on chip" if kern.layout.on_chip
+                                    else "in device memory"))
+                print(f"  {qname}: generated {kernel[5:]} kernel {how}, "
+                      f"{kern.ctas_per_sm} CTAs per SM; "
                       + "; ".join(f"{m}: compile {g['compile_ms']:.1f} ms, "
                                   f"{g['registers']} registers, "
                                   f"{g['local_bytes']} B local"
                                   for m, g in gen.items()))
-            else:
-                staged = gk.stage_counts(plan, columns, grid, a[3], n_slots,
-                                         "double")
             # device ms: the kernels' own time under torch.profiler; call
             # ms: CUDA events around the wrapper (host gaps included)
             call_ms = events_ms(lambda: launch(*a, **kw), 20)
@@ -952,27 +1010,29 @@ def main() -> int:
                                   kernel_launches=dev["launches"],
                                   plain_ms=plain_ms, bound_ms=bound,
                                   bytes=nbytes, ms_double=ms_double,
-                                  staged=staged)
+                                  staged=staged, gen=gen)
             if kernel != "scan_direct":
                 # the launch's geometry and its scan / reduce split
                 n_params = 0 if a[4] is None else int(a[4].numel())
+                lay = plan.layout(n_slots)
+                names = (("scan_span_gen", "scan_span_reduce")
+                         if kernel == "scan_span" else HS.KERNEL_NAMES)
                 geo = dict(
-                    path="on chip" if plan.on_chip(n_slots)
-                    else "device memory",
+                    path="on chip" if lay.on_chip else "device memory",
                     threads=plan.threads,
                     ctas=gk._grid_shape(plan, len(grid), a[3], n_slots,
                                         device)[2],
-                    smem=plan.smem_bytes + plan.table_bytes(n_slots)
-                    + 8 * n_params)
-                geo.update(HS.split_ms(lambda: launch(*a, **kw), 10))
+                    smem=(gen_smem if kernel == "scan_span"
+                          else lay.smem_bytes + 8 * n_params))
+                split = HS.split_ms(lambda: launch(*a, **kw), 10, names)
+                geo.update(scan_ms=split[names[0]],
+                           reduce_ms=split[names[1]])
                 records[qname].update(geo)
                 print(f"  {qname}: {geo['path']}, {geo['threads']} threads "
                       f"x {geo['ctas']} CTAs, {geo['smem']} B shared "
                       f"memory (single); torch.profiler per launch: "
-                      f"scan_grouped_kernel "
-                      f"{geo['scan_grouped_kernel']:.4f} ms, "
-                      f"scan_grouped_reduce "
-                      f"{geo['scan_grouped_reduce']:.4f} ms")
+                      f"{names[0]} {geo['scan_ms']:.4f} ms, "
+                      f"{names[1]} {geo['reduce_ms']:.4f} ms")
             if plan.joins:
                 detail += (f", probes "
                            f"{[(jp.step.kind, jp.step.table) for jp in plan.joins]}")
@@ -986,7 +1046,7 @@ def main() -> int:
                   f"{plain_ms:.4f}, "
                   f"bound_ms {bound:.4f} ({nbytes} bytes at 3.35 TB/s), "
                   f"threads {plan.threads}, smem "
-                  f"{gen_smem if kernel == 'scan_direct' else plan.smem_bytes}"
+                  f"{gen_smem if gen else plan.layout(n_slots).smem_bytes}"
                   f" B")
             print(f"  {qname}: dma=double bit-identical to single; device_ms "
                   f"single {ms:.4f} double {ms_double:.4f}, ring "
@@ -994,16 +1054,39 @@ def main() -> int:
                   f"staged {staged[0]} prefetched {staged[1]} tile copies "
                   f"of {len(sk.staged_indices(columns))} arrays")
         print(f"  float query: {res_f.rows}; s2: {len(res_s2.rows)} groups")
-        # H1, H2 and J1 keep their 4096-slot tables on chip; HASH_F and the
-        # collision loop's last table take the device-memory path
+        # the lookup step of kernel #5's unique probe alone as one PyTorch
+        # call: torch.searchsorted over J2's probe hashes (hashed here,
+        # untimed); the kernel hashes, looks up, compares and gathers
+        probe_lib = None
+        if "j2" in probe_dirs:
+            khs = q_calls["j2"][1][1]["joins"].arrays[0]
+            kh = ops._orderable_hash(ops.hash_columns([Column(
+                ents["suppkey"].column.decode_full()[:n_rows])]))
+            probe_lib = events_ms(
+                lambda: torch.searchsorted(khs, kh, side="left"), 5)
+            print(f"  j2: torch.searchsorted over {kh.numel()} probe hashes "
+                  f"into {khs.numel()} sorted hashes {probe_lib:.4f} ms (the "
+                  f"lookup step alone); the kernel's j2 "
+                  f"{records['j2']['ms']:.4f} ms, j2_noprobe "
+                  f"{records['j2_noprobe']['ms']:.4f} ms")
+            del kh
+        # H1, H2 and J1 keep their 4096-slot tables on chip, S1, J3 and the
+        # span float query their 168 slots; HASH_F, the collision loop's
+        # last table and S2's 21504 slots take the device-memory path
         paths = {q: records[q]["path"] for q in
-                 ("h1", "h2", "j1", "hash_minmax", "collide")}
+                 ("h1", "h2", "j1", "hash_minmax", "collide", "s1", "j3",
+                  "span_minmax", "span_f_cta", "s2")}
         assert paths == {"h1": "on chip", "h2": "on chip", "j1": "on chip",
                          "hash_minmax": "device memory",
-                         "collide": "device memory"}, paths
-        # the reduce's order on the card, on chip (H2, the span float query)
-        # and on the device-memory path (the collision loop's last table)
-        for qname in ("h2", "span_minmax", "collide"):
+                         "collide": "device memory", "s1": "on chip",
+                         "j3": "on chip", "span_minmax": "on chip",
+                         "span_f_cta": "on chip",
+                         "s2": "device memory"}, paths
+        assert not q_calls["span_f_cta"][1][0][0].layout(5376).warp_floats
+        # the reduce's order on the card, on chip (H2, the span float
+        # queries) and on the device-memory path (the collision loop's
+        # last table)
+        for qname in ("h2", "span_minmax", "span_f_cta", "collide"):
             check_reduce_order(qname, q_calls[qname])
         # a table with fewer slots than H1's groups must flag a collision,
         # and the next launch starts with a clear flag
@@ -1158,6 +1241,17 @@ def main() -> int:
         assert len(results["j2"].rows) == int((n_j2 > 0).sum())
         print(f"  j2 n and sum_qty of {len(results['j2'].rows)} groups "
               f"== port")
+        k_np = flag * 2 + status
+        n_np, q_np = np.bincount(k_np, minlength=6), grouped_sums(k_np, 6,
+                                                                   qty)
+        for row in results["j2_noprobe"].rows:
+            c = dict_code("returnflag", row[0]) * 2 \
+                + dict_code("linestatus", row[1])
+            assert n_np[c] == row[3] and q_np[c] == int(row[2].scaleb(2)), \
+                (row, n_np[c], q_np[c])
+        assert len(results["j2_noprobe"].rows) == int((n_np > 0).sum())
+        print(f"  j2_noprobe n and sum_qty of "
+              f"{len(results['j2_noprobe'].rows)} groups == port")
         hit = acct > 0
         n_j3 = np.bincount(code, minlength=168)
         h_j3 = np.bincount(code[hit], minlength=168)
@@ -1587,7 +1681,7 @@ def main() -> int:
     summary = {"scan_direct": "q1", "scan_span": "s1", "scan_hash": "h1"}
     join_summary = {"scan_direct": "j2", "scan_span": "j3", "scan_hash": "j1"}
     sources = {"scan_direct": "codegen.py",
-               "scan_span": "csrc/scan_grouped.cu",
+               "scan_span": "codegen.py",
                "scan_hash": "csrc/scan_grouped.cu"}
     replaces = {"scan_direct": "presto_tpu/exec/kernels/scan_kernel.py:580",
                 "scan_span": "presto_tpu/exec/kernels/grouped.py:213",
@@ -1628,6 +1722,12 @@ def main() -> int:
                 "join_plain_ms": jrec["plain_ms"],
                 "join_bound_ms": jrec["bound_ms"],
             })
+            if name != "scan_hash":
+                # the generated kernel of each case and mode: compile ms,
+                # registers, local bytes
+                kernels[-1]["generated"] = {
+                    q: r["gen"] for q, r in records.items()
+                    if r["kernel"] == name}
             if name != "scan_direct":
                 # main-path launches whose tables stayed in shared memory,
                 # and every case's path, geometry and scan / reduce split
@@ -1635,13 +1735,38 @@ def main() -> int:
                 kernels[-1]["cases"] = {
                     q: {k: r[k] for k in (
                         "path", "threads", "ctas", "smem", "ms",
-                        "ms_double", "plain_ms", "bound_ms",
-                        "scan_grouped_kernel", "scan_grouped_reduce")}
+                        "ms_double", "plain_ms", "bound_ms", "scan_ms",
+                        "reduce_ms")}
                     for q, r in records.items() if r["kernel"] == name}
         for qname, r in records.items():
             print(f"  stage ring {qname} ({r['kernel']}): single_ms "
                   f"{r['ms']:.4f} double_ms {r['ms_double']:.4f} staged "
                   f"{r['staged'][0]} prefetched {r['staged'][1]} on {card}")
+        # kernel #5 inside the scan kernels' launches: J2's semi probe of
+        # a unique table through its bucket directory
+        j2, j2n = records["j2"], records["j2_noprobe"]
+        kernels.append({
+            "name": "join_probe",
+            "route": "cuda",
+            "source": "presto_tpu_torch/exec/kernels/csrc/scan_common.cuh",
+            "replaces": "presto_tpu/exec/kernels/join.py:191",
+            "launches": sum(join_launches.values()),
+            "max_abs_err": max(records[q]["err"] for q in (
+                "j1", "j2", "j3", "q3_shape", "q18_shape", "semi",
+                "semi_unique", "multi_probe", "partsupp")),
+            "query": "j2",
+            "ms": j2["ms"],
+            "plain_ms": j2["plain_ms"],
+            "bound_ms": j2["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            # J2 minus J2 without its probe, and one PyTorch call of the
+            # lookup step alone (torch.searchsorted over J2's hashes)
+            "noprobe_ms": j2n["ms"],
+            "probe_share_ms": j2["ms"] - j2n["ms"],
+            "lookup_library_ms": probe_lib,
+            "directories": probe_dirs,
+        })
         ring = records["q1"]
         kernels.append({
             "name": "stage_ring",

@@ -11,6 +11,13 @@ and held against the reference package by tests/test_torch_grouped*.py.
   S2  S1's keys plus seven boolean keys: span slots, G = 168 * 2**7 =
       21504.  No user's query -- it drives the span kernel's wide layout,
       which lineitem's string keys alone cannot reach.
+  SPAN_F  S1's keys with float sums and integer / float min and max
+      ("span-f"): the span kernel's float rows and min / max folds, which
+      S1 leaves out.
+  SPAN_F_CTA  S1's keys and five boolean keys (G = 5376) with a float
+      sum: a float table fits in shared memory once per CTA but not once
+      per warp, so the span kernel applies its warps' staged floats in
+      order between CTA barriers.
 """
 
 S1 = """
@@ -49,4 +56,19 @@ select l_returnflag, l_linestatus, l_shipmode, l_shipinstruct,
        l_quantity > 40 as q40, count(*) as n, sum(l_extendedprice) as s
 from lineitem
 group by 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11
+"""
+
+SPAN_F = (
+    "select l_returnflag, l_linestatus, l_shipmode, l_shipinstruct, "
+    "sum(cast(l_extendedprice as double)) as s, min(l_quantity) as mn, "
+    "max(cast(l_discount as double)) as mx, max(l_orderkey) as mo, "
+    "count(l_tax) as c from lineitem group by 1, 2, 3, 4")
+
+SPAN_F_CTA = """
+select l_returnflag, l_linestatus, l_shipmode, l_shipinstruct,
+       l_quantity > 25 as q25, l_discount > 0.05 as d05, l_tax > 0.04 as t04,
+       l_extendedprice > 30000 as p30k, l_linenumber > 3 as ln3,
+       sum(cast(l_extendedprice as double)) as s, count(*) as n
+from lineitem
+group by 1, 2, 3, 4, 5, 6, 7, 8, 9
 """

@@ -42,9 +42,10 @@ H1_DISC = H1_QTY.replace("l_quantity", "l_discount", 1)
 KERNEL_NAMES = ("scan_grouped_kernel", "scan_grouped_reduce")
 
 
-def split_ms(launch, n: int) -> dict:
-    """Device ms per launch of the scan kernel and the reduce, from
-    torch.profiler over `n` calls of `launch` (after one warm-up)."""
+def split_ms(launch, n: int, names=KERNEL_NAMES) -> dict:
+    """Device ms per launch of the scan kernel and the reduce (`names`:
+    the hash kernel's by default), from torch.profiler over `n` calls of
+    `launch` (after one warm-up)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -54,11 +55,11 @@ def split_ms(launch, n: int) -> dict:
         for _ in range(n):
             launch()
         torch.cuda.synchronize()
-    out = {k: 0.0 for k in KERNEL_NAMES}
+    out = {k: 0.0 for k in names}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        for k in KERNEL_NAMES:
+        for k in names:
             if k in e.key:
                 out[k] += e.self_device_time_total / 1e3 / n
     return out

@@ -10,6 +10,9 @@ with the probe inside it (kernel #5).
       (G = 6) behind a semi-join marker.  At SF10 the build (about 4 000
       keys over a span of 100 000) is a hash-sorted unique table; at
       SF0.01 the 1024-slot floor makes it a DirectTable.
+  J2_NOPROBE  J2's columns and aggregation with no semi step (l_suppkey
+      read by a filter every row passes): J2 minus J2_NOPROBE is the
+      probe's device time.
   J3  supplier balances by Q1's dimensions: span slots (G = 168) behind a
       LEFT probe of the positive-balance suppliers (about 9 % of rows are
       null-extended).  count(s_acctbal) counts the matched rows only.
@@ -22,6 +25,8 @@ The reference's join shapes (tests/test_join_kernel.py):
 
   Q3_SHAPE, Q18_SHAPE  lineitem join orders, grouped by order key (hash).
   SEMI        an IN-subquery over orders (a semi step).
+  SEMI_UNIQUE an IN-subquery against a sparse key set: a hash-sorted
+              unique table from sf0.01 up.
   MULTI_PROBE lineitem -> orders -> customer: two probes in one launch.
   PARTSUPP    a two-column unique probe on (partkey, suppkey).
   join_fuzz_sql(seed)  the reference's randomized lineitem join orders
@@ -43,6 +48,14 @@ J2 = """
 select l_returnflag, l_linestatus, sum(l_quantity) as q, count(*) as n
 from lineitem
 where l_suppkey in (select s_suppkey from supplier where s_nationkey = 7)
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus
+"""
+
+J2_NOPROBE = """
+select l_returnflag, l_linestatus, sum(l_quantity) as q, count(*) as n
+from lineitem
+where l_suppkey >= 0
 group by l_returnflag, l_linestatus
 order by l_returnflag, l_linestatus
 """
@@ -85,6 +98,10 @@ group by l_orderkey
 SEMI = ("select count(*) from lineitem "
         "where l_orderkey in (select o_orderkey from orders "
         "where o_orderdate < date '1995-01-01')")
+
+SEMI_UNIQUE = ("select l_returnflag, count(*) as n, sum(l_quantity) as q "
+               "from lineitem where l_partkey in (select ps_partkey from "
+               "partsupp where ps_availqty < 100) group by l_returnflag")
 
 MULTI_PROBE = ("select count(*), sum(l_quantity) from lineitem, orders, "
                "customer where l_orderkey = o_orderkey "

@@ -3,18 +3,24 @@ checkouts of the port on one card.
 
     python3 -m presto_tpu_torch.benchmarks.kernel_times [--sf 10]
         [--launches 20] [--queries q6,q1,...] [--variants]
+        [--parent DIR]
 
-Runs Q6, Q1, J2 (direct kernel), S1 (span), H1, H2, J1 (hash) and W1-W3
-(window kernel) through LocalQueryRunner on the card, keeps each query's
-last kernel call and launches it `launches` times after one warm-up.
+Runs Q6, Q1, J2, J2_NOPROBE (direct kernel), S1, S2, SPAN_F, J3 (span),
+H1, H2, J1 (hash) and W1-W3 (window kernel) through LocalQueryRunner on
+the card, keeps each query's last kernel call and launches it `launches`
+times after one warm-up.
 Per query it prints the wrapper's call ms (CUDA events around the calls:
 launch overhead and host gaps included) and, from torch.profiler over the
 same calls, the device ms per call of the kernels (each kernel by name:
 the split between a scan and its reduce, or between the window kernel's
 launches) and of the copies and memsets.  The first line is the card's
 name and power limit.  It uses only the wrappers' calls, so the same file
-run from two checkouts (PYTHONPATH at each, in turns: parent, change,
-change, parent) compares their kernels within one call.
+run from two checkouts compares their kernels within one call: --parent
+DIR copies this file and the query modules (SQL text only) into the
+checkout at DIR, runs it there and here in turns -- parent, change,
+change, parent, one process each -- and prints every query's device ms
+per turn.  J2 minus J2_NOPROBE (the same scan without the semi probe) is
+the probe's share of J2.
 
 --variants (a tree with the generated direct kernel) also times Q6 and Q1
 with the kernel's partials folded per pass (codegen.REG_PARTIALS = 0) and
@@ -27,7 +33,10 @@ import re
 import subprocess
 import sys
 
-QUERIES = ("q6", "q1", "j2", "s1", "h1", "h2", "j1", "w1", "w2", "w3")
+QUERIES = ("q6", "q1", "j2", "j2_noprobe", "s1", "s2", "span_f", "j3", "h1",
+           "h2", "j1", "w1", "w2", "w3")
+# the files --parent copies into the parent checkout
+_COPIED = ("kernel_times.py", "grouped_queries.py", "join_queries.py")
 
 
 def events_ms(fn, n: int) -> float:
@@ -113,20 +122,60 @@ def line(qname, kernel, call_ms, dev) -> str:
             f"kernel launches per call {dev['launches']:.1f} [{split}]")
 
 
+def in_turns(parent: str, argv) -> int:
+    """Run this file at `parent` and here in turns (parent, change,
+    change, parent), each in its own process with PYTHONPATH at its
+    checkout; then print each query's device ms per turn."""
+    import os
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    repo = os.path.dirname(os.path.dirname(here))
+    dst = os.path.join(parent, "presto_tpu_torch", "benchmarks")
+    for name in _COPIED:
+        shutil.copy(os.path.join(here, name), os.path.join(dst, name))
+    table = {}
+    for turn, root in enumerate((parent, repo, repo, parent)):
+        who = "parent" if root == parent else "change"
+        print(f"== turn {turn + 1}: {who} ({root})", flush=True)
+        out = subprocess.run(
+            [sys.executable, "-m", "presto_tpu_torch.benchmarks.kernel_times",
+             *argv], cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            capture_output=True, text=True)
+        print(out.stdout, end="", flush=True)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return out.returncode
+        for m in re.finditer(r"^(\w+) \(\w+\): call_ms \S+ device_ms (\S+)",
+                             out.stdout, re.M):
+            table.setdefault(m.group(1), []).append(
+                f"{who} {float(m.group(2)):.4f}")
+    print("device ms per turn (parent, change, change, parent):")
+    for q, cells in table.items():
+        print(f"  {q}: {' | '.join(cells)}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", default="10")
     ap.add_argument("--launches", type=int, default=20)
     ap.add_argument("--queries", default=",".join(QUERIES))
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--parent", default=None,
+                    help="a parent checkout to time in turns with this one")
     args = ap.parse_args()
+    if args.parent:
+        argv = [a for a in sys.argv[1:] if not a.startswith("--parent")
+                and a != args.parent]
+        return in_turns(args.parent, argv)
     import torch
     if not torch.cuda.is_available():
         print("kernel_times: CUDA is not available", file=sys.stderr)
         return 2
     from presto_tpu_torch.benchmarks import window_queries as WQ
-    from presto_tpu_torch.benchmarks.grouped_queries import H1, H2, S1
-    from presto_tpu_torch.benchmarks.join_queries import J1, J2
+    from presto_tpu_torch.benchmarks.grouped_queries import (H1, H2, S1, S2,
+                                                             SPAN_F)
+    from presto_tpu_torch.benchmarks.join_queries import J1, J2, J2_NOPROBE, J3
     from presto_tpu_torch.benchmarks.tpch_queries import Q1, Q6
     from presto_tpu_torch.exec.kernels import grouped as gk
     from presto_tpu_torch.exec.kernels import scan_kernel as sk
@@ -141,7 +190,10 @@ def main() -> int:
         "scan_hash": (gk, "scan_hash"), "window_scan": (wk, "window_scan")})
     runner = LocalQueryRunner(f"sf{args.sf}", device=torch.device("cuda", 0))
     table = {"q6": (Q6, "scan_direct"), "q1": (Q1, "scan_direct"),
-             "j2": (J2, "scan_direct"), "s1": (S1, "scan_span"),
+             "j2": (J2, "scan_direct"),
+             "j2_noprobe": (J2_NOPROBE, "scan_direct"),
+             "s1": (S1, "scan_span"), "s2": (S2, "scan_span"),
+             "span_f": (SPAN_F, "scan_span"), "j3": (J3, "scan_span"),
              "h1": (H1, "scan_hash"), "h2": (H2, "scan_hash"),
              "j1": (J1, "scan_hash"), "w1": (WQ.W1, "window_scan"),
              "w2": (WQ.W2, "window_scan"), "w3": (WQ.W3, "window_scan")}

@@ -204,6 +204,7 @@ def build_lookup(compiler, build_node: P.PlanNode, keys: Tuple[str, ...],
     either way).  The build side is drained from its streaming source
     and, like the reference's fused materialization, compacted when
     mostly dead."""
+    from .kernels.join import bucket_directory
     from .pipeline import _maybe_compact
     batch = compiler._materialize_node(build_node)
     batch = (_empty_build_batch(build_node, compiler.ctx.device)
@@ -215,6 +216,8 @@ def build_lookup(compiler, build_node: P.PlanNode, keys: Tuple[str, ...],
         if dt is not None:
             return dt, 1, had_null
     table = ops.build_table(batch, list(keys))
+    # the kernels' probe reads it beside the table (kernel #5)
+    table.directory = bucket_directory(table.keyhash_sorted)
     if not for_join:
         return table, 1, had_null
     kmax = _max_run(table)

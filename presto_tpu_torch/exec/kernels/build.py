@@ -7,13 +7,14 @@ named by a hash of the source, the shared headers (csrc/*.cuh) and the
 flags, so an edited source or header rebuilds and an unchanged one is
 loaded as built.
 
-Generated kernels (the direct scan kernel, one per chain shape:
-codegen.py) compile at first use with NVRTC, the CUDA toolkit's runtime
-compiler (libnvrtc, bound with ctypes), for sm_90a, and load through the
-driver API (libcuda: cuModuleLoadData, cuLaunchKernel).  Each cubin and
-its source are cached under build/presto_tpu_torch/gen/, named by a hash
-of the source, the shared headers and the options.  A failed compile or
-load raises with the compiler's log.  Nothing here runs at import time.
+Generated kernels (the direct and span scan kernels, one per chain
+shape: codegen.py) compile at first use with NVRTC, the CUDA toolkit's
+runtime compiler (libnvrtc, bound with ctypes), for sm_90a, and load
+through the driver API (libcuda: cuModuleLoadData, cuLaunchKernel).  Each
+cubin and its source are cached under build/presto_tpu_torch/gen/, named
+by a hash of the source, the shared headers and the options.  A failed
+compile or load raises with the compiler's log.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -265,10 +266,11 @@ class GenModule:
             out[k] = v.value
         return out
 
-    def launch(self, name: str, grid: int, threads: int, smem: int,
+    def launch(self, name: str, grid, threads, smem: int,
                stream: int, words) -> None:
         """Launch kernel `name` on `stream` with its argument array `words`
-        (a ctypes int64 array); raises on a refused launch."""
+        (a ctypes int64 array); `grid` and `threads` are a count or an
+        (x, y) pair.  Raises on a refused launch."""
         cu = _cuda()
         _ensure_context(self.device_index)
         fn = self.function(name)
@@ -277,8 +279,10 @@ class GenModule:
                 fn, _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES, smem),
                 f"cuFuncSetAttribute {name}")
             self._smem[name] = smem
+        gx, gy = grid if isinstance(grid, tuple) else (grid, 1)
+        tx, ty = threads if isinstance(threads, tuple) else (threads, 1)
         params = (ctypes.c_void_p * 1)(ctypes.addressof(words))
-        _check_cu(cu.cuLaunchKernel(fn, grid, 1, 1, threads, 1, 1, smem,
+        _check_cu(cu.cuLaunchKernel(fn, gx, gy, 1, tx, ty, 1, smem,
                                     ctypes.c_void_p(stream), params, None),
                   f"cuLaunchKernel {name}")
 

@@ -1,42 +1,63 @@
-"""Kernel #1 generated per chain: the direct scan kernel as CUDA C++.
+"""The scan kernels generated per chain: the direct kernel (#1) and the
+span kernel (#3) as CUDA C++.
 
-Replaces the Pallas TPU kernel presto_tpu/exec/kernels/scan_kernel.py
-build_direct_runner (:580, launched :731).  The earlier port interpreted
-every chain step, key and aggregate input per row (an ExprProgram on a
-stack in shared memory, its opcodes fetched and dispatched per
-instruction).  Here the ScanPlan's programs become straight-line code, one
-kernel per chain shape, compiled at first use with NVRTC (build.py
-load_generated) for sm_90a:
+Replace the Pallas TPU kernels presto_tpu/exec/kernels/scan_kernel.py
+build_direct_runner (:580, launched :731) and, in span mode,
+presto_tpu/exec/kernels/grouped.py try_grouped_scan_kernel (:213, through
+:731 with ops.agg_span_update).  The earlier ports interpreted every
+chain step, key and aggregate input per row (an ExprProgram on a stack in
+shared memory, its opcodes fetched and dispatched per instruction; the
+hash kernel still does).  Here the ScanPlan's programs become
+straight-line code, one kernel per chain shape, compiled at first use
+with NVRTC (build.py load_generated) for sm_90a.  Both kernels share:
 
 - values and null flags live in registers (i64 per row); each opcode is a
   call of its __device__ function in csrc/scan_common.cuh (op_*, shared
-  with the interpreter the grouped kernels still run), so both evaluate
-  one expression semantics;
+  with the hash kernel's interpreter), so all evaluate one expression
+  semantics;
 - each column is loaded and decoded once per row, at its first use: a
   column that only a later step, a key or an aggregate reads is fetched
   for the rows still live there, and every later reader shares it;
 - bound parameters stay in the launch's device vector and literals travel
   in the launch's argument words, so a new literal reuses the module;
   encodings and dtypes are part of the shape (and so of the source);
-- the probe steps (kernel #5) call probe_direct / probe_unique and
-  gather_rows, the stage ring (kernel #2, dma="double") stage_array and
-  stage_rows;
-- a persistent grid: SMs x CTAS_PER_SM CTAs stride over the pruned grid's
-  ROWS_PER_CTA-row work items in a fixed order;
-- partials: where G x (folded integer rows + float rows) fits
-  REG_PARTIALS, each thread keeps its partials in registers across all its
-  rows (compile-time-unrolled selects on the group code) and the CTA folds
-  them once at its end; otherwise, per 4 x threads-row pass, the warp
-  finds each group code's peer lanes once and folds every integer row
-  over them in one sweep (shared-memory atomics into the CTA's table),
-  and float rows keep per-thread slots in shared memory.  Float64 sums
-  fold in (thread, row) order, the CTA's threads in order, then a
-  generated reduce over the CTAs' partials in a fixed order: no float
-  atomics, bit-identical from launch to launch and between single and
-  double (the CTA count does not depend on the ring).
+- the probe steps (kernel #5) call probe_direct / probe_unique (a unique
+  table through its bucket directory) and gather_rows, the stage ring
+  (kernel #2, dma="double") stage_array and stage_rows;
+- the key code, span's slot rule: code = sum of key value x stride, rows
+  off the grid drop;
+- a persistent grid: SMs x CTAs per SM stride over the pruned grid's
+  8192-row work items in a fixed order.
+
+The direct tail (G <= 64): where G x (folded integer rows + float rows)
+fits REG_PARTIALS, each thread keeps its partials in registers across all
+its rows (compile-time-unrolled selects on the group code) and the CTA
+folds them once at its end; otherwise, per 4 x threads-row pass, the warp
+finds each group code's peer lanes once and folds every integer row over
+them in one sweep (shared-memory atomics into the CTA's table), and float
+rows keep per-thread slots in shared memory.  Float64 sums fold in
+(thread, row) order, the CTA's threads in order, then a generated reduce
+over the CTAs' partials in a fixed order.
+
+The span tail (G <= 32768), in the tables ScanPlan.layout places: every
+integer row folds per row into the CTA's table in shared memory (two
+32-bit shared atomics, shared_add64; min / max a 64-bit shared atomic) or,
+for a table too large for it, into acc_i by one global atomic a row; a
+warp's peer sweep would loop once per distinct code in the warp.  Float
+rows never take float atomics: a warp stages its rows per row position
+(warp_stage_float: a slot's lanes fold in lane order), then applies them
+to its own table in row-position order, or, where only one table per CTA
+fits, the CTA applies every warp's pairs in (warp, row position) order
+between two barriers.  The reduce is csrc/scan_common.cuh grouped_reduce
+over the CTAs' (or warps') partials, the order exec/kernels/grouped.py
+reduce_partials models.
+
+In both, floats are bit-identical from launch to launch and between
+single and double (the CTA count does not depend on the ring).
 
 Bound: the encoded bytes of the scanned columns for the rows live where
-each is first read (device-memory bandwidth, 3.35 TB/s on an H100 SXM).
+each is first read, plus the tables once (device-memory bandwidth, 3.35
+TB/s on an H100 SXM).
 """
 from __future__ import annotations
 
@@ -115,7 +136,7 @@ class _Expr:
             emit = EMITTERS.get(name)
             if emit is None:
                 raise NotImplementedError(
-                    f"the direct kernel generator has no emitter for "
+                    f"the scan kernel generator has no emitter for "
                     f"opcode {name}")
             i += 1 + (emit(self, arg, ops[i + 1:]) or 0)
         (v, n), = self.stack
@@ -432,35 +453,14 @@ def column_shape(plan, columns, joins=None) -> Tuple[tuple, ...]:
     return tuple(shape)
 
 
-def generate(plan, shape, stages: int, stage_offsets=None,
-             ring_bytes: int = 0, double_ring_bytes: int = 0) -> DirectKernel:
-    """The direct kernel of `plan` over columns of `shape` (column_shape)
-    with `stages` (1: unstaged, 2: the stage ring of ring_bytes, its regions
-    at stage_offsets).  double_ring_bytes: the ring a double launch of the
-    same plan takes, so that single and double launch the same CTAs.
-    Raises NotImplementedError naming an opcode without an emitter."""
-    T, G = plan.threads, max(plan.G, 1)
-    n_i, n_f = plan.n_i, plan.n_f
-    fold = [k for k, s in enumerate(plan.src_rows) if s == k]
-    pos = {k: q for q, k in enumerate(fold)}
-    n_fold = len(fold)
-    rows_i, rows_f = _rows_init(plan)
+def _emit_chain(g: _Gen, plan, G: int, open_lines: List[str]):
+    """The per-pass body both kernels share: the chain's steps (filters,
+    probes), then, in the block `open_lines` opens, the key code (span's
+    slot rule: code = sum of key value x stride, rows off the grid drop)
+    and each aggregate spec's input values and take mask.  Returns (the
+    integer folds, the direct kernel's float folds, the float rows as
+    (row, take, values, in_float, op))."""
     specs = _spec_rows(plan)
-    registers = G * (n_fold + n_f) <= REG_PARTIALS
-    g = _Gen(plan, shape, stages, stage_offsets)
-    g.stage_bytes = ring_bytes // stages
-
-    # -- shared memory: [ring][integer table][float slots] ---------------
-    smi_off = -(-ring_bytes // 16) * 16
-    smi_bytes = 8 * n_fold * G
-    smf_off = smi_off + -(-smi_bytes // 16) * 16
-    smf_bytes = 8 * n_f * G * T
-    smem = smf_off + smf_bytes
-    dsmem = smem - ring_bytes + double_ring_bytes
-    ctas = max(1, min(CTAS_PER_SM * 256 // T,
-                      SM_SHARED_BYTES // (dsmem + 1024)))
-
-    # -- the chain's steps ---------------------------------------------------
     g.emit("unsigned live = 0;")
     g.emit("#pragma unroll")
     g.emit("for (int r = 0; r < RPT; ++r) "
@@ -481,7 +481,8 @@ def generate(plan, shape, stages: int, stage_offsets=None,
         g.emit(f"cnt{s + 1} += __popc(live);")
 
     # -- keys and aggregate inputs -----------------------------------------
-    g.emit("if (__any_sync(FULL_MASK, live != 0)) {")
+    for line in open_lines:
+        g.emit(line)
     g.ind += 2
     if plan.key_programs:
         g.emit("i64 code[RPT];")
@@ -497,7 +498,7 @@ def generate(plan, shape, stages: int, stage_offsets=None,
         g.emit("const i64 code[RPT] = {0};")
     # each spec's input values and take mask
     folds = [("count", 0, "live", None)]        # __seen
-    f_folds = []
+    f_folds, f_rows = [], []
     for s, (kind, acc_float, prog, vrow, crow, in_f, seen) in enumerate(specs):
         if kind in (_S_COUNT_STAR, _S_COUNT) and seen:
             continue
@@ -522,11 +523,44 @@ def generate(plan, shape, stages: int, stage_offsets=None,
         if acc_float:
             val = f"as_f({x}[r])" if in_f else f"(double){x}[r]"
             f_folds.append((vrow, take, val, op))
+            f_rows.append((vrow, take, x, in_f, op))
         else:
             val = f"(i64)as_f({x}[r])" if in_f else f"{x}[r]"
             folds.append(("value", vrow, take, (val, op)))
         if not seen:
             folds.append(("count", crow, take, None))
+    return folds, f_folds, f_rows
+
+
+def generate(plan, shape, stages: int, stage_offsets=None,
+             ring_bytes: int = 0, double_ring_bytes: int = 0) -> DirectKernel:
+    """The direct kernel of `plan` over columns of `shape` (column_shape)
+    with `stages` (1: unstaged, 2: the stage ring of ring_bytes, its regions
+    at stage_offsets).  double_ring_bytes: the ring a double launch of the
+    same plan takes, so that single and double launch the same CTAs.
+    Raises NotImplementedError naming an opcode without an emitter."""
+    T, G = plan.threads, max(plan.G, 1)
+    n_i, n_f = plan.n_i, plan.n_f
+    fold = [k for k, s in enumerate(plan.src_rows) if s == k]
+    pos = {k: q for q, k in enumerate(fold)}
+    n_fold = len(fold)
+    rows_i, rows_f = _rows_init(plan)
+    registers = G * (n_fold + n_f) <= REG_PARTIALS
+    g = _Gen(plan, shape, stages, stage_offsets)
+    g.stage_bytes = ring_bytes // stages
+
+    # -- shared memory: [ring][integer table][float slots] ---------------
+    smi_off = -(-ring_bytes // 16) * 16
+    smi_bytes = 8 * n_fold * G
+    smf_off = smi_off + -(-smi_bytes // 16) * 16
+    smf_bytes = 8 * n_f * G * T
+    smem = smf_off + smf_bytes
+    dsmem = smem - ring_bytes + double_ring_bytes
+    ctas = max(1, min(CTAS_PER_SM * 256 // T,
+                      SM_SHARED_BYTES // (dsmem + 1024)))
+
+    folds, f_folds, _f_rows = _emit_chain(
+        g, plan, G, ["if (__any_sync(FULL_MASK, live != 0)) {"])
     if registers:
         _emit_reg_folds(g, folds, f_folds, pos, G)
     else:
@@ -540,6 +574,265 @@ def generate(plan, shape, stages: int, stage_offsets=None,
                             stages)
     return DirectKernel(source, tuple(g.words), T, ctas, smem, n_fold,
                         registers, (n_i + n_f) * G)
+
+
+@dataclasses.dataclass
+class SpanKernel:
+    """A generated span kernel (#3) for one chain shape: its source, the
+    recipe of its argument words, launch geometry and the grouped layout
+    it was generated for (ScanPlan.layout)."""
+    source: str
+    words: Tuple[tuple, ...]
+    threads: int
+    ctas_per_sm: int
+    smem_bytes: int
+    layout: object
+
+
+# fixed argument words of the span kernel: the direct kernel's, then the
+# float partials' count
+_W_SPAN = _W + ("n_fparts",)
+
+
+def generate_span(plan, shape, stages: int, stage_offsets, ring_bytes: int,
+                  layout) -> SpanKernel:
+    """The span kernel (#3) of `plan` over columns of `shape` with
+    `stages` (as generate), folding into the tables `layout` places
+    (ScanPlan.layout(plan.G)): the chain, keys and inputs are the direct
+    kernel's code; the tail folds each live row into slot code[r].
+    Raises NotImplementedError naming an opcode without an emitter."""
+    T, G = plan.threads, plan.G
+    warps = T // 32
+    n_f = plan.n_f
+    fold = [k for k, s in enumerate(plan.src_rows) if s == k]
+    pos = {k: q for q, k in enumerate(fold)}
+    rows_i, rows_f = _rows_init(plan)
+    on = layout.on_chip
+    cta_floats = on and n_f > 0 and not layout.warp_floats
+    g = _Gen(plan, shape, stages, stage_offsets)
+    g.words = [(w,) for w in _W_SPAN]
+    g.stage_bytes = ring_bytes // stages
+
+    # -- shared memory: [ring][integer table][float tables][staging] -----
+    def up(n):
+        return -(-n // 16) * 16
+    smi_off = up(ring_bytes)
+    smf_off = smi_off + up(8 * len(fold) * G * on)
+    stg_off = smf_off + up(8 * layout.f_tables * n_f * G * on)
+    n_stage = n_f if cta_floats else min(n_f, 1)
+    stv_off = stg_off + 8 * RPT * T * n_stage
+    smem = stv_off + 8 * RPT * T * n_stage
+
+    open_lines = ["const bool wany = __any_sync(FULL_MASK, live != 0);",
+                  "if (wany) {"]
+    folds, _f, f_rows = _emit_chain(g, plan, G, open_lines)
+    _emit_span_folds(g, folds, f_rows, pos, G, on, cta_floats, warps)
+    g.ind -= 2
+    g.emit("}")
+    if cta_floats:
+        _emit_cta_float_apply(g, f_rows, G, warps)
+    source = _span_source(g, plan, layout, T, G, fold, pos, rows_i, rows_f,
+                          smi_off, smf_off, stg_off, stv_off, stages)
+    return SpanKernel(source, tuple(g.words), T, layout.ctas_per_sm, smem,
+                      layout)
+
+
+def _emit_span_folds(g: _Gen, folds, f_rows, pos, G, on: bool,
+                     cta_floats: bool, warps: int) -> None:
+    """Span's tail for one pass: every integer row folds per row into its
+    table -- on chip the CTA's in shared memory (32-bit shared atomics,
+    shared_add64), else acc_i by one global atomic a row -- at slot
+    code[r]; each float row is staged per row position by its warp
+    (warp_stage_float: no float atomics) and applied to the warp's table
+    in row-position order, or, for a table per CTA, staged for the CTA's
+    ordered apply after the block."""
+    g.emit("#pragma unroll")
+    g.emit("for (int r = 0; r < RPT; ++r) {")
+    g.ind += 2
+    for kind, row, take, extra in folds:
+        sel = f"(({take}) >> r) & 1u"
+        if on:
+            slot = f"sm_i[{pos[row] * G} + code[r]]"
+        else:
+            slot = f"acc_i[{row * G} + code[r]]"
+        if kind == "count":
+            add = (f"shared_add64(&{slot}, 1)" if on
+                   else f"atomicAdd((u64*)&{slot}, 1ULL)")
+            g.emit(f"if ({sel}) {add};")
+            continue
+        val, op = extra
+        if op == _R_ADD:
+            fn = (f"shared_add64(&{slot}, {val})" if on
+                  else f"atomicAdd((u64*)&{slot}, (u64)({val}))")
+        else:
+            fn = (f"atomicMin(&{slot}, {val})" if op == _R_MIN
+                  else f"atomicMax(&{slot}, {val})")
+        g.emit(f"if ({sel}) {fn};")
+    g.ind -= 2
+    g.emit("}")
+    for f, (row, take, x, in_f, op) in enumerate(f_rows):
+        in_f = "true" if in_f else "false"
+        if cta_floats:
+            at = f"{f * warps} * RPT * 32 + warp * RPT * 32"
+            g.emit(f"warp_stage_float({take}, code, {x}, {op}, {in_f}, "
+                   f"stg_c + {at}, stg_v + {at});")
+            continue
+        g.emit(f"warp_stage_float({take}, code, {x}, {op}, {in_f}, stg_c + "
+               f"warp * RPT * 32, stg_v + warp * RPT * 32);")
+        # within one row position the staged slots are distinct: the
+        # lanes apply them at once, row positions in order
+        g.emit("#pragma unroll")
+        g.emit("for (int r = 0; r < RPT; ++r) {")
+        g.ind += 2
+        g.emit("const int at = warp * RPT * 32 + r * 32 + lane;")
+        g.emit("const i64 c = stg_c[at];")
+        if on:
+            g.emit(f"if (c >= 0) pf[{row * G} + c] = fcombine(pf[{row * G} "
+                   f"+ c], stg_v[at], {op});")
+        else:
+            g.emit(f"if (c >= 0) __stcg(pf + {row * G} + c, fcombine(__ldcg("
+                   f"pf + {row * G} + c), stg_v[at], {op}));")
+        g.emit("__syncwarp();")
+        g.ind -= 2
+        g.emit("}")
+
+
+def _emit_cta_float_apply(g: _Gen, f_rows, G, warps: int) -> None:
+    """A table per CTA: a warp without live rows stages nothing (slot -1);
+    when some warp had rows, the CTA applies every float row's staged
+    pairs in (warp, row position) order (apply_staged), between
+    barriers."""
+    n = len(f_rows)
+    g.emit("else {")
+    g.emit(f"  for (int k = 0; k < {n} * RPT; ++k) stg_c[(k / RPT * "
+           f"{warps} + warp) * RPT * 32 + (k % RPT) * 32 + lane] = -1;")
+    g.emit("  __syncwarp();")
+    g.emit("}")
+    g.emit("if (__syncthreads_or(wany)) {")
+    for f, (row, _take, _x, _in_f, op) in enumerate(f_rows):
+        at = f"{f * warps} * RPT * 32"
+        g.emit(f"  apply_staged(stg_c + {at}, stg_v + {at}, {warps}, {op}, "
+               f"sm_f + {row * G});")
+    g.emit("  __syncthreads();")
+    g.emit("}")
+
+
+def _span_source(g: _Gen, plan, layout, T, G, fold, pos, rows_i, rows_f,
+                 smi_off, smf_off, stg_off, stv_off, stages) -> str:
+    n_steps, n_i, n_f = plan.n_steps, plan.n_i, plan.n_f
+    n_fold, on = len(fold), layout.on_chip
+    W = {w: i for i, w in enumerate(_W_SPAN)}
+    out = [
+        "// Generated by presto_tpu_torch/exec/kernels/codegen.py: the span",
+        "// scan kernel (#3) of one chain shape and its reduce.",
+        '#include "scan_common.cuh"',
+        f"#define GT {T}",
+        f"#define GS {stages}",
+        f"struct Args {{ i64 w[{len(g.words)}]; }};",
+        "",
+        f"extern \"C\" __global__ void __launch_bounds__(GT, "
+        f"{layout.ctas_per_sm})",
+        "scan_span_gen(const Args a) {",
+        "  extern __shared__ __align__(16) unsigned char smem[];",
+        "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;",
+        "  (void)lane; (void)warp;",
+        f"  const i64* grid = (const i64*)a.w[{W['grid']}];",
+        f"  const int n_grid = (int)a.w[{W['n_grid']}];",
+        f"  const i64 br = a.w[{W['br']}], rows_per_cta = "
+        f"a.w[{W['rows_per_cta']}];",
+        f"  const int n_sub = (int)a.w[{W['n_sub']}];",
+    ]
+    if g.params:
+        out.append(f"  const i64* params = (const i64*)a.w[{W['params']}];")
+        for idx, name in sorted(g.params.items()):
+            out.append(f"  const i64 {name} = __ldg(params + {idx});")
+    out += [
+        f"  i64* sm_i = (i64*)(smem + {smi_off});",
+        f"  double* sm_f = (double*)(smem + {smf_off});",
+        f"  i64* stg_c = (i64*)(smem + {stg_off});",
+        f"  double* stg_v = (double*)(smem + {stv_off});",
+        f"  i64* acc_i = (i64*)a.w[{W['acc_i']}];",
+        f"  double* part_f = (double*)a.w[{W['part_f']}];",
+        "  (void)sm_i; (void)sm_f; (void)stg_c; (void)stg_v; (void)acc_i;",
+        "  (void)part_f;",
+    ]
+    for s in range(n_steps + 1):
+        out.append(f"  i64 cnt{s} = 0;")
+    # -- the tables, each row from its initial value ---------------------
+    if on:
+        out.append(f"  for (int k = tid; k < {n_fold * G}; k += GT) {{")
+        out.append("    const int q = k / %d;" % G)
+        out.append("    i64 v = 0;")
+        for q, k in enumerate(fold):
+            out.append(f"    if (q == {q}) v = {_hex(rows_i[k][0])};")
+        out.append("    sm_i[k] = v;")
+        out.append("  }")
+    if n_f:
+        if on:
+            n_tab = layout.f_tables * n_f * G
+            out.append(f"  for (int k = tid; k < {n_tab}; k += GT) {{")
+            out.append(f"    const int f = k / {G} % {n_f};")
+        else:
+            out.append("  double* pf = part_f + ((size_t)blockIdx.x * "
+                       f"{layout.f_tables} + warp) * {n_f * G};")
+            out.append(f"  for (int k = lane; k < {n_f * G}; k += 32) {{")
+            out.append(f"    const int f = k / {G};")
+        out.append("    i64 v = 0;")
+        for f in range(n_f):
+            out.append(f"    if (f == {f}) v = {_hex(rows_f[f][0])};")
+        out.append("    " + ("sm_f[k] = as_f(v);" if on
+                              else "__stcg(pf + k, as_f(v));"))
+        out.append("  }")
+        if on:
+            # this warp's table, or the CTA's (cta floats use sm_f)
+            out.append(f"  double* pf = sm_f + warp * {n_f * G};")
+            out.append("  (void)pf;")
+    out.append("  __syncthreads();")
+    out += [
+        "  const i64 n_items = (i64)n_grid * n_sub, tile = (i64)RPT * GT;",
+    ]
+    out += _pass_loop(g, stages)
+    # -- epilogue: row counters, then the CTA's tables --------------------
+    out.append(f"  u64* counts = (u64*)a.w[{W['counts']}];")
+    for s in range(n_steps + 1):
+        out += [
+            "  {",
+            f"    i64 c = cnt{s};",
+            "    for (int o = 16; o > 0; o >>= 1) "
+            "c += __shfl_down_sync(FULL_MASK, c, o);",
+            f"    if ((tid & 31) == 0 && c) atomicAdd(&counts[{s}], (u64)c);",
+            "  }",
+        ]
+    if on:
+        out.append(f"  i64* part_i = (i64*)a.w[{W['part_i']}];")
+        out.append("  __syncthreads();")
+        out.append(f"  for (int k = tid; k < {n_fold * G}; k += GT)")
+        out.append(f"    part_i[(size_t)blockIdx.x * {n_fold * G} + k] = "
+                   f"sm_i[k];")
+        if n_f:
+            n_tab = layout.f_tables * n_f * G
+            out.append(f"  for (int k = tid; k < {n_tab}; k += GT)")
+            out.append(f"    part_f[(size_t)blockIdx.x * {n_tab} + k] = "
+                       f"sm_f[k];")
+    out.append("}")
+    out.append("")
+    # -- the reduce: grouped_reduce over the partials, a fixed order -------
+    rows = [v for r in rows_i + rows_f for v in r]
+    out += [
+        f"__constant__ i64 RED_ROWS[{len(rows)}] = "
+        f"{{{', '.join(_hex(v) for v in rows)}}};",
+        f"__constant__ i64 RED_SRC[{n_i}] = "
+        f"{{{', '.join(str(int(v)) for v in plan.src_rows)}}};",
+        "extern \"C\" __global__ void __launch_bounds__(32 * REDUCE_LANES)",
+        "scan_span_reduce(const Args a) {",
+        f"  grouped_reduce(RED_ROWS, RED_SRC, {n_i}, {n_f}, {G}, "
+        f"(int)a.w[{W['n_parts']}], (int)a.w[{W['n_fparts']}], "
+        f"(const i64*)a.w[{W['part_i']}], (i64*)a.w[{W['acc_i']}], "
+        f"(const double*)a.w[{W['part_f']}], (double*)a.w[{W['acc_f']}]);",
+        "}",
+        "",
+    ]
+    return _sized_args(out, g)
 
 
 def _emit_probe(g: _Gen, j: int, jp) -> None:
@@ -571,7 +864,7 @@ def _emit_probe(g: _Gen, j: int, jp) -> None:
         g.rows(list(jp.key_programs), body, f"j{j}_")
         g.emit(f"jhit{j} = probe_unique(h{j}, knull{j}, live, (const i64*)"
                f"{w('op0')}, (const int32_t*){w('op1')}, {w('size')}, "
-               f"(int){w('trips')}, jrow{j});")
+               f"(const int32_t*){w('dir')}, (int){w('shift')}, jrow{j});")
     if sp.kind == "semi":
         g.emit(f"jnul{j} = semi_nulls(jhit{j}, knull{j}, (const uint8_t*)"
                f"{w('bhn')});")
@@ -668,61 +961,19 @@ def _emit_slot_folds(g: _Gen, f_folds, G) -> None:
     g.emit("}")
 
 
-def _kernel_source(g: _Gen, plan, T, ctas, G, n_i, n_f, n_fold, fold, pos,
-                   rows_i, rows_f, registers, smi_off, smf_off,
-                   stages) -> str:
-    n_steps = plan.n_steps
-    W = {w: i for i, w in enumerate(_W)}
-    out = [
-        "// Generated by presto_tpu_torch/exec/kernels/codegen.py: the direct",
-        "// scan kernel (#1) of one chain shape and its reduce.",
-        '#include "scan_common.cuh"',
-        f"#define GT {T}",
-        f"#define GS {stages}",
-        f"struct Args {{ i64 w[{len(g.words)}]; }};",
-        "",
-        f"extern \"C\" __global__ void __launch_bounds__(GT, {ctas})",
-        "scan_gen(const Args a) {",
-        "  extern __shared__ __align__(16) unsigned char smem[];",
-        "  const int tid = threadIdx.x;",
-        f"  const i64* grid = (const i64*)a.w[{W['grid']}];",
-        f"  const int n_grid = (int)a.w[{W['n_grid']}];",
-        f"  const i64 br = a.w[{W['br']}], rows_per_cta = "
-        f"a.w[{W['rows_per_cta']}];",
-        f"  const int n_sub = (int)a.w[{W['n_sub']}];",
-    ]
-    if g.params:
-        out.append(f"  const i64* params = (const i64*)a.w[{W['params']}];")
-        for idx, name in sorted(g.params.items()):
-            out.append(f"  const i64 {name} = __ldg(params + {idx});")
-    out.append(f"  i64* sm_i = (i64*)(smem + {smi_off});")
-    out.append(f"  double* sm_f = (double*)(smem + {smf_off});")
-    out.append("  (void)sm_i; (void)sm_f;")
-    for s in range(n_steps + 1):
-        out.append(f"  i64 cnt{s} = 0;")
-    if registers:
-        for q, k in enumerate(fold):
-            for grp in range(G):
-                out.append(f"  i64 ri{q}_{grp} = {_hex(rows_i[k][0])};")
-        for f in range(n_f):
-            for grp in range(G):
-                out.append(f"  double rf{f}_{grp} = as_f("
-                           f"{_hex(rows_f[f][0])});")
-    else:
-        out.append(f"  for (int k = tid; k < {n_fold * G}; k += GT) {{")
-        out.append("    const int q = k / %d;" % G)
-        out.append("    i64 v = 0;")
-        for q, k in enumerate(fold):
-            out.append(f"    if (q == {q}) v = {_hex(rows_i[k][0])};")
-        out.append("    sm_i[k] = v;")
-        out.append("  }")
-        for f in range(n_f):
-            out.append(f"  for (int s = 0; s < {G}; ++s) sm_f[({f} * {G} + s)"
-                       f" * GT + tid] = as_f({_hex(rows_f[f][0])});")
-        out.append("  __syncthreads();")
-    out += [
-        "  const i64 n_items = (i64)n_grid * n_sub, tile = (i64)RPT * GT;",
-    ]
+def _sized_args(out: List[str], g: _Gen) -> str:
+    """The source with its argument struct sized to every word: the pass
+    loop's stage copies may add words (a staged column no program reads)
+    after the struct's line was written."""
+    return "\n".join(f"struct Args {{ i64 w[{len(g.words)}]; }};"
+                     if ln.startswith("struct Args ") else ln for ln in out)
+
+
+def _pass_loop(g: _Gen, stages: int) -> List[str]:
+    """The persistent CTA's loop over its work items and their passes,
+    the stage ring's copies (stages > 1) around each pass, and the pass
+    body g.body."""
+    out: List[str] = []
     staged = [c for c, o in enumerate(g.stage_offsets or ()) if o >= 0] \
         if stages > 1 else []
 
@@ -800,6 +1051,65 @@ def _kernel_source(g: _Gen, plan, T, ctas, G, n_i, n_f, n_fold, fold, pos,
         ]
     out += g.body
     out += ["    }", "  }"]
+    return out
+
+
+def _kernel_source(g: _Gen, plan, T, ctas, G, n_i, n_f, n_fold, fold, pos,
+                   rows_i, rows_f, registers, smi_off, smf_off,
+                   stages) -> str:
+    n_steps = plan.n_steps
+    W = {w: i for i, w in enumerate(_W)}
+    out = [
+        "// Generated by presto_tpu_torch/exec/kernels/codegen.py: the direct",
+        "// scan kernel (#1) of one chain shape and its reduce.",
+        '#include "scan_common.cuh"',
+        f"#define GT {T}",
+        f"#define GS {stages}",
+        f"struct Args {{ i64 w[{len(g.words)}]; }};",
+        "",
+        f"extern \"C\" __global__ void __launch_bounds__(GT, {ctas})",
+        "scan_gen(const Args a) {",
+        "  extern __shared__ __align__(16) unsigned char smem[];",
+        "  const int tid = threadIdx.x;",
+        f"  const i64* grid = (const i64*)a.w[{W['grid']}];",
+        f"  const int n_grid = (int)a.w[{W['n_grid']}];",
+        f"  const i64 br = a.w[{W['br']}], rows_per_cta = "
+        f"a.w[{W['rows_per_cta']}];",
+        f"  const int n_sub = (int)a.w[{W['n_sub']}];",
+    ]
+    if g.params:
+        out.append(f"  const i64* params = (const i64*)a.w[{W['params']}];")
+        for idx, name in sorted(g.params.items()):
+            out.append(f"  const i64 {name} = __ldg(params + {idx});")
+    out.append(f"  i64* sm_i = (i64*)(smem + {smi_off});")
+    out.append(f"  double* sm_f = (double*)(smem + {smf_off});")
+    out.append("  (void)sm_i; (void)sm_f;")
+    for s in range(n_steps + 1):
+        out.append(f"  i64 cnt{s} = 0;")
+    if registers:
+        for q, k in enumerate(fold):
+            for grp in range(G):
+                out.append(f"  i64 ri{q}_{grp} = {_hex(rows_i[k][0])};")
+        for f in range(n_f):
+            for grp in range(G):
+                out.append(f"  double rf{f}_{grp} = as_f("
+                           f"{_hex(rows_f[f][0])});")
+    else:
+        out.append(f"  for (int k = tid; k < {n_fold * G}; k += GT) {{")
+        out.append("    const int q = k / %d;" % G)
+        out.append("    i64 v = 0;")
+        for q, k in enumerate(fold):
+            out.append(f"    if (q == {q}) v = {_hex(rows_i[k][0])};")
+        out.append("    sm_i[k] = v;")
+        out.append("  }")
+        for f in range(n_f):
+            out.append(f"  for (int s = 0; s < {G}; ++s) sm_f[({f} * {G} + s)"
+                       f" * GT + tid] = as_f({_hex(rows_f[f][0])});")
+        out.append("  __syncthreads();")
+    out += [
+        "  const i64 n_items = (i64)n_grid * n_sub, tile = (i64)RPT * GT;",
+    ]
+    out += _pass_loop(g, stages)
     # -- epilogue: row counters, then the CTA's partials -----------------
     out.append(f"  u64* counts = (u64*)a.w[{W['counts']}];")
     for s in range(n_steps + 1):
@@ -916,4 +1226,4 @@ def _kernel_source(g: _Gen, plan, T, ctas, G, n_i, n_f, n_fold, fold, pos,
             "    if (t == 0) acc_f[s0] = as_f(red[0]);",
         ]
     out += ["  }", "}", ""]
-    return "\n".join(out)
+    return _sized_args(out, g)

@@ -1,12 +1,13 @@
-// Shared by the fused scan kernels (scan_grouped.cu, and the direct kernel
-// generated per chain by exec/kernels/codegen.py, compiled with NVRTC):
-// the plan vector's layout, column decode, one function per ExprProgram
-// opcode (op_*) and the interpreter that the grouped kernels run over
-// them, so every kernel runs one expression semantics -- the torch
-// evaluator's (exec/lowering.py ExprProgram.run) --, the chain's steps
-// with the join probe (kernel #5, probe_step below), the stage ring of
-// scan_kernel_dma = "double" (kernel #2, stage_tile below), and the
-// warp-level fold of integer rows into accumulators.
+// Shared by the fused scan kernels (the hash kernel of scan_grouped.cu,
+// and the direct and span kernels generated per chain by
+// exec/kernels/codegen.py, compiled with NVRTC): the plan vector's layout,
+// column decode, one function per ExprProgram opcode (op_*) and the
+// interpreter that the hash kernel runs over them, so every kernel runs
+// one expression semantics -- the torch evaluator's (exec/lowering.py
+// ExprProgram.run) --, the chain's steps with the join probe (kernel #5,
+// probe_step below), the stage ring of scan_kernel_dma = "double" (kernel
+// #2, stage_tile below), the folds of rows into accumulator tables and the
+// grouped kernels' reduce over their partials.
 //
 // The functions that read columns take the ring's stage count S as a
 // template parameter: S = 1 is the unstaged kernel (every per-row load an
@@ -37,9 +38,9 @@ enum { COL_WORDS = 6, SPEC_WORDS = 7 };
 // (a gathered build column, a semi-join marker)
 enum { K_PLAIN = 0, K_DICT = 1, K_RLE = 2, K_GATHER = 3, K_SEMI = 4 };
 // a probe step's record (exec/kernels/scan_kernel.py _JOIN_WORDS)
-enum { JOIN_WORDS = 9 };
+enum { JOIN_WORDS = 10 };
 enum { J_TABLE = 0, J_FORM, J_N_KEYS, J_KEYS_OFF, J_OP0, J_OP1, J_SIZE,
-       J_BHN, J_TRIPS };
+       J_BHN, J_DIR, J_DIR_SHIFT };
 enum { TBL_DIRECT = 0, TBL_UNIQUE = 1 };
 enum { FORM_INNER = 0, FORM_LEFT = 1, FORM_SEMI = 2 };
 enum { DT_I8 = 0, DT_I16, DT_I32, DT_I64, DT_F64, DT_BOOL };
@@ -871,9 +872,10 @@ __device__ __forceinline__ unsigned result_nulls(const Tile& t) {
 //   direct  k = key - base, in bounds, one int32 slot load; a hit is a
 //           slot >= 0 and a non-NULL key, its build row the slot.
 //   unique  the keys hashed as hash_columns does (hash_mix), the sign bit
-//           flipped, then a fixed-trip lower-bound bisect of
-//           keyhash_sorted; a hit is an equal HASH (the reference's match
-//           rule) with no NULL key, its build row perm[lo].
+//           flipped, then searchsorted(keyhash_sorted, kh, side="left")
+//           through the table's bucket directory (probe_unique); a hit is
+//           an equal HASH (the reference's match rule) with no NULL key,
+//           its build row perm[lo].
 // INNER drops the misses from `live`; LEFT keeps them (load_joined reads
 // their gathered columns as NULL); a semi step records its marker's null
 // mask, (miss and build-had-NULL) or NULL probe key.  Build operands stay
@@ -881,8 +883,9 @@ __device__ __forceinline__ unsigned result_nulls(const Tile& t) {
 // the 50 MB L2 and a plain gather serves.  The rows' loads are issued
 // together, as in load_rows.
 //
-// The two table lookups are shared with the direct kernel generated per
-// chain (exec/kernels/codegen.py), which computes the probe keys itself.
+// The two table lookups are shared with the direct and span kernels
+// generated per chain (exec/kernels/codegen.py), which compute the probe
+// keys themselves.
 // probe_direct: the rows' key values key[r] (NULL in knull) against a
 // DirectTable (int32 slots, base key at *base_p, `size` slots); returns
 // the hit mask and each hit's build row in row[r] (0 for a miss).
@@ -910,28 +913,54 @@ __device__ __forceinline__ unsigned probe_direct(const i64 (&key)[RPT],
 }
 
 // probe_unique: the rows' key hashes h[r] (hash_mix from 1 over the keys)
-// against a unique table (keyhash_sorted khs of n entries, perm), by a
-// fixed-trip lower-bound bisect; returns the hit mask and build rows.
+// against a unique table (keyhash_sorted khs of n entries, perm), through
+// its bucket directory `dir` (exec/kernels/join.py bucket_directory): for
+// k = 64 - shift, dir[b] is the lower bound in khs of the first orderable
+// hash whose unsigned top k bits are b, and dir[2^k] = n.  Every khs
+// entry before dir[b] is below the bucket, every entry from dir[b + 1] on
+// above it, so the lower bound of a hash in bucket b lies in
+// [dir[b], dir[b + 1]]: the bisect inside that range gives the reference's
+// searchsorted(side="left") index by construction.  Buckets hold 0-2
+// entries on average (2^k > 2n); the bisect is still needed for the last
+// bucket, which holds the dead padding rows (INT64_MAX).  Then the
+// reference's clip to [0, n - 1], hash compare and perm[lo].  A hash in
+// an empty bucket never hits (the clipped entry lies outside the bucket),
+// so only a non-empty bucket loads the entry it compares.  Indices are
+// 32-bit (perm is int32).  Returns the hit mask and build rows.
 __device__ __forceinline__ unsigned probe_unique(const u64 (&h)[RPT],
                                                  unsigned knull,
                                                  unsigned live,
                                                  const i64* khs,
                                                  const int32_t* perm, i64 n,
-                                                 int trips, int (&row)[RPT]) {
-  i64 kh[RPT], lo[RPT], hi[RPT];
+                                                 const int32_t* dir,
+                                                 int shift, int (&row)[RPT]) {
+  i64 kh[RPT];
+  int lo[RPT], hi[RPT];
+  unsigned filled = 0;                 // rows whose bucket holds entries
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     kh[r] = (i64)(h[r] ^ 0x8000000000000000ULL);
-    lo[r] = 0;
-    hi[r] = (live >> r) & 1u ? n : 0;
+    const bool on = (live >> r) & 1u;
+    const int b = on ? (int)(h[r] >> shift) : 0;
+    lo[r] = on ? __ldg(dir + b) : 0;
+    hi[r] = on ? __ldg(dir + b + 1) : 0;
+    filled |= (unsigned)(lo[r] < hi[r]) << r;
   }
-  for (int it = 0; it < trips; ++it) {
-    i64 mid[RPT], v[RPT];
+  // the rows bisect together, their loads issued before any compare
+  for (;;) {
+    int mid[RPT];
+    i64 v[RPT];
+    bool more = false;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       mid[r] = (lo[r] + hi[r]) >> 1;
-      v[r] = lo[r] < hi[r] ? __ldg(khs + mid[r]) : 0;
+      v[r] = 0;
+      if (lo[r] < hi[r]) {
+        v[r] = __ldg(khs + mid[r]);
+        more = true;
+      }
     }
+    if (!more) break;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       if (lo[r] >= hi[r]) continue;
@@ -942,7 +971,7 @@ __device__ __forceinline__ unsigned probe_unique(const u64 (&h)[RPT],
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const i64 p = lo[r] < n - 1 ? lo[r] : n - 1;
-    const bool found = ((live >> r) & 1u) && !((knull >> r) & 1u) &&
+    const bool found = ((filled >> r) & 1u) && !((knull >> r) & 1u) &&
                        __ldg(khs + p) == kh[r];
     hit |= (unsigned)found << r;
     row[r] = found ? __ldg(perm + p) : 0;
@@ -987,7 +1016,7 @@ __device__ unsigned probe_step(const Tile& t, const i64* jr, int j,
     }
     hit = probe_unique(h, knull, live, (const i64*)jr[J_OP0],
                        (const int32_t*)jr[J_OP1], jr[J_SIZE],
-                       (int)jr[J_TRIPS], row);
+                       (const int32_t*)jr[J_DIR], (int)jr[J_DIR_SHIFT], row);
   }
 #pragma unroll
   for (int r = 0; r < RPT; ++r) t.jrow[(j * RPT + r) * T + tid] = row[r];
@@ -1104,4 +1133,159 @@ __device__ __forceinline__ void warp_fold(unsigned take,
       else atomicAdd((u64*)&dst[c], (u64)part);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The grouped kernels' folds and reduce: shared by the hash kernel
+// (scan_grouped.cu) and the span kernel generated per chain (codegen.py).
+// ---------------------------------------------------------------------------
+
+// the reduce: 32 slots x REDUCE_LANES partial sequences per block
+#define REDUCE_LANES 8
+
+// On chip: an int64 add into shared memory as two native 32-bit atomics
+// (a 64-bit shared-memory add is a compare-and-swap loop): the low words
+// add, the add that wraps them carries one into the high word with its
+// own high half.  The sum is exact modulo 2^64, like the int64 add.
+__device__ __forceinline__ void shared_add64(i64* p, i64 v) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  const unsigned lo = (unsigned)(u64)v;
+  unsigned old;
+  asm volatile("atom.shared.add.u32 %0, [%1], %2;"
+               : "=r"(old) : "r"(a), "r"(lo) : "memory");
+  const unsigned hi = (unsigned)((u64)v >> 32) + (old + lo < old ? 1u : 0u);
+  if (hi) asm volatile("red.shared.add.u32 [%0], %1;"
+                       :: "r"(a + 4), "r"(hi) : "memory");
+}
+
+// Row r's value bits of an aggregate input: the generated kernels' value
+// array, or the interpreter's stack slot 0 (read where it is used).
+__device__ __forceinline__ i64 value_at(const i64 (&x)[RPT], int r) {
+  return x[r];
+}
+__device__ __forceinline__ i64 value_at(const Tile& t, int r) {
+  return result(t, r);
+}
+
+// A warp's float rows, staged per row position: for each r, the lanes
+// holding rows of one slot fold their values value_at(x, r) (float64
+// bits, or integers when !in_float) in lane order (a __match_any_sync
+// group; a lane alone keeps its own value) and the group's lowest lane
+// leaves (slot, value) in sc[r * 32 + lane], sv[r * 32 + lane]; every
+// other entry gets slot -1.  Within one r the staged slots are distinct.
+// The order depends only on which rows each lane holds, so it is the same
+// on every launch.
+template <typename X>
+__device__ __forceinline__ void warp_stage_float(unsigned take,
+                                                const i64 (&code)[RPT],
+                                                const X& x, int op,
+                                                bool in_float, i64* sc,
+                                                double* sv) {
+  const int lane = threadIdx.x & 31;
+  const double ident = op == R_MIN ? as_f(0x7ff0000000000000LL)
+                       : op == R_MAX ? as_f((i64)0xfff0000000000000ULL)
+                       : 0.0;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const bool mine = (take >> r) & 1u;
+    const i64 xb = value_at(x, r);
+    const double xv = !mine ? ident : in_float ? as_f(xb) : (double)xb;
+    const unsigned peers = __match_any_sync(FULL_MASK, mine ? code[r] : -1);
+    // lanes whose slot other lanes share fold the group in lane order
+    const unsigned shared = __ballot_sync(FULL_MASK,
+                                          mine && (peers & (peers - 1)));
+    double sum = (shared >> lane) & 1u ? ident : xv;
+    for (unsigned m = shared; m; m &= m - 1) {
+      const int k = __ffs(m) - 1;
+      const double y = __shfl_sync(FULL_MASK, xv, k);
+      if ((shared >> lane) & 1u && (peers >> k) & 1u)
+        sum = fcombine(sum, y, op);
+    }
+    const bool leader = mine && __ffs(peers) - 1 == lane;
+    sc[r * 32 + lane] = leader ? code[r] : -1;
+    sv[r * 32 + lane] = sum;
+  }
+  __syncwarp();
+}
+
+// Fold float rows staged by every warp (sc / sv: per warp RPT x 32
+// (slot, value) pairs, distinct slots within one warp and row position)
+// into the CTA's table `dst`, in (warp, row position) order.  Warp w
+// applies the slots = w mod warps; __syncwarp orders its positions.  The
+// caller's __syncthreads precede and follow it.
+__device__ __forceinline__ void apply_staged(const i64* sc, const double* sv,
+                                             int n_warps, int op,
+                                             double* dst) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = 0; k < n_warps * RPT; ++k) {
+    const i64 c = sc[k * 32 + lane];
+    if (c >= 0 && (int)c % n_warps == warp)
+      dst[c] = fcombine(dst[c], sv[k * 32 + lane], op);
+    __syncwarp();
+  }
+}
+
+// The grouped kernels' final accumulators, one block of (32, REDUCE_LANES)
+// threads per (32 slots, accumulator row blockIdx.y: the n_i integer rows,
+// then the n_f float rows).  Thread (x, y) folds the slot's partials b =
+// y, y + REDUCE_LANES, ... in order from the row op's identity, the
+// REDUCE_LANES sequences combine as a pairwise tree, and the row's initial
+// value comes first (exec/kernels/grouped.py reduce_partials).  rows:
+// (init bits, op) per row; src: the row each integer row is copied from
+// (itself when the kernel folds it).  An integer row's partials are
+// part_i's (n_iparts x n_fold x G, at the row's fold position), or none
+// (part_i null): its atomic sums are in acc_i already.  A row standing for
+// __seen folds (or copies) __seen's.  Float partials: n_fparts x n_f x G.
+__device__ __forceinline__ void grouped_reduce(
+    const i64* rows, const i64* src, int n_i, int n_f, i64 G, int n_iparts,
+    int n_fparts, const i64* __restrict__ part_i, i64* __restrict__ acc_i,
+    const double* __restrict__ part_f, double* __restrict__ acc_f) {
+  __shared__ i64 red[REDUCE_LANES][32];
+  const int row = blockIdx.y, x = threadIdx.x, y = threadIdx.y;
+  const i64 g = (i64)blockIdx.x * 32 + x;
+  const bool in = g < G;
+  if (row < n_i) {
+    const int sr = (int)src[row];
+    if (part_i == nullptr) {                 // block-uniform
+      if (y == 0 && in && sr != row) acc_i[row * G + g] = acc_i[sr * G + g];
+      return;
+    }
+    int q = 0, n_fold = 0;                   // sr's fold position
+    for (int r = 0; r < n_i; ++r) {
+      q += r < sr && src[r] == r;
+      n_fold += src[r] == r;
+    }
+    const int op = (int)rows[2 * sr + 1];
+    i64 acc = op == R_MIN ? I64_MAX : op == R_MAX ? I64_MIN : 0;
+    if (in)
+      for (int b = y; b < n_iparts; b += REDUCE_LANES)
+        acc = icombine(acc, part_i[((size_t)b * n_fold + q) * G + g], op);
+    red[y][x] = acc;
+    for (int w = 1; w < REDUCE_LANES; w <<= 1) {
+      __syncthreads();
+      if ((y & (2 * w - 1)) == 0)
+        red[y][x] = icombine(red[y][x], red[y + w][x], op);
+    }
+    if (y == 0 && in)
+      acc_i[row * G + g] = icombine(rows[2 * sr], red[0][x], op);
+    return;
+  }
+  const int fr = row - n_i;
+  if (fr >= n_f) return;
+  const int op = (int)rows[2 * (n_i + fr) + 1];
+  double acc = op == R_MIN ? as_f(0x7ff0000000000000LL)
+               : op == R_MAX ? as_f((i64)0xfff0000000000000ULL) : 0.0;
+  if (in)
+    for (int b = y; b < n_fparts; b += REDUCE_LANES)
+      acc = fcombine(acc, part_f[((size_t)b * n_f + fr) * G + g], op);
+  double* fred = (double*)&red[0][0];
+  fred[y * 32 + x] = acc;
+  for (int w = 1; w < REDUCE_LANES; w <<= 1) {
+    __syncthreads();
+    if ((y & (2 * w - 1)) == 0)
+      fred[y * 32 + x] = fcombine(fred[y * 32 + x], fred[(y + w) * 32 + x],
+                                  op);
+  }
+  if (y == 0 && in)
+    acc_f[fr * G + g] = fcombine(as_f(rows[2 * (n_i + fr)]), fred[x], op);
 }

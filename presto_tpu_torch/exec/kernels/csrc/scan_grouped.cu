@@ -1,26 +1,23 @@
-// Grouped fused scan kernel for Hopper (sm_90a): decode -> filter/project
-// -> span-slot or hash-slot aggregation, in one pass over the encoded
-// columns, for GROUP BYs beyond the direct kernel's 64 groups.
+// Hash-grouped fused scan kernel for Hopper (sm_90a): decode ->
+// filter/project -> hash-slot aggregation, in one pass over the encoded
+// columns, for GROUP BYs beyond the direct kernel's 64 groups whose keys
+// are not closed domains (span mode is a kernel generated per chain:
+// exec/kernels/codegen.py).
 //
-// Replaces the reference's grouped Pallas kernels in
-// presto_tpu/exec/kernels/grouped.py:
-// - span mode: try_grouped_scan_kernel (:213), build_direct_runner with
-//   ops.agg_span_update over 8192-row subtiles (:272-278).  The combined
-//   stride code of the key programs is the slot, G <= 32768.
-// - hash mode: build_hash_runner (:63, launched :207), the open-addressing
-//   table of ops.agg_update with its __collision flag, <= 65536 slots.
-// Outputs match the plain versions (exec/kernels/grouped.py
-// scan_span_plain / scan_hash_plain): integer accumulators and row
-// counters exactly, float64 sums within rounding, and the hash table's
-// groups keyed by their key values (its slot layout is its own).
+// Replaces the reference's hash Pallas kernel in
+// presto_tpu/exec/kernels/grouped.py: build_hash_runner (:63, launched
+// :207), the open-addressing table of ops.agg_update with its __collision
+// flag, <= 65536 slots.  Outputs match the plain version
+// (exec/kernels/grouped.py scan_hash_plain): integer accumulators and row
+// counters exactly, float64 sums within rounding, and the table's groups
+// keyed by their key values (its slot layout is its own).
 //
 // Design:
 // - A persistent grid: a fixed number of CTAs strides over the grid
 //   entries' rows_per_cta-row slices, so the per-CTA partials scale with
 //   the CTA count, not with the rows.  The per-row work (decode, chain
 //   steps with their join / semi-join probes -- kernel #5 --, key
-//   programs) is scan_direct's, from scan_common.cuh.
-// - Span slots: code = sum of key value x stride, rows off the grid drop.
+//   programs) runs through the interpreter of scan_common.cuh.
 // - Hash slots: each live row hashes its key values exactly as
 //   exec/operators.py hash_columns(salt) does (splitmix64 over uint64),
 //   then claims slot kh % S with atomicCAS(EMPTY -> kh) or finds its own
@@ -28,43 +25,43 @@
 //   claiming row writes the slot's key values and counts one group.  A
 //   row left unplaced sets the collision flag; the host doubles the table
 //   and relaunches.
-// - On chip (`onchip`, when the plan's tables fit: ScanPlan.on_chip).
+// - On chip (`onchip`, when the plan's tables fit: ScanPlan.layout).
 //   The reference keeps its whole table in VMEM across its sequential
 //   grid (grouped.py:63-100); here each CTA keeps its own, keyed by the
 //   global slot, in shared memory, and the CTAs merge once at the end:
-//   * hash: a mirror of the table's key hashes.  A claimed slot never
-//     changes, so a non-EMPTY mirror entry is final: a row probes the
-//     mirror first, goes to device memory (__ldcg) only on a mirror
-//     EMPTY and to atomicCAS only on a device EMPTY, and copies what it
-//     learns into the mirror.  A hot group costs a shared-memory load.
+//   * a mirror of the table's key hashes.  A claimed slot never changes,
+//     so a non-EMPTY mirror entry is final: a row probes the mirror
+//     first, goes to device memory (__ldcg) only on a mirror EMPTY and to
+//     atomicCAS only on a device EMPTY, and copies what it learns into
+//     the mirror.  A hot group costs a shared-memory load.
 //   * the integer rows the kernel folds (ScanPlan.n_fold: a count equal
 //     to __seen is copied by the reduce) fold with shared-memory atomics
 //     (exact, order-free) and go to part_i once per CTA.
 //   * float rows: never unordered float atomics.  Each warp stages its
 //     rows per row position (warp_stage_float: a slot's lanes fold in
-//     lane order).  Where a table per warp fits (ScanPlan.warp_floats:
-//     small tables, such as span mode's), the warp applies its pairs to
-//     its own table, row positions in order, as on the device-memory
-//     path.  Otherwise, after a CTA barrier, the staged pairs apply to
-//     the CTA's one table in (warp, row position) order -- warp w
-//     applies the slots = w mod warps, with __syncwarp between positions
-//     -- and a second barrier frees the staging: the barriers cost H2
-//     more than per-warp device-memory tables do at the same occupancy.
-//     The tables go to part_f once per CTA.
-//   * CTA width: an on-chip hash table of 4096 slots leaves room for one
-//     CTA per SM; with 256 threads that CTA ran H1 3x slower than the
+//     lane order).  Where a table per warp fits (small tables), the warp
+//     applies its pairs to its own table, row positions in order, as on
+//     the device-memory path.  Otherwise, after a CTA barrier, the staged
+//     pairs apply to the CTA's one table in (warp, row position) order --
+//     warp w applies the slots = w mod warps, with __syncwarp between
+//     positions -- and a second barrier frees the staging: the barriers
+//     cost H2 more than per-warp device-memory tables do at the same
+//     occupancy.  The tables go to part_f once per CTA.
+//   * CTA width: an on-chip table of 4096 slots leaves room for one CTA
+//     per SM; with 256 threads that CTA ran H1 3x slower than the
 //     device-memory path at two CTAs per SM.  A hash plan therefore takes
 //     the widest CTA (up to 512 threads) whose table still fits, and the
 //     claiming rows re-evaluate their keys instead of every row stashing
 //     them in shared memory.
 // - On the device-memory path (tables too large for shared memory):
-//   integer rows fold into acc_i with global atomics, each
-//   row its own once the table holds SPREAD_GROUPS groups, else one per
-//   warp and slot (warp_fold); each warp owns a float table in part_f.
-// - The reduce (scan_grouped_reduce) folds each slot's partials in
-//   REDUCE_LANES interleaved sequences, then a pairwise tree over them
-//   (exec/kernels/grouped.py reduce_partials): a fixed order, so two
-//   launches on the same inputs give bit-identical floats.
+//   integer rows fold into acc_i with global atomics, each row its own
+//   once the table holds SPREAD_GROUPS groups, else one per warp and slot
+//   (warp_fold); each warp owns a float table in part_f.
+// - The reduce (scan_grouped_reduce, scan_common.cuh grouped_reduce)
+//   folds each slot's partials in REDUCE_LANES interleaved sequences, then
+//   a pairwise tree over them (exec/kernels/grouped.py reduce_partials): a
+//   fixed order, so two launches on the same inputs give bit-identical
+//   floats.
 // - STAGES = 2 (scan_kernel_dma = "double", kernel #2): a CTA copies the
 //   per-row arrays of its next tile -- the next pass of this work item, or
 //   the first of its next non-empty item -- into a two-stage ring in
@@ -73,18 +70,15 @@
 //   (the on-chip fit counts the ring either way), so they agree bit for
 //   bit.
 //
-// Bound: like scan_direct, the encoded bytes of the scanned columns once
-// plus the table once, over the device memory rate (3.35 TB/s on an H100
-// SXM).  What bounds it in practice is the interpreter's instruction count
-// per row, as in scan_direct, plus the folds; a compiled expression path
-// is left for later work.
+// Bound: the encoded bytes of the scanned columns once plus the table
+// once, over the device memory rate (3.35 TB/s on an H100 SXM).  What
+// bounds it in practice is the interpreter's instruction count per row
+// plus the probe rounds and folds; generating its code per chain, as the
+// direct and span kernels are (codegen.py), is left for later work.
 #include "scan_common.cuh"
 
-enum { MODE_SPAN = 0, MODE_HASH = 1 };
 #define PROBE_ROUNDS 16
 #define EMPTY_SLOT 0xffffffffffffffffULL
-// the reduce: 32 slots x REDUCE_LANES partial sequences per block
-#define REDUCE_LANES 8
 // device-memory path: groups a hash table must hold before its integer
 // rows fold with one atomic each
 #define SPREAD_GROUPS 128
@@ -116,21 +110,6 @@ __device__ __forceinline__ void int_fold(bool spread, unsigned take,
   }
 }
 
-// On chip: an int64 add into shared memory as two native 32-bit atomics
-// (a 64-bit shared-memory add is a compare-and-swap loop): the low words
-// add, the add that wraps them carries one into the high word with its
-// own high half.  The sum is exact modulo 2^64, like the int64 add.
-__device__ __forceinline__ void shared_add64(i64* p, i64 v) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  const unsigned lo = (unsigned)(u64)v;
-  unsigned old;
-  asm volatile("atom.shared.add.u32 %0, [%1], %2;"
-               : "=r"(old) : "r"(a), "r"(lo) : "memory");
-  const unsigned hi = (unsigned)((u64)v >> 32) + (old + lo < old ? 1u : 0u);
-  if (hi) asm volatile("red.shared.add.u32 [%0], %1;"
-                       :: "r"(a + 4), "r"(hi) : "memory");
-}
-
 // Integer rows into the CTA's table dst[code] in shared memory (on chip),
 // one add (or 64-bit min / max) per row.
 __device__ __forceinline__ void shared_fold(unsigned take,
@@ -151,45 +130,6 @@ __device__ __forceinline__ void shared_fold(unsigned take,
     else if (op == R_MAX) atomicMax(p, v);
     else shared_add64(p, v);
   }
-}
-
-// A warp's float rows, staged per row position: for each r, the lanes
-// holding rows of one slot fold them in lane order (a __match_any_sync
-// group; a lane alone keeps its own value) and the group's lowest lane
-// leaves (slot, value) in sc[r * 32 + lane], sv[r * 32 + lane]; every
-// other entry gets slot -1.  Within one r the staged slots are distinct.
-// The order depends only on which rows each lane holds, so it is the
-// same on every launch.
-__device__ __forceinline__ void warp_stage_float(unsigned take,
-                                                const i64 (&code)[RPT],
-                                                const Tile& t, int op,
-                                                bool in_float, i64* sc,
-                                                double* sv) {
-  const int lane = threadIdx.x & 31;
-  const double ident = op == R_MIN ? as_f(0x7ff0000000000000LL)
-                       : op == R_MAX ? as_f((i64)0xfff0000000000000ULL)
-                       : 0.0;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const bool mine = (take >> r) & 1u;
-    const i64 xb = result(t, r);
-    const double x = !mine ? ident : in_float ? as_f(xb) : (double)xb;
-    const unsigned peers = __match_any_sync(FULL_MASK, mine ? code[r] : -1);
-    // lanes whose slot other lanes share fold the group in lane order
-    const unsigned shared = __ballot_sync(FULL_MASK,
-                                          mine && (peers & (peers - 1)));
-    double sum = (shared >> lane) & 1u ? ident : x;
-    for (unsigned m = shared; m; m &= m - 1) {
-      const int k = __ffs(m) - 1;
-      const double y = __shfl_sync(FULL_MASK, x, k);
-      if ((shared >> lane) & 1u && (peers >> k) & 1u)
-        sum = fcombine(sum, y, op);
-    }
-    const bool leader = mine && __ffs(peers) - 1 == lane;
-    sc[r * 32 + lane] = leader ? code[r] : -1;
-    sv[r * 32 + lane] = sum;
-  }
-  __syncwarp();
 }
 
 // Hash the live rows' key values and place each row: its slot goes to
@@ -287,28 +227,11 @@ __device__ __forceinline__ int n_fold_rows(const i64* src, int n_i) {
   return n;
 }
 
-// Fold float rows staged by every warp (wsc / wsv: per warp RPT x 32
-// (slot, value) pairs, distinct slots within one warp and row position)
-// into the CTA's table `dst`, in (warp, row position) order.  Warp w
-// applies the slots = w mod warps; __syncwarp orders its positions.  The
-// caller's __syncthreads precede and follow it.
-__device__ __forceinline__ void apply_staged(const i64* sc, const double* sv,
-                                             int n_warps, int op,
-                                             double* dst) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = 0; k < n_warps * RPT; ++k) {
-    const i64 c = sc[k * 32 + lane];
-    if (c >= 0 && (int)c % n_warps == warp)
-      dst[c] = fcombine(dst[c], sv[k * 32 + lane], op);
-    __syncwarp();
-  }
-}
-
 // ONCHIP: the tables live in shared memory.  Every instance fits 512
 // threads of an SM at 128 registers each: two CTAs of 256 threads, or one
-// wider CTA, which a hash plan takes when its on-chip table leaves room
-// for one CTA per SM (ScanPlan.threads).
-template <int MODE, int STAGES, bool ONCHIP, bool EXT>
+// wider CTA, which a plan takes when its on-chip table leaves room for
+// one CTA per SM (ScanPlan.threads).
+template <int STAGES, bool ONCHIP, bool EXT>
 __global__ void __launch_bounds__(512, 1)
 scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
                     const i64* __restrict__ grid, int n_grid, i64 br,
@@ -338,7 +261,7 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
   const i64* specs = plan + plan[H_OFF_SPECS];
   const i64* rows = plan + plan[H_OFF_ROWS];   // (init bits, op) per row
   const i64* src = plan + plan[H_OFF_SRC];     // row a row is copied from
-  const bool onchip = ONCHIP, mirrored = ONCHIP && MODE == MODE_HASH;
+  const bool onchip = ONCHIP, mirrored = ONCHIP;
 
   i64* sm_cnt = params + n_params;                   // 1 + n_steps
   i64* cnt = sm_cnt + 1 + n_steps;                   // (1 + n_steps) x T
@@ -482,28 +405,16 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
       i64 code[RPT];
 #pragma unroll
       for (int r = 0; r < RPT; ++r) code[r] = 0;
-      // device memory: one atomic per row in span mode; the hash path
-      // spreads by its group count
-      bool spread = MODE == MODE_SPAN;
+      // device memory: warp_fold's rounds until the table holds
+      // SPREAD_GROUPS groups, then one atomic per row
+      bool spread = false;
       if (any) {
-        if (MODE == MODE_SPAN) {
-          for (int k = 0; k < n_keys; ++k) {
-            eval_prog<STAGES, EXT>(t, keys[2 * k], live);
-#pragma unroll
-            for (int r = 0; r < RPT; ++r)
-              code[r] += result(t, r) * keys[2 * k + 1];
-          }
-#pragma unroll
-          for (int r = 0; r < RPT; ++r)
-            if (code[r] < 0 || code[r] >= G) live &= ~(1u << r);
-        } else {
-          live = probe_rows<STAGES, EXT>(t, keys, n_keys, live, code, G, salt,
-                                    keyhash, keyvals, keynull, meta,
-                                    mirrored ? mirror : nullptr);
-          if (!ONCHIP)
-            spread = __shfl_sync(FULL_MASK, __ldcg(meta + 1), 0) >=
-                     SPREAD_GROUPS;
-        }
+        live = probe_rows<STAGES, EXT>(t, keys, n_keys, live, code, G, salt,
+                                       keyhash, keyvals, keynull, meta,
+                                       mirrored ? mirror : nullptr);
+        if (!ONCHIP)
+          spread = __shfl_sync(FULL_MASK, __ldcg(meta + 1), 0) >=
+                   SPREAD_GROUPS;
         fold(spread, live, code, true, R_ADD, false, 0);
       }
       for (int s = 0; s < n_specs; ++s) {
@@ -580,69 +491,17 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
   }
 }
 
-// Final accumulators.  Block (blockIdx.x, blockIdx.y): 32 slots of
-// accumulator row blockIdx.y (the n_i integer rows, then the n_f float
-// rows); thread (x, y) folds the slot's partials b = y, y + REDUCE_LANES,
-// ... in order from the row op's identity, the REDUCE_LANES sequences
-// combine as a pairwise tree, and the row's initial value comes first
-// (exec/kernels/grouped.py reduce_partials).  An integer row's partials
-// are part_i's (on chip: one per CTA, at the row's fold position), or
-// none: its atomic sums are in acc_i already.  A row standing for __seen
-// folds (or copies) __seen's.
+// Final accumulators: grouped_reduce (scan_common.cuh) over the plan's
+// rows.
 __global__ void scan_grouped_reduce(const i64* __restrict__ plan, i64 G,
                                     int n_iparts, int n_fparts,
                                     const i64* __restrict__ part_i,
                                     i64* __restrict__ acc_i,
                                     const double* __restrict__ part_f,
                                     double* __restrict__ acc_f) {
-  __shared__ i64 red[REDUCE_LANES][32];
-  const int n_i = (int)plan[H_N_I], n_f = (int)plan[H_N_F];
-  const i64* rows = plan + plan[H_OFF_ROWS];
-  const i64* src = plan + plan[H_OFF_SRC];
-  const int row = blockIdx.y, x = threadIdx.x, y = threadIdx.y;
-  const i64 g = (i64)blockIdx.x * 32 + x;
-  const bool in = g < G;
-  if (row < n_i) {
-    const int sr = (int)src[row];
-    if (part_i == nullptr) {                 // block-uniform
-      if (y == 0 && in && sr != row) acc_i[row * G + g] = acc_i[sr * G + g];
-      return;
-    }
-    int q = 0;                               // sr's fold position
-    for (int r = 0; r < sr; ++r) q += src[r] == r;
-    const int n_fold = n_fold_rows(src, n_i);
-    const int op = (int)rows[2 * sr + 1];
-    i64 acc = op == R_MIN ? I64_MAX : op == R_MAX ? I64_MIN : 0;
-    if (in)
-      for (int b = y; b < n_iparts; b += REDUCE_LANES)
-        acc = icombine(acc, part_i[((size_t)b * n_fold + q) * G + g], op);
-    red[y][x] = acc;
-    for (int w = 1; w < REDUCE_LANES; w <<= 1) {
-      __syncthreads();
-      if ((y & (2 * w - 1)) == 0)
-        red[y][x] = icombine(red[y][x], red[y + w][x], op);
-    }
-    if (y == 0 && in) acc_i[row * G + g] = icombine(rows[2 * sr], red[0][x], op);
-    return;
-  }
-  const int fr = row - n_i;
-  if (fr >= n_f) return;
-  const int op = (int)rows[2 * (n_i + fr) + 1];
-  double acc = op == R_MIN ? as_f(0x7ff0000000000000LL)
-               : op == R_MAX ? as_f((i64)0xfff0000000000000ULL) : 0.0;
-  if (in)
-    for (int b = y; b < n_fparts; b += REDUCE_LANES)
-      acc = fcombine(acc, part_f[((size_t)b * n_f + fr) * G + g], op);
-  double* fred = (double*)&red[0][0];
-  fred[y * 32 + x] = acc;
-  for (int w = 1; w < REDUCE_LANES; w <<= 1) {
-    __syncthreads();
-    if ((y & (2 * w - 1)) == 0)
-      fred[y * 32 + x] = fcombine(fred[y * 32 + x], fred[(y + w) * 32 + x],
-                                  op);
-  }
-  if (y == 0 && in)
-    acc_f[fr * G + g] = fcombine(as_f(rows[2 * (n_i + fr)]), fred[x], op);
+  grouped_reduce(plan + plan[H_OFF_ROWS], plan + plan[H_OFF_SRC],
+                 (int)plan[H_N_I], (int)plan[H_N_F], G, n_iparts, n_fparts,
+                 part_i, acc_i, part_f, acc_f);
 }
 
 typedef void (*grouped_kernel_t)(const i64*, int, const i64*, int, i64, i64,
@@ -650,16 +509,16 @@ typedef void (*grouped_kernel_t)(const i64*, int, const i64*, int, i64, i64,
                                  double*, u64*, u64*, i64*, int8_t*, int*,
                                  u64, int, int);
 
-template <int MODE, bool EXT>
+template <bool EXT>
 static grouped_kernel_t pick(int stages, int onchip) {
   if (onchip)
-    return stages == 2 ? scan_grouped_kernel<MODE, 2, true, EXT>
-                       : scan_grouped_kernel<MODE, 1, true, EXT>;
-  return stages == 2 ? scan_grouped_kernel<MODE, 2, false, EXT>
-                     : scan_grouped_kernel<MODE, 1, false, EXT>;
+    return stages == 2 ? scan_grouped_kernel<2, true, EXT>
+                       : scan_grouped_kernel<1, true, EXT>;
+  return stages == 2 ? scan_grouped_kernel<2, false, EXT>
+                     : scan_grouped_kernel<1, false, EXT>;
 }
 
-// Launch the scan kernel in `mode` over n_ctas persistent CTAs, then the
+// Launch the hash scan kernel over n_ctas persistent CTAs, then the
 // reduce, on `stream`; returns cudaGetLastError().  onchip: the CTAs keep
 // their tables in shared memory and write them to part_i (n_ctas x
 // n_fold x G); otherwise part_i is null.  part_f holds n_ctas x f_tables
@@ -669,7 +528,7 @@ static grouped_kernel_t pick(int stages, int onchip) {
 // stage_tab); smem_bytes includes the ring and the on-chip tables; ext
 // picks the instance for the opcodes beyond the Q1 / Q6 set.
 extern "C" int scan_grouped_launch(
-    int mode, const void* plan, int n_plan, const void* grid, int n_grid,
+    const void* plan, int n_plan, const void* grid, int n_grid,
     long long br, long long rows_per_cta, int n_sub, const void* params,
     int n_params, long long G, int n_i, int n_f, int onchip, int f_tables,
     void* part_i,
@@ -679,10 +538,7 @@ extern "C" int scan_grouped_launch(
     int smem_bytes, int ext, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const grouped_kernel_t kernel =
-      mode == MODE_HASH ? (ext ? pick<MODE_HASH, true>(stages, onchip)
-                               : pick<MODE_HASH, false>(stages, onchip))
-                        : (ext ? pick<MODE_SPAN, true>(stages, onchip)
-                               : pick<MODE_SPAN, false>(stages, onchip));
+      ext ? pick<true>(stages, onchip) : pick<false>(stages, onchip);
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -8,15 +8,16 @@ of two slot-addressing modes, chosen as the reference chooses them:
          fits KERNEL_SPAN_MAX_GROUPS: the combined stride code IS the
          slot.  The state is agg_span_init's (= agg_direct_init's), and
          finalize rebuilds the key values from the slot index.
-         Kernel: csrc/scan_grouped.cu, mode span (wrapper scan_span,
-         plain version scan_span_plain: agg_span_update).
+         Kernel: generated per chain shape like the direct kernel
+         (codegen.py generate_span, NVRTC; wrapper scan_span, plain
+         version scan_span_plain: agg_span_update).
   hash   everything else (open integer / decimal domains, mixed keys):
          an open-addressing table of 64-bit key hashes in device memory,
          claimed with atomicCAS and probed linearly for PROBE_ROUNDS
          slots.  A row still unplaced sets the collision flag; the host
          then doubles the table and relaunches with a new salt, up to
-         KERNEL_HASH_MAX_SLOTS.  Kernel: csrc/scan_grouped.cu, mode hash
-         (wrapper scan_hash, plain version scan_hash_plain: agg_update).
+         KERNEL_HASH_MAX_SLOTS.  Kernel: csrc/scan_grouped.cu (wrapper
+         scan_hash, plain version scan_hash_plain: agg_update).
          The kernel's slot layout differs from agg_update's; the groups,
          keyed by their key values, are the same.
 
@@ -27,42 +28,37 @@ A chain's fanout-1 join and semi-join probe steps run inside both modes'
 launches (kernel #5, join.py), as in the direct kernel, and so does the
 stage ring of dma="double" (kernel #2, scan_kernel.py stage_layout): a
 persistent CTA copies its next tile's per-row arrays, across work items,
-while the current tile computes.
+while the current tile computes.  Where a launch keeps its tables (on
+chip in each CTA's shared memory, or device memory) is one decision,
+ScanPlan.layout, which the wrappers, the span kernel's source,
+partial_bytes and the reservations all read.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import operators as ops
 from ..batch import Column
 from . import scan_kernel as sk
 from .scan_kernel import (GROUPED_SUBTILE_ROWS, KERNEL_HASH_MAX_SLOTS,
-                          MAX_PARAMS, ScanPlan, aligned_grid, block_rows_for,
+                          ScanPlan, aligned_grid, block_rows_for,
                           cached_plan, check_launch_inputs, count_launch,
                           gather_encoded_arrays, init_outputs, join_kwargs,
                           check_dma, launch_tensors, meter_kernel_run,
                           plan_joins, plain_row_groups, stacked_state,
-                          stage_ring_counts, state_of)
-
-# threads of the persistent grouped grid per SM (the kernel's launch
-# bounds: 128 registers each): two CTAs of 256 threads, one wider CTA, or
-# fewer where the on-chip tables leave room for fewer
-RESIDENT_THREADS = 512
-# shared memory of one SM (H100: 228 KB, of which each resident CTA's
-# share carries 1 KB the runtime reserves)
-SMEM_PER_SM = 228 * 1024
-SMEM_RESERVED_PER_CTA = 1024
+                          stage_layout, stage_ring_counts, state_of,
+                          to_device, word_values)
 # device memory the device-memory path's per-warp float partials may take;
 # past it the grid has fewer CTAs
 FLOAT_PARTIAL_BYTES = 1 << 29
 # the reduce folds each slot's partials in REDUCE_LANES interleaved
-# sequences, then a pairwise tree over them (csrc/scan_grouped.cu
-# scan_grouped_reduce; reduce_partials)
+# sequences, then a pairwise tree over them (csrc/scan_common.cuh
+# grouped_reduce; reduce_partials)
 REDUCE_LANES = 8
-_MODE_IDS = {"span": 0, "hash": 1}
 # grouped launches per wrapper whose tables stayed in shared memory
 ONCHIP_LAUNCHES = {"scan_span": 0, "scan_hash": 0}
 
@@ -84,50 +80,31 @@ class HashTable(NamedTuple):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def ctas_per_sm(plan: ScanPlan, G: int) -> int:
-    """Resident CTAs per SM of a launch into G slots: as many as the
-    kernel's registers hold (RESIDENT_THREADS) and, on chip, as many as
-    the tables leave room for, counted with the double mode's ring and the
-    most parameters, so that a single and a double launch run the same
-    grid and fold in the same order."""
-    per_sm = max(1, RESIDENT_THREADS // plan.threads)
-    if not plan.on_chip(G):
-        return per_sm
-    need = plan.smem_bytes + plan.table_bytes(G) + plan.ring_reserve \
-        + 8 * MAX_PARAMS + SMEM_RESERVED_PER_CTA
-    return max(1, min(per_sm, SMEM_PER_SM // need))
-
-
 def _grid_shape(plan: ScanPlan, n_grid: int, br: int, G: int, device):
     """(rows per CTA slice, slices per grid entry, CTAs) of a launch."""
     rows_per_cta = min(int(br), GROUPED_SUBTILE_ROWS)
     n_sub = -(-int(br) // rows_per_cta)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_ctas = min(n_grid * n_sub, ctas_per_sm(plan, G) * sms)
-    if plan.n_f and not plan.on_chip(G):
+    lay = plan.layout(G)
+    n_ctas = min(n_grid * n_sub, lay.ctas_per_sm * sms)
+    if plan.n_f and not lay.on_chip:
         n_ctas = min(n_ctas, FLOAT_PARTIAL_BYTES
-                     // (8 * (plan.threads // 32) * plan.n_f * G))
+                     // (8 * lay.f_tables * plan.n_f * G))
     return rows_per_cta, n_sub, max(1, n_ctas)
 
 
 def partial_bytes(plan: ScanPlan, n_grid: int, br: int, G: int,
                   device) -> int:
     """Device bytes of a launch's partials: on chip, each CTA's integer
-    tables; each warp's float tables, or on chip without room for them,
-    each CTA's (none for the plain versions on the CPU)."""
+    tables; the float tables of each warp or, on chip where the layout
+    keeps one per CTA, of each CTA (none for the plain versions on the
+    CPU)."""
     if device.type != "cuda" or not n_grid:
         return 0
     _rows, _sub, n_ctas = _grid_shape(plan, n_grid, br, G, device)
-    return 8 * n_ctas * G * (plan.n_fold * plan.on_chip(G)
-                             + plan.n_f * _float_tables(plan, G))
-
-
-def _float_tables(plan: ScanPlan, G: int) -> int:
-    """Float partial tables per CTA: one per warp, unless on chip with one
-    per CTA."""
-    if plan.on_chip(G) and not plan.warp_floats(G):
-        return 1
-    return plan.threads // 32
+    lay = plan.layout(G)
+    return 8 * n_ctas * G * (plan.n_fold * lay.on_chip
+                             + plan.n_f * lay.f_tables)
 
 
 def stage_counts(plan: ScanPlan, columns, grid, br: int, G: int,
@@ -141,19 +118,48 @@ def stage_counts(plan: ScanPlan, columns, grid, br: int, G: int,
                              *_grid_shape(plan, len(grid), br, G, device))
 
 
+def span_kernel(plan: ScanPlan, columns, joins=None, dma: str = "single"):
+    """The generated span kernel (codegen.SpanKernel) of the plan over
+    these columns' encodings, built once per plan, shape and stage count
+    for the plan's layout."""
+    from . import codegen
+    stages = check_dma(dma)
+    shape = codegen.column_shape(plan, columns, joins)
+    key = ("span", shape, stages)
+    kern = plan.dev.get(key)
+    if kern is None:
+        offsets, stage_bytes = stage_layout(columns, plan.threads)
+        kern = plan.dev[key] = codegen.generate_span(
+            plan, shape, stages, offsets, stages * stage_bytes * (stages > 1),
+            plan.layout(plan.G))
+    return kern
+
+
 def _launch(plan: ScanPlan, columns, grid, br: int, params, *, G: int,
             acc_i, acc_f, counts, salt: int = 0, table=None,
             joins=None, dma: str = "single"):
-    """One launch of scan_grouped_kernel in the plan's mode (plus its
-    reduce) over a persistent grid of CTAs that stride over the grid
-    entries' GROUPED_SUBTILE_ROWS-row slices.  Returns the partials the
-    reduce folded, (part_i or None, part_f or None): on chip, the
-    integer rows per CTA; the float rows per warp (warp_floats, and on
-    the device-memory path) or per CTA."""
+    """One launch of the plan's grouped kernel (plus its reduce) over a
+    persistent grid of CTAs that stride over the grid entries'
+    GROUPED_SUBTILE_ROWS-row slices: the generated span kernel, or the
+    hash kernel of csrc/scan_grouped.cu.  Returns the partials the reduce
+    folded, (part_i or None, part_f or None): on chip, the integer rows
+    per CTA; the float rows per warp or per CTA (ScanPlan.layout)."""
     device = acc_i.device
+    lay = plan.layout(G)
+    rows_per_cta, n_sub, n_ctas = _grid_shape(plan, len(grid), br, G, device)
+    n_fparts = n_ctas * lay.f_tables
+    part_i = (torch.empty((n_ctas, plan.n_fold, G), dtype=torch.int64,
+                          device=device) if lay.on_chip else None)
+    part_f = (torch.empty((n_fparts, plan.n_f, G), dtype=torch.float64,
+                          device=device) if plan.n_f else None)
+    if plan.mode == "span":
+        _launch_span(plan, columns, grid, br, params, acc_i, acc_f, counts,
+                     joins, dma, (rows_per_cta, n_sub, n_ctas), part_i,
+                     part_f, n_fparts)
+        return part_i, part_f
     from .build import load
     fn = load("scan_grouped").scan_grouped_launch
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -163,24 +169,17 @@ def _launch(plan: ScanPlan, columns, grid, br: int, params, *, G: int,
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     n_params = 0 if params is None else int(params.numel())
-    on_chip = plan.on_chip(G)
     ln = launch_tensors(plan, columns, grid, device, joins, dma, n_params,
-                        plan.table_bytes(G))
-    rows_per_cta, n_sub, n_ctas = _grid_shape(plan, len(grid), br, G, device)
-    n_fparts = n_ctas * _float_tables(plan, G)
-    part_i = (torch.empty((n_ctas, plan.n_fold, G), dtype=torch.int64,
-                          device=device) if on_chip else None)
-    part_f = (torch.empty((n_fparts, plan.n_f, G), dtype=torch.float64,
-                          device=device) if plan.n_f else None)
+                        lay.table_bytes)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
     keyhash, keys, keynull, meta = table or (None,) * 4
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(_MODE_IDS[plan.mode], ln.plan.data_ptr(), int(ln.plan.numel()),
+    rc = fn(ln.plan.data_ptr(), int(ln.plan.numel()),
             ln.grid.data_ptr(), len(grid), int(br), rows_per_cta, n_sub,
             ptr(params) if n_params else None, n_params, int(G), plan.n_i,
-            plan.n_f, int(on_chip), n_fparts // n_ctas, ptr(part_i),
+            plan.n_f, int(lay.on_chip), lay.f_tables, ptr(part_i),
             acc_i.data_ptr(),
             ptr(part_f), acc_f.data_ptr(), counts.data_ptr(), ptr(keyhash),
             ptr(keys), ptr(keynull), ptr(meta), int(salt), n_ctas,
@@ -190,6 +189,37 @@ def _launch(plan: ScanPlan, columns, grid, br: int, params, *, G: int,
         raise RuntimeError(
             f"scan_grouped ({plan.mode}) launch failed: CUDA error {rc}")
     return part_i, part_f
+
+
+def _launch_span(plan: ScanPlan, columns, grid, br: int, params, acc_i,
+                 acc_f, counts, joins, dma: str, geometry, part_i, part_f,
+                 n_fparts: int) -> None:
+    """The generated span kernel and its reduce on the current stream:
+    integer rows into part_i per CTA (on chip) or into acc_i by atomics,
+    float rows into part_f; the reduce folds them into acc_i / acc_f."""
+    from .build import load_generated
+    device = acc_i.device
+    kern = span_kernel(plan, columns, joins, dma)
+    mod = load_generated(kern.source, device.index or 0)
+    rows_per_cta, n_sub, n_ctas = geometry
+    grid_dev = to_device(np.asarray(grid, dtype=np.int64).T, device)
+    n_params = 0 if params is None else int(params.numel())
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    words = word_values(kern, plan, columns, joins, {
+        "grid": grid_dev.data_ptr(), "n_grid": len(grid), "br": int(br),
+        "rows_per_cta": rows_per_cta, "n_sub": n_sub,
+        "params": params.data_ptr() if n_params else 0,
+        "part_i": ptr(part_i), "part_f": ptr(part_f),
+        "counts": counts.data_ptr(), "acc_i": acc_i.data_ptr(),
+        "acc_f": acc_f.data_ptr(), "n_parts": n_ctas,
+        "n_fparts": n_fparts})
+    stream = torch.cuda.current_stream(device).cuda_stream
+    mod.launch("scan_span_gen", n_ctas, kern.threads, kern.smem_bytes,
+               stream, words)
+    mod.launch("scan_span_reduce", (-(-plan.G // 32), plan.n_i + plan.n_f),
+               (32, REDUCE_LANES), 0, stream, words)
 
 
 def reduce_partials(parts, op: int, init):
@@ -244,7 +274,7 @@ def scan_span(plan: ScanPlan, columns, grid, br: int, params, joins=None,
         _launch(plan, columns, grid, br, params, G=plan.G, acc_i=acc_i,
                 acc_f=acc_f, counts=counts, joins=joins, dma=dma)
         count_launch("scan_span", plan, dma)
-        ONCHIP_LAUNCHES["scan_span"] += plan.on_chip(plan.G)
+        ONCHIP_LAUNCHES["scan_span"] += plan.layout(plan.G).on_chip
     return acc_i, acc_f, counts
 
 
@@ -275,7 +305,7 @@ def scan_hash(plan: ScanPlan, columns, grid, br: int, params,
                 acc_f=acc_f, counts=counts, salt=salt,
                 table=(keyhash, keys, keynull, meta), joins=joins, dma=dma)
         count_launch("scan_hash", plan, dma)
-        ONCHIP_LAUNCHES["scan_hash"] += plan.on_chip(num_slots)
+        ONCHIP_LAUNCHES["scan_hash"] += plan.layout(num_slots).on_chip
     return HashTable(keyhash, keys, keynull, acc_i, acc_f, counts,
                      meta[0] != 0)
 
@@ -392,15 +422,16 @@ def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
             declined("AggGroupCardinality")
             return None
         try:
-            if grid and not reserve_build_operands(pool, jplan.nbytes):
+            if grid and not reserve_build_operands(pool,
+                                                   jplan.reserve_bytes):
                 declined("JoinBuildSize")
                 return None
             try:
                 acc_i, acc_f, counts = scan_span(plan, columns, grid, br,
                                                  params, **jkw)
             finally:
-                if grid and jplan.nbytes:
-                    pool.free(jplan.nbytes)
+                if grid and jplan.reserve_bytes:
+                    pool.free(jplan.reserve_bytes)
             slot = torch.arange(G, dtype=torch.int64, device=acc_i.device)
             key_arrays = {}
             stride = G
@@ -438,15 +469,16 @@ def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
             declined("AggGroupCardinality")
             return None
         try:
-            if grid and not reserve_build_operands(pool, jplan.nbytes):
+            if grid and not reserve_build_operands(pool,
+                                                   jplan.reserve_bytes):
                 declined("JoinBuildSize")
                 return None
             try:
                 table = scan_hash(plan, columns, grid, br, params, num_slots,
                                   salt, **jkw)
             finally:
-                if grid and jplan.nbytes:
-                    pool.free(jplan.nbytes)
+                if grid and jplan.reserve_bytes:
+                    pool.free(jplan.reserve_bytes)
             if not bool(table.collision):
                 out = ops.agg_finalize(
                     hash_state(plan, table, key_names, key_dtypes), specs,

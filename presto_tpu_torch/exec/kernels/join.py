@@ -10,16 +10,21 @@ probe forms, the same two the reference lowers:
     (key - base) bounds-checked.
   * the hash-sorted ops.BuildTable: multi-column or sparse keys; the
     probe hashes the keys with hash_columns, flips the sign bit
-    (ops._orderable_hash) and bisects keyhash_sorted.  A hit compares the
-    key HASHES only, as the reference does (parity needs the same hits).
+    (ops._orderable_hash) and finds its lower bound in keyhash_sorted.  A
+    hit compares the key HASHES only, as the reference does (parity needs
+    the same hits).  The kernels find the lower bound through the table's
+    bucket directory (bucket_directory: one load of the hash's bucket,
+    then a bisect inside it), which gives the reference's
+    searchsorted(side="left") index by construction.
 
 plan_join_layout inspects the chain's join/semi steps once per launch and
 flattens every build operand (slot / hash arrays, gathered build columns,
 the semi null-key flag) into one positional list; the kernels read them
 from device memory (at SF10 they are at most 4 MiB and stay in the
-H100's 50 MB L2).  The CUDA probe is csrc/scan_common.cuh probe_step;
-join_appliers below are its plain torch version, which the plain
-versions of all three scan kernels run.
+H100's 50 MB L2).  The CUDA probe is csrc/scan_common.cuh probe_direct /
+probe_unique (called by the generated direct and span kernels and by the
+hash kernel's probe_step); join_appliers below are its plain torch
+version, which the plain versions of all three scan kernels run.
 
 Gates (kernelDeclined reasons, scan_kernel.KERNEL_DECLINE_REASONS):
   JoinShape      fanout-k expansion joins (expands[ji] > 1), residual
@@ -60,7 +65,46 @@ class JoinPlan(NamedTuple):
     steps: Tuple[JoinStepPlan, ...]
     arrays: tuple                      # flat device operands, step order
     sig: tuple                         # hashable layout key (plan cache)
-    nbytes: int                        # flattened operand bytes
+    nbytes: int                        # flattened operand bytes (the gate)
+    # per step, a unique table's bucket directory (None for a
+    # DirectTable): read by the kernels, not by the plain version
+    dirs: tuple
+    dir_bytes: int
+
+    @property
+    def reserve_bytes(self) -> int:
+        """Bytes a launch charges its MemoryContext: the operands and the
+        directories the kernels read beside them."""
+        return self.nbytes + self.dir_bytes
+
+
+def bucket_directory(khs: torch.Tensor) -> torch.Tensor:
+    """A unique table's bucket directory over its keyhash_sorted `khs`
+    (n entries, order-preserving int64): for k = directory_bits(n), an
+    int32 array D of 2^k + 1 entries with D[b] = searchsorted(khs,
+    orderable(b << (64 - k)), side="left") for b < 2^k -- the lower bound
+    of the first hash whose unsigned top k bits are b -- and D[2^k] = n.
+    The lower bound of any hash in bucket b lies in [D[b], D[b + 1]]
+    (csrc/scan_common.cuh probe_unique).  Built on the table's device."""
+    n = int(khs.numel())
+    k = directory_bits(n)
+    half = 1 << (k - 1)
+    if k == 1:
+        starts = torch.tensor([ops.INT64_MIN, 0], dtype=torch.int64,
+                              device=khs.device)
+    else:
+        # orderable(b << (64 - k)) = (b - 2^(k-1)) * 2^(64-k), in range
+        starts = torch.arange(-half, half, dtype=torch.int64,
+                              device=khs.device) * (1 << (64 - k))
+    lower = torch.searchsorted(khs, starts, side="left").to(torch.int32)
+    end = torch.full((1,), n, dtype=torch.int32, device=khs.device)
+    return torch.cat([lower, end])
+
+
+def directory_bits(n: int) -> int:
+    """k of a directory over n entries: 2^k > 2n buckets (at least 1
+    bit)."""
+    return max(1, n.bit_length() + 1)
 
 
 def plan_join_layout(steps, aux, expands, declined, max_bytes=None):
@@ -73,7 +117,8 @@ def plan_join_layout(steps, aux, expands, declined, max_bytes=None):
     jsteps = []
     arrays = []
     sig = []
-    nbytes = 0
+    dirs = []
+    nbytes = dir_bytes = 0
     ji = 0
     for si, step in enumerate(steps):
         kind = step[0]
@@ -116,9 +161,12 @@ def plan_join_layout(steps, aux, expands, declined, max_bytes=None):
         if isinstance(tbl, DirectTable):
             table_kind = "direct"
             step_arrays = [tbl.slots, tbl.base]
+            dirs.append(None)
         elif isinstance(tbl, ops.BuildTable):
             table_kind = "unique"
             step_arrays = [tbl.keyhash_sorted, tbl.perm]
+            dirs.append(tbl.directory)
+            dir_bytes += 4 * int(tbl.directory.numel())
         else:
             declined("JoinShape")
             return None
@@ -140,11 +188,13 @@ def plan_join_layout(steps, aux, expands, declined, max_bytes=None):
     if jsteps and max_bytes is not None and nbytes > max_bytes:
         declined("JoinBuildSize")
         return None
-    return JoinPlan(tuple(jsteps), tuple(arrays), tuple(sig), nbytes)
+    return JoinPlan(tuple(jsteps), tuple(arrays), tuple(sig), nbytes,
+                    tuple(dirs), dir_bytes)
 
 
 def reserve_build_operands(pool, nbytes: int) -> bool:
-    """Charge the kernel's build operands to the owning operator's
+    """Charge the kernel's build operands (JoinPlan.reserve_bytes: with
+    the unique tables' directories) to the owning operator's
     MemoryContext for the launch: the launched kernel reads them, so they
     must stay resident until it ends.  The caller frees the same byte
     count after the launch."""

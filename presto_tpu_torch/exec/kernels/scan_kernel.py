@@ -20,9 +20,10 @@ live rows into the aggregation accumulators.
             kernel reads.  A probe step (kernel #5, join.py) adds the
             build columns it gathers, or its semi marker, as virtual
             columns past the scan's, which later programs read like any
-            other column.  The grouped kernels (grouped.py,
-            csrc/scan_grouped.cu) read the same plan; only its
-            shared-memory layout differs by mode.
+            other column.  The grouped kernels (grouped.py: the span
+            kernel generated per chain like this one, the hash kernel
+            csrc/scan_grouped.cu) read the same plan; where a grouped
+            launch keeps its tables is ScanPlan.layout's decision.
   wrapper   scan_direct: CUDA tensors launch the kernel (or raise); CPU
             tensors run scan_direct_plain, the same function in torch.
   uploads   a launch leaves the stream asynchronous: a plan's words and
@@ -88,6 +89,14 @@ THREADS = 256
 # the widest CTA of a hash plan whose table stays on chip (the grouped
 # kernel's launch bounds: 512 threads of 128 registers per SM)
 HASH_MAX_THREADS = 512
+# threads of a persistent grouped grid per SM (the kernels' launch bounds:
+# 128 registers each): two CTAs of 256 threads, one wider CTA, or fewer
+# where the on-chip tables leave room for fewer
+RESIDENT_THREADS = 512
+# shared memory of one SM (H100: 228 KB, of which each resident CTA's
+# share carries 1 KB the runtime reserves)
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED_PER_CTA = 1024
 # rows each kernel thread carries per pass (csrc/scan_common.cuh RPT)
 ROWS_PER_THREAD = 4
 # rows of a grid block one CTA takes (a 64K-row block is cut in 8)
@@ -388,8 +397,9 @@ _SPEC_WORDS = 7
 _K_GATHER, _K_SEMI = 3, 4
 # a probe step's record: table kind, form, key count, offset of its key
 # program list, then per launch: operand 0 (slots | keyhash_sorted),
-# operand 1 (base | perm), table size, semi null-key flag, bisect trips
-_JOIN_WORDS = 9
+# operand 1 (base | perm), table size, semi null-key flag, a unique
+# table's bucket directory and its shift, 64 - k (join.bucket_directory)
+_JOIN_WORDS = 10
 # header word holding the probe records' offset (scan_common.cuh
 # H_OFF_JOINS)
 _H_OFF_JOINS = 15
@@ -446,10 +456,10 @@ class ScanPlan:
     # per integer row, the row its final value is copied from: itself when
     # the kernel folds it, 0 (__seen) for a count that equals __seen
     src_rows: Tuple[int, ...] = ()
-    # grouped modes: the largest slot count whose per-CTA tables fit in
-    # shared memory (0: none) -- on_chip -- beside the double mode's ring
-    # and stage table (ring_reserve bytes); and the largest whose float
-    # rows fit once per warp (warp_floats)
+    # hash mode: the largest slot count whose per-CTA tables fit in
+    # shared memory (0: none) beside the double mode's ring and stage
+    # table (ring_reserve bytes: the span kernel's ring alone), and the
+    # largest whose float rows fit once per warp -- read by layout
     onchip_slots: int = 0
     ring_reserve: int = 0
     warp_float_slots: int = 0
@@ -459,8 +469,8 @@ class ScanPlan:
     joins: Tuple[JoinProgram, ...] = ()
     virtual: Tuple[VirtualColumn, ...] = ()
     # per device: the plan's words as launched and its initial rows, and
-    # the direct kernels generated for it (to_device, init_outputs,
-    # direct_kernel); a replaced plan starts empty
+    # the kernels generated for it (to_device, init_outputs,
+    # direct_kernel, grouped.span_kernel); a replaced plan starts empty
     dev: dict = dataclasses.field(default_factory=dict, init=False,
                                   repr=False, compare=False)
 
@@ -477,26 +487,68 @@ class ScanPlan:
         """Integer rows the kernel folds (the others copy __seen)."""
         return sum(1 for r, sr in enumerate(self.src_rows) if r == sr)
 
-    def on_chip(self, slots: int) -> bool:
-        """Whether a grouped launch into `slots` slots keeps its tables in
-        each CTA's shared memory (csrc/scan_grouped.cu)."""
-        return 0 < slots <= self.onchip_slots
+    def layout(self, slots: int) -> "GroupedLayout":
+        """Where a grouped launch into `slots` slots keeps its tables: the
+        one decision the wrappers, the kernels' sources, partial_bytes and
+        the reservations read.  It does not depend on the launch's stage
+        ring (the double mode's is counted either way), so a single and a
+        double launch take the same path over the same CTAs and fold in
+        the same order."""
+        warps = self.threads // 32
+        if self.mode == "span":
+            return _span_layout(self, slots, warps)
+        on = 0 < slots <= self.onchip_slots
+        wf = on and self.n_f > 0 and slots <= self.warp_float_slots
+        f_tables = 0 if not self.n_f else 1 if on and not wf else warps
+        tables = 8 * slots * (self.n_fold + 1 + f_tables * self.n_f) \
+            if on else 0
+        per_sm = max(1, RESIDENT_THREADS // self.threads)
+        if on:
+            need = self.smem_bytes + tables + self.ring_reserve \
+                + 8 * MAX_PARAMS + SMEM_RESERVED_PER_CTA
+            per_sm = max(1, min(per_sm, SMEM_PER_SM // need))
+        return GroupedLayout(on, wf, f_tables, tables,
+                             self.smem_bytes + tables, per_sm)
 
-    def warp_floats(self, slots: int) -> bool:
-        """Whether an on-chip launch into `slots` slots keeps a float table
-        per warp (no CTA barrier) rather than one per CTA."""
-        return self.n_f > 0 and 0 < slots <= self.warp_float_slots
 
-    def table_bytes(self, slots: int) -> int:
-        """Shared-memory bytes of a launch's on-chip tables: per slot the
-        folded integer rows, the hash mode's key-hash mirror and the float
-        rows, per warp where they fit (warp_floats), else per CTA; 0 on
-        the device-memory path."""
-        if not self.on_chip(slots):
-            return 0
-        f_tables = self.threads // 32 if self.warp_floats(slots) else 1
-        return 8 * slots * (self.n_fold + (self.mode == "hash")
-                            + f_tables * self.n_f)
+class GroupedLayout(NamedTuple):
+    """A grouped launch's tables (ScanPlan.layout)."""
+    on_chip: bool          # the tables in each CTA's shared memory
+    warp_floats: bool      # on chip, a float table per warp (else per CTA)
+    f_tables: int          # float partial tables per CTA (0: no float row)
+    table_bytes: int       # shared memory of the on-chip tables
+    # shared memory of a single launch (the hash kernel adds its
+    # parameters per launch, a double launch its stage ring)
+    smem_bytes: int
+    ctas_per_sm: int
+
+
+def _span_layout(plan: ScanPlan, slots: int, warps: int) -> GroupedLayout:
+    """The generated span kernel's layout (codegen.py): the integer rows
+    it folds in one table per CTA, the float rows in a table per warp
+    where they fit (each warp stages its rows per row position: 16 bytes a
+    row), else one table per CTA (every float row staged at once for one
+    pair of CTA barriers per pass), beside the double mode's ring; else
+    the device-memory path (integer rows by global atomics, a float table
+    per warp in the partials)."""
+    n_f = plan.n_f
+    ints = 8 * plan.n_fold * slots
+    stage = 16 * ROWS_PER_THREAD * plan.threads if n_f else 0
+    room = MAX_SMEM_BYTES - plan.ring_reserve
+    per_warp = ints + 8 * n_f * slots * warps
+    per_cta = ints + 8 * n_f * slots
+    if slots > 0 and n_f and per_warp + stage <= room:
+        on, wf, f_tables, tables, smem = (True, True, warps, per_warp,
+                                          per_warp + stage)
+    elif slots > 0 and per_cta + stage * n_f <= room:
+        on, wf, f_tables, tables, smem = (True, False, min(n_f, 1), per_cta,
+                                          per_cta + stage * n_f)
+    else:
+        on, wf, f_tables, tables, smem = (False, False, warps * (n_f > 0),
+                                          0, stage)
+    per_sm = max(1, min(RESIDENT_THREADS // plan.threads, SMEM_PER_SM // (
+        smem + plan.ring_reserve + SMEM_RESERVED_PER_CTA)))
+    return GroupedLayout(on, wf, f_tables, tables, smem, per_sm)
 
 
 def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
@@ -666,11 +718,13 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
         words += [rel(o) for o in offs]
     words += progs
 
-    # shared memory: the staged plan vector and parameters, the CTA's row
-    # counters, per-thread row counters, stack slots (values for
-    # ROWS_PER_THREAD rows, one null mask) and, by mode:
+    # shared memory of the interpreter's layout (the hash kernel; the
+    # direct kernel takes its CTA width from it): the staged plan vector
+    # and parameters, the CTA's row counters, per-thread row counters,
+    # stack slots (values for ROWS_PER_THREAD rows, one null mask) and, by
+    # mode:
     #   direct  CTA integer accumulators and per-thread float slots;
-    #   span, hash  with float rows, the warps' staged (slot, value) pairs;
+    #   hash    with float rows, the warps' staged (slot, value) pairs;
     #           the integer rows' fold positions (one int each);
     # and per probe step each row's build-row index, hit and null masks.
     # A wide layout shrinks the CTA rather than exceed the limit.
@@ -694,6 +748,17 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
         if not names or None in resident:
             return 0
         return ring_bytes(resident, threads, "double") + 8 * len(names)
+    if mode == "span":
+        # the generated span kernel: no interpreter layout; its tables
+        # beside the double mode's ring are ScanPlan.layout's
+        ring = (ring_bytes(resident, THREADS, "double")
+                if names and None not in resident else 0)
+        return ScanPlan(mode, names, n_steps, step_programs, key_programs,
+                        tuple(strides), G, tuple(specs), agg_programs,
+                        int_names, flt_names, init_i, init_f,
+                        np.asarray(words, dtype=np.int64), THREADS, 0,
+                        tuple(src_rows), 0, ring, 0, ext, tuple(joins),
+                        tuple(virtual))
     n_fold = sum(1 for r, sr in enumerate(src_rows) if r == sr)
     slot_bytes = 8 * (n_fold + len(flt_names) + (mode == "hash"))
     threads = THREADS
@@ -717,11 +782,11 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
             f"accumulator layout of {smem} bytes exceeds the kernel's "
             f"shared memory")
     onchip_slots = ring = warp_float_slots = 0
-    if mode != "direct":
-        # the largest table whose per-CTA accumulators (hash: with the
-        # key-hash mirror) fit beside this layout, the double mode's stage
-        # ring and its stage table, and the parameters -- so a single and
-        # a double launch take the same path and fold in the same order
+    if mode == "hash":
+        # the largest table whose per-CTA accumulators (with the key-hash
+        # mirror) fit beside this layout, the double mode's stage ring and
+        # its stage table, and the parameters -- so a single and a double
+        # launch take the same path and fold in the same order
         ring = ring_at(threads)
         room = max(0, MAX_SMEM_BYTES - smem - ring - 8 * MAX_PARAMS)
         onchip_slots = room // slot_bytes
@@ -821,6 +886,16 @@ def check_launch_inputs(columns, params, device, plan=None,
                                  "scan device")
 
 
+def directory_words(directory, size: int) -> Tuple[int, int]:
+    """A probe step's (directory pointer, shift) words: a unique table's
+    bucket directory (join.bucket_directory) and 64 - k; (0, 0) for a
+    DirectTable."""
+    if directory is None:
+        return 0, 0
+    from .join import directory_bits
+    return directory.data_ptr(), 64 - directory_bits(size)
+
+
 def _fill_join_words(plan: ScanPlan, words, joins) -> None:
     """This launch's operand pointers, table sizes and gathered columns'
     dtypes into the probe records and virtual column entries."""
@@ -829,11 +904,10 @@ def _fill_join_words(plan: ScanPlan, words, joins) -> None:
     for j, (jp, arrs) in enumerate(zip(plan.joins, per_step)):
         size = int(arrs[0].numel())
         bhn = arrs[2].data_ptr() if jp.step.kind == "semi" else 0
-        # the bisect's fixed trip count, ceil(log2(size + 1)) + 1
-        trips = max(1, size.bit_length() + 1)
         rec = off_joins + _JOIN_WORDS * j
         words[rec + 4:rec + _JOIN_WORDS] = [
-            arrs[0].data_ptr(), arrs[1].data_ptr(), size, bhn, trips]
+            arrs[0].data_ptr(), arrs[1].data_ptr(), size, bhn,
+            *directory_words(joins.dirs[j], size)]
     base = _HEADER + _COL_WORDS * len(plan.names)
     for k, v in enumerate(plan.virtual):
         if v.kind != "gather":
@@ -970,7 +1044,7 @@ def direct_stage_counts(plan: ScanPlan, columns, grid, br: int,
                              n_ctas)
 
 
-def _word_values(kern, plan: ScanPlan, columns, joins, fixed: dict):
+def word_values(kern, plan: ScanPlan, columns, joins, fixed: dict):
     """The launch's argument words, by the kernel's recipe."""
     per_step = step_operands(joins) if plan.joins else []
     out = []
@@ -993,8 +1067,10 @@ def _word_values(kern, plan: ScanPlan, columns, joins, fixed: dict):
             out.append({"op0": arrs[0].data_ptr, "op1": arrs[1].data_ptr,
                         "size": lambda: size,
                         "bhn": lambda: arrs[2].data_ptr(),
-                        # the bisect's fixed trip count, ceil(log2(n+1))+1
-                        "trips": lambda: max(1, size.bit_length() + 1)
+                        "dir": lambda: directory_words(joins.dirs[j],
+                                                       size)[0],
+                        "shift": lambda: directory_words(joins.dirs[j],
+                                                         size)[1],
                         }[field]())
         else:                                      # gval / gnull
             v = plan.virtual[rec[1]]
@@ -1037,7 +1113,7 @@ def scan_direct(plan: ScanPlan, columns, grid, br: int, params,
                          device=device)
     grid_dev = to_device(np.asarray(grid, dtype=np.int64).T, device)
     n_params = 0 if params is None else int(params.numel())
-    words = _word_values(kern, plan, columns, joins, {
+    words = word_values(kern, plan, columns, joins, {
         "grid": grid_dev.data_ptr(), "n_grid": len(grid), "br": int(br),
         "rows_per_cta": rows_per_cta, "n_sub": n_sub,
         "params": params.data_ptr() if n_params else 0,
@@ -1214,15 +1290,15 @@ def try_direct_scan_kernel(chain, params, *, specs, key_names, strides, G,
     columns = gather_encoded_arrays(cached, colmap, plan.names)
     # the reference's gate order: the operand reservation comes last, and
     # only for a launch
-    if grid and not reserve_build_operands(pool, jplan.nbytes):
+    if grid and not reserve_build_operands(pool, jplan.reserve_bytes):
         declined("JoinBuildSize")
         return None
     try:
         acc_i, acc_f, counts = scan_direct(plan, columns, grid, br, params,
                                            **join_kwargs(jplan, dma))
     finally:
-        if grid and pool is not None and jplan.nbytes:
-            pool.free(jplan.nbytes)
+        if grid and pool is not None and jplan.reserve_bytes:
+            pool.free(jplan.reserve_bytes)
     if grid:
         staged = (0, 0)
         if dma == "double" and columns[0].device.type == "cuda":

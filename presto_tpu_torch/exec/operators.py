@@ -474,6 +474,9 @@ class BuildTable:
     columns: Dict[str, Column]       # original (unsorted) build columns
     valid_count: torch.Tensor        # scalar int32
     run_len: torch.Tensor            # per-position equal-key run length
+    # the kernels' bucket directory over keyhash_sorted
+    # (kernels/join.py bucket_directory), set by the fused chain's prep
+    directory: Optional[torch.Tensor] = None
 
 
 def build_table(batch: Batch, key_names: List[str], salt: int = 0

@@ -245,7 +245,8 @@ def _layout_plan(mode, src_rows, n_f, smem_bytes, onchip_slots,
 
 def test_partial_bytes_follow_the_launch_grid(monkeypatch):
     """The bytes try_grouped_scan_kernel reserves for a launch's partials:
-    on chip, each CTA's folded integer rows and float rows, over as many
+    on chip, each CTA's folded integer rows and float rows (the generated
+    span kernel: a float table per warp where those fit), over as many
     CTAs per SM (at most RESIDENT_THREADS of threads) as the tables leave
     room for; on the device-memory path, per-warp float rows over
     RESIDENT_THREADS / threads CTAs per SM, fewer when they would pass
@@ -255,11 +256,13 @@ def test_partial_bytes_follow_the_launch_grid(monkeypatch):
     card = SimpleNamespace(type="cuda")
     # three integer rows, the third a count copied from __seen: two folded
     span = _layout_plan("span", (0, 1, 0), 2, 50000, 1000)
-    assert span.n_fold == 2 and span.on_chip(168)
-    assert tgk.ctas_per_sm(span, 168) == 2
-    # 10 entries of 65536 rows: 80 slices of 8192 rows, one CTA each
+    assert span.n_fold == 2 and span.layout(168).on_chip
+    assert span.layout(168).ctas_per_sm == 2
+    # 10 entries of 65536 rows: 80 slices of 8192 rows, one CTA each;
+    # 168 slots hold the two float rows once per warp (8 warps)
+    assert span.layout(168).warp_floats and span.layout(168).f_tables == 8
     assert tgk.partial_bytes(span, 10, 65536, 168, card) \
-        == 8 * 80 * (2 + 2) * 168
+        == 8 * 80 * (2 + 2 * 8) * 168
     hash_plan = _layout_plan("hash", (0, 1), 4, 50000, 0)
     # 2 * 132 CTAs would hold 264 * 8 * 4 * 65536 * 8 bytes: capped at 32
     assert tgk.partial_bytes(hash_plan, 1000, 65536, 65536, card) \
@@ -268,12 +271,12 @@ def test_partial_bytes_follow_the_launch_grid(monkeypatch):
     assert tgk.partial_bytes(ints_only, 1000, 65536, 4096, card) == 0
     # a table too large for two CTAs' shared memory: one CTA per SM
     big = _layout_plan("hash", (0, 1, 0, 0), 1, 100000, 4096, 10000)
-    assert big.table_bytes(4096) == 8 * 4096 * (2 + 1 + 1)
-    assert tgk.ctas_per_sm(big, 4096) == 1
+    assert big.layout(4096).table_bytes == 8 * 4096 * (2 + 1 + 1)
+    assert big.layout(4096).ctas_per_sm == 1
     assert tgk.partial_bytes(big, 1000, 65536, 4096, card) \
         == 8 * 132 * (2 + 1) * 4096
     # past onchip_slots the launch takes the device-memory path
-    assert not big.on_chip(8192) and big.table_bytes(8192) == 0
+    assert not big.layout(8192).on_chip and big.layout(8192).table_bytes == 0
     assert tgk.partial_bytes(big, 1000, 65536, 8192, card) \
         == 8 * 264 * 8 * 1 * 8192
     assert tgk.partial_bytes(span, 10, 65536, 168,

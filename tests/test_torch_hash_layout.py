@@ -1,7 +1,7 @@
 """The hash kernel's on-chip layout (csrc/scan_grouped.cu), on the CPU.
 
 - build_scan_plan's grouped layout: which slot counts keep their tables in
-  shared memory (ScanPlan.on_chip), the bytes of those tables and of the
+  shared memory (ScanPlan.layout), the bytes of those tables and of the
   rest of the layout against a hand count, and the device-memory path
   past the fit -- on the plans of H1, H2, J1, HASH_F and COLLIDE.
 - The reduce's fixed order (grouped.reduce_partials) against a
@@ -102,11 +102,12 @@ def test_hash_layout_against_a_hand_count(name, monkeypatch):
     assert plan.threads == max(fits, default=sk.THREADS)
     # the largest table that fits is on chip, one slot more is not
     s = plan.onchip_slots
-    assert plan.on_chip(s) and not plan.on_chip(s + 1)
-    assert plan.table_bytes(s) == s * slot_bytes
-    assert plan.table_bytes(s + 1) == 0
+    assert plan.layout(s).on_chip and not plan.layout(s + 1).on_chip
+    assert plan.layout(s).table_bytes == s * slot_bytes
+    assert plan.layout(s + 1).table_bytes == 0
     # and the double mode's ring still fits beside the largest table
-    assert (plan.smem_bytes + plan.table_bytes(s) + plan.ring_reserve
+    assert (plan.smem_bytes + plan.layout(s).table_bytes
+            + plan.ring_reserve
             + 8 * sk.MAX_PARAMS) <= sk.MAX_SMEM_BYTES
 
 
@@ -119,14 +120,15 @@ def test_which_tables_stay_on_chip(monkeypatch):
     for name in ("h1", "h2", "j1", "hash_f"):
         _res, calls = _hash_calls(QUERIES[name], monkeypatch)
         a = calls[-1][0]
-        got[name] = (a[0].on_chip(a[5]), a[0].threads > sk.THREADS)
+        got[name] = (a[0].layout(a[5]).on_chip, a[0].threads > sk.THREADS)
         assert a[5] == pipeline.AGG_SLOTS
     assert got == {"h1": (True, True), "h2": (True, True),
                    "j1": (True, True), "hash_f": (False, False)}
     _res, calls = _hash_calls(COLLIDE, monkeypatch, stats_rows=1.0)
     slots = [a[5] for a, _kw in calls]
     assert slots == [4096, 8192, 16384]
-    assert [calls[0][0][0].on_chip(s) for s in slots] == [True, False, False]
+    assert [calls[0][0][0].layout(s).on_chip for s in slots] == \
+        [True, False, False]
 
 
 SPAN_FLOAT = ("select l_returnflag, l_linestatus, l_shipmode, "
@@ -149,12 +151,14 @@ def test_small_tables_keep_a_float_table_per_warp(monkeypatch):
     plan = calls[-1][0]
     warps = plan.threads // 32
     assert plan.mode == "span" and plan.G == 168 and plan.n_f == 2
-    assert plan.on_chip(168) and plan.warp_floats(168)
-    assert plan.table_bytes(168) == 8 * 168 * (plan.n_fold + warps * 2)
+    assert plan.layout(168).on_chip and plan.layout(168).warp_floats
+    assert plan.layout(168).table_bytes == \
+        8 * 168 * (plan.n_fold + warps * 2)
     _res, hcalls = _hash_calls(H2, monkeypatch)
     h2 = hcalls[-1][0][0]
-    assert h2.on_chip(4096) and not h2.warp_floats(4096)
-    assert h2.table_bytes(4096) == 8 * 4096 * (h2.n_fold + 1 + h2.n_f)
+    assert h2.layout(4096).on_chip and not h2.layout(4096).warp_floats
+    assert h2.layout(4096).table_bytes == \
+        8 * 4096 * (h2.n_fold + 1 + h2.n_f)
 
 
 def test_reservation_counts_per_cta_partials(monkeypatch):
@@ -167,12 +171,13 @@ def test_reservation_counts_per_cta_partials(monkeypatch):
     _res, calls = _hash_calls(H2, monkeypatch)
     a = calls[-1][0]
     plan, grid, br, slots = a[0], a[2], a[3], a[5]
-    per_sm = gk.ctas_per_sm(plan, slots)
-    assert plan.on_chip(slots) and per_sm == 1
-    need = (plan.smem_bytes + plan.table_bytes(slots) + plan.ring_reserve
-            + 8 * sk.MAX_PARAMS + gk.SMEM_RESERVED_PER_CTA)
-    assert gk.SMEM_PER_SM // need == 1 \
-        and gk.RESIDENT_THREADS // plan.threads == 1
+    per_sm = plan.layout(slots).ctas_per_sm
+    assert plan.layout(slots).on_chip and per_sm == 1
+    need = (plan.smem_bytes + plan.layout(slots).table_bytes
+            + plan.ring_reserve
+            + 8 * sk.MAX_PARAMS + sk.SMEM_RESERVED_PER_CTA)
+    assert sk.SMEM_PER_SM // need == 1 \
+        and sk.RESIDENT_THREADS // plan.threads == 1
     n_ctas = min(len(grid) * -(-br // min(br, sk.GROUPED_SUBTILE_ROWS)),
                  per_sm * 132)
     assert gk.partial_bytes(plan, len(grid), br, slots,
