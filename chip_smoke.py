@@ -64,8 +64,15 @@ Phases, each printed with its wall time:
      case also launches with dma="double" (the stage ring, kernel #2):
      every output
      bit-identical to the single launch (hash tables group by group), its
-     CUDA-event time beside the single launch's, and its staged and
-     prefetched tile copies; and Q1, S1, H1, J1 run once more on grid
+     device time beside the single launch's, its staged and prefetched
+     stage copies, and the plan's staging: the staged arrays, the ring's
+     stages S and passes per stage P, bytes per stage, the staged MB and
+     the ring's bound (the
+     staged bytes at 3.35 TB/s); the ring must have run (staged copies >
+     0) on a direct, a span and a hash case, and a query whose plan
+     stages nothing (an RLE filter column, an int64 column read after the
+     filter) must launch unstaged under "double" and meter no
+     kernelDma* counter; and Q1, S1, H1, J1 run once more on grid
      entries that start and end off every 16-byte boundary (the ring's
      ragged heads and tails), double equal to single and, for the direct
      and span kernels, to the plain version's integers.  For every grouped
@@ -126,6 +133,7 @@ the kernels' JSON record; the last line is
 Imports nothing of JAX or of the presto_tpu reference package.
 """
 import argparse
+import dataclasses
 import json
 import struct
 import subprocess
@@ -137,6 +145,9 @@ from fractions import Fraction
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
 
+# a query whose plan stages nothing (kernel #2 launches unstaged)
+NOSTAGE = ("select count(*), sum(l_extendedprice) from lineitem "
+           "where l_orderkey < 3000")
 FLOAT_QUERY = ("select sum(cast(l_extendedprice as double)) as s "
                "from lineitem where l_discount > 0.05")
 UNIT_ROUNDOFF = 2.0 ** -53
@@ -968,9 +979,24 @@ def main() -> int:
             if kernel == "scan_direct":
                 staged = sk.direct_stage_counts(plan, columns, grid, a[3],
                                                 kw.get("joins"))
+                staging = sk.direct_kernel(plan, columns, kw.get("joins"),
+                                           "double").staging
             else:
                 staged = gk.stage_counts(plan, columns, grid, a[3], n_slots,
                                          "double")
+                staging = sk.launch_staging(plan, columns, "double", n_slots)
+            # the ring's bound: the staged arrays' bytes for the rows
+            # scanned, at the memory rate
+            ring_bytes = (staging.staged_bytes(int(kc[0].item()))
+                          if staging else 0)
+            ring = dict(
+                arrays=[plan.names[c] for c in staging.staged]
+                if staging else [],
+                stages=staging.stages if staging else 0,
+                passes=staging.passes if staging else 0,
+                stage_bytes=staging.stage_bytes if staging else 0,
+                staged_mb=ring_bytes / 1e6,
+                ring_bound_ms=ring_bytes / HBM_BYTES_PER_S * 1e3)
             gen = {}
             if kernel != "scan_hash":
                 # the generated kernel of each mode: compile ms at its
@@ -1010,7 +1036,7 @@ def main() -> int:
                                   kernel_launches=dev["launches"],
                                   plain_ms=plain_ms, bound_ms=bound,
                                   bytes=nbytes, ms_double=ms_double,
-                                  staged=staged, gen=gen)
+                                  staged=staged, gen=gen, ring=ring)
             if kernel != "scan_direct":
                 # the launch's geometry and its scan / reduce split
                 n_params = 0 if a[4] is None else int(a[4].numel())
@@ -1049,10 +1075,15 @@ def main() -> int:
                   f"{gen_smem if gen else plan.layout(n_slots).smem_bytes}"
                   f" B")
             print(f"  {qname}: dma=double bit-identical to single; device_ms "
-                  f"single {ms:.4f} double {ms_double:.4f}, ring "
-                  f"{sk.ring_bytes(columns, plan.threads, 'double')} B, "
-                  f"staged {staged[0]} prefetched {staged[1]} tile copies "
-                  f"of {len(sk.staged_indices(columns))} arrays")
+                  f"single {ms:.4f} double {ms_double:.4f}; staging "
+                  f"{ring['arrays']} S={ring['stages']} "
+                  f"P={ring['passes']} {ring['stage_bytes']} B/stage, staged "
+                  f"{ring['staged_mb']:.3f} MB, ring bound_ms "
+                  f"{ring['ring_bound_ms']:.4f} (carrier {bound:.4f}); "
+                  f"staged {staged[0]} prefetched {staged[1]} stage copies")
+        # the ring ran on a direct, a span and a hash case
+        ran = {r["kernel"] for r in records.values() if r["staged"][0] > 0}
+        assert ran == set(sk.SCAN_KERNELS), ran
         print(f"  float query: {res_f.rows}; s2: {len(res_s2.rows)} groups")
         # the lookup step of kernel #5's unique probe alone as one PyTorch
         # call: torch.searchsorted over J2's probe hashes (hashed here,
@@ -1127,6 +1158,26 @@ def main() -> int:
             print(f"  {qname} on a ragged grid ({len(grid)} entries, rows "
                   f"{counts[0].item()}): double == single"
                   + ("" if kernel == "scan_hash" else " == plain integers"))
+
+    # a plan with nothing worth staging launches unstaged under "double":
+    # l_orderkey is run-length encoded, l_extendedprice (int64) is read
+    # only for the rows the filter keeps
+    with phase("a plan that stages nothing, through a double-mode "
+               "LocalQueryRunner"):
+        double = LocalQueryRunner(schema, config=dataclasses.replace(
+            cfg, scan_kernel_dma="double"), device=device)
+        want = runner.execute(NOSTAGE)
+        n_launch, n_staged = (sk.LAUNCHES["scan_direct"],
+                              sk.STAGED_LAUNCHES["scan_direct"])
+        got = double.execute(NOSTAGE)
+        rs = got.runtime_stats
+        assert got.rows == want.rows, (got.rows, want.rows)
+        assert rs["kernelScanPrograms"]["sum"] == 1, rs
+        assert not [k for k in rs if k.startswith("kernelDma")], rs
+        assert sk.LAUNCHES["scan_direct"] == n_launch + 1
+        assert sk.STAGED_LAUNCHES["scan_direct"] == n_staged
+        print(f"  {NOSTAGE}: rows {got.rows} == single; one direct launch, "
+              f"not staged, no kernelDma* counter")
 
     with phase("numpy check of Q6, Q1, S1, H1, H2, the collision query "
                "and J1, J2, J3 at " + schema):
@@ -1740,8 +1791,12 @@ def main() -> int:
                     for q, r in records.items() if r["kernel"] == name}
         for qname, r in records.items():
             print(f"  stage ring {qname} ({r['kernel']}): single_ms "
-                  f"{r['ms']:.4f} double_ms {r['ms_double']:.4f} staged "
-                  f"{r['staged'][0]} prefetched {r['staged'][1]} on {card}")
+                  f"{r['ms']:.4f} double_ms {r['ms_double']:.4f} S "
+                  f"{r['ring']['stages']} P {r['ring']['passes']} staged "
+                  f"{r['ring']['staged_mb']:.3f} MB ring_bound_ms "
+                  f"{r['ring']['ring_bound_ms']:.4f} carrier_bound_ms "
+                  f"{r['bound_ms']:.4f} staged {r['staged'][0]} prefetched "
+                  f"{r['staged'][1]} on {card}")
         # kernel #5 inside the scan kernels' launches: J2's semi probe of
         # a unique table through its bucket directory
         j2, j2n = records["j2"], records["j2_noprobe"]
@@ -1780,18 +1835,21 @@ def main() -> int:
             "max_abs_err": max(r["err"] for r in records.values()),
             "ms": ring["ms_double"],
             "plain_ms": ring["plain_ms"],
-            # the ring moves the carrying kernel's bytes
-            "bound_ms": ring["bound_ms"],
+            # the staged arrays' bytes at the memory rate, inside the
+            # carrying kernel's bound
+            "bound_ms": ring["ring"]["ring_bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
             "query": "q1",
             "single_ms": ring["ms"],
+            "carrier_bound_ms": ring["bound_ms"],
             "carried_by": list(sk.SCAN_KERNELS),
             "server_launches": server["staged_launches"],
             "cases": {q: {"kernel": r["kernel"], "single_ms": r["ms"],
                           "double_ms": r["ms_double"],
                           "staged": r["staged"][0],
-                          "prefetched": r["staged"][1]}
+                          "prefetched": r["staged"][1],
+                          "carrier_bound_ms": r["bound_ms"], **r["ring"]}
                       for q, r in records.items()},
         })
         for qname, r in w_records.items():

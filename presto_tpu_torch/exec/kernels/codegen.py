@@ -22,8 +22,10 @@ with NVRTC (build.py load_generated) for sm_90a.  Both kernels share:
   in the launch's argument words, so a new literal reuses the module;
   encodings and dtypes are part of the shape (and so of the source);
 - the probe steps (kernel #5) call probe_direct / probe_unique (a unique
-  table through its bucket directory) and gather_rows, the stage ring
-  (kernel #2, dma="double") stage_array and stage_rows;
+  table through its bucket directory) and gather_rows; the stage ring
+  (kernel #2, dma="double": the plan's Staging) a generated ring_fill of
+  one bulk copy per staged array (ring_copy) on mbarriers, issued by
+  thread 0 S - 1 stages ahead, and stage_rows;
 - the key code, span's slot rule: code = sum of key value x stride, rows
   off the grid drop;
 - a persistent grid: SMs x CTAs per SM stride over the pruned grid's
@@ -53,7 +55,8 @@ over the CTAs' (or warps') partials, the order exec/kernels/grouped.py
 reduce_partials models.
 
 In both, floats are bit-identical from launch to launch and between
-single and double (the CTA count does not depend on the ring).
+single and double (the CTA count reserves the smallest ring either way;
+the ring's depth fills only the room left).
 
 Bound: the encoded bytes of the scanned columns for the rows live where
 each is first read, plus the tables once (device-memory bandwidth, 3.35
@@ -72,10 +75,6 @@ from ..lowering import OP, OPS, ExprProgram
 RPT = 4
 # integer and float partials (G x rows) a thread may keep in registers
 REG_PARTIALS = 16
-# CTAs per SM of the persistent grid at 256 threads (the kernel's launch
-# bounds cap its registers so that they fit)
-CTAS_PER_SM = 2
-SM_SHARED_BYTES = 228 * 1024
 REDUCE_THREADS = 256
 # fixed argument words (the rest follow: columns, joins, literals)
 _W = ("grid", "n_grid", "br", "rows_per_cta", "n_sub", "params", "part_i",
@@ -281,7 +280,7 @@ for _n in ("DIV_I", "MOD_I", "DIVQ_I"):
 class DirectKernel:
     """A generated direct kernel for one chain shape: its source, the
     recipe of its argument words (fixed words _W, then per column / probe
-    / gathered column / literal), launch geometry and layout."""
+    / gathered column / literal), launch geometry, layout and ring."""
     source: str
     words: Tuple[tuple, ...]
     threads: int
@@ -290,14 +289,14 @@ class DirectKernel:
     n_fold: int
     registers: bool                  # partials in registers (else warp)
     n_slots: int                     # outputs the reduce writes
+    staging: object = None           # the ring (scan_kernel.Staging), None
 
 
 class _Gen:
-    """Emits the kernel of one (plan, column shape, stages)."""
+    """Emits the kernel of one (plan, column shape, ring)."""
 
-    def __init__(self, plan, shape, stages: int, stage_offsets):
-        self.plan, self.shape, self.stages = plan, shape, stages
-        self.stage_offsets = stage_offsets
+    def __init__(self, plan, shape, staging):
+        self.plan, self.shape, self.staging = plan, shape, staging
         self.words: List[tuple] = [(w,) for w in _W]
         self.col_index = {n: i for i, n in enumerate(plan.names)}
         for k, v in enumerate(plan.virtual):
@@ -306,7 +305,6 @@ class _Gen:
         self.params: Dict[int, str] = {}
         self.body: List[str] = []
         self.ind = 6
-        self.stage_bytes = 0
 
     # -- argument words -------------------------------------------------
     def word(self, recipe: tuple) -> str:
@@ -350,11 +348,10 @@ class _Gen:
                 self.loaded[name] = (var, None)
                 return
             ptr = self.word(("col0", c))
-            if self.stages > 1:
-                off = self.stage_offsets[c]
-                self.emit(f"stage_rows<{t0}>(stage + {off} + stage_shift_at("
-                          f"(u64){ptr}, sizeof({t0}), row0 - tid), tid, GT, "
-                          f"{live}, {var});")
+            off = self.staging.offsets[c] if self.staging else -1
+            if off >= 0:
+                self.emit(f"stage_rows<{t0}>(stage + {off}, {ptr}, pos, "
+                          f"dense, k0, GT, {live}, {var});")
             else:
                 self.emit(f"load_rows<{t0}>({ptr}, row0, GT, {live}, {var});")
             if kind == "dict":
@@ -437,11 +434,8 @@ def column_shape(plan, columns, joins=None) -> Tuple[tuple, ...]:
     column (kind, dtype of its per-row array, dtype of its second array),
     per virtual column (a gathered column's dtype and whether it carries
     NULL flags; a semi marker's None)."""
-    from .scan_kernel import _gathered, step_operands
-    shape = []
-    for rc in columns:
-        a1 = rc.arrays[1] if len(rc.arrays) > 1 else rc.arrays[0]
-        shape.append((rc.kind, rc.arrays[0].dtype, a1.dtype))
+    from .scan_kernel import _gathered, scan_shape, step_operands
+    shape = list(scan_shape(columns))
     per_step = step_operands(joins) if plan.joins else []
     for v in plan.virtual:
         if v.kind != "gather":
@@ -532,13 +526,13 @@ def _emit_chain(g: _Gen, plan, G: int, open_lines: List[str]):
     return folds, f_folds, f_rows
 
 
-def generate(plan, shape, stages: int, stage_offsets=None,
-             ring_bytes: int = 0, double_ring_bytes: int = 0) -> DirectKernel:
-    """The direct kernel of `plan` over columns of `shape` (column_shape)
-    with `stages` (1: unstaged, 2: the stage ring of ring_bytes, its regions
-    at stage_offsets).  double_ring_bytes: the ring a double launch of the
-    same plan takes, so that single and double launch the same CTAs.
-    Raises NotImplementedError naming an opcode without an emitter."""
+def generate(plan, shape, staging=None) -> DirectKernel:
+    """The direct kernel of `plan` over columns of `shape` (column_shape),
+    unstaged or with the stage ring `staging` (ScanPlan.staging).  Its CTAs
+    per SM are the plan's (ScanPlan.direct_ctas_per_sm), the same for both.
+    Raises NotImplementedError naming an opcode without an emitter, or the
+    bytes of a ring that does not fit."""
+    from .scan_kernel import check_ring_fits
     T, G = plan.threads, max(plan.G, 1)
     n_i, n_f = plan.n_i, plan.n_f
     fold = [k for k, s in enumerate(plan.src_rows) if s == k]
@@ -546,18 +540,18 @@ def generate(plan, shape, stages: int, stage_offsets=None,
     n_fold = len(fold)
     rows_i, rows_f = _rows_init(plan)
     registers = G * (n_fold + n_f) <= REG_PARTIALS
-    g = _Gen(plan, shape, stages, stage_offsets)
-    g.stage_bytes = ring_bytes // stages
+    g = _Gen(plan, shape, staging)
+    ring_bytes = staging.ring_bytes if staging else 0
+    if staging:
+        check_ring_fits(staging, plan.direct_smem())
 
     # -- shared memory: [ring][integer table][float slots] ---------------
-    smi_off = -(-ring_bytes // 16) * 16
+    smi_off = ring_bytes
     smi_bytes = 8 * n_fold * G
     smf_off = smi_off + -(-smi_bytes // 16) * 16
     smf_bytes = 8 * n_f * G * T
     smem = smf_off + smf_bytes
-    dsmem = smem - ring_bytes + double_ring_bytes
-    ctas = max(1, min(CTAS_PER_SM * 256 // T,
-                      SM_SHARED_BYTES // (dsmem + 1024)))
+    ctas = plan.direct_ctas_per_sm()
 
     folds, f_folds, _f_rows = _emit_chain(
         g, plan, G, ["if (__any_sync(FULL_MASK, live != 0)) {"])
@@ -570,10 +564,9 @@ def generate(plan, shape, stages: int, stage_offsets=None,
     g.emit("}")
 
     source = _kernel_source(g, plan, T, ctas, G, n_i, n_f, n_fold, fold, pos,
-                            rows_i, rows_f, registers, smi_off, smf_off,
-                            stages)
+                            rows_i, rows_f, registers, smi_off, smf_off)
     return DirectKernel(source, tuple(g.words), T, ctas, smem, n_fold,
-                        registers, (n_i + n_f) * G)
+                        registers, (n_i + n_f) * G, staging)
 
 
 @dataclasses.dataclass
@@ -587,6 +580,7 @@ class SpanKernel:
     ctas_per_sm: int
     smem_bytes: int
     layout: object
+    staging: object = None           # the ring (scan_kernel.Staging), None
 
 
 # fixed argument words of the span kernel: the direct kernel's, then the
@@ -594,13 +588,14 @@ class SpanKernel:
 _W_SPAN = _W + ("n_fparts",)
 
 
-def generate_span(plan, shape, stages: int, stage_offsets, ring_bytes: int,
-                  layout) -> SpanKernel:
-    """The span kernel (#3) of `plan` over columns of `shape` with
-    `stages` (as generate), folding into the tables `layout` places
-    (ScanPlan.layout(plan.G)): the chain, keys and inputs are the direct
-    kernel's code; the tail folds each live row into slot code[r].
-    Raises NotImplementedError naming an opcode without an emitter."""
+def generate_span(plan, shape, staging, layout) -> SpanKernel:
+    """The span kernel (#3) of `plan` over columns of `shape`, unstaged or
+    with the ring `staging` (as generate), folding into the tables
+    `layout` places (ScanPlan.layout(plan.G)): the chain, keys and inputs
+    are the direct kernel's code; the tail folds each live row into slot
+    code[r].  Raises NotImplementedError naming an opcode without an
+    emitter, or the bytes of a ring that does not fit."""
+    from .scan_kernel import check_ring_fits
     T, G = plan.threads, plan.G
     warps = T // 32
     n_f = plan.n_f
@@ -609,14 +604,16 @@ def generate_span(plan, shape, stages: int, stage_offsets, ring_bytes: int,
     rows_i, rows_f = _rows_init(plan)
     on = layout.on_chip
     cta_floats = on and n_f > 0 and not layout.warp_floats
-    g = _Gen(plan, shape, stages, stage_offsets)
+    g = _Gen(plan, shape, staging)
     g.words = [(w,) for w in _W_SPAN]
-    g.stage_bytes = ring_bytes // stages
+    ring_bytes = staging.ring_bytes if staging else 0
+    if staging:
+        check_ring_fits(staging, layout.smem_bytes)
 
     # -- shared memory: [ring][integer table][float tables][staging] -----
     def up(n):
         return -(-n // 16) * 16
-    smi_off = up(ring_bytes)
+    smi_off = ring_bytes
     smf_off = smi_off + up(8 * len(fold) * G * on)
     stg_off = smf_off + up(8 * layout.f_tables * n_f * G * on)
     n_stage = n_f if cta_floats else min(n_f, 1)
@@ -632,9 +629,9 @@ def generate_span(plan, shape, stages: int, stage_offsets, ring_bytes: int,
     if cta_floats:
         _emit_cta_float_apply(g, f_rows, G, warps)
     source = _span_source(g, plan, layout, T, G, fold, pos, rows_i, rows_f,
-                          smi_off, smf_off, stg_off, stv_off, stages)
+                          smi_off, smf_off, stg_off, stv_off)
     return SpanKernel(source, tuple(g.words), T, layout.ctas_per_sm, smem,
-                      layout)
+                      layout, staging)
 
 
 def _emit_span_folds(g: _Gen, folds, f_rows, pos, G, on: bool,
@@ -718,7 +715,7 @@ def _emit_cta_float_apply(g: _Gen, f_rows, G, warps: int) -> None:
 
 
 def _span_source(g: _Gen, plan, layout, T, G, fold, pos, rows_i, rows_f,
-                 smi_off, smf_off, stg_off, stv_off, stages) -> str:
+                 smi_off, smf_off, stg_off, stv_off) -> str:
     n_steps, n_i, n_f = plan.n_steps, plan.n_i, plan.n_f
     n_fold, on = len(fold), layout.on_chip
     W = {w: i for i, w in enumerate(_W_SPAN)}
@@ -727,9 +724,9 @@ def _span_source(g: _Gen, plan, layout, T, G, fold, pos, rows_i, rows_f,
         "// scan kernel (#3) of one chain shape and its reduce.",
         '#include "scan_common.cuh"',
         f"#define GT {T}",
-        f"#define GS {stages}",
         f"struct Args {{ i64 w[{len(g.words)}]; }};",
         "",
+        "@RING_FILL@",
         f"extern \"C\" __global__ void __launch_bounds__(GT, "
         f"{layout.ctas_per_sm})",
         "scan_span_gen(const Args a) {",
@@ -791,7 +788,7 @@ def _span_source(g: _Gen, plan, layout, T, G, fold, pos, rows_i, rows_f,
     out += [
         "  const i64 n_items = (i64)n_grid * n_sub, tile = (i64)RPT * GT;",
     ]
-    out += _pass_loop(g, stages)
+    out += _pass_loop(g)
     # -- epilogue: row counters, then the CTA's tables --------------------
     out.append(f"  u64* counts = (u64*)a.w[{W['counts']}];")
     for s in range(n_steps + 1):
@@ -962,101 +959,128 @@ def _emit_slot_folds(g: _Gen, f_folds, G) -> None:
 
 
 def _sized_args(out: List[str], g: _Gen) -> str:
-    """The source with its argument struct sized to every word: the pass
-    loop's stage copies may add words (a staged column no program reads)
-    after the struct's line was written."""
-    return "\n".join(f"struct Args {{ i64 w[{len(g.words)}]; }};"
-                     if ln.startswith("struct Args ") else ln for ln in out)
+    """The source with its argument struct sized to every word, and the
+    ring's fill function (_ring_fill) where the kernel stages."""
+    lines = []
+    for ln in out:
+        if ln.startswith("struct Args "):
+            ln = f"struct Args {{ i64 w[{len(g.words)}]; }};"
+        elif ln == "@RING_FILL@":
+            lines += _ring_fill(g)
+            continue
+        lines.append(ln)
+    return "\n".join(lines)
 
 
-def _pass_loop(g: _Gen, stages: int) -> List[str]:
-    """The persistent CTA's loop over its work items and their passes,
-    the stage ring's copies (stages > 1) around each pass, and the pass
-    body g.body."""
-    out: List[str] = []
-    staged = [c for c, o in enumerate(g.stage_offsets or ()) if o >= 0] \
-        if stages > 1 else []
+def _ring_fill(g: _Gen) -> List[str]:
+    """ring_fill(stage, its full barrier, tile row, rows, array pointers):
+    the producer's arming of a stage with the tile's bytes and one bulk
+    copy per staged array (csrc/scan_common.cuh ring_copy)."""
+    st = g.staging
+    if st is None:
+        return []
+    ptrs = ", ".join(f"u64 arr{c}" for c in st.staged)
+    sizes = [(c, f"sizeof({_CTYPES[g.shape[c][1]]})") for c in st.staged]
+    tx = " + ".join(f"ring_bytes(arr{c}, {es}, a0, n)" for c, es in sizes)
+    out = [f"#define GS {st.stages}", f"#define GP {st.passes}",
+           "__device__ __forceinline__ void ring_fill(unsigned char* st, "
+           f"u64* full, i64 a0, int n, {ptrs}) {{",
+           f"  mbar_expect_tx(full, {tx});"]
+    out += [f"  ring_copy(arr{c}, {es}, st + {st.offsets[c]}, a0, n, full);"
+            for c, es in sizes]
+    return out + ["}", ""]
 
-    def stage_calls(dst, a0, n):
-        lines = []
-        for c in staged:
-            t0 = _CTYPES[g.shape[c][1]]
-            lines.append(f"stage_array((u64){g.word(('col0', c))}, "
-                         f"sizeof({t0}), {dst} + {g.stage_offsets[c]}, "
-                         f"{a0}, {n}, GT, tid);")
-        return lines
-    if stages > 1:
-        out += [
-            "  int n_tiles = 0;",
-            "  for (i64 item = blockIdx.x; item < n_items; item += gridDim.x) {",
-            "    i64 b0, lo0, hi0;",
-            "    item_rows(grid, n_grid, rows_per_cta, n_sub, item, b0, lo0, "
-            "hi0);",
-            "    if (hi0 > lo0) {",
-            "      const i64 a0 = b0 * br + lo0;",
-            "      const int n0 = (int)(tile < hi0 - lo0 ? tile : hi0 - lo0);",
-        ]
-        out += ["      " + ln for ln in stage_calls("smem", "a0", "n0")]
-        out += [
-            "      cp_async_commit();",
-            "      break;",
-            "    }",
-            "  }",
-        ]
-    out += [
+
+def _pass_loop(g: _Gen) -> List[str]:
+    """The persistent CTA's loop over its work items and their passes, and
+    the pass body g.body.  Where the kernel stages, a work item's passes
+    run in stages of GP: at a stage's start thread 0 fills the stage the
+    previous one read with the stage GS - 1 ahead once every warp released
+    it, and every thread waits for the stage; each warp releases it after
+    the stage's last pass."""
+    st = g.staging
+    head = [
         "  for (i64 item = blockIdx.x; item < n_items; item += gridDim.x) {",
         "    i64 bidx, lo, hi;",
         "    item_rows(grid, n_grid, rows_per_cta, n_sub, item, bidx, lo, hi);",
         "    const i64 span = hi - lo;",
         "    const int n_pass = span > 0 ? (int)((span + tile - 1) / tile) : 0;",
-        "    for (int pass = 0; pass < n_pass; ++pass) {",
-        "      const i64 base = lo + (i64)pass * tile + tid;",
-        "      const i64 row0 = bidx * br + base;",
     ]
-    if stages > 1:
-        out += [
-            "      // every thread is done with the stage the next tile's",
-            "      // copies overwrite; they are issued before this tile",
-            "      __syncthreads();",
-            "      {",
-            "        i64 nb = -1, nlo = 0, nhi = 0;",
-            "        if (pass + 1 < n_pass) {",
-            "          nb = bidx; nlo = lo + (pass + 1) * tile; nhi = hi;",
-            "        } else {",
-            "          for (i64 it = item + gridDim.x; it < n_items; "
-            "it += gridDim.x) {",
-            "            i64 b2, lo2, hi2;",
-            "            item_rows(grid, n_grid, rows_per_cta, n_sub, it, b2, "
-            "lo2, hi2);",
-            "            if (hi2 > lo2) { nb = b2; nlo = lo2; nhi = hi2; break; }",
-            "          }",
-            "        }",
-            "        if (nb >= 0) {",
-            "          unsigned char* st = smem + ((n_tiles + 1) % GS) * "
-            f"{g.stage_bytes};",
-            "          const i64 a1 = nb * br + nlo;",
-            "          const int n1 = (int)(tile < nhi - nlo ? tile : "
-            "nhi - nlo);",
-        ]
-        out += ["          " + ln for ln in stage_calls("st", "a1", "n1")]
-        out += [
-            "        }",
-            "      }",
-            "      cp_async_commit();",
-            "      cp_async_wait_prev();",
-            "      __syncthreads();",
-            "      const unsigned char* stage = smem + (n_tiles % GS) * "
-            f"{g.stage_bytes};",
-            "      ++n_tiles;",
-        ]
-    out += g.body
-    out += ["    }", "  }"]
+    if st is None:
+        return head + [
+            "    for (int pass = 0; pass < n_pass; ++pass) {",
+            "      const i64 base = lo + (i64)pass * tile + tid;",
+            "      const i64 row0 = bidx * br + base;",
+        ] + g.body + ["    }", "  }"]
+    ptrs = [f"(u64){g.word(('col0', c))}" for c in st.staged]
+    fill = ("ring_fill(ring + s * %d, full + s, cur.b * br + cur.lo, "
+            "(int)(stage_n < cur.hi - cur.lo ? stage_n : cur.hi - "
+            "cur.lo), %s);" % (st.stage_bytes, ", ".join(ptrs)))
+    step = ("more = ring_next(cur, stage_n, grid, n_grid, rows_per_cta, "
+            "n_sub, n_items);")
+    out = [
+        "  // the stage ring: GS stages of GP passes, then their full and",
+        "  // empty mbarriers",
+        "  unsigned char* const ring = smem;",
+        f"  u64* const full = (u64*)(smem + {st.stages * st.stage_bytes});",
+        "  u64* const empty = full + GS;",
+        "  const i64 stage_n = (i64)GP * tile;",
+        "  // every staged array 16-byte aligned: an aligned stage is dense",
+        f"  const bool arrays16 = (({' | '.join(ptrs)}) & 15) == 0;",
+        "  RingCursor cur = {(i64)blockIdx.x, 0, 0, 0};",
+        "  bool more = false;",
+        "  if (tid == 0) ring_init(full, GS, GT / 32);",
+        "  __syncthreads();",
+        "  if (tid == 0) {",
+        "    more = ring_seek(cur, grid, n_grid, rows_per_cta, n_sub, "
+        "n_items);",
+        "    for (int s = 0; s < GS - 1 && more; ++s) {",
+        f"      {fill}",
+        f"      {step}",
+        "    }",
+        "  }",
+        "  int n_used = 0;",
+    ] + head + [
+        "    for (int pass0 = 0; pass0 < n_pass; pass0 += GP) {",
+        "      // the producer: the stage the previous one read, once every",
+        "      // warp released it, takes the stage GS - 1 ahead",
+        "      if (tid == 0 && more) {",
+        "        const int s = (n_used + GS - 1) % GS;",
+        "        if (n_used > 0) mbar_wait(empty + s, "
+        "(unsigned)((n_used - 1) / GS) & 1u);",
+        f"        {fill}",
+        f"        {step}",
+        "      }",
+        "      __syncwarp();",
+        "      const int stg = n_used % GS;",
+        "      mbar_wait(full + stg, (unsigned)(n_used / GS) & 1u);",
+        f"      const unsigned char* stage = ring + stg * {st.stage_bytes};",
+        "      const i64 left = span - (i64)pass0 * tile;",
+        "      const StagePos pos = {bidx * br + lo + (i64)pass0 * tile,",
+        "                            (int)(stage_n < left ? stage_n : left), 0};",
+        "      const int dense = stage_dense(arrays16, pos.a0, pos.n);",
+        "      const int np = n_pass - pass0 < GP ? n_pass - pass0 : GP;",
+        "      for (int sp = 0; sp < np; ++sp) {",
+        "        const int pass = pass0 + sp;",
+        "        const i64 base = lo + (i64)pass * tile + tid;",
+        "        const i64 row0 = bidx * br + base;",
+        "        const int k0 = sp * (int)tile + tid;",
+    ]
+    out += ["  " + ln for ln in g.body]
+    out += [
+        "      }",
+        "      // this warp has read the stage's rows: release it",
+        "      __syncwarp();",
+        "      if ((tid & 31) == 0) mbar_arrive(empty + stg);",
+        "      ++n_used;",
+        "    }",
+        "  }",
+    ]
     return out
 
 
 def _kernel_source(g: _Gen, plan, T, ctas, G, n_i, n_f, n_fold, fold, pos,
-                   rows_i, rows_f, registers, smi_off, smf_off,
-                   stages) -> str:
+                   rows_i, rows_f, registers, smi_off, smf_off) -> str:
     n_steps = plan.n_steps
     W = {w: i for i, w in enumerate(_W)}
     out = [
@@ -1064,9 +1088,9 @@ def _kernel_source(g: _Gen, plan, T, ctas, G, n_i, n_f, n_fold, fold, pos,
         "// scan kernel (#1) of one chain shape and its reduce.",
         '#include "scan_common.cuh"',
         f"#define GT {T}",
-        f"#define GS {stages}",
         f"struct Args {{ i64 w[{len(g.words)}]; }};",
         "",
+        "@RING_FILL@",
         f"extern \"C\" __global__ void __launch_bounds__(GT, {ctas})",
         "scan_gen(const Args a) {",
         "  extern __shared__ __align__(16) unsigned char smem[];",
@@ -1109,7 +1133,7 @@ def _kernel_source(g: _Gen, plan, T, ctas, G, n_i, n_f, n_fold, fold, pos,
     out += [
         "  const i64 n_items = (i64)n_grid * n_sub, tile = (i64)RPT * GT;",
     ]
-    out += _pass_loop(g, stages)
+    out += _pass_loop(g)
     # -- epilogue: row counters, then the CTA's partials -----------------
     out.append(f"  u64* counts = (u64*)a.w[{W['counts']}];")
     for s in range(n_steps + 1):

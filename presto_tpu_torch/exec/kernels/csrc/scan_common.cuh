@@ -6,13 +6,13 @@
 // one expression semantics -- the torch evaluator's (exec/lowering.py
 // ExprProgram.run) --, the chain's steps with the join probe (kernel #5,
 // probe_step below), the stage ring of scan_kernel_dma = "double" (kernel
-// #2, stage_tile below), the folds of rows into accumulator tables and the
-// grouped kernels' reduce over their partials.
+// #2, ring_copy / stage_rows below), the folds of rows into accumulator
+// tables and the grouped kernels' reduce over their partials.
 //
-// The functions that read columns take the ring's stage count S as a
-// template parameter: S = 1 is the unstaged kernel (every per-row load an
-// __ldg from device memory), S = 2 reads plain values and dictionary codes
-// from the tile's stage in shared memory.
+// The interpreter's functions that read columns take a template parameter
+// S: S = 1 is the unstaged kernel (every per-row load an __ldg from device
+// memory), S = 2 reads the staged arrays from the tile's stage of the ring
+// in shared memory (the ring's depth is the launch's).
 #pragma once
 #ifdef __CUDACC_RTC__
 // NVRTC (the direct kernel generated per chain, exec/kernels/codegen.py)
@@ -361,6 +361,254 @@ __device__ __forceinline__ bool op_IN_F(i64 v, i64 lit) {
 // side by side in the thread's stack slots.
 #define RPT 4
 
+// The block-relative rows [lo, hi) of block bidx that work item `item`
+// covers: slice item % n_sub of grid entry item / n_sub.
+__device__ __forceinline__ void item_rows(const i64* grid, int n_grid,
+                                          i64 rows_per_cta, int n_sub,
+                                          i64 item, i64& bidx, i64& lo,
+                                          i64& hi) {
+  const int e = (int)(item / n_sub), sub = (int)(item % n_sub);
+  bidx = grid[e];
+  lo = grid[n_grid + e] + (i64)sub * rows_per_cta;
+  const i64 end = grid[2 * n_grid + e];
+  hi = end < lo + rows_per_cta ? end : lo + rows_per_cta;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel #2: the stage ring (scan_kernel_dma = "double").
+//
+// Replaces presto_tpu/exec/kernels/scan_kernel.py _stage_slabs (:329; the
+// arrays it stages, staged_indices :310; its scratch, dma_scratch_shapes
+// :499).  The reference copies every per-row array of the next grid block
+// into VMEM while the current one computes.  Here a persistent CTA keeps a
+// ring of S stages (2 <= S <= 4) in shared memory, each holding P passes
+// (1 <= P <= 8) of RPT x T rows of a work item, filled by Hopper's bulk
+// asynchronous copies:
+//
+// - What is staged is the plan's decision (exec/kernels/scan_kernel.py
+//   ScanPlan.staging): the per-row arrays (plain values, dictionary codes)
+//   that the kernel reads under a pass's full row mask, and the 1- and
+//   2-byte arrays wherever they are read (a 32-byte sector holds 16-32 of
+//   their rows, so a selective step still touches nearly every sector).
+//   An array of 4 or 8 bytes first read after a filter, an inner join or
+//   a semi-join's filter has narrowed the rows is loaded per live row from
+//   device memory, as in the unstaged kernel: staging it would move every
+//   row's bytes for the few that are read.  A plan with nothing worth
+//   staging launches unstaged.
+// - One thread (tid 0) is the producer.  Per stage it arms the stage's
+//   "full" mbarrier with the stage's bytes (mbarrier.arrive.expect_tx) and
+//   issues one cp.async.bulk per staged array, each completing on that
+//   barrier; the other threads spend no instruction or register on the
+//   copies.  Consumers wait on the stage's phase (mbarrier.try_wait.parity)
+//   and each warp releases the stage on its "empty" mbarrier (one arrive
+//   per warp) once its rows are read; the producer waits on that before it
+//   refills the stage with the stage S - 1 ahead.  No __syncthreads guards
+//   a stage.  The stage sequence runs across the CTA's work items
+//   (RingCursor), and the phase parity is that of the CTA's stage count,
+//   so the ring never drains between items.
+// - S and P are the ring that the shared memory left at the layout's CTA
+//   count holds (ScanPlan.staging): more than two stages where any fit,
+//   then the longest stages -- they spread each stage's barrier waits and
+//   bulk copies over more rows; P divides a work item's passes, as a
+//   stage never spans two items --, then the most stages.  The layout
+//   reserves a two-stage ring of one pass, so S and P never lower the CTA
+//   count, and a single and a double launch run the same CTAs over the
+//   same rows in the same fold order -- their outputs are bit-identical.
+//   A plan with a probe step keeps stages of one pass where its layout
+//   leaves the L1 room: longer ones take the L1 its gathers hit (J2, J3).
+// - A bulk copy moves 16-byte-aligned bytes.  A stage's rows start at any
+//   byte, so the ring copies each array's aligned interior (its region
+//   keeps the device-memory offset modulo 16), and the consumers read the
+//   ragged head and tail rows (under 16 bytes each) straight from device
+//   memory (stage_rows): no thread stores into a stage, so only the async
+//   proxy writes the ring, and nothing outside an array is read.  Nearly
+//   every stage starts and ends on a multiple of 16 rows (grid blocks are
+//   64K rows), so it is dense: all its rows are staged and its loads
+//   check no bound.
+//
+// The four things that held the earlier two-stage cp.async ring back
+// (every per-row array staged, every thread issuing 16-byte chunks and
+// waiting on two __syncthreads per tile, one tile in flight, and a ring
+// reservation sized by every array) are each answered above: the plan's
+// set, one producer thread and mbarrier phases, stages of up to 8 passes
+// with up to three of them in flight, and a reservation of only the
+// staged arrays' two stages.
+//
+// Bound: the staged bytes (each staged array's rows once) over the device
+// memory rate, 3.35 TB/s on an H100 SXM (exec/kernels/scan_kernel.py
+// Staging.staged_bytes), beside the carrying kernel's byte bound, which
+// it can pass: a 1-byte array the carrier reads only for the rows a
+// filter keeps is staged for every row.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int dt_bytes(int dt) {
+  return dt == DT_I8 || dt == DT_BOOL ? 1 : dt == DT_I16 ? 2
+         : dt == DT_I32 ? 4 : 8;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(u64* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+// the producer's arrival on a stage's full barrier, with the bytes the
+// stage's copies will complete
+__device__ __forceinline__ void mbar_expect_tx(u64* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(u64* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(u64* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// The 16-byte-aligned interior [ci, ce) of rows [a0, a0 + n) of an array
+// of es-byte elements at `ptr`, as device addresses (ce <= ci: empty).
+__device__ __forceinline__ void ring_interior(u64 ptr, int es, i64 a0, int n,
+                                              u64& src, u64& ci, u64& ce) {
+  src = ptr + (u64)a0 * (u64)es;
+  ci = (src + 15u) & ~(u64)15u;
+  ce = (src + (u64)n * (u64)es) & ~(u64)15u;
+}
+
+// The bytes the ring copies of one array's tile.
+__device__ __forceinline__ unsigned ring_bytes(u64 ptr, int es, i64 a0,
+                                               int n) {
+  u64 src, ci, ce;
+  ring_interior(ptr, es, a0, n, src, ci, ce);
+  return ce > ci ? (unsigned)(ce - ci) : 0u;
+}
+
+// Issue the bulk copy of one array's tile interior into its stage region,
+// completing on the stage's full barrier.  The region keeps the tile's
+// device-memory offset modulo 16 (its row k sits at region + (src & 15) +
+// k * es).
+__device__ __forceinline__ void ring_copy(u64 ptr, int es,
+                                          unsigned char* region, i64 a0,
+                                          int n, u64* full) {
+  u64 src, ci, ce;
+  ring_interior(ptr, es, a0, n, src, ci, ce);
+  if (ce <= ci) return;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(region + (ci - (src & ~(u64)15u)))), "l"(ci),
+         "r"((unsigned)(ce - ci)), "r"(smem_addr(full))
+      : "memory");
+}
+
+// Initialise the ring's S full barriers (the producer's one arrival) and
+// S empty barriers (one arrival per warp) at `bars`; one thread, before
+// the CTA barrier that publishes them.
+__device__ __forceinline__ void ring_init(u64* bars, int S, int warps) {
+  for (int s = 0; s < S; ++s) {
+    mbar_init(bars + s, 1);
+    mbar_init(bars + S + s, (unsigned)warps);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The producer's walk over the CTA's stages, ahead of the consumers: rows
+// [lo, min(hi, lo + stage rows)) of grid block b, in work item `item`
+// (items blockIdx.x, blockIdx.x + gridDim.x, ...; empty items skipped).
+struct RingCursor {
+  i64 item, b, lo, hi;
+};
+
+// from c.item on, the first non-empty work item's first stage; false past
+// the CTA's last item
+__device__ __forceinline__ bool ring_seek(RingCursor& c, const i64* grid,
+                                          int n_grid, i64 rows_per_cta,
+                                          int n_sub, i64 n_items) {
+  for (; c.item < n_items; c.item += gridDim.x) {
+    item_rows(grid, n_grid, rows_per_cta, n_sub, c.item, c.b, c.lo, c.hi);
+    if (c.hi > c.lo) return true;
+  }
+  return false;
+}
+
+// the next stage of `rows` rows; false past the CTA's last one
+__device__ __forceinline__ bool ring_next(RingCursor& c, i64 rows,
+                                          const i64* grid, int n_grid,
+                                          i64 rows_per_cta, int n_sub,
+                                          i64 n_items) {
+  c.lo += rows;
+  if (c.lo < c.hi) return true;
+  c.item += gridDim.x;
+  return ring_seek(c, grid, n_grid, rows_per_cta, n_sub, n_items);
+}
+
+// A stage's rows: its first absolute row a0 and its n rows, and whether
+// it is dense -- every staged array's rows start and end on 16-byte
+// boundaries, so the ring holds all of them and no bound is checked.
+struct StagePos {
+  i64 a0;
+  int n, dense;
+};
+
+// The hash kernel's producer state, in shared memory beside the ring's
+// barriers: only thread 0 walks the cursor and writes each stage's rows
+// (published to the consumers by the stage's full barrier), so none of
+// it holds a register across the interpreter's loop.
+struct RingCtl {
+  RingCursor cur;
+  StagePos pos[4];
+  int more, arrays16;
+};
+// its bytes, as the launch reserves them (exec/kernels/scan_kernel.py
+// _RING_CTL_BYTES)
+#define RING_CTL_BYTES 128
+static_assert(sizeof(RingCtl) <= RING_CTL_BYTES, "RingCtl");
+
+// 16-byte aligned arrays whose stage starts and ends at rows that are
+// multiples of 16: every staged array's rows are whole 16-byte chunks
+__device__ __forceinline__ int stage_dense(bool arrays16, i64 a0, int n) {
+  return arrays16 && ((a0 | (i64)n) & 15) == 0;
+}
+
+// The same rows of a staged array: stage rows k0 + r * T from the stage
+// region -- all of them in a dense stage; else those in the copied
+// interior, and the ragged head and tail rows from device memory.
+template <typename V>
+__device__ __forceinline__ void stage_rows(const unsigned char* region,
+                                           i64 ptr, const StagePos& p,
+                                           int dense, int k0, int T,
+                                           unsigned active,
+                                           i64 (&out)[RPT]) {
+  if (dense) {
+    const V* s = (const V*)region;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      out[r] = (active >> r) & 1u ? (i64)s[k0 + r * T] : 0;
+    return;
+  }
+  u64 src, ci, ce;
+  ring_interior((u64)ptr, (int)sizeof(V), p.a0, p.n, src, ci, ce);
+  const int k_lo = (int)((ci - src) / sizeof(V));
+  const int k_hi = ce > ci ? (int)((ce - src) / sizeof(V)) : k_lo;
+  const V* s = (const V*)(region + (src & 15u));
+  const V* g = (const V*)ptr + p.a0;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int k = k0 + r * T;
+    out[r] = !((active >> r) & 1u) ? 0
+             : k >= k_lo && k < k_hi ? (i64)s[k] : (i64)__ldg(g + k);
+  }
+}
+
 // Per-thread interpreter state.  The value stack lives in shared memory as
 // [slot][row][T] (thread tid owns slot * RPT * T + row * T + tid), the
 // null flags as one RPT-bit mask per slot, so nothing spills to local
@@ -370,9 +618,12 @@ struct Tile {
   const i64* cols;       // column table (COL_WORDS per column)
   const i64* params;
   // the stage ring (S = 2): each column's region offset in a stage (-1:
-  // not staged) and the current tile's stage
+  // not staged), the current pass's stage, the stage's rows and the stage
+  // row of the thread's row 0
   const i64* stab;
   const unsigned char* stage;
+  const StagePos* pos;
+  int k0;
   i64* stk;              // value stack, depth x RPT x T
   unsigned* nulls;       // null masks, depth x T
   // per probe step j: each row's build row (j x RPT x T), the hit mask
@@ -393,18 +644,6 @@ __device__ __forceinline__ void load_rows(i64 ptr, i64 row0, int T,
 #pragma unroll
   for (int r = 0; r < RPT; ++r)
     out[r] = (active >> r) & 1u ? (i64)__ldg(p + row0 + r * T) : 0;
-}
-
-// The same rows of a staged array, from the tile's stage: `sb` is the
-// column's tile-local row 0 in shared memory.
-template <typename V>
-__device__ __forceinline__ void stage_rows(const unsigned char* sb, int tid,
-                                           int T, unsigned active,
-                                           i64 (&out)[RPT]) {
-  const V* p = (const V*)sb;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-    out[r] = (active >> r) & 1u ? (i64)p[tid + r * T] : 0;
 }
 
 // A dictionary's values at the rows' codes (x[r] holds the code on entry):
@@ -433,13 +672,15 @@ __device__ __forceinline__ void rle_rows(i64 vals, i64 starts, i64 n,
 
 // Decode column `cm` at rows row0 + r * T (r < RPT, live in `active`) into
 // dst[r * T]: the per-row array (plain values or dict codes) is loaded for
-// all rows first -- from the stage `sb` when the column is staged, else
-// from device memory --, then dict codes gather through the
-// (cache-resident) values; RLE runs its binary search per row.
+// all rows first -- from the stage region `sb` (stage rows k0 + r * T of
+// the stage `pos`) when the column is staged, else from device memory
+// --, then dict codes
+// gather through the (cache-resident) values; RLE runs its binary search
+// per row.
 __device__ __forceinline__ void load_column(const i64* cm, i64 row0, int T,
                                             unsigned active, i64* dst,
                                             const unsigned char* sb,
-                                            int tid) {
+                                            const StagePos* pos, int k0) {
   const int kind = (int)cm[0], dt = (int)cm[1];
   i64 raw[RPT];
   if (kind == K_RLE) {
@@ -449,13 +690,16 @@ __device__ __forceinline__ void load_column(const i64* cm, i64 row0, int T,
     return;
   }
   if (sb != nullptr) {
+#define STAGE_ROWS(V) \
+  stage_rows<V>(sb, cm[2], *pos, pos->dense, k0, T, active, raw)
     switch (dt) {
-      case DT_I8: stage_rows<int8_t>(sb, tid, T, active, raw); break;
-      case DT_I16: stage_rows<int16_t>(sb, tid, T, active, raw); break;
-      case DT_I32: stage_rows<int32_t>(sb, tid, T, active, raw); break;
-      case DT_BOOL: stage_rows<uint8_t>(sb, tid, T, active, raw); break;
-      default: stage_rows<i64>(sb, tid, T, active, raw); break;
+      case DT_I8: STAGE_ROWS(int8_t); break;
+      case DT_I16: STAGE_ROWS(int16_t); break;
+      case DT_I32: STAGE_ROWS(int32_t); break;
+      case DT_BOOL: STAGE_ROWS(uint8_t); break;
+      default: STAGE_ROWS(i64); break;
     }
+#undef STAGE_ROWS
   } else {
     switch (dt) {
       case DT_I8: load_rows<int8_t>(cm[2], row0, T, active, raw); break;
@@ -476,110 +720,13 @@ __device__ __forceinline__ void load_column(const i64* cm, i64 row0, int T,
     dst[r * T] = (active >> r) & 1u ? load_bits(cm[4], raw[r], vdt) : 0;
 }
 
-// ---------------------------------------------------------------------------
-// Kernel #2: the stage ring (scan_kernel_dma = "double").
-//
-// Replaces presto_tpu/exec/kernels/scan_kernel.py _stage_slabs (:329; the
-// arrays it stages, staged_indices :310; its scratch, dma_scratch_shapes
-// :499): while a CTA interprets one tile -- the RPT x T rows of one pass
-// --, the per-row arrays of its NEXT tile (plain values and dictionary
-// codes; RLE runs, dictionary values, gathered build columns and semi
-// markers stay where they are) are already on their way into the other
-// stage of a two-stage ring in shared memory, with cp.async (Hopper's
-// counterpart of pltpu.make_async_copy; commit / wait groups stand for its
-// semaphores).  The next tile may lie in the CTA's next work item (another
-// grid entry): the grouped kernels' persistent CTAs prefetch across it, as
-// the reference's copies cross grid blocks.  A CTA's last tile prefetches
-// nothing.  The rows, their order and every fold are the unstaged
-// kernel's, so its outputs are bit-identical.
-//
-// Bound: it moves the same bytes as the unstaged kernel (each staged
-// array once), so the carrying kernel's byte bound is its bound; what it
-// buys is overlap of the next tile's device-memory latency with this
-// tile's instructions.
-//
-// A stage holds one region per staged column of RPT * T * elem + 16 bytes
-// (offsets in the plan's stage table, exec/kernels/scan_kernel.py
-// stage_layout).  A tile's rows start at an arbitrary byte of the array,
-// and cp.async moves 16-byte aligned chunks: a column's tile is stored at
-// the same offset modulo 16 as in device memory, the aligned interior is
-// copied in 16-byte chunks, and the ragged head and tail bytes (< 16 each)
-// are loaded directly.  Nothing outside the tile's rows is read.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ int dt_bytes(int dt) {
-  return dt == DT_I8 || dt == DT_BOOL ? 1 : dt == DT_I16 ? 2
-         : dt == DT_I32 ? 4 : 8;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// every copy group of this thread but the newest has landed
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// The offset, modulo 16, at which the tile of an array of es-byte
-// elements at `ptr` starting at absolute row a0 sits in its stage region
-// (its offset in device memory).
-__device__ __forceinline__ int stage_shift_at(u64 ptr, int es, i64 a0) {
-  return (int)((ptr + (u64)a0 * (u64)es) & 15u);
-}
-__device__ __forceinline__ int stage_shift(const i64* cm, i64 a0) {
-  return stage_shift_at((u64)cm[2], dt_bytes((int)cm[1]), a0);
-}
-
-// Issue the copies of rows [a0, a0 + n) of the array of es-byte elements
-// at `ptr` into its stage region `region`; every thread of the CTA takes
-// part.
-__device__ __forceinline__ void stage_array(u64 ptr, int es,
-                                            unsigned char* region, i64 a0,
-                                            int n, int T, int tid) {
-  const u64 src = ptr + (u64)a0 * (u64)es;
-  const u64 end = src + (u64)n * (u64)es;
-  unsigned char* dst = region + (src & 15u);
-  u64 ci = (src + 15u) & ~(u64)15u;              // aligned interior
-  if (ci > end) ci = end;
-  u64 ce = end & ~(u64)15u;
-  if (ce < ci) ce = ci;
-  const int n16 = (int)((ce - ci) >> 4);
-  for (int k = tid; k < n16; k += T)
-    cp_async16(dst + (ci - src) + 16 * (u64)k,
-               (const void*)(ci + 16 * (u64)k));
-  const int head = (int)(ci - src), tail = (int)(end - ce);
-  for (int b = tid; b < head + tail; b += T) {
-    const u64 a = b < head ? src + b : ce + (b - head);
-    dst[a - src] = *(const unsigned char*)a;
-  }
-}
-
-// Issue the copies of the staged columns' rows [a0, a0 + n) into stage
-// `st`; every thread of the CTA takes part.  The copies complete at the
-// caller's cp_async_wait_prev + __syncthreads.
-__device__ void stage_tile(const i64* cols, const i64* stab, int n_cols,
-                           unsigned char* st, i64 a0, int n, int T, int tid) {
-  for (int c = 0; c < n_cols; ++c) {
-    const i64 off = stab[c];
-    if (off < 0) continue;
-    const i64* cm = cols + COL_WORDS * c;
-    stage_array((u64)cm[2], dt_bytes((int)cm[1]), st + off, a0, n, T, tid);
-  }
-}
-
-// The stage base of column `arg` (row 0 of the current tile) when the
+// The stage region of column `arg` in the current tile's stage when the
 // column is staged, else nullptr.
 template <int S>
 __device__ __forceinline__ const unsigned char* staged_base(const Tile& t,
-                                                            const i64* cm,
                                                             i64 arg) {
   if (S < 2 || t.stab[arg] < 0) return nullptr;
-  return t.stage + t.stab[arg] + stage_shift(cm, t.row0 - t.tid);
+  return t.stage + t.stab[arg];
 }
 
 // A gathered build column's values at the rows' build rows row[r] (rows
@@ -754,8 +901,8 @@ __device__ __forceinline__ void interpret(const Tile& t, const i64* p,
         if (cm[0] >= K_GATHER) {
           nb[sp * T] = load_joined(t, cm, active, push);
         } else {                          // resident columns hold no NULLs
-          load_column(cm, t.row0, T, active, push,
-                      staged_base<S>(t, cm, arg), t.tid);
+          load_column(cm, t.row0, T, active, push, staged_base<S>(t, arg),
+                      t.pos, t.k0);
           nb[sp * T] = 0;
         }
         ++sp;
@@ -1053,19 +1200,6 @@ __device__ unsigned run_steps(const Tile& t, int n_steps, unsigned live,
     cnt[(s + 1) * t.T + t.tid] += __popc(live);
   }
   return live;
-}
-
-// The block-relative rows [lo, hi) of block bidx that work item `item`
-// covers: slice item % n_sub of grid entry item / n_sub.
-__device__ __forceinline__ void item_rows(const i64* grid, int n_grid,
-                                          i64 rows_per_cta, int n_sub,
-                                          i64 item, i64& bidx, i64& lo,
-                                          i64& hi) {
-  const int e = (int)(item / n_sub), sub = (int)(item % n_sub);
-  bidx = grid[e];
-  lo = grid[n_grid + e] + (i64)sub * rows_per_cta;
-  const i64 end = grid[2 * n_grid + e];
-  hi = end < lo + rows_per_cta ? end : lo + rows_per_cta;
 }
 
 // float min/max that propagates NaN like jnp.minimum / jnp.maximum

@@ -57,17 +57,23 @@
 //   integer rows fold into acc_i with global atomics, each row its own
 //   once the table holds SPREAD_GROUPS groups, else one per warp and slot
 //   (warp_fold); each warp owns a float table in part_f.
+// - A CTA barrier starts every pass, in both modes: the folds run faster
+//   with the CTA's warps in step (HASH_DATE_PARTS -37%, H1 -12% on an
+//   H100); the stage ring's mbarriers need none.
 // - The reduce (scan_grouped_reduce, scan_common.cuh grouped_reduce)
 //   folds each slot's partials in REDUCE_LANES interleaved sequences, then
 //   a pairwise tree over them (exec/kernels/grouped.py reduce_partials): a
 //   fixed order, so two launches on the same inputs give bit-identical
 //   floats.
-// - STAGES = 2 (scan_kernel_dma = "double", kernel #2): a CTA copies the
-//   per-row arrays of its next tile -- the next pass of this work item, or
-//   the first of its next non-empty item -- into a two-stage ring in
-//   shared memory while this tile computes (scan_common.cuh stage_tile).
-//   STAGES = 1 is the unstaged kernel.  Both take the same path and grid
-//   (the on-chip fit counts the ring either way), so they agree bit for
+// - STAGES = 2 (scan_kernel_dma = "double" where the plan stages an
+//   array, kernel #2): thread 0 keeps the next n_stages - 1 stages of
+//   n_passes passes each of the staged arrays -- across work items -- in
+//   flight into a ring of n_stages stages in shared memory, by bulk copies
+//   completing on each stage's mbarrier (scan_common.cuh ring_copy), while
+//   the CTA computes this one; each warp releases a stage once its rows
+//   are read.  STAGES = 1 is the unstaged kernel.  Both take the same
+//   path and grid (the on-chip fit reserves a two-stage ring either way,
+//   and the ring's depth fills only the room left), so they agree bit for
 //   bit.
 //
 // Bound: the encoded bytes of the scanned columns once plus the table
@@ -227,6 +233,37 @@ __device__ __forceinline__ int n_fold_rows(const i64* src, int n_i) {
   return n;
 }
 
+// Thread 0's fill of stage s (at `st`, completing on `full`) with the
+// cursor's stage of the CTA: its rows into ctl->pos[s], the full barrier
+// armed with the stage's bytes, one bulk copy per staged column; then the
+// cursor moves on.  Not inlined: its temporaries stay out of the
+// interpreter loop's registers.
+__device__ __noinline__ void ring_fill_cols(
+    RingCtl* ctl, int s, unsigned char* st, u64* full, const i64* cols,
+    const i64* stab, int n_cols, i64 br, i64 stage_n, const i64* grid,
+    int n_grid, i64 rows_per_cta, int n_sub, i64 n_items) {
+  RingCursor& c = ctl->cur;
+  const i64 a0 = c.b * br + c.lo;
+  const int n = (int)min(stage_n, c.hi - c.lo);
+  ctl->pos[s].a0 = a0;
+  ctl->pos[s].n = n;
+  ctl->pos[s].dense = stage_dense(ctl->arrays16 != 0, a0, n);
+  unsigned tx = 0;
+  for (int k = 0; k < n_cols; ++k)
+    if (stab[k] >= 0) {
+      const i64* cm = cols + COL_WORDS * k;
+      tx += ring_bytes((u64)cm[2], dt_bytes((int)cm[1]), a0, n);
+    }
+  mbar_expect_tx(full, tx);
+  for (int k = 0; k < n_cols; ++k)
+    if (stab[k] >= 0) {
+      const i64* cm = cols + COL_WORDS * k;
+      ring_copy((u64)cm[2], dt_bytes((int)cm[1]), st + stab[k], a0, n, full);
+    }
+  ctl->more = ring_next(c, stage_n, grid, n_grid, rows_per_cta, n_sub,
+                        n_items);
+}
+
 // ONCHIP: the tables live in shared memory.  Every instance fits 512
 // threads of an SM at 128 registers each: two CTAs of 256 threads, or one
 // wider CTA, which a plan takes when its on-chip table leaves room for
@@ -242,13 +279,18 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
                     u64* __restrict__ counts, u64* __restrict__ keyhash,
                     i64* __restrict__ keyvals, int8_t* __restrict__ keynull,
                     int* __restrict__ meta, u64 salt, int stage_tab,
-                    int stage_bytes) {
+                    int n_stages, int n_passes, int stage_bytes) {
   extern __shared__ __align__(16) i64 smem[];
   const int T = blockDim.x, tid = threadIdx.x;
   const int warp = tid >> 5, n_warps = T >> 5;
-  // the stage ring (STAGES > 1) comes first, 16-byte aligned
+  // the stage ring (STAGES > 1) comes first, 16-byte aligned: n_stages
+  // stages, their full and empty mbarriers and the producer's state
   unsigned char* ring = (unsigned char*)smem;
-  i64* plan = smem + (STAGES > 1 ? STAGES * stage_bytes / 8 : 0);  // n_plan
+  u64* full = (u64*)(ring + (STAGES > 1 ? n_stages * stage_bytes : 0));
+  u64* empty = full + n_stages;
+  RingCtl* ctl = (RingCtl*)(full + 2 * n_stages);
+  i64* plan = (i64*)(STAGES > 1 ? (unsigned char*)ctl + RING_CTL_BYTES
+                                : ring);                          // n_plan
   i64* params = plan + n_plan;                   // n_params
   for (int k = tid; k < n_plan; k += T) plan[k] = plan_g[k];
   for (int k = tid; k < n_params; k += T) params[k] = params_g[k];
@@ -322,6 +364,8 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
   t.tid = tid;
   t.stab = STAGES > 1 ? plan + stage_tab : nullptr;
   t.stage = nullptr;
+  t.pos = ctl->pos;
+  t.k0 = 0;
   // integer row r's folds: on chip, at its fold position in shared
   // memory; else into acc_i with global atomics (warp_fold's rounds while
   // a hash table holds fewer than SPREAD_GROUPS groups)
@@ -334,22 +378,31 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
   };
   const i64 n_items = (i64)n_grid * n_sub, tile = (i64)RPT * T;
   const int n_cols = (int)plan[H_N_COLS];
-  // the stage ring: the first pass of the CTA's first non-empty work item
-  // is copied before the loop; each pass then issues its successor's
-  // copies (n_tiles counts the tiles computed: the stage parity)
-  int n_tiles = 0;
+  // the stage ring: thread 0 fills stages 0 .. n_stages - 2 with the
+  // CTA's first stages of n_passes passes; the first pass of each stage
+  // then refills the stage the previous one read with the stage
+  // n_stages - 1 ahead (n_used counts the stages computed: its stage and
+  // phase parity)
+  const i64 stage_n = (i64)n_passes * tile;
   if (STAGES > 1) {
-    for (i64 item = blockIdx.x; item < n_items; item += gridDim.x) {
-      i64 b0, lo0, hi0;
-      item_rows(grid, n_grid, rows_per_cta, n_sub, item, b0, lo0, hi0);
-      if (hi0 > lo0) {
-        stage_tile(t.cols, t.stab, n_cols, ring, b0 * br + lo0,
-                   (int)min(tile, hi0 - lo0), T, tid);
-        cp_async_commit();
-        break;
-      }
+    if (tid == 0) {
+      ring_init(full, n_stages, n_warps);
+      ctl->cur.item = blockIdx.x;
+      ctl->arrays16 = 1;
+      for (int c = 0; c < n_cols; ++c)
+        if (t.stab[c] >= 0)
+          ctl->arrays16 &= (t.cols[COL_WORDS * c + 2] & 15) == 0;
+      ctl->more = ring_seek(ctl->cur, grid, n_grid, rows_per_cta, n_sub,
+                            n_items);
     }
+    __syncthreads();
+    if (tid == 0)
+      for (int s = 0; s < n_stages - 1 && ctl->more; ++s)
+        ring_fill_cols(ctl, s, ring + (size_t)s * stage_bytes, full + s,
+                       t.cols, t.stab, n_cols, br, stage_n, grid, n_grid,
+                       rows_per_cta, n_sub, n_items);
   }
+  int n_used = 0, stg = 0;
   for (i64 item = blockIdx.x; item < n_items; item += gridDim.x) {
     // grid entry item / n_sub; this CTA takes its rows_per_cta-row slice
     // item % n_sub
@@ -361,112 +414,118 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
     // every thread of the CTA runs every pass (the folds need whole
     // warps, the on-chip float fold the whole CTA); rows past `hi` are
     // simply not live
-    for (int pass = 0; pass < n_pass; ++pass) {
-      const i64 base = lo + (i64)pass * RPT * T + tid;
-      t.row0 = bidx * br + base;
+    for (int pass0 = 0; pass0 < n_pass; pass0 += n_passes) {
       if (STAGES > 1) {
-        // every thread is done with the stage the next tile's copies
-        // overwrite; they are issued before this tile computes
-        __syncthreads();
-        i64 nb = -1, nlo = 0, nhi = 0;
-        if (pass + 1 < n_pass) {
-          nb = bidx;
-          nlo = lo + (pass + 1) * tile;
-          nhi = hi;
-        } else {
-          for (i64 it = item + gridDim.x; it < n_items; it += gridDim.x) {
-            i64 b2, lo2, hi2;
-            item_rows(grid, n_grid, rows_per_cta, n_sub, it, b2, lo2, hi2);
-            if (hi2 > lo2) {
-              nb = b2;
-              nlo = lo2;
-              nhi = hi2;
-              break;
-            }
-          }
+        // the producer: the stage the previous one read, once every warp
+        // released it, takes the stage n_stages - 1 ahead
+        if (tid == 0 && ctl->more) {
+          const int s = (n_used + n_stages - 1) % n_stages;
+          if (n_used > 0)
+            mbar_wait(empty + s, (unsigned)((n_used - 1) / n_stages) & 1u);
+          ring_fill_cols(ctl, s, ring + (size_t)s * stage_bytes, full + s,
+                         t.cols, t.stab, n_cols, br, stage_n, grid, n_grid,
+                         rows_per_cta, n_sub, n_items);
         }
-        if (nb >= 0)
-          stage_tile(t.cols, t.stab, n_cols,
-                     ring + ((n_tiles + 1) % STAGES) * stage_bytes,
-                     nb * br + nlo, (int)min(tile, nhi - nlo), T, tid);
-        cp_async_commit();
-        cp_async_wait_prev();                    // this tile's copies
-        __syncthreads();
-        t.stage = ring + (n_tiles % STAGES) * stage_bytes;
-        ++n_tiles;
+        __syncwarp();
+        stg = n_used % n_stages;
+        mbar_wait(full + stg, (unsigned)(n_used / n_stages) & 1u);
+        t.stage = ring + (size_t)stg * stage_bytes;
+        t.pos = ctl->pos + stg;
       }
-      unsigned live = 0;
+      // the stage's passes (one without the ring)
+      const int np = min(n_passes, n_pass - pass0);
+      for (int sp = 0; sp < np; ++sp) {
+        const int pass = pass0 + sp;
+        const i64 base = lo + (i64)pass * RPT * T + tid;
+        t.row0 = bidx * br + base;
+        t.k0 = sp * (int)tile + tid;
+        // the folds' pace: the CTA's warps start each pass together.
+        // Measured on an H100, single mode, against the kernel without it
+        // (benchmarks/kernel_times.py --parent): HASH_DATE_PARTS 24.6 ->
+        // 15.4 ms, H1 3.16 -> 2.79 ms (the mechanism, likely the warps'
+        // atomics on a few hot slots, is not isolated).  It guards no
+        // stage.
+        __syncthreads();
+        unsigned live = 0;
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) live |= (unsigned)(base + r * T < hi) << r;
-      cnt[tid] += __popc(live);
-      live = run_steps<STAGES, EXT>(t, n_steps, live, cnt);
-      __syncwarp();
-      const bool any = __any_sync(FULL_MASK, live != 0);
-      i64 code[RPT];
+        for (int r = 0; r < RPT; ++r)
+          live |= (unsigned)(base + r * T < hi) << r;
+        cnt[tid] += __popc(live);
+        live = run_steps<STAGES, EXT>(t, n_steps, live, cnt);
+        __syncwarp();
+        const bool any = __any_sync(FULL_MASK, live != 0);
+        i64 code[RPT];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) code[r] = 0;
-      // device memory: warp_fold's rounds until the table holds
-      // SPREAD_GROUPS groups, then one atomic per row
-      bool spread = false;
-      if (any) {
-        live = probe_rows<STAGES, EXT>(t, keys, n_keys, live, code, G, salt,
-                                       keyhash, keyvals, keynull, meta,
-                                       mirrored ? mirror : nullptr);
-        if (!ONCHIP)
-          spread = __shfl_sync(FULL_MASK, __ldcg(meta + 1), 0) >=
-                   SPREAD_GROUPS;
-        fold(spread, live, code, true, R_ADD, false, 0);
-      }
-      for (int s = 0; s < n_specs; ++s) {
-        const i64* sp = specs + SPEC_WORDS * s;
-        const int kind = (int)sp[0], acc_float = (int)sp[1];
-        const int vrow = (int)sp[3], crow = (int)sp[4], in_float = (int)sp[5];
-        // seen_count: the spec's row count equals __seen; the reduce
-        // copies it
-        const bool seen_count = sp[6] != 0;
-        const bool is_count = kind == S_COUNT_STAR || kind == S_COUNT;
-        if (is_count && seen_count) continue;
-        unsigned take = live;
-        if (any && kind != S_COUNT_STAR) {
-          eval_prog<STAGES, EXT>(t, sp[2], live);
-          take &= ~result_nulls(t);
+        for (int r = 0; r < RPT; ++r) code[r] = 0;
+        // device memory: warp_fold's rounds until the table holds
+        // SPREAD_GROUPS groups, then one atomic per row
+        bool spread = false;
+        if (any) {
+          live = probe_rows<STAGES, EXT>(t, keys, n_keys, live, code, G, salt,
+                                         keyhash, keyvals, keynull, meta,
+                                         mirrored ? mirror : nullptr);
+          if (!ONCHIP)
+            spread = __shfl_sync(FULL_MASK, __ldcg(meta + 1), 0) >=
+                     SPREAD_GROUPS;
+          fold(spread, live, code, true, R_ADD, false, 0);
         }
-        if (is_count) {
-          if (any)
-            fold(spread, take, code, true, R_ADD, false, vrow);
-          continue;
-        }
-        const int op = kind == S_MIN ? R_MIN : kind == S_MAX ? R_MAX : R_ADD;
-        if (acc_float && cta_floats) {
-          // every warp stages (no rows: all slots -1); the CTA applies
-          // the pairs only when some warp had rows
-          warp_stage_float(take, code, t, op, in_float, wsc, wsv);
-          if (__syncthreads_or(any)) {
-            apply_staged(stg_c, stg_v, n_warps, op, pf + vrow * G);
-            __syncthreads();
+        for (int s = 0; s < n_specs; ++s) {
+          const i64* sp = specs + SPEC_WORDS * s;
+          const int kind = (int)sp[0], acc_float = (int)sp[1];
+          const int vrow = (int)sp[3], crow = (int)sp[4], in_float = (int)sp[5];
+          // seen_count: the spec's row count equals __seen; the reduce
+          // copies it
+          const bool seen_count = sp[6] != 0;
+          const bool is_count = kind == S_COUNT_STAR || kind == S_COUNT;
+          if (is_count && seen_count) continue;
+          unsigned take = live;
+          if (any && kind != S_COUNT_STAR) {
+            eval_prog<STAGES, EXT>(t, sp[2], live);
+            take &= ~result_nulls(t);
           }
-        } else if (acc_float) {
-          if (!any) continue;
-          warp_stage_float(take, code, t, op, in_float, wsc, wsv);
-          // within one row position the staged slots are distinct: the
-          // lanes apply them at once, row positions in order
-          double* dst = pf + vrow * G;
-          for (int r = 0; r < RPT; ++r) {
-            const i64 c = wsc[r * 32 + lane];
-            if (c >= 0) {
-              if (ONCHIP)
-                dst[c] = fcombine(dst[c], wsv[r * 32 + lane], op);
-              else
-                __stcg(dst + c, fcombine(__ldcg(dst + c),
-                                         wsv[r * 32 + lane], op));
+          if (is_count) {
+            if (any)
+              fold(spread, take, code, true, R_ADD, false, vrow);
+            continue;
+          }
+          const int op = kind == S_MIN ? R_MIN : kind == S_MAX ? R_MAX : R_ADD;
+          if (acc_float && cta_floats) {
+            // every warp stages (no rows: all slots -1); the CTA applies
+            // the pairs only when some warp had rows
+            warp_stage_float(take, code, t, op, in_float, wsc, wsv);
+            if (__syncthreads_or(any)) {
+              apply_staged(stg_c, stg_v, n_warps, op, pf + vrow * G);
+              __syncthreads();
             }
-            __syncwarp();
+          } else if (acc_float) {
+            if (!any) continue;
+            warp_stage_float(take, code, t, op, in_float, wsc, wsv);
+            // within one row position the staged slots are distinct: the
+            // lanes apply them at once, row positions in order
+            double* dst = pf + vrow * G;
+            for (int r = 0; r < RPT; ++r) {
+              const i64 c = wsc[r * 32 + lane];
+              if (c >= 0) {
+                if (ONCHIP)
+                  dst[c] = fcombine(dst[c], wsv[r * 32 + lane], op);
+                else
+                  __stcg(dst + c, fcombine(__ldcg(dst + c),
+                                           wsv[r * 32 + lane], op));
+              }
+              __syncwarp();
+            }
+          } else if (any) {
+            fold(spread, take, code, false, op, in_float, vrow);
           }
-        } else if (any) {
-          fold(spread, take, code, false, op, in_float, vrow);
+          if (any && !seen_count)
+            fold(spread, take, code, true, R_ADD, false, crow);
         }
-        if (any && !seen_count)
-          fold(spread, take, code, true, R_ADD, false, crow);
+      }
+      if (STAGES > 1) {
+        // this warp has read the stage's rows: release it
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + stg);
+        ++n_used;
       }
     }
   }
@@ -507,14 +566,14 @@ __global__ void scan_grouped_reduce(const i64* __restrict__ plan, i64 G,
 typedef void (*grouped_kernel_t)(const i64*, int, const i64*, int, i64, i64,
                                  int, const i64*, int, i64, int, i64*, i64*,
                                  double*, u64*, u64*, i64*, int8_t*, int*,
-                                 u64, int, int);
+                                 u64, int, int, int, int);
 
 template <bool EXT>
 static grouped_kernel_t pick(int stages, int onchip) {
   if (onchip)
-    return stages == 2 ? scan_grouped_kernel<2, true, EXT>
+    return stages >= 2 ? scan_grouped_kernel<2, true, EXT>
                        : scan_grouped_kernel<1, true, EXT>;
-  return stages == 2 ? scan_grouped_kernel<2, false, EXT>
+  return stages >= 2 ? scan_grouped_kernel<2, false, EXT>
                      : scan_grouped_kernel<1, false, EXT>;
 }
 
@@ -523,10 +582,11 @@ static grouped_kernel_t pick(int stages, int onchip) {
 // their tables in shared memory and write them to part_i (n_ctas x
 // n_fold x G); otherwise part_i is null.  part_f holds n_ctas x f_tables
 // float tables (n_f x G each): f_tables is threads / 32 (one per warp)
-// or, on chip without room for those, 1.  stages 2 runs the
-// stage ring of stage_bytes per stage (stage table at plan word
-// stage_tab); smem_bytes includes the ring and the on-chip tables; ext
-// picks the instance for the opcodes beyond the Q1 / Q6 set.
+// or, on chip without room for those, 1.  stages >= 2 runs the stage ring
+// of `stages` stages of `passes` passes and stage_bytes each (stage table
+// at plan word stage_tab), 1 the unstaged kernel; smem_bytes includes the
+// ring, its barriers and producer state and the on-chip tables; ext picks
+// the instance for the opcodes beyond the Q1 / Q6 set.
 extern "C" int scan_grouped_launch(
     const void* plan, int n_plan, const void* grid, int n_grid,
     long long br, long long rows_per_cta, int n_sub, const void* params,
@@ -534,8 +594,8 @@ extern "C" int scan_grouped_launch(
     void* part_i,
     void* acc_i, void* part_f, void* acc_f, void* counts, void* keyhash,
     void* keyvals, void* keynull, void* table_meta, long long salt,
-    int n_ctas, int threads, int stages, int stage_tab, int stage_bytes,
-    int smem_bytes, int ext, void* stream) {
+    int n_ctas, int threads, int stages, int passes, int stage_tab,
+    int stage_bytes, int smem_bytes, int ext, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const grouped_kernel_t kernel =
       ext ? pick<true>(stages, onchip) : pick<false>(stages, onchip);
@@ -550,7 +610,7 @@ extern "C" int scan_grouped_launch(
       n_sub, (const i64*)params, n_params, G, f_tables, (i64*)part_i,
       (i64*)acc_i, (double*)part_f, (u64*)counts, (u64*)keyhash,
       (i64*)keyvals, (int8_t*)keynull, (int*)table_meta, (u64)salt,
-      stage_tab, stage_bytes);
+      stage_tab, stages, passes, stage_bytes);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 rgrid((unsigned)((G + 31) / 32), (unsigned)(n_i + n_f));

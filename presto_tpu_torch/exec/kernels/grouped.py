@@ -26,12 +26,12 @@ collision at the cap declines with AggGroupCardinality (the caller
 raises: the torch fused chain that would take over is not ported yet).
 A chain's fanout-1 join and semi-join probe steps run inside both modes'
 launches (kernel #5, join.py), as in the direct kernel, and so does the
-stage ring of dma="double" (kernel #2, scan_kernel.py stage_layout): a
-persistent CTA copies its next tile's per-row arrays, across work items,
-while the current tile computes.  Where a launch keeps its tables (on
-chip in each CTA's shared memory, or device memory) is one decision,
-ScanPlan.layout, which the wrappers, the span kernel's source,
-partial_bytes and the reservations all read.
+stage ring of dma="double" (kernel #2, scan_kernel.py ScanPlan.staging): a
+persistent CTA keeps the next stages of the arrays its plan stages in
+flight, across work items, while the current tile computes.  Where a
+launch keeps its tables (on chip in each CTA's shared memory, or device
+memory) is one decision, ScanPlan.layout, which the wrappers, the span
+kernel's source, partial_bytes and the reservations all read.
 """
 from __future__ import annotations
 
@@ -48,9 +48,9 @@ from .scan_kernel import (GROUPED_SUBTILE_ROWS, KERNEL_HASH_MAX_SLOTS,
                           ScanPlan, aligned_grid, block_rows_for,
                           cached_plan, check_launch_inputs, count_launch,
                           gather_encoded_arrays, init_outputs, join_kwargs,
-                          check_dma, launch_tensors, meter_kernel_run,
-                          plan_joins, plain_row_groups, stacked_state,
-                          stage_layout, stage_ring_counts, state_of,
+                          check_dma, launch_staging, launch_tensors,
+                          meter_kernel_run, plan_joins, plain_row_groups,
+                          stacked_state, stage_ring_counts, state_of,
                           to_device, word_values)
 # device memory the device-memory path's per-warp float partials may take;
 # past it the grid has fewer CTAs
@@ -109,29 +109,29 @@ def partial_bytes(plan: ScanPlan, n_grid: int, br: int, G: int,
 
 def stage_counts(plan: ScanPlan, columns, grid, br: int, G: int,
                  dma: str):
-    """The stage ring's (staged, prefetched) tile copies of a grouped
-    launch into G slots (none in single mode or on the CPU)."""
+    """The stage ring's (staged, prefetched) stage copies of a grouped
+    launch into G slots (none in single mode, for a plan that stages
+    nothing, or on the CPU)."""
     device = columns[0].device
-    if dma != "double" or device.type != "cuda" or not grid:
+    st = launch_staging(plan, columns, dma, G)
+    if st is None or device.type != "cuda" or not grid:
         return 0, 0
-    return stage_ring_counts(plan, columns, grid, br,
+    return stage_ring_counts(st, grid, br,
                              *_grid_shape(plan, len(grid), br, G, device))
 
 
 def span_kernel(plan: ScanPlan, columns, joins=None, dma: str = "single"):
     """The generated span kernel (codegen.SpanKernel) of the plan over
-    these columns' encodings, built once per plan, shape and stage count
-    for the plan's layout."""
+    these columns' encodings, built once per plan, shape and ring for the
+    plan's layout."""
     from . import codegen
-    stages = check_dma(dma)
+    staging = launch_staging(plan, columns, dma, plan.G)
     shape = codegen.column_shape(plan, columns, joins)
-    key = ("span", shape, stages)
+    key = ("span", shape, staging)
     kern = plan.dev.get(key)
     if kern is None:
-        offsets, stage_bytes = stage_layout(columns, plan.threads)
         kern = plan.dev[key] = codegen.generate_span(
-            plan, shape, stages, offsets, stages * stage_bytes * (stages > 1),
-            plan.layout(plan.G))
+            plan, shape, staging, plan.layout(plan.G))
     return kern
 
 
@@ -165,12 +165,12 @@ def _launch(plan: ScanPlan, columns, grid, br: int, params, *, G: int,
                     ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 9
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     n_params = 0 if params is None else int(params.numel())
     ln = launch_tensors(plan, columns, grid, device, joins, dma, n_params,
-                        lay.table_bytes)
+                        lay.table_bytes, G)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -183,8 +183,8 @@ def _launch(plan: ScanPlan, columns, grid, br: int, params, *, G: int,
             acc_i.data_ptr(),
             ptr(part_f), acc_f.data_ptr(), counts.data_ptr(), ptr(keyhash),
             ptr(keys), ptr(keynull), ptr(meta), int(salt), n_ctas,
-            plan.threads, ln.stages, ln.stage_tab, ln.stage_bytes,
-            ln.smem_bytes, int(plan.ext), stream)
+            plan.threads, ln.stages, ln.passes, ln.stage_tab,
+            ln.stage_bytes, ln.smem_bytes, int(plan.ext), stream)
     if rc != 0:
         raise RuntimeError(
             f"scan_grouped ({plan.mode}) launch failed: CUDA error {rc}")
@@ -260,9 +260,9 @@ def scan_span(plan: ScanPlan, columns, grid, br: int, params, joins=None,
               dma: str = "single"):
     """Span-mode fused scan over `grid` entries (bidx, lo, hi); `joins`
     (join.JoinPlan) holds the probe steps' build operands; dma="double"
-    runs the stage ring.  CUDA tensors launch the kernel; CPU tensors run
-    scan_span_plain.  Returns (acc_i (n_i, G), acc_f (max(n_f, 1), G),
-    counts)."""
+    runs the stage ring of the plan's staging.  CUDA tensors launch the
+    kernel; CPU tensors run scan_span_plain.  Returns (acc_i (n_i, G),
+    acc_f (max(n_f, 1), G), counts)."""
     device = columns[0].device
     check_dma(dma)
     if device.type == "cpu":
@@ -273,7 +273,8 @@ def scan_span(plan: ScanPlan, columns, grid, br: int, params, joins=None,
     if grid:
         _launch(plan, columns, grid, br, params, G=plan.G, acc_i=acc_i,
                 acc_f=acc_f, counts=counts, joins=joins, dma=dma)
-        count_launch("scan_span", plan, dma)
+        count_launch("scan_span", plan,
+                     launch_staging(plan, columns, dma, plan.G) is not None)
         ONCHIP_LAUNCHES["scan_span"] += plan.layout(plan.G).on_chip
     return acc_i, acc_f, counts
 
@@ -304,7 +305,9 @@ def scan_hash(plan: ScanPlan, columns, grid, br: int, params,
         _launch(plan, columns, grid, br, params, G=num_slots, acc_i=acc_i,
                 acc_f=acc_f, counts=counts, salt=salt,
                 table=(keyhash, keys, keynull, meta), joins=joins, dma=dma)
-        count_launch("scan_hash", plan, dma)
+        count_launch("scan_hash", plan,
+                     launch_staging(plan, columns, dma, num_slots)
+                     is not None)
         ONCHIP_LAUNCHES["scan_hash"] += plan.layout(num_slots).on_chip
     return HashTable(keyhash, keys, keynull, acc_i, acc_f, counts,
                      meta[0] != 0)

@@ -31,13 +31,15 @@ live rows into the aggregation accumulators.
             and what changes per launch (the grid, a new column or build
             operand table) goes through pinned host memory with
             non_blocking copies (to_device).
-  staging   dma="double" (scan_kernel_dma, kernel #2): the kernels copy
-            the next tile's per-row arrays (staged_indices) into a
-            two-stage ring in shared memory while the current tile
-            computes (csrc/scan_common.cuh stage_tile; layout
-            stage_layout).  It changes no result; stage_ring_counts
-            meters it from the launch geometry.  The plain versions
-            stage nothing.
+  staging   dma="double" (scan_kernel_dma, kernel #2): the kernels keep
+            the next stages of the arrays the plan reads densely in flight
+            into a ring of 2-4 stages in shared memory, by bulk copies on
+            mbarriers (csrc/scan_common.cuh ring_copy), while the current
+            tile computes.  ScanPlan.staging is the one decision of what
+            is staged and how deep the ring is; a plan with nothing worth
+            staging launches unstaged.  It changes no result;
+            stage_ring_counts meters it from the launch geometry.  The
+            plain versions stage nothing.
 
 Outputs: acc_i (n_i, G) int64 and acc_f (max(n_f, 1), G) float64 in
 agg_direct_init's state order, and the per-step live-row counters
@@ -128,8 +130,20 @@ JOIN_LAUNCHES: Dict[str, int] = {k: 0 for k in SCAN_KERNELS}
 STAGED_LAUNCHES: Dict[str, int] = {k: 0 for k in SCAN_KERNELS}
 # scan_kernel_dma values: "double" runs the stage ring (kernel #2)
 DMA_MODES = ("single", "double")
-# stages of the ring per mode (the kernels' STAGES template parameter)
-_STAGES = {"single": 1, "double": 2}
+# the ring's depth: a layout reserves MIN_STAGES stages of one pass, and a
+# launch takes up to MAX_STAGES stages of up to MAX_PASSES passes each
+# where the shared memory left at its CTA count holds them
+MIN_STAGES, MAX_STAGES = 2, 4
+MAX_PASSES = 8
+# a plan with a probe step whose layout leaves at least this much of the
+# SM's shared memory to the L1 beside the reserved ring keeps stages of
+# one pass: longer ones would take the L1 its table gathers hit
+PROBE_L1_BYTES = 64 * 1024
+# a stage's two mbarriers (full, empty), 8 bytes each
+_RING_BARRIER_BYTES = 16
+# the hash kernel's producer state beside its ring (csrc/scan_common.cuh
+# RingCtl, RING_CTL_BYTES), reserved with its stage table
+_RING_CTL_BYTES = 128
 
 
 class KernelMetrics:
@@ -292,8 +306,8 @@ def gather_encoded_arrays(cached, colmap, names) -> List:
 def meter_kernel_run(runtime_stats, n_blocks: int,
                      n_staged_copies: int = 0, n_prefetched: int = 0) -> None:
     """One kernelScanPrograms tick per launched kernel; with the stage
-    ring (stage_ring_counts) also its staged tile copies, those issued
-    while a previous tile computed, and their ratio, under the
+    ring (stage_ring_counts) also its stage copies, those that landed
+    while an earlier stage computed, and their ratio, under the
     reference's kernelDma* names."""
     KERNEL_METRICS.record_run(n_staged_copies, n_prefetched)
     if runtime_stats is None:
@@ -310,64 +324,142 @@ def meter_kernel_run(runtime_stats, n_blocks: int,
 # the stage ring (kernel #2)
 # ---------------------------------------------------------------------------
 
-def check_dma(dma: str) -> int:
-    """The ring's stage count for a scan_kernel_dma value."""
+def check_dma(dma: str) -> None:
+    """Refuse a scan_kernel_dma value outside DMA_MODES."""
     if dma not in DMA_MODES:
         raise ValueError(f"scan_kernel_dma must be one of {DMA_MODES}, "
                          f"got {dma!r}")
-    return _STAGES[dma]
 
 
-def staged_indices(columns) -> Tuple[int, ...]:
-    """Kernel column indices of the PER-ROW encoded arrays (plain values,
-    dict codes) -- the arrays the stage ring copies per tile.  Dictionary
-    values and RLE runs are whole arrays and stay in device memory (the
-    reference's staged_indices, presto_tpu/exec/kernels/scan_kernel.py
-    :310)."""
-    return tuple(i for i, rc in enumerate(columns)
-                 if rc.kind in ("plain", "dict"))
+class Staging(NamedTuple):
+    """A plan's stage ring over one column shape (ScanPlan.staging): the
+    one decision that the kernels' sources, the launches, the layout's
+    reservation and the kernelDma* meters read."""
+    staged: Tuple[int, ...]      # kernel column indices the ring copies
+    stages: int                  # S, MIN_STAGES..MAX_STAGES; 0: unstaged
+    passes: int                  # P, passes of a work item per stage
+    rows: int                    # rows of a stage: P x ROWS_PER_THREAD x T
+    stage_bytes: int             # one stage: a region per staged array
+    offsets: Tuple[int, ...]     # per scan column: its region, -1 unstaged
+    row_bytes: int               # staged bytes of one row
+
+    @property
+    def ring_bytes(self) -> int:
+        """Shared memory of the ring: S stages, then a full and an empty
+        mbarrier per stage."""
+        return self.stages * (self.stage_bytes + _RING_BARRIER_BYTES)
+
+    def staged_bytes(self, rows: int) -> int:
+        """Device bytes the ring copies for `rows` rows: each staged
+        array's rows once (its bound at the memory rate)."""
+        return self.row_bytes * int(rows)
 
 
-def stage_layout(columns, threads: int) -> Tuple[List[int], int]:
-    """(per column: its region's byte offset in a stage, -1 when not
-    staged; bytes of one stage) for tiles of ROWS_PER_THREAD x threads
-    rows.  A region holds a tile of the array plus 16 bytes, so the tile
-    keeps its device-memory offset modulo 16 (csrc/scan_common.cuh
-    stage_tile); every region starts 16-byte aligned."""
-    tile = ROWS_PER_THREAD * threads
-    staged = set(staged_indices(columns))
-    offsets, nbytes = [], 0
-    for i, rc in enumerate(columns):
-        if i not in staged:
-            offsets.append(-1)
+def _elem_bytes(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def scan_shape(columns) -> Tuple[tuple, ...]:
+    """Per scan column (kind, dtype of its per-row array, dtype of its
+    second array): the encodings the staging decision reads."""
+    out = []
+    for rc in columns:
+        a1 = rc.arrays[1] if len(rc.arrays) > 1 else rc.arrays[0]
+        out.append((rc.kind, rc.arrays[0].dtype, a1.dtype))
+    return tuple(out)
+
+
+def first_reads(names, step_programs, joins, key_programs, agg_programs,
+                specs) -> Dict[int, bool]:
+    """Per scan column the kernels read: whether its first read comes
+    after a step has narrowed the rows (a filter, or an inner join's
+    probe), in the kernels' order -- the steps (a probe step's keys), the
+    group keys, then each aggregate's input (a count that equals __seen
+    reads nothing; nor does a column only tested by IS NULL: resident
+    columns hold no NULLs, so its value is dead code)."""
+    col_idx = {n: i for i, n in enumerate(names)}
+    reads: Dict[int, bool] = {}
+    narrowed = False
+
+    def see(prog):
+        ops = prog.ops
+        for i, (op, arg) in enumerate(ops):
+            if op != OP["COL"] or prog.columns[arg] not in col_idx:
+                continue
+            if i + 1 < len(ops) and ops[i + 1][0] == OP["IS_NULL"]:
+                continue
+            reads.setdefault(col_idx[prog.columns[arg]], narrowed)
+    probes = {jp.step.si: jp for jp in joins}
+    for s, prog in enumerate(step_programs):
+        if s in probes:
+            step = probes[s].step
+            for p in probes[s].key_programs:
+                see(p)
+            narrowed |= step.kind != "semi" and not step.is_left
+        elif prog is not None:
+            see(prog)
+            narrowed = True
+    for p in key_programs:
+        see(p)
+    for spec in specs:
+        p = agg_programs.get(spec.output)
+        if p is None or (spec.name in ("count", "count_star")
+                         and not p.nullable):
             continue
-        offsets.append(nbytes)
-        nbytes += -(-(tile * rc.arrays[0].element_size() + 16) // 16) * 16
+        see(p)
+    return reads
+
+
+def staged_columns(reads: Dict[int, bool], shape) -> Tuple[int, ...]:
+    """The arrays worth staging: the per-row arrays (plain values, dict
+    codes) read under the tile's full row mask, and the 1- and 2-byte ones
+    wherever they are read (their 32-byte sectors hold 16-32 rows, so a
+    selective step still touches nearly every sector).  A 4- or 8-byte
+    array first read after a narrowing step stays in device memory."""
+    return tuple(c for c in sorted(reads)
+                 if shape[c][0] in ("plain", "dict")
+                 and (not reads[c] or _elem_bytes(shape[c][1]) <= 2))
+
+
+def stage_regions(staged, shape, tile: int) -> Tuple[List[int], int]:
+    """(per scan column its region's offset in a stage, -1 when not
+    staged; bytes of one stage).  A region holds a tile of the array plus
+    16 bytes, so the tile keeps its device-memory offset modulo 16
+    (csrc/scan_common.cuh ring_copy); every region starts 16-byte
+    aligned."""
+    offsets, nbytes = [-1] * len(shape), 0
+    for c in staged:
+        offsets[c] = nbytes
+        nbytes += -(-(tile * _elem_bytes(shape[c][1]) + 16) // 16) * 16
     return offsets, nbytes
 
 
-def ring_bytes(columns, threads: int, dma: str) -> int:
-    """Shared-memory bytes of the stage ring for `dma` (0: single)."""
-    stages = check_dma(dma)
-    return 0 if stages == 1 else stages * stage_layout(columns, threads)[1]
+def min_ring_bytes(staged, shape, threads: int) -> int:
+    """The smallest ring (MIN_STAGES) of `staged` at CTAs of `threads`: what
+    a layout reserves so that a single and a double launch run the same
+    CTAs."""
+    if not staged:
+        return 0
+    _offsets, stage = stage_regions(staged, shape, ROWS_PER_THREAD * threads)
+    return MIN_STAGES * (stage + _RING_BARRIER_BYTES)
 
 
-def stage_ring_counts(plan: "ScanPlan", columns, grid, br: int,
-                      rows_per_cta: int, n_sub: int,
-                      n_ctas: Optional[int] = None) -> Tuple[int, int]:
-    """(staged tile copies, copies issued while a previous tile computed)
-    of a double-mode launch, from its geometry: a CTA copies each staged
-    array once per tile (ROWS_PER_THREAD x threads rows) it computes, and
-    every tile after a CTA's first was copied while the one before it
-    computed.  n_ctas None: one CTA per (grid entry, slice), the direct
-    kernel; else the grouped kernels' persistent CTAs, CTA b taking work
-    items b, b + n_ctas, ... (item = entry x n_sub + slice).  The unit is
-    a CTA tile, where the reference counts 64K-row grid blocks
+def stage_ring_counts(staging: Staging, grid, br: int, rows_per_cta: int,
+                      n_sub: int, n_ctas: Optional[int] = None
+                      ) -> Tuple[int, int]:
+    """(staged copies, copies that land while an earlier stage computes) of
+    a staged launch, from its geometry: a CTA copies each staged array
+    once per stage (staging.rows rows of a work item) it computes, and
+    every stage after a CTA's first lands while an earlier one computes.  n_ctas None:
+    one CTA per (grid entry, slice); else the persistent CTAs, CTA b
+    taking work items b, b + n_ctas, ... (item = entry x n_sub + slice).
+    The unit is a stage of one staged array, where the reference counts
+    64K-row grid blocks of every per-row array
     (presto_tpu/exec/kernels/scan_kernel.py meter_kernel_run :553)."""
-    n_staged = len(staged_indices(columns))
-    if not n_staged or not len(grid):
+    n_staged = len(staging.staged)
+    if not staging.stages or not n_staged or not len(grid):
         return 0, 0
-    tile = ROWS_PER_THREAD * plan.threads
+    tile = staging.rows
     g = np.asarray(grid, dtype=np.int64).reshape(-1, 3)
     lo = g[:, 1:2] + np.arange(n_sub, dtype=np.int64) * rows_per_cta
     hi = np.minimum(g[:, 2:3], lo + rows_per_cta)
@@ -457,9 +549,10 @@ class ScanPlan:
     # the kernel folds it, 0 (__seen) for a count that equals __seen
     src_rows: Tuple[int, ...] = ()
     # hash mode: the largest slot count whose per-CTA tables fit in
-    # shared memory (0: none) beside the double mode's ring and stage
-    # table (ring_reserve bytes: the span kernel's ring alone), and the
-    # largest whose float rows fit once per warp -- read by layout
+    # shared memory (0: none) beside the double mode's smallest ring and
+    # its stage table (ring_reserve bytes: the generated kernels' ring
+    # alone; 0 when the plan stages nothing), and the largest whose float
+    # rows fit once per warp -- read by layout
     onchip_slots: int = 0
     ring_reserve: int = 0
     warp_float_slots: int = 0
@@ -487,13 +580,59 @@ class ScanPlan:
         """Integer rows the kernel folds (the others copy __seen)."""
         return sum(1 for r, sr in enumerate(self.src_rows) if r == sr)
 
+    def staging(self, columns, slots: int = 0) -> Staging:
+        """The stage ring of a double launch over the ResidentColumns
+        `columns` into `slots` slots (hash mode): the arrays worth staging
+        (staged_columns over first_reads) and the ring that the shared
+        memory left at the layout's CTA count holds: more than two stages
+        where any fit, then the longest stages (P passes, a divisor of a
+        work item's passes: a stage never spans two items), then the most
+        of them (S).  It depends only on the plan and the encodings, so
+        every launch of a plan takes the same ring and the same CTAs."""
+        shape = scan_shape(columns)
+        key = ("staging", shape, slots if self.mode == "hash" else 0)
+        st = self.dev.get(key)
+        if st is None:
+            st = self.dev[key] = _staging(self, shape, slots)
+        return st
+
+    def ring_room(self, slots: int = 0) -> Tuple[int, int]:
+        """(shared memory of a launch beside its ring, the CTAs per SM its
+        layout fixes): the generated direct kernel's tables, the span
+        layout's, or the hash kernel's layout with its parameters, tables
+        and stage table."""
+        if self.mode == "direct":
+            return self.direct_smem(), self.direct_ctas_per_sm()
+        if self.mode == "span":
+            lay = self.layout(self.G)
+            return lay.smem_bytes, lay.ctas_per_sm
+        lay = self.layout(slots)
+        return (self.smem_bytes + lay.table_bytes + 8 * MAX_PARAMS
+                + 8 * len(self.names) + _RING_CTL_BYTES, lay.ctas_per_sm)
+
+    def direct_smem(self) -> int:
+        """Shared memory of the generated direct kernel beside its ring
+        (codegen.generate): the CTA's integer table, 16-byte aligned, then
+        per-thread float slots."""
+        G = max(self.G, 1)
+        return (-(-8 * self.n_fold * G // 16) * 16
+                + 8 * self.n_f * G * self.threads)
+
+    def direct_ctas_per_sm(self) -> int:
+        """CTAs per SM of the direct kernel's persistent grid: two CTAs'
+        threads, fewer where the tables and the reserved ring leave room
+        for fewer -- the same for a single and a double launch."""
+        return max(1, min(RESIDENT_THREADS // self.threads, SMEM_PER_SM // (
+            self.direct_smem() + self.ring_reserve
+            + SMEM_RESERVED_PER_CTA)))
+
     def layout(self, slots: int) -> "GroupedLayout":
         """Where a grouped launch into `slots` slots keeps its tables: the
         one decision the wrappers, the kernels' sources, partial_bytes and
         the reservations read.  It does not depend on the launch's stage
-        ring (the double mode's is counted either way), so a single and a
-        double launch take the same path over the same CTAs and fold in
-        the same order."""
+        ring (the double mode's smallest ring is reserved either way), so a
+        single and a double launch take the same path over the same CTAs
+        and fold in the same order."""
         warps = self.threads // 32
         if self.mode == "span":
             return _span_layout(self, slots, warps)
@@ -551,14 +690,75 @@ def _span_layout(plan: ScanPlan, slots: int, warps: int) -> GroupedLayout:
     return GroupedLayout(on, wf, f_tables, tables, smem, per_sm)
 
 
+def _staging(plan: ScanPlan, shape, slots: int) -> Staging:
+    """ScanPlan.staging's decision."""
+    tile = ROWS_PER_THREAD * plan.threads
+    staged = staged_columns(first_reads(
+        plan.names, plan.step_programs, plan.joins, plan.key_programs,
+        plan.agg_programs, plan.specs), shape)
+    if not staged:
+        return Staging((), 0, 0, tile, 0, (-1,) * len(shape), 0)
+    base, per_sm = plan.ring_room(slots)
+    # the reserved ring (MIN_STAGES of one pass) unless a deeper one fits:
+    # more than two stages first, then longer stages, which spread each
+    # stage's barrier waits and copies over more rows.  A stage holds
+    # passes of one work item, so P divides an item's passes (a shorter
+    # last stage would add a boundary); a probe plan whose gathers need
+    # the L1 keeps stages of one pass
+    reserved = min_ring_bytes(staged, shape, plan.threads)
+    keep_l1 = bool(plan.joins) and SMEM_PER_SM - per_sm * (
+        base + reserved + SMEM_RESERVED_PER_CTA) >= PROBE_L1_BYTES
+    item = ROWS_PER_CTA if plan.mode == "direct" else GROUPED_SUBTILE_ROWS
+    item_passes = -(-item // tile)
+    best = ((False, 1, MIN_STAGES), MIN_STAGES, 1)
+    for p in range(1, 2 if keep_l1 else min(MAX_PASSES, item_passes) + 1):
+        if item_passes % p:
+            continue
+        _o, stage = stage_regions(staged, shape, p * tile)
+        for s in range(MIN_STAGES, MAX_STAGES + 1):
+            need = base + s * (stage + _RING_BARRIER_BYTES)
+            if need <= MAX_SMEM_BYTES and per_sm * (
+                    need + SMEM_RESERVED_PER_CTA) <= SMEM_PER_SM:
+                best = max(best, ((s > MIN_STAGES, p, s), s, p))
+    _key, stages, passes = best
+    offsets, stage_bytes = stage_regions(staged, shape, passes * tile)
+    return Staging(staged, stages, passes, passes * tile, stage_bytes,
+                   tuple(offsets),
+                   sum(_elem_bytes(shape[c][1]) for c in staged))
+
+
+def launch_staging(plan: ScanPlan, columns, dma: str,
+                   slots: int = 0) -> Optional[Staging]:
+    """The ring a launch of `plan` over `columns` (into `slots` slots)
+    runs: the plan's staging under "double", None in single mode or when
+    the plan stages nothing."""
+    check_dma(dma)
+    if dma != "double":
+        return None
+    st = plan.staging(columns, slots)
+    return st if st.stages else None
+
+
+def check_ring_fits(staging: Staging, smem_bytes: int) -> None:
+    """Raise NotImplementedError naming the bytes when the ring does not
+    fit beside a launch's `smem_bytes`: a launch never runs unstaged
+    while its plan stages an array under "double"."""
+    if smem_bytes + staging.ring_bytes > MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            f"scan_kernel_dma=double: the {staging.ring_bytes}-byte stage "
+            f"ring does not fit beside the kernel's {smem_bytes}-byte "
+            f"shared-memory layout ({MAX_SMEM_BYTES} bytes at most)")
+
+
 def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
                     agg_inputs: Dict[str, Optional[RowExpression]],
                     jplan=None) -> ScanPlan:
     """Compile the chain's static shape into a ScanPlan for `mode`.
     `jplan` (join.JoinPlan) lays out the chain's join / semi steps.  The
-    grouped modes' on-chip table size (onchip_slots) leaves room for the
-    double mode's stage ring.  Raises NotImplementedError for an
-    expression or shape the kernel lacks."""
+    CTA count and the grouped modes' on-chip table size (onchip_slots)
+    leave room for the double mode's smallest ring of the arrays the plan
+    stages (ring_reserve).  Raises NotImplementedError for an expression
+    or shape the kernel lacks."""
     meta = chain.scan_meta
     names = tuple(meta["colmap"])
     col_idx = {n: i for i, n in enumerate(names)}
@@ -742,17 +942,22 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
             per_thread += 16 * ROWS_PER_THREAD
     cached = meta.get("cached_cols") or {}
     resident = [cached.get(meta["colmap"][n]) for n in names]
+    staged, shape = (), ()
+    if names and None not in resident:
+        shape = scan_shape(resident)
+        staged = staged_columns(first_reads(
+            names, step_programs, joins, key_programs, agg_programs,
+            specs), shape)
 
     def ring_at(threads):
-        """The double mode's ring and stage table for CTAs of `threads`."""
-        if not names or None in resident:
-            return 0
-        return ring_bytes(resident, threads, "double") + 8 * len(names)
+        """The double mode's smallest ring and, for the hash kernel, its
+        stage table and producer state for CTAs of `threads`."""
+        ring = min_ring_bytes(staged, shape, threads)
+        return ring + 8 * len(names) + _RING_CTL_BYTES if ring else 0
     if mode == "span":
         # the generated span kernel: no interpreter layout; its tables
         # beside the double mode's ring are ScanPlan.layout's
-        ring = (ring_bytes(resident, THREADS, "double")
-                if names and None not in resident else 0)
+        ring = min_ring_bytes(staged, shape, THREADS)
         return ScanPlan(mode, names, n_steps, step_programs, key_programs,
                         tuple(strides), G, tuple(specs), agg_programs,
                         int_names, flt_names, init_i, init_f,
@@ -781,7 +986,9 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
         raise NotImplementedError(
             f"accumulator layout of {smem} bytes exceeds the kernel's "
             f"shared memory")
-    onchip_slots = ring = warp_float_slots = 0
+    onchip_slots = warp_float_slots = 0
+    # the generated direct kernel reserves its ring alone
+    ring = min_ring_bytes(staged, shape, threads)
     if mode == "hash":
         # the largest table whose per-CTA accumulators (with the key-hash
         # mirror) fit beside this layout, the double mode's stage ring and
@@ -924,11 +1131,12 @@ class Launch(NamedTuple):
     """A launch's device inputs: the plan vector (with this launch's
     column table, probe operands and, for the stage ring, the stage table
     appended at word stage_tab), the grid as a (3, n_grid) int64 tensor,
-    and the ring's stage count, bytes per stage and the launch's dynamic
-    shared memory."""
+    and the ring's stage count (1: unstaged), passes and bytes per stage
+    and the launch's dynamic shared memory."""
     plan: torch.Tensor
     grid: torch.Tensor
     stages: int
+    passes: int
     stage_tab: int
     stage_bytes: int
     smem_bytes: int
@@ -936,34 +1144,31 @@ class Launch(NamedTuple):
 
 def launch_tensors(plan: ScanPlan, columns, grid, device, joins=None,
                    dma: str = "single", n_params: int = 0,
-                   table_bytes: int = 0) -> Launch:
+                   table_bytes: int = 0, slots: int = 0) -> Launch:
     """The launch's device inputs (Launch); `table_bytes` of on-chip tables
-    join its shared memory.  Raises NotImplementedError naming the bytes
-    when the stage ring does not fit the kernel's shared memory beside the
-    plan's layout: a launch never runs unstaged while asked for
-    "double"."""
-    stages = check_dma(dma)
+    (for `slots` slots) join its shared memory.  Under "double" the ring
+    is the plan's staging (none when it stages nothing); raises
+    NotImplementedError naming the bytes when the ring does not fit the
+    kernel's shared memory beside the plan's layout."""
     words = plan.words.copy()
     words[_HEADER:_HEADER + _COL_WORDS * len(columns)] = \
         _column_words(columns)
     if plan.joins:
         _fill_join_words(plan, words, joins)
     smem = plan.smem_bytes + 8 * n_params + table_bytes
-    stage_tab = stage_bytes = 0
-    if stages > 1:
-        offsets, stage_bytes = stage_layout(columns, plan.threads)
+    stages, passes, stage_tab, stage_bytes = 1, 1, 0, 0
+    st = launch_staging(plan, columns, dma, slots)
+    if st is not None:
+        stages, passes, stage_bytes = st.stages, st.passes, st.stage_bytes
         stage_tab = len(words)
-        words = np.concatenate([words, np.asarray(offsets, dtype=np.int64)])
-        ring = stages * stage_bytes
-        if smem + ring + 8 * len(offsets) > MAX_SMEM_BYTES:
-            raise NotImplementedError(
-                f"scan_kernel_dma=double: the {ring}-byte stage ring does "
-                f"not fit beside the kernel's {smem}-byte shared-memory "
-                f"layout ({MAX_SMEM_BYTES} bytes at most)")
-        smem += ring + 8 * len(offsets)
+        words = np.concatenate([words, np.asarray(st.offsets,
+                                                  dtype=np.int64)])
+        smem += 8 * len(st.offsets) + _RING_CTL_BYTES
+        check_ring_fits(st, smem)
+        smem += st.ring_bytes
     return Launch(_plan_words(plan, words, device),
                   to_device(np.asarray(grid, dtype=np.int64).T, device),
-                  stages, stage_tab, stage_bytes, smem)
+                  stages, passes, stage_tab, stage_bytes, smem)
 
 
 # launched word vectors a plan keeps on the device (per column and build
@@ -1009,17 +1214,15 @@ _SMS: Dict[int, int] = {}
 
 def direct_kernel(plan: ScanPlan, columns, joins=None, dma: str = "single"):
     """The generated direct kernel (codegen.DirectKernel) of the plan over
-    these columns' encodings, built once per plan and shape."""
+    these columns' encodings, built once per plan, shape and ring: under
+    "double" the plan's staging, unstaged where it stages nothing."""
     from . import codegen
-    stages = check_dma(dma)
+    staging = launch_staging(plan, columns, dma)
     shape = codegen.column_shape(plan, columns, joins)
-    key = ("direct", shape, stages)
+    key = ("direct", shape, staging)
     kern = plan.dev.get(key)
     if kern is None:
-        offsets, stage_bytes = stage_layout(columns, plan.threads)
-        kern = plan.dev[key] = codegen.generate(
-            plan, shape, stages, offsets, stages * stage_bytes * (stages > 1),
-            2 * stage_bytes)
+        kern = plan.dev[key] = codegen.generate(plan, shape, staging)
     return kern
 
 
@@ -1035,12 +1238,14 @@ def direct_ctas(kern, n_items: int, device) -> int:
 
 def direct_stage_counts(plan: ScanPlan, columns, grid, br: int,
                         joins=None) -> Tuple[int, int]:
-    """The stage ring's (staged, prefetched) tile copies of a double-mode
-    direct launch over `grid`."""
+    """The stage ring's (staged, prefetched) stage copies of a double-mode
+    direct launch over `grid`; none when the plan stages nothing."""
     rows_per_cta, n_sub = direct_geometry(br)
     kern = direct_kernel(plan, columns, joins, "double")
+    if kern.staging is None:
+        return 0, 0
     n_ctas = direct_ctas(kern, len(grid) * n_sub, columns[0].device)
-    return stage_ring_counts(plan, columns, grid, br, rows_per_cta, n_sub,
+    return stage_ring_counts(kern.staging, grid, br, rows_per_cta, n_sub,
                              n_ctas)
 
 
@@ -1086,9 +1291,9 @@ def scan_direct(plan: ScanPlan, columns, grid, br: int, params,
     """Run the fused scan over `grid` entries (bidx, lo, hi) of the
     ResidentColumns `columns` (plan.names order); `joins` (join.JoinPlan)
     holds the probe steps' build operands; dma="double" runs the stage
-    ring.  CUDA tensors launch the kernel generated for the plan's shape
-    (codegen.py) and its reduce; CPU tensors run scan_direct_plain.
-    Returns (acc_i, acc_f, counts)."""
+    ring of the plan's staging.  CUDA tensors launch the kernel generated
+    for the plan's shape (codegen.py) and its reduce; CPU tensors run
+    scan_direct_plain.  Returns (acc_i, acc_f, counts)."""
     device = columns[0].device
     check_dma(dma)
     if device.type == "cpu":
@@ -1124,15 +1329,16 @@ def scan_direct(plan: ScanPlan, columns, grid, br: int, params,
     mod.launch("scan_gen", n_ctas, kern.threads, kern.smem_bytes, stream,
                words)
     mod.launch("scan_gen_reduce", kern.n_slots, 256, 0, stream, words)
-    count_launch("scan_direct", plan, dma)
+    count_launch("scan_direct", plan, kern.staging is not None)
     return acc_i, acc_f, counts
 
 
-def count_launch(name: str, plan: ScanPlan, dma: str = "single") -> None:
+def count_launch(name: str, plan: ScanPlan, staged: bool = False) -> None:
+    """One launch of `name`; `staged`: it ran the stage ring."""
     LAUNCHES[name] += 1
     if plan.joins:
         JOIN_LAUNCHES[name] += 1
-    if dma == "double":
+    if staged:
         STAGED_LAUNCHES[name] += 1
 
 

@@ -79,10 +79,11 @@ class ExecutionConfig:
     scan_kernel: str = "auto"
     # staging discipline of the scan kernels' per-row input arrays
     # (SCAN_KERNEL_DMA_MODES): "single" loads them from device memory as
-    # each tile computes; "double" copies the next tile's into a
-    # two-stage shared-memory ring while the current one computes
-    # (kernel #2, exec/kernels/scan_kernel.py stage_layout), metered as
-    # kernelDmaStagedBlocks / kernelDmaPrefetchedBlocks /
+    # each tile computes; "double" keeps the next tiles of the arrays the
+    # plan reads densely in flight into a shared-memory ring while the
+    # current one computes (kernel #2, exec/kernels/scan_kernel.py
+    # ScanPlan.staging; a plan with nothing worth staging runs unstaged),
+    # metered as kernelDmaStagedBlocks / kernelDmaPrefetchedBlocks /
     # kernelDmaOverlapFraction.  Config key scan.kernel-dma
     scan_kernel_dma: str = "single"
 

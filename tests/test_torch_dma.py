@@ -4,7 +4,8 @@ On the CPU the wrappers run their plain versions, which stage nothing, so
 a double-mode query returns the same rows as the reference's double-mode
 Pallas kernel (interpret mode) and meters no kernelDma* counter.  The
 ring's geometry meter is held to a brute-force walk of the launch's
-tiles, and illegal modes raise."""
+tiles over the staged arrays, the stage regions to a hand count, and
+illegal modes raise."""
 import dataclasses
 import math
 
@@ -133,34 +134,55 @@ def test_stage_ring_counts_equal_a_walk_of_the_tiles(seed, n_ctas):
         lo = int(rng.integers(0, br))
         hi = int(rng.integers(lo + 1, br + 1))
         grid.append((b, lo, hi))
-    cols = _columns([("plain", torch.int8), ("dict", torch.int16),
-                     ("rle", torch.int32), ("plain", torch.int64)])
-    plan = type("P", (), {"threads": threads})()
-    staged, prefetched = sk.stage_ring_counts(plan, cols, grid, br,
-                                              rows_per_cta, n_sub, n_ctas)
-    tiles = _walk(grid, br, rows_per_cta, n_sub,
-                  sk.ROWS_PER_THREAD * threads, n_ctas)
-    n_staged = 3                          # plain, dict, plain; not RLE
-    assert staged == n_staged * sum(tiles)
-    assert prefetched == n_staged * sum(max(0, t - 1) for t in tiles)
-    assert 0 <= prefetched < staged
+    shape = sk.scan_shape(_columns([("plain", torch.int8),
+                                    ("dict", torch.int16),
+                                    ("rle", torch.int32),
+                                    ("plain", torch.int64)]))
+    # the int64 array is first read after a filter: not staged
+    staged = sk.staged_columns({0: False, 1: True, 2: False, 3: True},
+                               shape)
+    tile = sk.ROWS_PER_THREAD * threads
+    offsets, stage = sk.stage_regions(staged, shape, tile)
+    staging = sk.Staging(staged, int(rng.integers(2, 5)), 1, tile, stage,
+                         tuple(offsets), 3)
+    got = sk.stage_ring_counts(staging, grid, br, rows_per_cta, n_sub,
+                               n_ctas)
+    tiles = _walk(grid, br, rows_per_cta, n_sub, tile, n_ctas)
+    assert staged == (0, 1)                  # plain int8, dict int16
+    assert got == (2 * sum(tiles), 2 * sum(max(0, t - 1) for t in tiles))
+    assert 0 <= got[1] < got[0]
+    # a plan that stages nothing meters nothing
+    none = sk.Staging((), 0, 0, tile, 0, (-1,) * 4, 0)
+    assert sk.stage_ring_counts(none, grid, br, rows_per_cta, n_sub,
+                                n_ctas) == (0, 0)
 
 
 def test_stage_layout_regions():
-    cols = _columns([("plain", torch.int8), ("rle", torch.int64),
-                     ("dict", torch.int32), ("plain", torch.bool),
-                     ("plain", torch.float64)])
-    assert sk.staged_indices(cols) == (0, 2, 3, 4)
-    offsets, stage = sk.stage_layout(cols, 128)
+    shape = sk.scan_shape(_columns([("plain", torch.int8),
+                                    ("rle", torch.int64),
+                                    ("dict", torch.int32),
+                                    ("plain", torch.bool),
+                                    ("plain", torch.float64),
+                                    ("plain", torch.int32)]))
+    # column: first read after a narrowing step
+    reads = {0: True, 1: False, 2: False, 3: True, 4: True, 5: False}
+    staged = sk.staged_columns(reads, shape)
+    # RLE never; 1-byte wherever read; the others where read under the
+    # full mask: not the float64 array read after a filter
+    assert staged == (0, 2, 3, 5)
     tile = sk.ROWS_PER_THREAD * 128
-    assert offsets[1] == -1
-    sizes = [tile * 1 + 16, tile * 4 + 16, tile * 1 + 16, tile * 8 + 16]
-    assert [offsets[i] for i in (0, 2, 3, 4)] == list(
-        np.cumsum([0] + sizes[:-1]))
+    offsets, stage = sk.stage_regions(staged, shape, tile)
+    sizes = [tile * 1 + 16, tile * 4 + 16, tile * 1 + 16, tile * 4 + 16]
+    assert offsets[1] == offsets[4] == -1
+    assert [offsets[i] for i in staged] == list(np.cumsum([0] + sizes[:-1]))
     assert stage == sum(sizes) and all(o % 16 == 0 for o in offsets
                                        if o >= 0)
-    assert sk.ring_bytes(cols, 128, "double") == 2 * stage
-    assert sk.ring_bytes(cols, 128, "single") == 0
+    # the reservation: two stages and their four 8-byte mbarriers
+    assert sk.min_ring_bytes(staged, shape, 128) == 2 * stage + 32
+    assert sk.min_ring_bytes((), shape, 128) == 0
+    st = sk.Staging(staged, 3, 1, tile, stage, tuple(offsets), 10)
+    assert st.ring_bytes == 3 * (stage + 16)
+    assert st.staged_bytes(1000) == 10 * 1000
 
 
 def test_meter_records_the_reference_names():
@@ -222,9 +244,13 @@ def test_a_ring_that_does_not_fit_raises_naming_its_bytes():
     plan, columns, grid = a[0], a[1], a[2]
     ln = sk.launch_tensors(plan, columns, grid, torch.device("cpu"),
                            dma="double")
-    ring = sk.ring_bytes(columns, plan.threads, "double")
-    assert ln.stages == 2 and ln.stage_bytes * 2 == ring
-    assert ln.smem_bytes == plan.smem_bytes + ring + 8 * len(columns)
+    st = plan.staging(columns)
+    ring = st.ring_bytes
+    assert ln.stages == st.stages >= 2 and ln.stage_bytes == st.stage_bytes
+    assert ring == st.stages * (st.stage_bytes + 16)
+    # the ring, the stage table and the hash kernel's 128-byte producer
+    # state
+    assert ln.smem_bytes == plan.smem_bytes + ring + 8 * len(columns) + 128
     assert ln.plan.numel() == len(plan.words) + len(columns)
     full = dataclasses.replace(plan,
                                smem_bytes=sk.MAX_SMEM_BYTES - ring // 2)

@@ -62,14 +62,19 @@ def _hand_smem(plan, threads=None):
             + per_thread * (threads or plan.threads))
 
 
-def _ring(columns, threads):
-    """The double mode's ring and stage table at `threads`, by hand: two
-    stages of a tile of each per-row array plus 16 bytes, 16-byte
-    aligned, and one word per column."""
+def _ring(plan, columns, threads):
+    """The double mode's reserved ring and stage table at `threads`, by
+    hand: two stages of a tile of each array the plan stages plus 16
+    bytes, 16-byte aligned, a full and an empty 8-byte mbarrier per stage,
+    one word per column and the producer's 128-byte state; nothing when
+    the plan stages nothing."""
+    staged = plan.staging(columns).staged
+    if not staged:
+        return 0
     tile = sk.ROWS_PER_THREAD * threads
-    return 2 * sum(-(-(tile * rc.arrays[0].element_size() + 16) // 16) * 16
-                   for rc in columns
-                   if rc.kind in ("plain", "dict")) + 8 * len(columns)
+    stage = sum(-(-(tile * columns[c].arrays[0].element_size() + 16) // 16)
+                * 16 for c in staged)
+    return 2 * (stage + 16) + 8 * len(columns) + 128
 
 
 # folded integer rows (the counts equal to __seen are copied) and float
@@ -85,12 +90,12 @@ def test_hash_layout_against_a_hand_count(name, monkeypatch):
     assert plan.mode == "hash"
     assert (plan.n_fold, plan.n_f) == EXPECTED_ROWS[name]
     assert plan.smem_bytes == _hand_smem(plan)
-    assert plan.ring_reserve == _ring(columns, plan.threads)
+    assert plan.ring_reserve == _ring(plan, columns, plan.threads)
     slot_bytes = 8 * (1 + plan.n_fold + plan.n_f)      # mirror + rows
 
     def room(threads):
         return (sk.MAX_SMEM_BYTES - _hand_smem(plan, threads)
-                - _ring(columns, threads) - 8 * sk.MAX_PARAMS)
+                - _ring(plan, columns, threads) - 8 * sk.MAX_PARAMS)
     assert plan.onchip_slots == room(plan.threads) // slot_bytes
     warps = plan.threads // 32
     if plan.n_f:        # the float rows once per warp where they fit
