@@ -28,7 +28,7 @@ Phases, each printed with its wall time:
      the launch counters (and the counters of launches that carry a
      probe) set to 0 just before and read just after; J3 gathering a
      second build column must decline with kernelDeclinedJoinBuildSize at
-     SF10; each unique table's directory size and its largest bucket's
+     SF10 (and then run the torch fused chain); each unique table's directory size and its largest bucket's
      bisect trips are printed, and torch.searchsorted over J2's probe
      hashes is timed as the lookup step's library time;
   7. the reference's join shapes at the largest scale its gates admit
@@ -38,7 +38,9 @@ Phases, each printed with its wall time:
   7b. the expression forms the reference's kernels run (benchmarks/
      expr_queries.py: negate, abs, date parts, divide and modulus, CASE,
      COALESCE, IS NULL, IN, casts) through LocalQueryRunner, one kernel
-     launch and no decline each, over all three scan kernels;
+     launch and no decline each, over all three scan kernels (the two
+     group keys over the hash kernel's slots at SF1 and above: a metered
+     AggGroupCardinality decline, then the torch fused chain);
   8. each kernel against its plain torch version on the exact inputs of
      the main path's and the join path's launches (and of a
      float64-accumulator query, the wide span query S2, a span and a hash
@@ -112,7 +114,18 @@ Phases, each printed with its wall time:
      fix-up), call and plain ms with CUDA events, and the byte bound (the sorted mask, key / argument values and nulls
      read once, 8 bytes per function per row written, 9 for sum / avg);
  13. an independent numpy computation of W1, W2, W3, W1 with lag and the
-     two edge queries from the decoded resident orders columns.
+     two edge queries from the decoded resident orders columns;
+ 13b. the torch fused chain and the streaming aggregation
+     (benchmarks/torch_chain.py run): TPC-H Q12, Q14 and Q19 (a metered
+     JoinShape decline each, then the torch chain; the median of the
+     timed walls, the mode, its chunks), one query per aggregate form
+     (stddev and corr, approx_distinct, approx_percentile,
+     count(distinct o_custkey) by o_orderpriority, a masked aggregate),
+     each checked against numpy over the decoded resident columns; Q1,
+     Q6, S1, H1, H2 and J1-J3 under scan_kernel="xla" held against the
+     main path's kernel rows (integers exact, floats rtol 1e-12); one
+     torch.profiler trace of Q14: its device busy time, idle share and
+     device events per chunk.
 
  14. the statement server: `python -m presto_tpu_torch.worker --etc-dir`
      as a subprocess on the card, booted from a temporary etc directory
@@ -467,13 +480,13 @@ def main() -> int:
         StatsCalculator.rows = lambda self, node: 1.0
         n_calls, before = len(calls["scan_hash"]), sk.LAUNCHES["scan_hash"]
         try:
-            # 50 x 11 x 9 = 4950 groups: more than AGG_SLOTS
+            # 50 x 11 x 9 = 4950 groups: more than agg_slots
             res_c = runner.execute(HS.COLLIDE)
         finally:
             StatsCalculator.rows = real_rows
         tables = [(a[5], a[6]) for a, _kw in calls["scan_hash"][n_calls:]]
         assert sk.LAUNCHES["scan_hash"] - before == len(tables) > 1, tables
-        assert tables[0] == (pipeline.AGG_SLOTS, 0), tables
+        assert tables[0] == (cfg.agg_slots, 0), tables
         for (s0, t0), (s1, t1) in zip(tables, tables[1:]):
             assert s1 == 2 * s0 and t1 == t0 + 1, tables
         assert len(res_c.rows) == 4950, len(res_c.rows)
@@ -563,14 +576,15 @@ def main() -> int:
         assert got == (table, form), (qname, got)
     if sf >= 10:
         # a 262144-row supplier build batch: two gathered int64 columns
-        # and the slots pass the 4 MiB operand cap
-        try:
-            runner.execute(JQ.J3_SUPPKEY)
-            raise AssertionError("J3 with count(s_suppkey) should decline")
-        except NotImplementedError as e:
-            assert "kernelDeclinedJoinBuildSize" in str(e), e
-            print(f"  j3_suppkey: {str(e)[:60]} (two gathered columns "
-                  f"over the 4 MiB cap)")
+        # and the slots pass the 4 MiB operand cap: a metered decline,
+        # then the torch fused chain
+        res = runner.execute(JQ.J3_SUPPKEY)
+        rs = res.runtime_stats
+        assert rs.get("kernelDeclinedJoinBuildSize", {}).get("sum") == 1, rs
+        assert "kernelScanPrograms" not in rs, rs
+        print(f"  j3_suppkey: kernelDeclinedJoinBuildSize (two gathered "
+              f"columns over the 4 MiB cap), then the torch chain: "
+              f"{len(res.rows)} groups")
 
     # the reference's join shapes, each at the largest scale the
     # reference's gates (build operands <= 4 MiB, hash slots <= 65536)
@@ -607,13 +621,17 @@ def main() -> int:
         for qname, sql in EQ.QUERIES.items():
             n0 = {k: len(v) for k, v in calls.items()}
             if sf >= 1 and qname in EQ.DECLINED_AT_SCALE:
+                # a metered decline, then the torch fused chain (checked
+                # against numpy below)
                 reason = EQ.DECLINED_AT_SCALE[qname]
-                try:
-                    runner.execute(sql)
-                    raise AssertionError(f"{qname} should decline {reason}")
-                except NotImplementedError as e:
-                    assert f"kernelDeclined{reason}" in str(e), e
-                print(f"  {qname}: declines {reason} at {schema}")
+                res = runner.execute(sql)
+                rs = res.runtime_stats
+                assert rs.get(f"kernelDeclined{reason}",
+                              {}).get("sum") == 1, rs
+                assert all(len(v) == n0[k] for k, v in calls.items())
+                results["x_" + qname] = res
+                print(f"  {qname}: declines {reason} at {schema}, then the "
+                      f"torch chain: rows {len(res.rows)}")
                 continue
             res = runner.execute(sql)
             rs = res.runtime_stats
@@ -1343,7 +1361,7 @@ def main() -> int:
             g = flag == dict_code("returnflag", f)
             assert unscaled(v) == int(np.abs(price[g] - 5000000).sum()), f
         assert len(rows_of("abs")) == len(np.unique(flag))
-        if "x_extract_year" in results:           # below SF1
+        if "x_extract_year" in results:
             ys, n_y = np.unique(years, return_counts=True)
             assert sorted(map(tuple, rows_of("extract_year"))) == \
                 list(zip(ys.tolist(), n_y.tolist()))
@@ -1355,7 +1373,7 @@ def main() -> int:
         assert unscaled(rows_of("case")[0][0]) == int(price[disc > 5].sum())
         assert unscaled(rows_of("coalesce")[0][0]) == int(price.sum())
         assert rows_of("is_not_null") == [[n_rows]]
-        if "x_mod_group_key" in results:          # below SF1
+        if "x_mod_group_key" in results:
             ks, n_k = np.unique(okey % 5, return_counts=True)
             assert sorted(map(tuple, rows_of("mod_group_key"))) == \
                 list(zip(ks.tolist(), n_k.tolist()))
@@ -1392,6 +1410,16 @@ def main() -> int:
             assert (n, unscaled(m7), ys_, qs_, ds_) == (
                 n_dp[c], *(int(x[c]) for x in sums)), (ln, f)
         assert len(rows_of("hash_date_parts")) == int((n_dp > 0).sum())
+        # the scaled decimal divide (DIVQS_I): price * 100 / qty rounded
+        # half up (every operand positive)
+        dq = (price * 100 + qty // 2) // qty
+        assert unscaled(rows_of("dec_div")[0][0]) == int(dq.sum())
+        k_dd = line * 4 + flag
+        s_dd, n_dd = bin_sums(k_dd, 32, dq), np.bincount(k_dd, minlength=32)
+        for ln, f, v in rows_of("hash_dec_div"):
+            c = ln * 4 + dict_code("returnflag", f)
+            assert unscaled(v) == s_dd[c], (ln, f, v, s_dd[c])
+        assert len(rows_of("hash_dec_div")) == int((n_dd > 0).sum())
         print(f"  {sum(k.startswith('x_') for k in results)} "
               f"expression-form queries == numpy over the decoded columns")
 
@@ -1719,6 +1747,23 @@ def main() -> int:
         assert got == want, (got, want)
         print("  w_global and w_single_row: top 10 == port")
 
+    # -- the torch fused chain and the streaming aggregation --------------
+    with phase(f"torch chain at {schema}: Q12, Q14, Q19, the aggregate "
+               f"forms, the kernel queries under scan_kernel=xla and a "
+               f"torch.profiler trace of Q14"):
+        from presto_tpu_torch.benchmarks import torch_chain as TC
+        for k in sk.LAUNCHES:
+            sk.LAUNCHES[k] = 0
+        chain_records = TC.run(
+            runner, sf, args.runs, device,
+            kernel_results={q: results[q] for q in TC.KERNEL_QUERIES},
+            card=f"on {card}")
+        # the kernel queries' reference rows came from the main path: the
+        # phase's scan kernel launches are the aggregate forms' (a dedup
+        # aggregation's kernel); TC.run asserts that Q12, Q14, Q19 and the
+        # scan_kernel=xla runs launched none
+        print(f"  scan kernel launches in the phase {dict(sk.LAUNCHES)}")
+
     # -- the statement server booted from an etc directory (kernel #2) ----
     server_queries = (("q6", Q6), ("q1", Q1), ("s1", S1), ("h1", H1),
                       ("h2", H2), ("j1", JQ.J1), ("j2", JQ.J2),
@@ -1879,6 +1924,23 @@ def main() -> int:
                                               "sort_ms") if k in r}
                         for q, r in w_records.items()},
         })
+    # the torch-chain phase's numbers again, where the end of the output
+    # keeps them
+    print(f"torch chain summary at {schema} on {card}:")
+    for q, r in chain_records.items():
+        if q == "trace_q14":
+            print(f"  {q}: wall {r['wall_ms']:.3f} ms, busy "
+                  f"{r['busy_ms']:.3f} ms, idle {r['idle_share']:.4f}, "
+                  f"{r['device_events']} events, {r['steps']} steps, "
+                  f"{r['chunks']} chunks")
+        elif q == "steps_q14":
+            print(f"  {q}: one chunk a step {r['chunks']} ms, "
+                  f"CHAIN_STEP_ROWS {r['steps']} ms")
+        elif "wall_ms" in r:
+            print(f"  {q}: wall {r['wall_ms']:.3f} ms, modes {r['modes']}, "
+                  f"passes {r['passes']}, steps {r['steps']}, chunks "
+                  f"{r['chunks']}, streaming {r['streaming']}, declined "
+                  f"{r['declined']}")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

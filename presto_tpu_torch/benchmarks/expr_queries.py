@@ -31,6 +31,12 @@ QUERIES = {
                       "group by 1"),
     "cast_dec_int": ("select sum(cast(l_extendedprice as integer)) "
                      "from lineitem"),
+    # a decimal / decimal divide (the numerator scales up: DIVQS_I) in the
+    # generated direct kernel and the hash kernel's interpreter
+    "dec_div": "select sum(l_extendedprice / l_quantity) from lineitem",
+    "hash_dec_div": ("select l_linenumber, l_returnflag, "
+                     "sum(l_extendedprice / l_quantity) from lineitem "
+                     "group by 1, 2"),
     # the new forms inside the span and hash kernels' plain versions
     "span_case": ("select l_returnflag, l_linestatus, l_shipmode, "
                   "l_shipinstruct, sum(case when l_quantity > 25 then "

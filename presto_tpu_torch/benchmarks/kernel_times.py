@@ -3,7 +3,7 @@ checkouts of the port on one card.
 
     python3 -m presto_tpu_torch.benchmarks.kernel_times [--sf 10]
         [--launches 20] [--queries q6,q1,...] [--dma single,double]
-        [--variants] [--parent DIR]
+        [--variants] [--walls N] [--parent DIR]
 
 Runs Q6, Q1, J2, J2_NOPROBE, the float query (direct kernel), S1, S2,
 SPAN_F, SPAN_F_CTA, J3 (span), H1, H2, J1, HASH_DATE_PARTS (hash) and
@@ -28,6 +28,11 @@ change, parent, one process each -- and prints every query's device ms
 per turn.  J2 minus J2_NOPROBE (the same scan without the semi probe) is
 the probe's share of J2.
 
+--walls N also prints each query's median of N warm walls around
+LocalQueryRunner.execute (host clock, the card synchronized before each
+run): the end-to-end wall whose host part the kernels' times leave out;
+with --parent, per turn beside the device ms.
+
 --variants (a tree with the generated direct kernel) also times Q6 and Q1
 with the kernel's partials folded per pass (codegen.REG_PARTIALS = 0) and
 with one CTA per work item instead of the persistent grid: where the
@@ -41,8 +46,10 @@ ground of the plan's rule.
 import argparse
 import math
 import re
+import statistics
 import subprocess
 import sys
+import time
 from typing import Optional
 
 QUERIES = ("q6", "q1", "j2", "j2_noprobe", "float", "s1", "s2", "span_f",
@@ -226,7 +233,7 @@ def in_turns(parent: str, argv) -> int:
     dst = os.path.join(parent, "presto_tpu_torch", "benchmarks")
     for name in _COPIED:
         shutil.copy(os.path.join(here, name), os.path.join(dst, name))
-    table = {}
+    table, walls = {}, {}
     for turn, root in enumerate((parent, repo, repo, parent)):
         who = "parent" if root == parent else "change"
         print(f"== turn {turn + 1}: {who} ({root})", flush=True)
@@ -242,9 +249,17 @@ def in_turns(parent: str, argv) -> int:
                              r"(\S+)", out.stdout, re.M):
             table.setdefault(m.group(1), []).append(
                 f"{who} {float(m.group(2)):.4f}")
+        for m in re.finditer(r"^(\w+) wall: median_ms (\S+)", out.stdout,
+                             re.M):
+            walls.setdefault(m.group(1), []).append(
+                f"{who} {float(m.group(2)):.4f}")
     print("device ms per turn (parent, change, change, parent):")
     for q, cells in table.items():
         print(f"  {q}: {' | '.join(cells)}")
+    if walls:
+        print("median wall ms per turn (parent, change, change, parent):")
+        for q, cells in walls.items():
+            print(f"  {q}: {' | '.join(cells)}")
     return 0
 
 
@@ -256,6 +271,8 @@ def main() -> int:
     ap.add_argument("--dma", default="single",
                     help="scan_kernel_dma modes to time, comma-separated")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--walls", type=int, default=0,
+                    help="warm query walls to take the median of")
     ap.add_argument("--parent", default=None,
                     help="a parent checkout to time in turns with this one")
     args = ap.parse_args()
@@ -299,6 +316,16 @@ def main() -> int:
         a, kw = calls[kernel][-1]
         launch = real[kernel]
         kept[qname] = (kernel, a, kw)
+        if args.walls:
+            n1, walls = len(calls[kernel]), []
+            for _ in range(args.walls):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runner.execute(table[qname])
+                walls.append((time.perf_counter() - t0) * 1e3)
+            del calls[kernel][n1:]
+            print(f"{qname} wall: median_ms {statistics.median(walls):.4f} "
+                  f"of {args.walls}", flush=True)
         if kernel == "window_scan":
             calls[kernel].clear()        # a call holds the sorted run
         for mode in modes if kernel != "window_scan" else ("single",):

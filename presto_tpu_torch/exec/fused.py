@@ -17,13 +17,20 @@ Build rows with NULL keys are dropped (SQL equi-join: NULL never
 matches); a semi build records whether it held one, for the marker's
 three-valued output.  The scan kernels (kernels/scan_kernel.py,
 kernels/grouped.py) run the chain, join probes included (kernel #5,
-kernels/join.py).  Not ported: the uid step, the per-chunk torch chain
-(FusedChain.make), the fanout-k expansion (_apply_join_expand),
-fused_materialize and fused_stream; a chain that needs them raises
-NotImplementedError or declines with kernelDeclinedJoinShape.
+kernels/join.py).  After a kernel's metered decline (or under
+scan_kernel="xla") the aggregation runs the chain in torch, one scan
+chunk at a time: `FusedChain.make` applies the scan leaf and every step
+to a chunk, a join through `_apply_join` (fanout 1: LEFT null-extension
+and the residual ON filter included) or `_apply_join_expand` (fanout k:
+each probe row expands into k candidate build slots, the chunk shrunk by
+the chain's fanout product), a semi step as the three-valued marker.
+Not ported: the uid step (AssignUniqueIdNode raises), the packed gather
+(each build column is gathered by index), fused_materialize and
+fused_stream.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -32,6 +39,7 @@ import torch
 from ..spi import plan as P
 from . import operators as ops
 from .batch import Batch, Column
+from .lowering import expr_has_params
 
 # absolute cap on a direct-address table (entries), and the max ratio of
 # key span to build rows before the hash-sorted table takes over
@@ -126,12 +134,55 @@ class FusedChain:
         self.steps = steps
         self.scan_meta = scan_meta
         self.cap = scan_meta["cap"]
+        # probe expressions with bound parameters read ctx.params
+        self.has_params = any(
+            (s[0] == "filter" and expr_has_params(s[1]))
+            or (s[0] == "project"
+                and any(expr_has_params(e) for _v, e in s[1]))
+            for s in steps)
         # a build subtree with bound parameters: its tables are a function
         # of the bound constants, so prep re-runs when they change
         self.build_params = any(
             '"@type": "parameter"' in P.structural_key(
                 s[1].right if s[0] == "join" else s[1].filtering_source)
             for s in steps if s[0] in ("join", "semi"))
+        self._leaf_make: Dict[int, object] = {}
+
+    @property
+    def empty(self) -> bool:
+        """No split holds a row (chunks_for keeps a chunk otherwise)."""
+        return all(s.end <= s.start for s in self.scan_meta["splits"])
+
+    @functools.cached_property
+    def chunks(self) -> List[Tuple[int, int]]:
+        """The pruned scan chunks at the unexpanded leaf cap, found when
+        the torch chain first needs them (a kernel launch prunes its own
+        grid)."""
+        return self.chunks_for((1,) * sum(
+            1 for s in self.steps if s[0] in ("join", "semi")))
+
+    @functools.cached_property
+    def total_rows(self) -> int:
+        return sum(n for _, n in self.chunks)
+
+    def chunks_for(self, expands: Tuple[int, ...]) -> List[Tuple[int, int]]:
+        """The scan chunks (pos, rows) at leaf_cap(expands), zone-map
+        pruned against the scan's pushed-down conjuncts (at least one kept,
+        so a fully pruned scan still folds an empty chunk)."""
+        cap = self.leaf_cap(expands)
+        chunks = []
+        for split in self.scan_meta["splits"]:
+            p = split.start
+            while p < split.end:
+                chunks.append((p, min(cap, split.end - p)))
+                p += cap
+        zm = self.scan_meta.get("zone_maps")
+        pd = self.scan_meta.get("pushdown")
+        if zm and pd:
+            from ..storage import prune_chunks
+            chunks, _skipped = prune_chunks(
+                chunks, zm, pd, self.compiler.ctx.params_fingerprint, None)
+        return chunks
 
     def leaf_cap(self, expands: Tuple[int, ...]) -> int:
         kprod = 1
@@ -173,6 +224,172 @@ class FusedChain:
         if kprod > MAX_EXPAND_PRODUCT:
             return None
         return tuple(aux), tuple(expands)
+
+
+    # -- runtime: the chain over one scan chunk (torch) --------------------
+    def make(self, pos: int, valid: int, aux, expands: Tuple[int, ...],
+             leaf_cap: int) -> Batch:
+        """Apply the chain to the scan chunk [pos, pos + leaf_cap) whose
+        first `valid` rows are live.  Tensor ops only: no host sync."""
+        meta = self.scan_meta
+        mk = self._leaf_make.get(leaf_cap)
+        if mk is None:
+            mk = self._leaf_make[leaf_cap] = meta["make_factory"](leaf_cap)
+        outs, live = mk(pos, valid, aux[0])
+        dicts = meta["dicts"]
+        batch = Batch({n: Column(v, None, dicts.get(n))
+                       for n, v in outs.items()}, live)
+        low = self.compiler.lowering
+        params = self.compiler.ctx.params if self.has_params else None
+
+        def _pb(b):
+            return b.with_params(params) if params is not None else b
+        ji = 0                      # join/semi ordinal; aux[0] = scan cache
+        for step in self.steps:
+            kind = step[0]
+            if kind == "filter":
+                batch = ops.apply_filter(batch,
+                                         low.eval(step[1], _pb(batch)))
+            elif kind == "project":
+                pb = _pb(batch)
+                batch = Batch({v.name: low.eval(e, pb)
+                               for v, e in step[1]}, batch.mask)
+            elif kind == "rename":
+                batch = Batch({o: batch.columns[i] for o, i in step[1]},
+                              batch.mask)
+            elif kind == "join":
+                if expands[ji] == 1:
+                    batch = self._apply_join(batch, step[1], aux[ji + 1],
+                                             low)
+                else:
+                    batch = self._apply_join_expand(
+                        batch, step[1], aux[ji + 1], expands[ji], low)
+                ji += 1
+            elif kind == "semi":
+                node = step[1]
+                key = node.source_join_variable.name
+                tbl, bhn = aux[ji + 1]
+                hit, _ = (probe_direct(batch, tbl, key)
+                          if isinstance(tbl, DirectTable)
+                          else probe_unique(batch, tbl, (key,)))
+                # three-valued marker: a NULL probe key, or a miss against
+                # a build side that held a NULL key
+                nulls = ~hit & bhn
+                pn = batch.columns[key].nulls
+                if pn is not None:
+                    nulls = nulls | pn
+                cols = dict(batch.columns)
+                cols[node.semi_join_output.name] = Column(hit, nulls)
+                batch = Batch(cols, batch.mask)
+                ji += 1
+            else:
+                raise NotImplementedError(f"chain step {kind}")
+        return batch
+
+    def _apply_join(self, batch: Batch, node: P.JoinNode, tbl, low) -> Batch:
+        probe_keys = tuple(l.name for l, _r in node.criteria)
+        if isinstance(tbl, DirectTable):
+            hit, bidx = probe_direct(batch, tbl, probe_keys[0])
+        else:
+            hit, bidx = probe_unique(batch, tbl, probe_keys)
+        build_names = {v.name for v in node.right.output_variables}
+        out_names = [v.name for v in node.outputs]
+        cols = dict(batch.columns)
+        gcols = _join_build_cols(node, out_names, build_names)
+        bidx = bidx.long()
+        for n in gcols:
+            cols[n] = tbl.columns[n].gather(bidx)
+        matched = hit
+        if node.filter is not None:
+            pred = low.eval(node.filter, Batch(cols, batch.mask))
+            keep = pred.values.to(torch.bool)
+            if pred.nulls is not None:
+                keep = keep & ~pred.nulls
+            matched = matched & keep
+        if node.join_type == P.INNER:
+            return Batch(cols, batch.mask & matched)
+        # LEFT: keep every probe row; null-extend build columns on misses
+        miss = ~matched
+        for n in gcols:
+            c = cols[n]
+            cols[n] = Column(c.values, c.null_mask() | miss, c.dictionary)
+        return Batch(cols, batch.mask)
+
+    def _apply_join_expand(self, batch: Batch, node: P.JoinNode,
+                           tbl: ops.BuildTable, k: int, low) -> Batch:
+        """Fanout-k join: each probe row expands into k candidate build
+        slots (k = the pow2-rounded longest key run of the build).  Output
+        capacity = k * input capacity; flat index j*C + i is (probe row i,
+        match j)."""
+        C = batch.capacity
+        dev = batch.device
+        probe_keys = tuple(l.name for l, _r in node.criteria)
+        pcols = [batch.columns[kk] for kk in probe_keys]
+        kh = ops._orderable_hash(ops.hash_columns(pcols))
+        nb = tbl.perm.shape[0]
+        lo = torch.searchsorted(tbl.keyhash_sorted, kh, side="left") \
+            .clamp(0, nb - 1)
+        hit = tbl.keyhash_sorted[lo] == kh
+        for c in pcols:
+            if c.nulls is not None:
+                hit = hit & ~c.nulls
+        cnt = torch.where(hit & batch.mask, tbl.run_len[lo].to(torch.int64),
+                          torch.zeros_like(lo))                     # (C,)
+        j = torch.arange(k, dtype=torch.int64, device=dev)[:, None]  # (k,1)
+        sub = j < cnt[None, :]                                       # (k,C)
+        bpos = (lo[None, :] + j).clamp(0, nb - 1)
+        bidx = torch.where(sub, tbl.perm.long()[bpos],
+                           torch.zeros_like(bpos)).reshape(k * C)
+        build_names = {v.name for v in node.right.output_variables}
+        out_names = [v.name for v in node.outputs]
+        cols: Dict[str, Column] = {}
+        for n, c in batch.columns.items():
+            cols[n] = Column(c.values.repeat(k),
+                             None if c.nulls is None else c.nulls.repeat(k),
+                             c.dictionary)
+        gcols = _join_build_cols(node, out_names, build_names)
+        for n in gcols:
+            cols[n] = tbl.columns[n].gather(bidx)
+        pair_mask = (batch.mask[None, :] & sub).reshape(k * C)
+        matched = pair_mask
+        if node.filter is not None:
+            pred = low.eval(node.filter, Batch(cols, pair_mask))
+            keep = pred.values.to(torch.bool)
+            if pred.nulls is not None:
+                keep = keep & ~pred.nulls
+            matched = matched & keep
+        if node.join_type == P.INNER:
+            return Batch(cols, matched)
+        # LEFT: a probe row none of whose candidates survived emits one
+        # null-extended row in its j == 0 slot
+        any_match = matched.reshape(k, C).any(dim=0)                 # (C,)
+        first = torch.arange(k, device=dev)[:, None] == 0
+        fill = (first & (batch.mask & ~any_match)[None, :]).reshape(k * C)
+        for n in gcols:
+            c = cols[n]
+            cols[n] = Column(c.values, c.null_mask() | fill, c.dictionary)
+        return Batch(cols, matched | fill)
+
+
+def probe_direct(batch: Batch, dt: DirectTable, key_name: str):
+    """(hit, build_row_index) for a direct-address lookup (the slot math
+    of ops.direct_lookup)."""
+    return ops.direct_lookup(batch, dt, key_name)
+
+
+def probe_unique(batch: Batch, table: ops.BuildTable,
+                 key_names: Tuple[str, ...]):
+    """(hit, build_row_index) against a hash-sorted unique-key build."""
+    cols = [batch.columns[k] for k in key_names]
+    kh = ops._orderable_hash(ops.hash_columns(cols))
+    nb = table.perm.shape[0]
+    lo = torch.searchsorted(table.keyhash_sorted, kh, side="left") \
+        .clamp(0, nb - 1)
+    hit = table.keyhash_sorted[lo] == kh
+    for c in cols:
+        if c.nulls is not None:
+            hit = hit & ~c.nulls
+    return hit, torch.where(hit, table.perm[lo].long(), torch.zeros_like(lo))
 
 
 def try_direct_table(batch: Batch, key: str,

@@ -268,7 +268,7 @@ for _n in ("ADD_I", "SUB_I", "MUL_I", "ADD_F", "SUB_F", "MUL_F", "LT_I",
            "LTE_I", "GT_I", "GTE_I", "EQ_I", "NEQ_I", "LT_F", "LTE_F",
            "GT_F", "GTE_F", "EQ_F", "NEQ_F", "DIV_F", "MOD_F"):
     EMITTERS[_n] = _binary(_n)
-for _n in ("DIV_I", "MOD_I", "DIVQ_I"):
+for _n in ("DIV_I", "MOD_I", "DIVQ_I", "DIVQS_I"):
     EMITTERS[_n] = _divide(_n)
 
 

@@ -58,7 +58,7 @@ enum {
   OP_QUARTER, OP_MULC_F, OP_RINT_I,
   OP_DIV_I, OP_MOD_I, OP_DIVQ_I, OP_DIV_F, OP_MOD_F,
   OP_IS_NULL, OP_IF, OP_COALESCE, OP_NULLIF_I, OP_NULLIF_F,
-  OP_IN_I, OP_IN_F, OP_LIT,
+  OP_IN_I, OP_IN_F, OP_LIT, OP_DIVQS_I,
 };
 
 typedef long long i64;
@@ -192,6 +192,25 @@ __device__ __forceinline__ i64 dec_quotient(i64 num, i64 b, int narrow) {
   return narrow & 1 ? wrap32(q) : q;
 }
 
+// DIVQS_I's quotient: num * 10**k / b (b != 0), rounded half away from
+// zero, by long division so that the scaled numerator never leaves int64
+// (exec/lowering.py _scaled_decimal_quotient; every step wraps as its
+// int64 tensors do).  `narrow` bit 1 marks an int32 divisor, k is
+// narrow >> 2.
+__device__ __forceinline__ i64 scaled_dec_quotient(i64 num, i64 b,
+                                                   int narrow) {
+  i64 an = iabs(num), ab = iabs(b);
+  if (narrow & 2) ab = wrap32(ab);
+  i64 q = floor_div(an, ab), r = floor_mod(an, ab);
+  for (int k = narrow >> 2; k > 0; --k) {
+    r = imul(r, 10);
+    q = (i64)((u64)imul(q, 10) + (u64)floor_div(r, ab));
+    r = floor_mod(r, ab);
+  }
+  q = (i64)((u64)q + (u64)(r >= ab - floor_div(ab, 2)));
+  return imul(imul(isign(num), isign(b)), q);
+}
+
 // jnp.mod of doubles: C's fmod moved to the divisor's sign
 __device__ __forceinline__ double float_mod(double a, double b) {
   const double m = fmod(a, b);
@@ -296,16 +315,18 @@ __device__ __forceinline__ i64 op_MULC_F(i64 v, i64 c) {
   return as_b(__dmul_rn(as_f(v), as_f(c)));
 }
 __device__ __forceinline__ i64 op_RINT_I(i64 v) { return (i64)rint(as_f(v)); }
-// DIV_I / MOD_I / DIVQ_I: `narrow` as int_divide's; a zero divisor divides
-// by 1 and sets `zero` (the row turns NULL)
+// DIV_I / MOD_I / DIVQ_I / DIVQS_I: `narrow` as int_divide's (DIVQS_I:
+// scaled_dec_quotient's); a zero divisor divides by 1 and sets `zero`
+// (the row turns NULL)
 __device__ __forceinline__ i64 int_div_op(i64 a, i64 b, int narrow,
                                           int op, unsigned& zero) {
   if (narrow & 1) a = wrap32(a);
   if (narrow & 2) b = wrap32(b);
   zero = b == 0;
   const i64 sb = b == 0 ? 1 : b;
-  return op == OP_DIVQ_I ? dec_quotient(a, sb, narrow)
-                         : int_divide(a, sb, narrow, op == OP_MOD_I);
+  return op == OP_DIVQS_I ? scaled_dec_quotient(a, sb, narrow)
+         : op == OP_DIVQ_I ? dec_quotient(a, sb, narrow)
+                           : int_divide(a, sb, narrow, op == OP_MOD_I);
 }
 __device__ __forceinline__ i64 op_DIV_I(i64 a, i64 b, int narrow,
                                         unsigned& zero) {
@@ -318,6 +339,10 @@ __device__ __forceinline__ i64 op_MOD_I(i64 a, i64 b, int narrow,
 __device__ __forceinline__ i64 op_DIVQ_I(i64 a, i64 b, int narrow,
                                          unsigned& zero) {
   return int_div_op(a, b, narrow, OP_DIVQ_I, zero);
+}
+__device__ __forceinline__ i64 op_DIVQS_I(i64 a, i64 b, int narrow,
+                                          unsigned& zero) {
+  return int_div_op(a, b, narrow, OP_DIVQS_I, zero);
 }
 __device__ __forceinline__ i64 op_DIV_F(i64 a, i64 b) {
   return as_b(__ddiv_rn(as_f(a), as_f(b)));
@@ -867,7 +892,7 @@ __device__ __noinline__ int eval_ext(int op, i64 arg, const i64* lits,
       }
       *n2 |= *n1;
       return sp - 1;
-    default: {         // DIV_I / MOD_I / DIVQ_I: a zero divisor divides
+    default: {  // DIV_I / MOD_I / DIVQ_I / DIVQS_I: a zero divisor divides
       unsigned zero = 0;              // by 1 and makes the row NULL
       for (int r = 0; r < RPT; ++r) {
         unsigned z;

@@ -455,15 +455,16 @@ def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
     if est_slots > 2 * KERNEL_HASH_MAX_SLOTS:
         declined("AggGroupCardinality")
         return None
-    plan = cached_plan(cache, chain, declined, mode="hash", specs=specs,
-                       key_names=key_names, strides=(0,) * len(key_names),
-                       G=0, agg_inputs=agg_inputs, jplan=jplan)
-    if plan is None:
-        return None
-    columns = gather_encoded_arrays(cached, colmap, plan.names)
     # the reference's collision discipline: double the table and take a
     # fresh salt per attempt, bounded by the slot cap
     num_slots = min(max(int(est_slots), 1024), KERNEL_HASH_MAX_SLOTS)
+    plan = cached_plan(cache, chain, declined, mode="hash", specs=specs,
+                       key_names=key_names, strides=(0,) * len(key_names),
+                       G=0, agg_inputs=agg_inputs, jplan=jplan,
+                       first_slots=num_slots)
+    if plan is None:
+        return None
+    columns = gather_encoded_arrays(cached, colmap, plan.names)
     salt = 0
     while True:
         reserve = state_bytes(num_slots, key_names, specs) + partial_bytes(

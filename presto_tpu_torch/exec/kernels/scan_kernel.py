@@ -59,7 +59,8 @@ import torch
 
 from .. import operators as ops
 from ..batch import Batch, Column
-from ..lowering import ExprProgram, OP, compile_expr, float_bits
+from ..lowering import (KERNEL_OPS, OPS, ExprProgram, OP, compile_expr,
+                        float_bits)
 from ...common.types import BOOLEAN
 from ...spi.expr import (CallExpression, RowExpression,
                          SpecialFormExpression, VariableReferenceExpression)
@@ -752,13 +753,14 @@ def check_ring_fits(staging: Staging, smem_bytes: int) -> None:
 
 def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
                     agg_inputs: Dict[str, Optional[RowExpression]],
-                    jplan=None) -> ScanPlan:
+                    jplan=None, first_slots: int = 0) -> ScanPlan:
     """Compile the chain's static shape into a ScanPlan for `mode`.
     `jplan` (join.JoinPlan) lays out the chain's join / semi steps.  The
     CTA count and the grouped modes' on-chip table size (onchip_slots)
     leave room for the double mode's smallest ring of the arrays the plan
-    stages (ring_reserve).  Raises NotImplementedError for an expression
-    or shape the kernel lacks."""
+    stages (ring_reserve); the hash mode's CTA width holds its first
+    table of `first_slots` slots on chip where it can.  Raises
+    NotImplementedError for an expression or shape the kernel lacks."""
     meta = chain.scan_meta
     names = tuple(meta["colmap"])
     col_idx = {n: i for i, n in enumerate(names)}
@@ -878,6 +880,13 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
     programs = [p for p in step_programs + key_programs
                 + list(agg_programs.values()) if p is not None]
     programs += [p for jp in joins for p in jp.key_programs]
+    for p in programs:
+        for op, _arg in p.ops:
+            if op not in KERNEL_OPS:
+                # the dictionary folds and the numeric forms after them
+                # run in the torch chain only
+                raise NotImplementedError(
+                    f"opcode {OPS[op]} is not in the scan kernels' set")
     depth = max([p.depth for p in programs] + [1])
     # an opcode past the TPC-H Q1 / Q6 set (NEG_I on) takes the kernels'
     # EXT instances (csrc/scan_common.cuh eval_prog)
@@ -969,13 +978,12 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
     threads = THREADS
     if mode == "hash":
         # an on-chip hash table leaves room for one CTA per SM: the widest
-        # CTA whose table still holds the host's first table size
-        # (pipeline.AGG_SLOTS), beside the double mode's ring, keeps as
-        # many warps per SM as two CTAs of THREADS would
-        from ..pipeline import AGG_SLOTS
+        # CTA whose table still holds the first table (first_slots),
+        # beside the double mode's ring, keeps as many warps per SM as two
+        # CTAs of THREADS would
         for t in range(HASH_MAX_THREADS, THREADS, -32):
             if (fixed + per_thread * t + ring_at(t) + 8 * MAX_PARAMS
-                    + AGG_SLOTS * slot_bytes <= MAX_SMEM_BYTES):
+                    + first_slots * slot_bytes <= MAX_SMEM_BYTES):
                 threads = t
                 break
     while threads > 32 and fixed + 8 * MAX_PARAMS + per_thread * threads \

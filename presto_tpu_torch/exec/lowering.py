@@ -21,20 +21,35 @@ reference package's: NULL propagates through scalar calls (result null
 unscaled int64 with scales taken from the planner's expression types,
 and rescaling down rounds half away from zero.
 
-Supported here (the reference kernels' numeric set): variable
-references, constants, bound parameters, add / subtract / multiply /
-divide / modulus in the integer, decimal and double domains (a zero
-divisor gives NULL outside the double domain), negate, abs, year / month /
-day / quarter of a date, the six comparisons, BETWEEN, NOT, CAST between
-the numeric types, and the AND / OR / IS_NULL / IF / COALESCE / NULL_IF /
-IN special forms (IN over numeric constants).  IF and COALESCE are
-selects over evaluated slots: every row runs every instruction.
-Anything else -- varchar literals and predicates among them -- raises
-NotImplementedError naming the missing piece.
+Supported here: variable references, constants, bound parameters, add /
+subtract / multiply / divide / modulus in the integer, decimal and double
+domains (a zero divisor gives NULL outside the double domain), negate,
+abs, year / month / day / quarter of a date, the six comparisons,
+BETWEEN, NOT, CAST between the numeric types (double to INTEGER / BIGINT
+saturating, as XLA converts), and the AND / OR / IS_NULL / IF / COALESCE
+/ NULL_IF / IN special forms.  IF and COALESCE are selects over evaluated
+slots: every row runs every instruction.
+
+Varchar values are dictionary codes: a slot of the torch interpreter
+carries its dictionary (host metadata) beside its values.  The varchar
+forms -- comparisons (a per-code truth table against a literal, codes
+against codes over one dictionary, a remap across two), LIKE, IN over a
+dictionary, substr / length and the dictionary string functions, IF over
+two dictionaries (merged) -- are folded on the host into a per-code table
+for the slot's dictionary and applied on the device as one gather
+(CMP_S, MAP_S, IF_S; the reference's _compare_strings, _like, _in,
+_substr, _string_fn with _reencode, _merge_dictionaries).  The tables
+are cached per dictionary.  A decimal divide whose numerator scales up
+divides by long division (DIVQS_I), exact where the reference's int64
+rescale wraps.  The CUDA kernels run the opcodes before CONST_S only
+(KERNEL_OPS); a program with a later one declines their plan build,
+naming it.  Anything else raises NotImplementedError naming
+the missing piece.
 """
 from __future__ import annotations
 
 import struct
+import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -142,6 +157,28 @@ def _decimal_quotient(num, b, arg: int):
     return wa(q), zero
 
 
+def _scaled_decimal_quotient(num, b, arg: int):
+    """DIVQS_I: the decimal divide of an int64 numerator scaled up by
+    10**k (arg >> 2) first, rounding half away from zero, NULL on a zero
+    divisor -- the reference's rescale + divide, computed by long division
+    so that the scaled numerator never leaves int64 (where the reference's
+    rescale wraps, e.g. TPC-H Q14's 100.00 * sum / sum at SF10, this is
+    the exact quotient)."""
+    k = arg >> 2
+    _num, b, _wa, wb = _narrow_pair(num, b, arg & 2)
+    zero = b == 0
+    sb = torch.where(zero, torch.ones_like(b), b)
+    ab = wb(torch.abs(sb))
+    an = torch.abs(num)
+    q, r = _floor_div(an, ab), torch.remainder(an, ab)
+    for _ in range(k):
+        r = r * 10
+        q = q * 10 + _floor_div(r, ab)
+        r = torch.remainder(r, ab)
+    q = q + (r >= ab - _floor_div(ab, 2)).to(torch.int64)
+    return torch.sign(num) * torch.sign(sb) * q, zero
+
+
 def _float_mod(a, b):
     """jnp.mod: C's fmod, moved to the divisor's sign."""
     m = torch.fmod(a, b)
@@ -231,10 +268,17 @@ def torch_dtype(typ: Type):
 # DIV_I / MOD_I / DIVQ_I bit 0 (1) for an int32 (INTEGER / DATE) dividend
 # and bit 1 (2) for an int32 divisor, which the reference keeps in int32;
 # IN_*
-# the count k of LIT instructions that follow it, its constant list.
-# Stack effects: IF pops (cond, then, else); COALESCE, NULLIF_* and the
-# other binary ops pop two; IS_NULL, IN_* and the unary ops pop one; each
-# pushes one.  DIV_I, MOD_I, DIVQ_I and NULLIF_* can make a row NULL.
+# the count k of LIT instructions that follow it, its constant list;
+# CONST_S an index into the program's strings, CMP_S one into _CMP,
+# MAP_S one into the program's maps (a per-code fold, _fold); F2I the
+# integer width (32 or 64); DIVQS_I bit 1 (2) for an int32 divisor and
+# the numerator's scale-up k (times 10**k) above bit 2.  NULLIF_X
+# compares an integer with a double.
+# Stack effects: IF / IF_S pop (cond, then, else); COALESCE, NULLIF_*,
+# CMP_S and the other binary ops pop two; IS_NULL, IN_*, MAP_S and the
+# unary ops pop one; each pushes one.  DIV_I, MOD_I, DIVQ_I and NULLIF_*
+# can make a row NULL, and so can a MAP_S whose fold maps an entry to
+# NULL.
 OPS = (
     "COL", "CONST_I", "CONST_F", "NULL_I", "NULL_F", "PARAM_I", "PARAM_F",
     "MULC_I", "DIVR_I", "I2F", "DIVC_F", "WRAP32",
@@ -246,13 +290,18 @@ OPS = (
     "MULC_F", "RINT_I",
     "DIV_I", "MOD_I", "DIVQ_I", "DIV_F", "MOD_F",
     "IS_NULL", "IF", "COALESCE", "NULLIF_I", "NULLIF_F",
-    "IN_I", "IN_F", "LIT",
+    "IN_I", "IN_F", "LIT", "DIVQS_I",
+    # -- the torch interpreter's alone (KERNEL_OPS ends before them) ----
+    "CONST_S", "NULL_S", "CMP_S", "MAP_S", "IF_S", "NULLIF_X", "F2I",
 )
 OP = {name: i for i, name in enumerate(OPS)}
+# the opcodes the CUDA scan kernels run (codegen.py, scan_common.cuh)
+KERNEL_OPS = frozenset(range(OP["CONST_S"]))
 _UNARY = frozenset(("MULC_I", "DIVR_I", "I2F", "DIVC_F", "WRAP32", "NOT",
                     "NEG_I", "NEG_F", "ABS_I", "ABS_F", "YEAR", "MONTH",
-                    "DAY", "QUARTER", "MULC_F", "RINT_I"))
-_NULLING = frozenset(("DIV_I", "MOD_I", "DIVQ_I", "NULLIF_I", "NULLIF_F"))
+                    "DAY", "QUARTER", "MULC_F", "RINT_I", "F2I"))
+_NULLING = frozenset(("DIV_I", "MOD_I", "DIVQ_I", "NULLIF_I", "NULLIF_F",
+                      "NULLIF_X", "DIVQS_I"))
 # deepest stack a program may need (it sizes the scan kernel's
 # shared-memory stack)
 MAX_STACK = 16
@@ -271,7 +320,8 @@ def _bits_float(arg: int) -> float:
 class ExprProgram:
     """A compiled expression: postfix (opcode, argument) pairs over the
     named input columns.  `float_result` says whether the final slot is a
-    float64; `dtype` is the logical dtype of the result column."""
+    float64; `dtype` is the logical dtype of the result column (int32
+    codes for a varchar result, whose dictionary the run derives)."""
     ops: Tuple[Tuple[int, int], ...]
     columns: Tuple[str, ...]
     float_result: bool
@@ -282,15 +332,19 @@ class ExprProgram:
     # NULL-able column or constant, a divide / modulus outside the double
     # domain, NULL_IF; IS_NULL, COALESCE and IF narrow it)
     nullable: bool = False
+    # CONST_S's string literals and MAP_S's fold specs (_fold)
+    strings: Tuple[str, ...] = ()
+    maps: Tuple[tuple, ...] = ()
 
     def run(self, columns: Dict[str, Column], n: int, params,
             device) -> Column:
-        """Evaluate over `n` rows of `columns` (torch interpreter)."""
+        """Evaluate over `n` rows of `columns` (torch interpreter).  A
+        slot is (values, nulls, dictionary)."""
         if self.uses_params and params is None:
             raise RuntimeError(
                 "bound-parameter expression evaluated without a "
                 "bound-parameter vector")
-        stack: List[Tuple[torch.Tensor, Optional[torch.Tensor]]] = []
+        stack: List[tuple] = []
 
         def full(bits, is_float):
             t = torch.full((n,), bits, dtype=torch.int64, device=device)
@@ -311,35 +365,48 @@ class ExprProgram:
                 v = c.values
                 if not v.is_floating_point():
                     v = v.to(torch.int64)
-                stack.append((v, c.nulls))
+                stack.append((v, c.nulls, c.dictionary))
             elif name in ("CONST_I", "CONST_F"):
-                stack.append((full(arg, name == "CONST_F"), None))
-            elif name in ("NULL_I", "NULL_F"):
+                stack.append((full(arg, name == "CONST_F"), None, None))
+            elif name in ("NULL_I", "NULL_F", "NULL_S"):
                 stack.append((full(0, name == "NULL_F"),
                               torch.ones(n, dtype=torch.bool,
-                                         device=device)))
+                                         device=device),
+                              ("",) if name == "NULL_S" else None))
+            elif name == "CONST_S":
+                stack.append((full(0, False), None, (self.strings[arg],)))
             elif name in ("PARAM_I", "PARAM_F"):
                 p = params[arg].expand(n)
                 stack.append((p.view(torch.float64) if name == "PARAM_F"
-                              else p, None))
+                              else p, None, None))
             elif name in _UNARY:
-                v, nl = stack.pop()
-                stack.append((_unary(name, arg, v), nl))
+                v, nl, _d = stack.pop()
+                stack.append((_unary(name, arg, v), nl, None))
+            elif name == "MAP_S":
+                v, nl, d = stack.pop()
+                stack.append(_apply_fold(self.maps[arg], v, nl, d))
+            elif name == "CMP_S":
+                (b, bn, bd), (a, an, ad) = stack.pop(), stack.pop()
+                stack.append((_compare_codes(_CMP[arg], a, ad, b, bd),
+                              orn(an, bn), None))
             elif name == "IS_NULL":
-                _v, nl = stack.pop()
+                _v, nl, _d = stack.pop()
                 stack.append((torch.zeros(n, dtype=torch.int64, device=device)
-                              if nl is None else nl.to(torch.int64), None))
+                              if nl is None else nl.to(torch.int64), None,
+                              None))
             elif name in ("IN_I", "IN_F"):
-                v, nl = stack.pop()
+                v, nl, _d = stack.pop()
                 hit = torch.zeros(n, dtype=torch.bool, device=device)
                 for _lit, bits in self.ops[i:i + arg]:
                     hit = hit | (v == (_bits_float(bits) if name == "IN_F"
                                        else bits))
                 i += arg
-                stack.append((hit.to(torch.int64), nl))
-            elif name == "IF":
-                (f, fn), (t, tn), (c, cn) = (stack.pop(), stack.pop(),
-                                             stack.pop())
+                stack.append((hit.to(torch.int64), nl, None))
+            elif name in ("IF", "IF_S"):
+                (f, fn, fd), (t, tn, td), (c, cn, _cd) = (
+                    stack.pop(), stack.pop(), stack.pop())
+                if name == "IF_S":
+                    (t, td), (f, fd) = _merge_dictionaries(t, td, f, fd)
                 pred = c != 0
                 if cn is not None:
                     pred = pred & ~cn
@@ -347,20 +414,20 @@ class ExprProgram:
                 if tn is not None or fn is not None:
                     nulls = torch.where(pred, _mask(tn, n, device),
                                         _mask(fn, n, device))
-                stack.append((torch.where(pred, t, f), nulls))
+                stack.append((torch.where(pred, t, f), nulls, td))
             elif name == "COALESCE":
-                (b, bn), (a, an) = stack.pop(), stack.pop()
+                (b, bn, _bd), (a, an, _ad) = stack.pop(), stack.pop()
                 if an is None:
-                    stack.append((a, None))
+                    stack.append((a, None, None))
                 else:
                     stack.append((torch.where(an, b, a),
-                                  None if bn is None else an & bn))
+                                  None if bn is None else an & bn, None))
             elif name in ("AND", "OR"):
-                (b, bn), (a, an) = stack.pop(), stack.pop()
+                (b, bn, _bd), (a, an, _ad) = stack.pop(), stack.pop()
                 av, bv = a != 0, b != 0
                 if an is None and bn is None:
                     out = (av & bv) if name == "AND" else (av | bv)
-                    stack.append((out.to(torch.int64), None))
+                    stack.append((out.to(torch.int64), None, None))
                     continue
                 an = an if an is not None else torch.zeros_like(av)
                 bn = bn if bn is not None else torch.zeros_like(bv)
@@ -371,9 +438,9 @@ class ExprProgram:
                 else:
                     out = (av & ~an) | (bv & ~bn)
                     nulls = ~out & (an | bn)
-                stack.append((out.to(torch.int64), nulls))
+                stack.append((out.to(torch.int64), nulls, None))
             else:
-                (b, bn), (a, an) = stack.pop(), stack.pop()
+                (b, bn, _bd), (a, an, _ad) = stack.pop(), stack.pop()
                 base = name[:-2]
                 made = None           # rows the op itself makes NULL
                 if base == "ADD":
@@ -386,22 +453,231 @@ class ExprProgram:
                     v, made = _int_divide(a, b, arg, name == "MOD_I")
                 elif name == "DIVQ_I":
                     v, made = _decimal_quotient(a, b, arg)
+                elif name == "DIVQS_I":
+                    v, made = _scaled_decimal_quotient(a, b, arg)
                 elif name == "DIV_F":
                     v = a / b
                 elif name == "MOD_F":
                     v = _float_mod(a, b)
                 elif base == "NULLIF":
+                    # NULLIF_X: an integer against a double, compared as
+                    # jnp promotes them (float64)
+                    eq = (a.to(torch.float64) == b.to(torch.float64)
+                          if name == "NULLIF_X" else a == b)
                     v = a
-                    made = (a == b) & ~_mask(an, n, device) \
+                    made = eq & ~_mask(an, n, device) \
                         & ~_mask(bn, n, device)
                     bn = None
                 else:
                     v = {"LT": torch.lt, "LTE": torch.le, "GT": torch.gt,
                          "GTE": torch.ge, "EQ": torch.eq,
                          "NEQ": torch.ne}[base](a, b).to(torch.int64)
-                stack.append((v, orn(orn(an, bn), made)))
-        v, nl = stack.pop()
-        return Column(v.to(self.dtype), nl)
+                stack.append((v, orn(orn(an, bn), made), None))
+        v, nl, d = stack.pop()
+        return Column(v.to(self.dtype), nl, d)
+
+
+# ---------------------------------------------------------------------------
+# dictionary folds (host) applied as device gathers
+# ---------------------------------------------------------------------------
+
+def like_matcher(pattern: str, escape: Optional[str] = None):
+    """SQL LIKE pattern -> predicate: only % and _ are wildcards, every
+    other character (regex metacharacters included) is literal."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        ch = pattern[i]
+        if escape and ch == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+        i += 1
+    rx = re.compile("".join(out), re.DOTALL)
+    return lambda s: rx.fullmatch(s) is not None
+
+
+def _lpad(s, n, fill=" "):
+    n, fill = int(n), str(fill)
+    if len(s) >= n:
+        return s[:n]
+    pad = n - len(s)
+    return (fill * (pad // len(fill) + 1))[:pad] + s
+
+
+def _rpad(s, n, fill=" "):
+    n, fill = int(n), str(fill)
+    if len(s) >= n:
+        return s[:n]
+    pad = n - len(s)
+    return s + (fill * (pad // len(fill) + 1))[:pad]
+
+
+def _split_part(s, delim, index):
+    parts = s.split(str(delim))
+    i = int(index)
+    if i < 1 or i > len(parts):
+        return None
+    return parts[i - 1]
+
+
+def _substr(s, start, length=None):
+    i = start - 1 if start > 0 else len(s) + start
+    return s[i:i + length] if length is not None else s[i:]
+
+
+# string -> string functions over dictionary entries (None = SQL NULL)
+STRING_TO_STRING = {
+    "upper": lambda s: s.upper(),
+    "lower": lambda s: s.lower(),
+    "trim": lambda s: s.strip(),
+    "ltrim": lambda s: s.lstrip(),
+    "rtrim": lambda s: s.rstrip(),
+    "reverse": lambda s: s[::-1],
+    "replace": lambda s, find, repl="": s.replace(str(find), str(repl)),
+    "lpad": _lpad,
+    "rpad": _rpad,
+    "split_part": _split_part,
+}
+# string -> value functions: name -> (fn(entry, *args), numpy dtype)
+STRING_TO_VALUE = {
+    "length": (len, np.int64),
+    "strpos": (lambda s, sub: s.find(str(sub)) + 1, np.int64),
+    "starts_with": (lambda s, p: s.startswith(str(p)), bool),
+    "ends_with": (lambda s, p: s.endswith(str(p)), bool),
+    "codepoint": (lambda s: ord(s[0]) if s else None, np.int64),
+}
+
+# host folds cached per (tag, dictionaries' ids, device): (dicts, result)
+_FOLDS: Dict[tuple, tuple] = {}
+
+
+def _fold(spec: tuple, dictionary, device):
+    """A MAP_S spec over one dictionary -> (per-code value table, output
+    dictionary or None, per-code NULL table or None), as device tensors,
+    folded on the host once per dictionary.  Specs: ("like", pattern),
+    ("in", values), ("substr", start, length), ("str", name, args) and
+    ("val", name, args)."""
+    if dictionary is None:
+        raise NotImplementedError(f"{spec[0]} on non-dictionary varchar")
+    return _memo(("fold", spec), (dictionary,), device,
+                 lambda: _build_fold(spec, dictionary, device))
+
+
+def _build_fold(spec: tuple, dictionary, device):
+    kind = spec[0]
+    out_dict = None
+    if kind == "like":
+        match = like_matcher(spec[1])
+        raw = [match(s) for s in dictionary]
+    elif kind == "in":
+        raw = [s in spec[1] for s in dictionary]
+    elif kind in ("substr", "str"):
+        mapped = ([_substr(s, *spec[1:]) for s in dictionary]
+                  if kind == "substr" else
+                  [STRING_TO_STRING[spec[1]](s, *spec[2])
+                   for s in dictionary])
+        # re-encode: dedup and sort, so codes stay rank codes
+        out_dict = tuple(sorted({s for s in mapped if s is not None})) \
+            or ("",)
+        index = {s: i for i, s in enumerate(out_dict)}
+        raw = [0 if s is None else index[s] for s in mapped]
+        nulls = [s is None for s in mapped]
+    else:
+        fn, _dt = STRING_TO_VALUE[spec[1]]
+        vals = [fn(s, *spec[2]) for s in dictionary]
+        raw = [0 if v is None else v for v in vals]
+        nulls = [v is None for v in vals]
+    table = torch.tensor(np.asarray(raw, dtype=np.int64).reshape(-1),
+                         dtype=torch.int64, device=device)
+    null_tab = (torch.tensor(nulls, dtype=torch.bool, device=device)
+                if kind in ("substr", "str", "val") and any(nulls)
+                else None)
+    return table, out_dict, null_tab
+
+
+def _memo(tag: tuple, dicts: tuple, device, build):
+    """build() for these dictionaries, computed on the host once and
+    cached (keyed by the dictionaries' identities, so a chunk's lookup
+    hashes no dictionary)."""
+    key = (tag, tuple(id(d) for d in dicts), str(device))
+    hit = _FOLDS.get(key)
+    if hit is not None and all(x is d for x, d in zip(hit[0], dicts)):
+        return hit[1]
+    out = build()
+    _FOLDS[key] = (dicts, out)
+    return out
+
+
+def _cached_table(tag: tuple, dicts: tuple, device, build):
+    """A per-code int64 table built on the host, cached on the device."""
+    return _memo(tag, dicts, device, lambda: torch.tensor(
+        build(), dtype=torch.int64, device=device))
+
+
+def _apply_fold(spec: tuple, v, nulls, dictionary):
+    table, out_dict, null_tab = _fold(spec, dictionary, v.device)
+    out = table[v]
+    if null_tab is not None:
+        made = null_tab[v]
+        nulls = made if nulls is None else nulls | made
+    return out, nulls, out_dict
+
+
+_PYOPS = {"eq": lambda a, b: a == b, "neq": lambda a, b: a != b,
+          "lt": lambda a, b: a < b, "lte": lambda a, b: a <= b,
+          "gt": lambda a, b: a > b, "gte": lambda a, b: a >= b}
+_TORCH_CMP = {"eq": torch.eq, "neq": torch.ne, "lt": torch.lt,
+              "lte": torch.le, "gt": torch.gt, "gte": torch.ge}
+_FLIP = {"eq": "eq", "neq": "neq", "lt": "gt", "lte": "gte", "gt": "lt",
+         "gte": "lte"}
+
+
+def _compare_codes(name: str, a, ad, b, bd):
+    """The reference's _compare_strings over codes: a per-code truth table
+    against a one-entry (literal) dictionary, codes compared directly over
+    one dictionary (sorted, so codes are rank codes), or b's codes mapped
+    into a's dictionary (equality only)."""
+    if ad is None or bd is None:
+        raise NotImplementedError("string comparison requires dictionaries")
+    if len(bd) == 1:
+        lit, op = bd[0], _PYOPS[name]
+        return _cached_table(("cmp", name), (ad, bd), a.device, lambda: [
+            int(op(s, lit)) for s in ad])[a]
+    if len(ad) == 1:
+        return _compare_codes(_FLIP[name], b, bd, a, ad)
+    if ad == bd:
+        return _TORCH_CMP[name](a, b).to(torch.int64)
+    if name not in ("eq", "neq"):
+        raise NotImplementedError("ordering across distinct dictionaries")
+    def remap():
+        index = {s: i for i, s in enumerate(ad)}
+        return [index.get(s, -1) for s in bd]
+    bv = _cached_table(("remap",), (ad, bd), a.device, remap)[b]
+    if name == "eq":
+        return ((a == bv) & (bv >= 0)).to(torch.int64)
+    return ((a != bv) | (bv < 0)).to(torch.int64)
+
+
+def _merge_dictionaries(a, ad, b, bd):
+    """Two code slots onto one union dictionary (the reference's
+    _merge_dictionaries): ((a, dict), (b, dict))."""
+    if ad is None or bd is None or ad == bd:
+        return (a, ad), (b, bd)
+    def build():
+        union = tuple(sorted(set(ad) | set(bd)))
+        index = {s: i for i, s in enumerate(union)}
+        return union, *(torch.tensor([index[s] for s in d],
+                                     dtype=torch.int64, device=a.device)
+                        for d in (ad, bd))
+    union, ta, tb = _memo(("merge",), (ad, bd), a.device, build)
+    return (ta[a], union), (tb[b], union)
 
 
 def _mask(nulls, n, device):
@@ -422,6 +698,8 @@ def _unary(name: str, arg: int, v):
         return v * _bits_float(arg)
     if name == "RINT_I":
         return torch.round(v).to(torch.int64)      # half to even
+    if name == "F2I":
+        return _saturating_int(v, arg)
     if name == "WRAP32":
         return _wrap32(v)
     if name == "NOT":
@@ -435,7 +713,19 @@ def _unary(name: str, arg: int, v):
             "QUARTER": _floor_div(m + 2, 3)}[name]
 
 
-def program_nullable(ops, columns, nullable_cols) -> bool:
+def _saturating_int(v, bits: int):
+    """A double as a `bits`-wide integer (held in int64), truncated toward
+    zero, saturating at the bounds, NaN as 0 (XLA's convert, which the
+    reference's astype runs)."""
+    hi = float(1 << (bits - 1))
+    t = torch.trunc(torch.nan_to_num(v, nan=0.0, posinf=hi, neginf=-hi))
+    big, small = t >= hi, t < -hi
+    out = torch.where(big | small, torch.zeros_like(t), t).to(torch.int64)
+    out = torch.where(big, torch.full_like(out, (1 << (bits - 1)) - 1), out)
+    return torch.where(small, torch.full_like(out, -(1 << (bits - 1))), out)
+
+
+def program_nullable(ops, columns, nullable_cols, maps=()) -> bool:
     """Whether the program's result can be NULL, by the reference's static
     rule, walking its stack of may-be-NULL flags."""
     st: List[bool] = []
@@ -446,17 +736,21 @@ def program_nullable(ops, columns, nullable_cols) -> bool:
         name = OPS[op]
         if name == "COL":
             st.append(columns[arg] in nullable_cols)
-        elif name in ("CONST_I", "CONST_F", "PARAM_I", "PARAM_F"):
+        elif name in ("CONST_I", "CONST_F", "PARAM_I", "PARAM_F",
+                      "CONST_S"):
             st.append(False)
-        elif name in ("NULL_I", "NULL_F"):
+        elif name in ("NULL_I", "NULL_F", "NULL_S"):
             st.append(True)
         elif name in _UNARY:
             pass
+        elif name == "MAP_S":
+            # a string function may map an entry to NULL
+            st[-1] = st[-1] or maps[arg][0] in ("substr", "str", "val")
         elif name == "IS_NULL":
             st[-1] = False
         elif name in ("IN_I", "IN_F"):
             i += arg
-        elif name == "IF":
+        elif name in ("IF", "IF_S"):
             f, t, _c = st.pop(), st.pop(), st.pop()
             st.append(t or f)
         elif name == "COALESCE":
@@ -475,6 +769,10 @@ def _narrow_bits(ta: Type, tb: Type) -> int:
     return int(narrow(ta)) | int(narrow(tb)) << 1
 
 
+def _is_varchar(t: Type) -> bool:
+    return isinstance(t, (VarcharType, CharType))
+
+
 def _domain_is_float(t: Type) -> bool:
     if isinstance(t, RealType):
         raise NotImplementedError("REAL is not ported yet")
@@ -490,6 +788,8 @@ class _Emitter:
         self.depth = 0
         self.max_depth = 0
         self.uses_params = False
+        self.strings: List[str] = []
+        self.maps: List[tuple] = []
 
     def _op(self, name: str, arg: int = 0, delta: int = 0):
         self.ops.append((OP[name], int(arg)))
@@ -531,6 +831,12 @@ class _Emitter:
             raise NotImplementedError("a double operand of an exact select")
         self._op("I2F")
 
+    def _map(self, spec: tuple) -> None:
+        """A per-code fold of the top (dictionary) slot (MAP_S)."""
+        if spec not in self.maps:
+            self.maps.append(spec)
+        self._op("MAP_S", self.maps.index(spec))
+
     def _special(self, expr: SpecialFormExpression) -> None:
         """The reference's _special: Kleene AND / OR, IS_NULL, IF (what the
         planner makes of CASE), COALESCE, NULL_IF and IN."""
@@ -543,6 +849,11 @@ class _Emitter:
         elif form == "IS_NULL":
             self.emit(args[0])
             self._op("IS_NULL")
+        elif form == "IF" and _is_varchar(expr.type):
+            # two dictionaries merge onto their union (IF_S)
+            for a in args:
+                self.emit(a)
+            self._op("IF_S", 0, -2)
         elif form == "IF":
             is_f = _domain_is_float(expr.type)
             self.emit(args[0])
@@ -554,7 +865,11 @@ class _Emitter:
         elif form == "NULL_IF":
             fa, fb = (_domain_is_float(a.type) for a in args)
             if fa != fb:
-                raise NotImplementedError("NULL_IF of an integer and a double")
+                # compared in float64, the first operand's value kept
+                self._emit_as(args[0], fa)
+                self._emit_as(args[1], fb)
+                self._op("NULLIF_X", 0, -1)
+                return
             self._emit_as(args[0], fa)
             self._emit_as(args[1], fa)
             self._op("NULLIF_F" if fa else "NULLIF_I", 0, -1)
@@ -578,13 +893,18 @@ class _Emitter:
         value's domain (constant_device_value with the VALUE's type, as
         the reference converts it), compared for equality; the value's
         NULLs stay, and a NULL-free list never makes one."""
-        if isinstance(value.type, (VarcharType, CharType)):
-            raise NotImplementedError("varchar IN lists in the port")
         if not all(isinstance(e, ConstantExpression) for e in items):
             raise NotImplementedError("IN with a non-constant list")
-        consts = [constant_device_value(e.value, value.type) for e in items]
-        if any(c is None for c in consts):
-            raise NotImplementedError("IN with a NULL in its list")
+        if _is_varchar(value.type):
+            # a per-code membership table; the reference matches each
+            # constant's str() (a NULL constant is the string 'None')
+            self.emit(value)
+            self._map(("in", frozenset(str(e.value) for e in items)))
+            return
+        # a NULL constant matches nothing (the reference compares the
+        # values with None, which is False) and leaves misses non-NULL
+        consts = [c for c in (constant_device_value(e.value, value.type)
+                              for e in items) if c is not None]
         if not all(isinstance(c, (bool, int, float)) for c in consts):
             raise NotImplementedError("IN with a non-numeric constant")
         is_f = _domain_is_float(value.type) or any(
@@ -597,8 +917,16 @@ class _Emitter:
             self._op("LIT", float_bits(c) if is_f else int(c))
 
     def _constant(self, expr: ConstantExpression) -> None:
-        if isinstance(expr.type, (VarcharType, CharType)):
-            raise NotImplementedError("varchar constants in the port")
+        if _is_varchar(expr.type):
+            # a one-entry dictionary, code 0 on every row
+            if expr.value is None:
+                self._op("NULL_S", 0, +1)
+                return
+            v = str(constant_device_value(expr.value, expr.type))
+            if v not in self.strings:
+                self.strings.append(v)
+            self._op("CONST_S", self.strings.index(v), +1)
+            return
         is_f = _domain_is_float(expr.type)
         if expr.value is None:
             self._op("NULL_F" if is_f else "NULL_I", 0, +1)
@@ -660,9 +988,31 @@ class _Emitter:
             self._coalesce(args, expr.type)
         elif name == "cast":
             self._cast(args[0], expr.type)
+        elif name in ("like", "substr") or name in STRING_TO_STRING \
+                or name in STRING_TO_VALUE:
+            self._string_fn(name, args)
         else:
             raise NotImplementedError(
                 f"function {name} is not ported yet")
+
+    def _string_fn(self, name: str, args) -> None:
+        """A function of a dictionary column and constants, folded per
+        code (the reference's _like, _substr and _string_fn)."""
+        if not _is_varchar(args[0].type):
+            raise NotImplementedError(f"{name} on non-dictionary varchar")
+        if not all(isinstance(a, ConstantExpression) for a in args[1:]):
+            raise NotImplementedError(f"{name} with non-constant arguments")
+        extra = tuple(a.value for a in args[1:])
+        self.emit(args[0])
+        if name == "like":
+            # the reference's _like reads the pattern alone
+            self._map(("like", str(extra[0])))
+        elif name == "substr":
+            self._map(("substr",) + tuple(int(x) for x in extra))
+        elif name in STRING_TO_STRING:
+            self._map(("str", name, extra))
+        else:
+            self._map(("val", name, extra))
 
     def _arith(self, name: str, expr: CallExpression) -> None:
         """The reference's _arith: the double domain converts both
@@ -691,9 +1041,16 @@ class _Emitter:
                 return
             if name == "divide":
                 self.emit(a)
+                bits, up = _narrow_bits(ta, tb), tr.scale + sb - sa
+                if up > 0 and not bits & 1:
+                    # the scale-up inside the divide (DIVQS_I): exact
+                    # where the reference's int64 rescale would wrap
+                    self.emit(b)
+                    self._op("DIVQS_I", bits | up << 2, -1)
+                    return
                 self._rescale(sa, tr.scale + sb)
                 self.emit(b)
-                self._op("DIVQ_I", _narrow_bits(ta, tb), -1)
+                self._op("DIVQ_I", bits, -1)
                 return
             self.emit(a)
             self._rescale(sa, tr.scale)
@@ -710,8 +1067,12 @@ class _Emitter:
             self._op("WRAP32")     # int32 arithmetic wraps at 32 bits
 
     def _compare(self, name: str, a: RowExpression, b: RowExpression) -> None:
-        if any(isinstance(e.type, (VarcharType, CharType)) for e in (a, b)):
-            raise NotImplementedError("varchar comparison in the port")
+        if _is_varchar(a.type) or _is_varchar(b.type):
+            # codes against a literal, each other or a remap (CMP_S)
+            self.emit(a)
+            self.emit(b)
+            self._op("CMP_S", _CMP.index(name), -1)
+            return
         common = _common_super(a.type, b.type)
         for e in (a, b):
             self.emit(e)
@@ -725,7 +1086,8 @@ class _Emitter:
         (presto_tpu/exec/lowering.py _cast), where Presto rescales."""
         frm = arg.type
         self.emit(arg)
-        if frm.signature == to.signature:
+        if frm.signature == to.signature \
+                or (_is_varchar(frm) and _is_varchar(to)):
             return
         if isinstance(to, DoubleType):
             self._convert(frm, to)
@@ -739,6 +1101,9 @@ class _Emitter:
         elif isinstance(to, BigintType) and not _domain_is_float(frm):
             if _is_decimal(frm):
                 self._rescale(frm.scale, 0)
+        elif isinstance(to, (IntegerType, BigintType)) \
+                and isinstance(frm, DoubleType):
+            self._op("F2I", 32 if isinstance(to, IntegerType) else 64)
         else:
             raise NotImplementedError(f"cast {frm} -> {to} is not ported yet")
 
@@ -754,9 +1119,14 @@ def compile_expr(expr: RowExpression, nullable_cols=()) -> ExprProgram:
             f"(the kernel interpreter keeps {MAX_STACK})")
     cols = tuple(sorted(em.columns, key=em.columns.get))
     ops = tuple(em.ops)
-    return ExprProgram(ops, cols, _domain_is_float(expr.type),
-                       torch_dtype(expr.type), em.max_depth, em.uses_params,
-                       program_nullable(ops, cols, frozenset(nullable_cols)))
+    maps = tuple(em.maps)
+    dtype = (torch.int32 if _is_varchar(expr.type)
+             else torch_dtype(expr.type))
+    return ExprProgram(ops, cols, _domain_is_float(expr.type), dtype,
+                       em.max_depth, em.uses_params,
+                       program_nullable(ops, cols, frozenset(nullable_cols),
+                                        maps),
+                       tuple(em.strings), maps)
 
 
 class Lowering:

@@ -139,3 +139,14 @@ class MemoryContext:
         with self.pool._lock:
             self.pool.free(n)
             self._apply_up(-min(n, self.reserved))
+
+
+def batch_bytes(batch) -> int:
+    """Device bytes of a Batch: every column's values and NULL mask, and
+    the row mask."""
+    n = batch.mask.numel() * batch.mask.element_size()
+    for c in batch.columns.values():
+        n += c.values.numel() * c.values.element_size()
+        if c.nulls is not None:
+            n += c.nulls.numel() * c.nulls.element_size()
+    return n

@@ -2,8 +2,11 @@
 
 The subset of presto_tpu/exec/operators.py the port runs: the hash
 mixer and key hashing, filter application, direct-slot, span and hashed
-open-addressing aggregation (init / update / finalize, BASIC aggregates),
-the decimal average, the join build and probe primitives (the hash-sorted
+open-addressing aggregation (init / update / finalize: the BASIC
+aggregates everywhere, the moment, corr and HyperLogLog states in the
+hashed table), the runtime span's dependent-key check (depkey_*), the
+sort aggregation (sort_group_aggregate, approx_percentile included), the
+decimal average, the join build and probe primitives (the hash-sorted
 BuildTable, the direct-address lookup, the semi-join markers), sort
 permutations, TopN and Limit, window functions (default_frame_window,
 the window kernel's function; window_batch, the path after its
@@ -12,6 +15,7 @@ tensors on one device and allocates on that device.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -98,16 +102,137 @@ def apply_filter(batch: Batch, predicate: Column) -> Batch:
 
 @dataclass(frozen=True)
 class AggSpec:
-    """One aggregate: function name, whether input is float, output column."""
-    name: str          # sum/count/count_star/min/max/avg
+    """One aggregate: function name, whether input is float, output column.
+    param carries a constant argument (approx_percentile's p, an HLL
+    register count)."""
+    name: str          # sum/count/count_star/min/max/avg/stddev*/var*/
+    #                    corr/covar_*/approx_distinct/approx_percentile
     output: str
     is_float: bool = False
+    param: object = None
 
 
-# aggregates the direct-slot path supports
+# aggregates every execution mode supports; anything else runs in the
+# hashed table or the sort path
 BASIC_AGGS = {"sum", "avg", "count", "count_star", "min", "max"}
+# moment-based aggregates (count / mean / M2 state)
+MOMENT_AGGS = {"stddev", "stddev_pop", "stddev_samp", "variance",
+               "var_pop", "var_samp"}
+CORR_AGGS = {"corr", "covar_pop", "covar_samp"}
+# aggregates only the sort path implements (value-ordered segments)
+SORT_ONLY_AGGS = {"approx_percentile"}
+# HyperLogLog sketch aggregates (dense register arrays, scatter-max)
+HLL_AGGS = {"approx_distinct"}
+
+# 2^11 registers: standard error 1.04/sqrt(2048) = 2.3%, approx_distinct's
+# default bound
+HLL_DEFAULT_BUCKETS = 2048
+HLL_MIN_STANDARD_ERROR = 0.0040625
+HLL_MAX_STANDARD_ERROR = 0.26
 
 DIRECT_AGG_MAX_GROUPS = 64
+
+
+def hll_buckets_for_error(e: float) -> int:
+    """max-standard-error -> power-of-two register count m with
+    1.04/sqrt(m) <= e, clamped to [2^4, 2^16]."""
+    if not (HLL_MIN_STANDARD_ERROR <= e <= HLL_MAX_STANDARD_ERROR):
+        raise ValueError(
+            f"approx_distinct standard error {e} out of range "
+            f"[{HLL_MIN_STANDARD_ERROR}, {HLL_MAX_STANDARD_ERROR}]")
+    m = 16
+    while 1.04 / math.sqrt(m) > e and m < (1 << 16):
+        m *= 2
+    return m
+
+
+def _bit_length64(x):
+    """Per-element bit length of non-negative int64 values (0 for 0)."""
+    bl = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for s in (32, 16, 8, 4, 2, 1):
+        big = x >= (1 << s)
+        bl = bl + big.to(torch.int32) * s
+        x = torch.where(big, lsr(x, s), x)
+    return bl + (x > 0).to(torch.int32)
+
+
+def _hll_bucket_rank(h, m: int):
+    """uint64 hash bits (in int64) -> (bucket index, rank int8): bucket =
+    the low log2(m) bits; rank = the leading-zero count of the remaining
+    64-p bits + 1.  The shift is logical, so the rest is non-negative."""
+    p = m.bit_length() - 1
+    bucket = h & (m - 1)
+    rem = lsr(h, p)
+    rank = ((64 - p) - _bit_length64(rem) + 1).to(torch.int8)
+    return bucket, rank
+
+
+def _hll_alpha(m: int) -> float:
+    if m == 16:
+        return 0.673
+    if m == 32:
+        return 0.697
+    if m == 64:
+        return 0.709
+    return 0.7213 / (1 + 1.079 / m)
+
+
+def _hll_estimate(registers, m: int):
+    """(G * m) int8 registers -> int64 cardinality estimates (G,):
+    HyperLogLog with the small-range linear-counting correction."""
+    R = registers.reshape(-1, m).to(torch.float64)
+    Z = torch.exp2(-R).sum(dim=1)
+    E = _hll_alpha(m) * m * m / Z
+    V = (R == 0.0).sum(dim=1)
+    lin = m * torch.log(m / torch.clamp(V.to(torch.float64), min=1.0))
+    est = torch.where((E <= 2.5 * m) & (V > 0), lin, E)
+    return torch.round(est).to(torch.int64)
+
+
+def hll_state_bytes(specs) -> int:
+    """Extra per-slot accumulator bytes for HLL register arrays."""
+    return sum((s.param or HLL_DEFAULT_BUCKETS)
+               for s in specs if s.name in HLL_AGGS)
+
+
+def _chan_merge(na, ma, m2a, nb, mb, m2b):
+    """Chan et al. parallel merge of central-moment states (n, mean, M2):
+    an empty side contributes nothing (its mean is 0 and the delta term is
+    scaled by na * nb)."""
+    n = na + nb
+    nf = torch.clamp(n.to(torch.float64), min=1.0)
+    naf = na.to(torch.float64)
+    nbf = nb.to(torch.float64)
+    delta = mb - ma
+    mean = ma + delta * nbf / nf
+    m2 = m2a + m2b + delta * delta * naf * nbf / nf
+    return n, mean, m2
+
+
+def _moment_finalize(name, m2, n):
+    """(value, is_null) for a variance-family aggregate from M2 and the
+    count."""
+    nf = n.to(torch.float64)
+    pop = name in ("stddev_pop", "var_pop")
+    denom = (torch.clamp(nf, min=1.0) if pop
+             else torch.clamp(nf - 1.0, min=1.0))
+    var = torch.clamp(m2, min=0.0) / denom
+    if name.startswith("stddev"):
+        var = torch.sqrt(var)
+    return var, n < (1 if pop else 2)
+
+
+def _corr_finalize(name, m2x, m2y, cxy, n):
+    """(value, is_null) from central cross-moments."""
+    nf = n.to(torch.float64)
+    if name == "corr":
+        den = torch.sqrt(torch.clamp(m2x, min=0.0)
+                         * torch.clamp(m2y, min=0.0))
+        null = (n < 1) | (den == 0)
+        return cxy / torch.where(den == 0, torch.ones_like(den), den), null
+    if name == "covar_samp":
+        return cxy / torch.clamp(nf - 1.0, min=1.0), n < 2
+    return cxy / torch.clamp(nf, min=1.0), n < 1
 
 
 def _acc_dtype(spec: AggSpec):
@@ -120,9 +245,12 @@ def agg_direct_init(G: int, specs: Tuple[AggSpec, ...], device) -> dict:
     return state
 
 
-def _spec_state(G: int, specs: Tuple[AggSpec, ...], device) -> dict:
-    """The per-aggregate accumulator entries shared by every mode's state
-    (BASIC aggregates; any other function raises NotImplementedError)."""
+def _spec_state(G: int, specs: Tuple[AggSpec, ...], device,
+                hashed: bool = False) -> dict:
+    """The per-aggregate accumulator entries shared by every mode's state:
+    the BASIC aggregates, and in the hashed table (hashed=True) the
+    moment, corr and HLL states; any other function raises
+    NotImplementedError."""
     def zeros(dt=torch.int64):
         return torch.zeros(G, dtype=dt, device=device)
 
@@ -145,6 +273,19 @@ def _spec_state(G: int, specs: Tuple[AggSpec, ...], device) -> dict:
                                             dtype=_acc_dtype(spec),
                                             device=device)
             state[spec.output + "$count"] = zeros()
+        elif hashed and spec.name in MOMENT_AGGS:
+            for suffix in ("$mean", "$m2"):
+                state[spec.output + suffix] = zeros(torch.float64)
+            state[spec.output + "$count"] = zeros()
+        elif hashed and spec.name in CORR_AGGS:
+            for suffix in ("$mx", "$my", "$m2x", "$m2y", "$cxy"):
+                state[spec.output + suffix] = zeros(torch.float64)
+            state[spec.output + "$count"] = zeros()
+        elif hashed and spec.name in HLL_AGGS:
+            m = spec.param or HLL_DEFAULT_BUCKETS
+            # a flat (G * m) register file: one scatter-max per batch
+            state[spec.output + "$hll"] = torch.zeros(
+                G * m, dtype=torch.int8, device=device)
         else:
             raise NotImplementedError(spec.name)
     return state
@@ -252,6 +393,20 @@ def _finalize_specs(state: dict, specs: Tuple[AggSpec, ...],
                                            empty)
             else:
                 cols[spec.output] = Column(_decimal_avg(s, c, empty), empty)
+        elif spec.name in MOMENT_AGGS:
+            cols[spec.output] = Column(*_moment_finalize(
+                spec.name, state[spec.output + "$m2"],
+                state[spec.output + "$count"]))
+        elif spec.name in CORR_AGGS:
+            cols[spec.output] = Column(*_corr_finalize(
+                spec.name, state[spec.output + "$m2x"],
+                state[spec.output + "$m2y"], state[spec.output + "$cxy"],
+                state[spec.output + "$count"]))
+        elif spec.name in HLL_AGGS:
+            # approx_distinct is never NULL: 0 over empty / all-NULL input
+            cols[spec.output] = Column(_hll_estimate(
+                state[spec.output + "$hll"],
+                spec.param or HLL_DEFAULT_BUCKETS), None)
         else:
             raise NotImplementedError(spec.name)
 
@@ -343,17 +498,84 @@ def agg_span_update(state: dict, batch: Batch, codes,
 def agg_span_finalize(state: dict, specs: Tuple[AggSpec, ...],
                       key_names: Tuple[str, ...],
                       key_arrays: Dict[str, torch.Tensor],
-                      key_dicts: Dict[str, Tuple[str, ...]]) -> Batch:
+                      key_dicts: Dict[str, Tuple[str, ...]],
+                      key_nulls: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Batch:
     """key_arrays: slot index -> key value per key (rebuilt by the
-    caller from the slot's stride decomposition)."""
+    caller from the slot's stride decomposition, or the runtime span's
+    base + slot and dependent keys)."""
     fake = dict(state)
     fake["__occupied"] = state["__seen"] > 0
     G = state["__seen"].shape[0]
     for k in key_names:
         fake[f"__key_{k}"] = key_arrays[k]
-        fake[f"__keynull_{k}"] = torch.zeros(G, dtype=torch.bool,
-                                             device=key_arrays[k].device)
+        fake[f"__keynull_{k}"] = (key_nulls or {}).get(
+            k, torch.zeros(G, dtype=torch.bool,
+                           device=key_arrays[k].device))
     return agg_finalize(fake, specs, key_names, key_dicts)
+
+
+# ---------------------------------------------------------------------------
+# runtime span: dependent grouping keys constant within an anchor group
+# ---------------------------------------------------------------------------
+
+def _depkey_restore(minv, dtype):
+    if dtype == torch.float64:
+        return minv.view(torch.float64)
+    if dtype == torch.float32:
+        return minv.to(torch.int32).view(torch.float32)
+    return minv.to(dtype)
+
+
+def depkey_init(G: int, names: Tuple[str, ...], device) -> dict:
+    """Accumulators verifying that the grouping keys `names` are constant
+    within each anchor-key group."""
+    st = {}
+    for k in names:
+        st[f"__dep_{k}$min"] = torch.full((G,), INT64_MAX, dtype=torch.int64,
+                                          device=device)
+        st[f"__dep_{k}$max"] = torch.full((G,), INT64_MIN, dtype=torch.int64,
+                                          device=device)
+        st[f"__dep_{k}$nulls"] = torch.zeros(G, dtype=torch.int64,
+                                             device=device)
+    return st
+
+
+def depkey_update(st: dict, batch: Batch, codes, key_cols: Dict[str, Column],
+                  G: int) -> dict:
+    """Per-group min / max (and NULL count) of each dependent key."""
+    out = dict(st)
+    if not key_cols:
+        return out
+    mask = batch.mask
+    slot = torch.where(mask, codes, torch.full_like(codes, G))
+    for k, c in key_cols.items():
+        # exact int64 bits (floats bitcast): the check needs constancy
+        v = key_bits(c)
+        valid = mask if c.nulls is None else mask & ~c.nulls
+        out[f"__dep_{k}$min"] = _scatter(
+            st[f"__dep_{k}$min"], slot,
+            torch.where(valid, v, torch.full_like(v, INT64_MAX)), "amin")
+        out[f"__dep_{k}$max"] = _scatter(
+            st[f"__dep_{k}$max"], slot,
+            torch.where(valid, v, torch.full_like(v, INT64_MIN)), "amax")
+        if c.nulls is not None:
+            out[f"__dep_{k}$nulls"] = _scatter(
+                st[f"__dep_{k}$nulls"], slot,
+                (mask & c.nulls).to(torch.int64), "add")
+    return out
+
+
+def depkey_verify(st: dict, seen, names: Tuple[str, ...]):
+    """All-groups scalar tensor: every dependent key is uniform (one
+    non-NULL value, or all NULL) within every occupied group."""
+    ok = torch.ones((), dtype=torch.bool, device=seen.device)
+    for k in names:
+        minv, maxv = st[f"__dep_{k}$min"], st[f"__dep_{k}$max"]
+        nc = st[f"__dep_{k}$nulls"]
+        uniform = ((nc == 0) & (minv == maxv)) | (nc == seen)
+        ok = ok & torch.all(uniform | (seen == 0))
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -381,7 +603,7 @@ def agg_init(num_slots: int, specs: Tuple[AggSpec, ...],
                                              device=device)
         state[f"__keynull_{name}"] = torch.zeros(num_slots, dtype=torch.bool,
                                                  device=device)
-    state.update(_spec_state(num_slots, specs, device))
+    state.update(_spec_state(num_slots, specs, device, hashed=True))
     return state
 
 
@@ -398,7 +620,8 @@ def _scatter_umin(num_slots: int, slot, bits):
 def agg_update(state: dict, batch: Batch, key_cols: List[Column],
                agg_inputs: Dict[str, Optional[Column]],
                specs: Tuple[AggSpec, ...], num_slots: int, salt: int,
-               key_names: Tuple[str, ...] = ()) -> dict:
+               key_names: Tuple[str, ...] = (),
+               agg_inputs2: Optional[Dict[str, Column]] = None) -> dict:
     """Scatter one batch into the accumulator table: open addressing,
     linear probing vectorized as PROBE_ROUNDS scatter rounds.  Each round
     the pending rows propose their keyhash for their current slot, an
@@ -438,8 +661,81 @@ def agg_update(state: dict, batch: Batch, key_cols: List[Column],
         if col.nulls is not None:
             nname = f"__keynull_{kname}"
             out[nname] = _scatter(state[nname], slot, col.nulls, "set")
-    _scatter_specs(state, out, slot, mask, agg_inputs, specs)
+    _scatter_specs(state, out, slot, mask, agg_inputs,
+                   tuple(s for s in specs if s.name in BASIC_AGGS))
+    for spec in specs:
+        if spec.name in MOMENT_AGGS:
+            _moment_update(state, out, spec.output, slot, mask,
+                           agg_inputs[spec.output], num_slots)
+        elif spec.name in CORR_AGGS:
+            _corr_update(state, out, spec.output, slot, mask,
+                         agg_inputs[spec.output],
+                         agg_inputs2[spec.output], num_slots)
+        elif spec.name in HLL_AGGS:
+            m = spec.param or HLL_DEFAULT_BUCKETS
+            col = agg_inputs[spec.output]
+            valid = mask & ~col.null_mask()
+            # a salt-free value hash: registers are the same across the
+            # probe salts of the retries
+            bucket, rank = _hll_bucket_rank(hash_columns([col]), m)
+            idx = torch.where(valid, slot * m + bucket,
+                              torch.full_like(slot, num_slots * m))
+            key = spec.output + "$hll"
+            out[key] = _scatter(state[key], idx, rank, "amax")
     return out
+
+
+def _batch_moments(slot, valid, x, num_slots):
+    """This batch's per-slot (count, mean) of x over the valid rows, and
+    each row's deviation from its slot's mean (0 elsewhere)."""
+    vslot = torch.where(valid, slot, torch.full_like(slot, num_slots))
+    gslot = torch.where(valid, slot, torch.zeros_like(slot))
+    nb = _scatter(torch.zeros(num_slots, dtype=torch.int64,
+                              device=x.device), vslot,
+                  torch.ones_like(vslot), "add")
+    nbf = torch.clamp(nb.to(torch.float64), min=1.0)
+    mb = _scatter(torch.zeros(num_slots, dtype=torch.float64,
+                              device=x.device), vslot, x, "add") / nbf
+    dev = torch.where(valid, x - mb[gslot], torch.zeros_like(x))
+    return vslot, nb, mb, dev
+
+
+def _moment_update(state, out, o, slot, mask, col, num_slots):
+    """Two scatter passes per batch -- the batch's (n, mean), then its M2
+    around that mean -- folded into the running state by _chan_merge."""
+    valid = mask & ~col.null_mask()
+    x = col.values.to(torch.float64)
+    vslot, nb, mb, cx = _batch_moments(slot, valid, x, num_slots)
+    m2b = _scatter(torch.zeros_like(mb), vslot, cx * cx, "add")
+    n, mean, m2 = _chan_merge(state[o + "$count"], state[o + "$mean"],
+                              state[o + "$m2"], nb, mb, m2b)
+    out[o + "$count"], out[o + "$mean"], out[o + "$m2"] = n, mean, m2
+
+
+def _corr_update(state, out, o, slot, mask, col, col2, num_slots):
+    """The cross-moment form of _moment_update over (x, y) pairs."""
+    valid = mask & ~col.null_mask() & ~col2.null_mask()
+    x = col.values.to(torch.float64)
+    y = col2.values.to(torch.float64)
+    vslot, nb, mxb, cx = _batch_moments(slot, valid, x, num_slots)
+    _vs, _nb, myb, cy = _batch_moments(slot, valid, y, num_slots)
+    zeros = torch.zeros_like(mxb)
+    m2xb = _scatter(zeros, vslot, cx * cx, "add")
+    m2yb = _scatter(zeros, vslot, cy * cy, "add")
+    cxyb = _scatter(zeros, vslot, cx * cy, "add")
+    na = state[o + "$count"]
+    n, mx, m2x = _chan_merge(na, state[o + "$mx"], state[o + "$m2x"],
+                             nb, mxb, m2xb)
+    _, my, m2y = _chan_merge(na, state[o + "$my"], state[o + "$m2y"],
+                             nb, myb, m2yb)
+    nf = torch.clamp(n.to(torch.float64), min=1.0)
+    dx = mxb - state[o + "$mx"]
+    dy = myb - state[o + "$my"]
+    out[o + "$cxy"] = (state[o + "$cxy"] + cxyb
+                       + dx * dy * na.to(torch.float64)
+                       * nb.to(torch.float64) / nf)
+    out[o + "$count"], out[o + "$mx"], out[o + "$my"] = n, mx, my
+    out[o + "$m2x"], out[o + "$m2y"] = m2x, m2y
 
 
 def agg_finalize(state: dict, specs: Tuple[AggSpec, ...],
@@ -1002,3 +1298,194 @@ def compact(batch: Batch, out_capacity: Optional[int] = None) -> Batch:
                          c.dictionary)
             for name, c in batch.columns.items()}
     return Batch(cols, scat(batch.mask))
+
+
+# ---------------------------------------------------------------------------
+# sort aggregation: argsort + segmented prefix sums, no scatter table
+# ---------------------------------------------------------------------------
+
+# XLA's CPU cumsum: a reduce-window rewritten into blocks of this length
+_SCAN_BLOCK = 16
+
+
+def scan_cumsum(x):
+    """Inclusive prefix sum along the last dim.  Floats take the
+    reference's association order (what XLA runs for jnp.cumsum off the
+    TPU): a sequential prefix within each block of 16, the blocks' totals
+    prefixed recursively, and each block's carry added to its prefix last
+    -- so the float rounding, and every segment sum taken as a difference
+    of two prefixes, is the reference's bit for bit.  Integers are exact
+    in any order."""
+    if not x.is_floating_point():
+        return torch.cumsum(x, dim=-1)
+    n, B = x.shape[-1], _SCAN_BLOCK
+    nb = -(-n // B)
+    pad = torch.zeros(x.shape[:-1] + (nb * B - n,), dtype=x.dtype,
+                      device=x.device)
+    inb = torch.cat([x, pad], dim=-1).reshape(x.shape[:-1] + (nb, B)).clone()
+    for j in range(1, B):
+        inb[..., j] = inb[..., j - 1] + inb[..., j]
+    if nb > 1:
+        carry = scan_cumsum(inb[..., -1])
+        inb[..., 1:, :] = inb[..., 1:, :] + carry[..., :-1, None]
+    return inb.reshape(x.shape[:-1] + (nb * B,))[..., :n]
+
+
+def _prefix(x):
+    """[0, x0, x0+x1, ...] along the last dim (scan_cumsum's order)."""
+    zero = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+    return torch.cat([zero, scan_cumsum(x)], dim=-1)
+
+
+def sort_group_aggregate(batch: Batch, key_names: Tuple[str, ...],
+                         agg_inputs: Dict[str, Optional[Column]],
+                         specs: Tuple[AggSpec, ...],
+                         agg_inputs2: Optional[Dict[str, Column]] = None
+                         ) -> Batch:
+    """Grouped aggregation by sort + segmented prefix sums: the rows are
+    ordered by the combined 64-bit key hash (distinct keys assumed to
+    have distinct hashes, as the hashed table assumes), and each group is
+    a segment.  Output: capacity == input capacity, one live row per
+    group at its segment's start."""
+    dev = batch.mask.device
+    if key_names:
+        kh = _orderable_hash(hash_columns(
+            [batch.columns[k] for k in key_names]))
+    else:
+        # global aggregation: every live row in one segment
+        kh = torch.zeros(batch.mask.shape, dtype=torch.int64, device=dev)
+    kh = torch.where(batch.mask, kh, torch.full_like(kh, INT64_MAX))
+    perm = torch.argsort(kh, stable=True)
+    khs = kh[perm]
+    n = khs.shape[0]
+    live = khs != INT64_MAX
+    is_start = live & torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                                 khs[1:] != khs[:-1]])
+    if not key_names:
+        # a global aggregate yields one row even over empty input
+        is_start[0] = True
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    # exclusive end of each segment = the next segment's start
+    nxt = torch.flip(torch.cummin(torch.flip(
+        torch.where(is_start, idx, torch.full_like(idx, n)), [0]), 0).values,
+        [0])
+    seg_end = torch.cat([nxt[1:], torch.full((1,), n, dtype=torch.int64,
+                                             device=dev)])
+    s_lo = idx
+    s_hi = torch.where(live, seg_end, idx + 1).clamp(0, n)
+    seg_start_row = torch.cummax(torch.where(is_start, idx,
+                                             torch.zeros_like(idx)), 0).values
+    # each row's segment (dead rows, sorted last, carry no contribution)
+    seg_id = (torch.cumsum(is_start.to(torch.int64), 0) - 1).clamp(min=0)
+
+    def gathered(c: Column) -> Column:
+        return c.gather(perm)
+
+    cols: Dict[str, Column] = {}
+    for k in key_names:
+        cols[k] = gathered(batch.columns[k])
+    for spec in specs:
+        o = spec.output
+        if spec.name in ("count_star", "approx_percentile"):
+            contrib, x = live, None
+        else:
+            c = gathered(agg_inputs[o])
+            contrib = live & ~c.null_mask()
+            x = c.values
+        cnt_p = _prefix(contrib.to(torch.int64))
+        cnt = cnt_p[s_hi] - cnt_p[s_lo]
+        if spec.name in ("count", "count_star"):
+            cols[o] = Column(cnt, None)
+            continue
+        empty = cnt == 0
+        if spec.name in ("sum", "avg"):
+            dt = torch.float64 if spec.is_float else torch.int64
+            xv = torch.where(contrib, x.to(dt), torch.zeros((), dtype=dt,
+                                                             device=dev))
+            p = _prefix(xv)
+            ssum = p[s_hi] - p[s_lo]
+            if spec.name == "sum":
+                cols[o] = Column(ssum, empty)
+            elif spec.is_float:
+                safe = torch.where(empty, torch.ones_like(cnt), cnt)
+                cols[o] = Column(ssum / safe.to(torch.float64), empty)
+            else:
+                cols[o] = Column(_decimal_avg(ssum, cnt, empty), empty)
+        elif spec.name in ("min", "max"):
+            is_min = spec.name == "min"
+            dt = _acc_dtype(spec)
+            if spec.is_float:
+                ident = float("inf") if is_min else float("-inf")
+            else:
+                ident = INT64_MAX if is_min else INT64_MIN
+            xv = torch.where(contrib, x.to(dt),
+                             torch.full((), ident, dtype=dt, device=dev))
+            red = torch.full((n,), ident, dtype=dt, device=dev)
+            red.scatter_reduce_(0, seg_id, xv, "amin" if is_min else "amax",
+                                include_self=True)
+            cols[o] = Column(red[seg_id], empty)
+        elif spec.name in MOMENT_AGGS:
+            # two passes: the group mean, then centered squares
+            xf = torch.where(contrib, x.to(torch.float64),
+                             torch.zeros((), dtype=torch.float64, device=dev))
+            ps = _prefix(xf)
+            g_sum = ps[s_hi] - ps[seg_start_row]
+            g_cnt = cnt_p[s_hi] - cnt_p[seg_start_row]
+            mean_row = g_sum / torch.clamp(g_cnt, min=1).to(torch.float64)
+            d = torch.where(contrib, x.to(torch.float64) - mean_row,
+                            torch.zeros_like(mean_row))
+            ps2 = _prefix(d * d)
+            m2 = ps2[s_hi] - ps2[s_lo]
+            # m2 is a difference of prefixes: a zero-variance group may
+            # leave a negative rounding residual, whose sqrt is NaN, as
+            # in the reference (no clamp here, unlike _moment_finalize)
+            pop = spec.name in ("stddev_pop", "var_pop")
+            denom = torch.clamp(cnt if pop else cnt - 1, min=1) \
+                .to(torch.float64)
+            v = m2 / denom
+            if spec.name.startswith("stddev"):
+                v = torch.sqrt(v)
+            cols[o] = Column(v, cnt < (1 if pop else 2))
+        elif spec.name in CORR_AGGS:
+            c2 = gathered(agg_inputs2[o])
+            contrib2 = contrib & ~c2.null_mask()
+            c0 = _prefix(contrib2.to(torch.int64))
+            n2 = c0[s_hi] - c0[s_lo]
+            zero = torch.zeros((), dtype=torch.float64, device=dev)
+            xs = x.to(torch.float64)
+            ys = c2.values.to(torch.float64)
+            xf = torch.where(contrib2, xs, zero)
+            yf = torch.where(contrib2, ys, zero)
+            p1 = _prefix(torch.stack([xf, yf]))
+            g_cnt = torch.clamp(c0[s_hi] - c0[seg_start_row], min=1) \
+                .to(torch.float64)
+            mean_x = (p1[0, s_hi] - p1[0, seg_start_row]) / g_cnt
+            mean_y = (p1[1, s_hi] - p1[1, seg_start_row]) / g_cnt
+            dx = torch.where(contrib2, xs - mean_x, zero)
+            dy = torch.where(contrib2, ys - mean_y, zero)
+            p2 = _prefix(torch.stack([dx * dx, dy * dy, dx * dy]))
+            seg = p2[:, s_hi] - p2[:, s_lo]
+            cols[o] = Column(*_corr_finalize(spec.name, seg[0], seg[1],
+                                             seg[2], n2))
+        elif spec.name == "approx_percentile":
+            # a value-ordered secondary sort: NULL / dead rows last within
+            # their key-hash segment, then the nearest-rank element is one
+            # gather at the segment start + round(p * (count - 1))
+            p = float(spec.param if spec.param is not None else 0.5)
+            xc = agg_inputs[o]
+            vx = xc.values
+            alive = batch.mask & ~xc.null_mask()
+            perm_p = torch.argsort(vx, stable=True)
+            perm_p = perm_p[torch.argsort(~alive[perm_p], stable=True)]
+            perm_p = perm_p[torch.argsort(kh[perm_p], stable=True)]
+            vx_sorted = vx[perm_p]
+            a0 = _prefix(alive[perm_p].to(torch.int64))
+            cntp = a0[s_hi] - a0[s_lo]
+            pos = s_lo + torch.floor(
+                p * torch.clamp(cntp - 1, min=0).to(torch.float64)
+                + 0.5).to(torch.int64)
+            cols[o] = Column(vx_sorted[pos.clamp(0, n - 1)], cntp == 0,
+                             xc.dictionary)
+        else:
+            raise NotImplementedError(spec.name)
+    return Batch(cols, is_start)

@@ -99,7 +99,10 @@ def test_q1_decodes_each_column_once_per_row(calls):
 
 
 def test_every_opcode_has_an_emitter():
-    assert set(codegen.EMITTERS) == set(lowering.OPS)
+    # the opcodes the kernels run; the dictionary folds and the numeric
+    # forms after them are the torch interpreter's alone
+    assert set(codegen.EMITTERS) == {lowering.OPS[op]
+                                     for op in lowering.KERNEL_OPS}
 
 
 def test_a_missing_emitter_raises_naming_the_opcode(calls, monkeypatch):

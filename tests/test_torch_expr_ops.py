@@ -13,7 +13,9 @@ equal, floats equal bit for bit (NaN where the reference's is NaN).
 Then the queries on which the reference's scan kernel ran and the port
 used to decline, through LocalQueryRunner at sf0.01: rows equal to the
 JAX package's, one kernelScanPrograms and no decline on both sides.  And
-a query with a form the port still lacks raises naming it."""
+the varchar predicates, which neither package's kernel runs: a metered
+PlanShape decline naming the opcode, then the torch fused chain with the
+reference's rows; a form the port still lacks raises naming it."""
 import zlib
 from decimal import Decimal
 
@@ -266,11 +268,26 @@ def test_query_runs_in_the_kernel_like_the_reference(ref, port, name):
 @pytest.mark.parametrize("sql,names", [
     ("select sum(ln(l_extendedprice)) from lineitem", "function ln"),
     ("select sum(l_quantity) from lineitem where l_returnflag = 'R'",
-     "varchar comparison"),
+     "CMP_S"),
     ("select count(*) from lineitem where l_shipmode in ('MAIL', 'SHIP')",
-     "varchar IN"),
+     "MAP_S"),
 ], ids=["ln", "varchar_eq", "varchar_in"])
 def test_unported_form_raises_naming_itself(port, sql, names):
-    with pytest.raises(NotImplementedError,
-                       match=f"kernelDeclinedPlanShape.*{names}"):
-        port.execute(sql)
+    """ln is not ported: the chain's probe fails (fusionDeclined
+    ProbeUnsupported) and the streaming path raises naming it.  The
+    varchar opcodes decline the kernels' plan build (PlanShape), and the
+    torch chain returns the reference's rows."""
+    if names.startswith("function"):
+        with pytest.raises(NotImplementedError, match=names):
+            port.execute(sql)
+        return
+    from presto_tpu_torch.exec.kernels import scan_kernel as sk
+    before = sk.KERNEL_METRICS.snapshot()["declined"].get("PlanShape", 0)
+    got = port.execute(sql)
+    assert sk.KERNEL_METRICS.snapshot()["declined"]["PlanShape"] == before + 1
+    assert _declined(got) == ["kernelDeclinedPlanShape"]
+    # the reference's Pallas kernel captures the varchar truth table as a
+    # constant and raises: its XLA chain computes these rows
+    xla = JRunner("sf0.01", config=jtuned(scan_kernel="xla"),
+                  plan_cache=JPlanCache())
+    _assert_rows_equal(got, xla.execute(sql), ordered=False)

@@ -3,7 +3,9 @@ port's LocalQueryRunner(device="cpu") -- span and hash kernels' plain
 versions -- return exactly the reference package's rows, with the
 Pallas span / hash kernel engaged on the reference side (interpret mode);
 and the grouped path's gates: the slot-cap decline, the collision loop
-(table doubled, salt bumped) and the non-BASIC aggregate decline."""
+(table doubled, salt bumped) and the non-BASIC aggregate decline, each
+decline metered and followed by the torch fused chain with the
+reference's rows."""
 import pytest
 
 from presto_tpu.exec.pipeline import tuned_config as jtuned
@@ -13,8 +15,9 @@ from presto_tpu.serving import PlanCache as JPlanCache
 from presto_tpu_torch.benchmarks.grouped_queries import H1, H2, S1, S2
 from presto_tpu_torch.exec.kernels import grouped as gk
 from presto_tpu_torch.exec.kernels import scan_kernel as sk
-from presto_tpu_torch.exec import pipeline
+from presto_tpu_torch.exec.pipeline import tuned_config
 from presto_tpu_torch.exec.runner import LocalQueryRunner
+from torch_rows import assert_rows_close
 
 ORDERKEY = "select l_orderkey, count(*) from lineitem group by l_orderkey"
 
@@ -70,19 +73,21 @@ def test_grouped_wrappers_on_cpu_count_no_launch(port):
     assert sk.LAUNCHES == before
 
 
-def test_hash_slot_cap_declines(monkeypatch):
+def test_hash_slot_cap_declines(ref, monkeypatch):
     """An estimate beyond twice the slot cap declines with
-    AggGroupCardinality and raises (the reference's
-    test_decline_agg_group_cardinality, with the cap shrunk)."""
+    AggGroupCardinality (the reference's
+    test_decline_agg_group_cardinality, with the cap shrunk); the torch
+    chain's runtime span (l_orderkey as the anchor) returns the
+    reference's rows."""
     monkeypatch.setattr(gk, "KERNEL_HASH_MAX_SLOTS", 16)
     r = LocalQueryRunner("sf0.01", device="cpu")
     before = sk.KERNEL_METRICS.snapshot()["declined"].get(
         "AggGroupCardinality", 0)
-    with pytest.raises(NotImplementedError,
-                       match="kernelDeclinedAggGroupCardinality"):
-        r.execute(ORDERKEY)
+    got = r.execute(ORDERKEY)
     after = sk.KERNEL_METRICS.snapshot()["declined"]["AggGroupCardinality"]
     assert after == before + 1
+    assert _declined(got) == ["kernelDeclinedAggGroupCardinality"]
+    assert_rows_close(got, ref.execute(ORDERKEY), ordered=False)
 
 
 def test_collision_doubles_the_table_with_a_new_salt(ref, monkeypatch):
@@ -99,8 +104,8 @@ def test_collision_doubles_the_table_with_a_new_salt(ref, monkeypatch):
         tables.append((num_slots, salt, bool(out.collision)))
         return out
     monkeypatch.setattr(gk, "scan_hash", recording)
-    monkeypatch.setattr(pipeline, "AGG_SLOTS", 1024)
-    r = LocalQueryRunner("sf0.01", device="cpu")
+    r = LocalQueryRunner("sf0.01", config=tuned_config(agg_slots=1024),
+                         device="cpu")
     got = r.execute(ORDERKEY)
     _assert_rows_equal(got, ref.execute(ORDERKEY), ordered=False)
     assert len(tables) >= 2, tables
@@ -111,12 +116,16 @@ def test_collision_doubles_the_table_with_a_new_salt(ref, monkeypatch):
     assert _programs(got) == 1
 
 
-def test_moment_aggregate_declines(port):
+def test_moment_aggregate_declines(ref, port):
+    """stddev has no kernel accumulator: a metered AggFunctionShape
+    decline, then the torch chain's sort aggregation (its two-pass
+    moments over prefix sums in the reference's order: rtol 1e-12)."""
+    sql = ("select l_returnflag, stddev(l_quantity) from lineitem "
+           "group by l_returnflag")
     before = sk.KERNEL_METRICS.snapshot()["declined"].get(
         "AggFunctionShape", 0)
-    with pytest.raises(NotImplementedError,
-                       match="kernelDeclinedAggFunctionShape"):
-        port.execute("select l_returnflag, stddev(l_quantity) from lineitem "
-                     "group by l_returnflag")
+    got = port.execute(sql)
     after = sk.KERNEL_METRICS.snapshot()["declined"]["AggFunctionShape"]
     assert after == before + 1
+    assert _declined(got) == ["kernelDeclinedAggFunctionShape"]
+    assert_rows_close(got, ref.execute(sql), ordered=False)

@@ -101,9 +101,11 @@ def test_hash_layout_against_a_hand_count(name, monkeypatch):
     if plan.n_f:        # the float rows once per warp where they fit
         assert plan.warp_float_slots == room(plan.threads) // (
             slot_bytes + 8 * plan.n_f * (warps - 1))
-    # the widest CTA whose table holds the first table size, or THREADS
+    # the widest CTA whose table holds the first table (the first call's
+    # slot count), or THREADS
+    first = calls[0][0][5]
     fits = [t for t in range(sk.THREADS, sk.HASH_MAX_THREADS + 1, 32)
-            if room(t) >= pipeline.AGG_SLOTS * slot_bytes]
+            if room(t) >= first * slot_bytes]
     assert plan.threads == max(fits, default=sk.THREADS)
     # the largest table that fits is on chip, one slot more is not
     s = plan.onchip_slots
@@ -117,7 +119,7 @@ def test_hash_layout_against_a_hand_count(name, monkeypatch):
 
 
 def test_which_tables_stay_on_chip(monkeypatch):
-    """At the first table size (AGG_SLOTS = 4096 slots) H1, H2 and J1 keep
+    """At the first table size (agg_slots = 4096 slots) H1, H2 and J1 keep
     their tables on chip in CTAs wider than THREADS; HASH_F's five rows
     per slot and the mirror do not fit beside its layout; the collision
     loop's first table does, its doubled ones do not."""
@@ -126,7 +128,7 @@ def test_which_tables_stay_on_chip(monkeypatch):
         _res, calls = _hash_calls(QUERIES[name], monkeypatch)
         a = calls[-1][0]
         got[name] = (a[0].layout(a[5]).on_chip, a[0].threads > sk.THREADS)
-        assert a[5] == pipeline.AGG_SLOTS
+        assert a[5] == pipeline.ExecutionConfig().agg_slots
     assert got == {"h1": (True, True), "h2": (True, True),
                    "j1": (True, True), "hash_f": (False, False)}
     _res, calls = _hash_calls(COLLIDE, monkeypatch, stats_rows=1.0)

@@ -164,15 +164,15 @@ def test_stack_depth_recorded():
 
 
 # each form's variant the port still lacks: a double operand of an exact
-# divide, LIKE, IF over varchar branches, abs of a REAL
+# divide, LIKE over a value that is not a dictionary varchar, IF with a
+# double branch of an exact result, abs of a REAL
 @pytest.mark.parametrize("builder", [
     lambda E, T, v: E.call("divide", T.BIGINT,
                            E.variable("f", T.DOUBLE), v),
     lambda E, T, v: E.call("like", T.BOOLEAN, v,
                            E.constant("%x", T.VARCHAR)),
-    lambda E, T, v: E.special("IF", T.VARCHAR, E.constant(True, T.BOOLEAN),
-                              E.constant("a", T.VARCHAR),
-                              E.constant("b", T.VARCHAR)),
+    lambda E, T, v: E.special("IF", T.BIGINT, E.constant(True, T.BOOLEAN),
+                              E.variable("f", T.DOUBLE), v),
     lambda E, T, v: E.call("abs", T.REAL, E.variable("r", T.REAL)),
 ], ids=["divide", "like", "if", "abs"])
 def test_unsupported_expression_raises(builder):

@@ -61,6 +61,8 @@ CONFIGS = [
     ({"exchange.fabric": "http"}, "exchange.fabric"),
     ({"debug.lock-validation": "true"}, "debug.lock-validation"),
     ({"retry-policy": "task"}, "retry-policy"),
+    # ExecutionConfig.fuse_pipelines is a field since the torch chain
+    ({"task.fuse-pipelines": "false", "task.batch-rows": "8192"}, None),
 ]
 
 

@@ -1,0 +1,259 @@
+"""The streaming aggregation (an aggregation whose source is not a fused
+scan chain, or with fusion off) against the reference on the CPU at
+sf0.01: fuse_pipelines=False, an aggregation over an aggregation (the
+single-distinct rewrite of count(distinct ...)), MarkDistinct with a
+mixed distinct / plain aggregation, masked aggregates, the global
+aggregate over empty input, and the restart on the hashed path when a
+NULL key shows up under direct mode.  The forms that still raise raise
+at their gates: approx_percentile with approx_distinct in one node, an
+aggregation over the memory budget (spill), the streaming join.
+Integers and decimals equal, floats within rtol 1e-12."""
+import numpy as np
+import pytest
+import torch
+
+from presto_tpu.exec import pipeline as jpipe
+from presto_tpu.exec import runner as jrunner
+from presto_tpu.serving import PlanCache as JPlanCache
+from presto_tpu.spi import plan as JP
+from presto_tpu_torch.common.types import BIGINT, BOOLEAN, DOUBLE, VARCHAR
+from presto_tpu_torch.exec import pipeline as tpipe
+from presto_tpu_torch.exec import runner as trunner
+from presto_tpu_torch.exec.batch import Batch, Column
+from presto_tpu_torch.spi import plan as TP
+from presto_tpu_torch.spi.expr import (CallExpression, ConstantExpression,
+                                       VariableReferenceExpression, call)
+from torch_rows import assert_rows_close
+
+COUNT_DISTINCT = ("select o_orderpriority, count(distinct o_custkey) "
+                  "from orders group by o_orderpriority")
+GLOBAL_DISTINCT = "select count(distinct l_suppkey) from lineitem"
+GROUPED = ("select l_shipmode, l_returnflag, count(*), sum(l_quantity), "
+           "avg(l_discount), min(l_shipdate), max(l_extendedprice) "
+           "from lineitem group by l_shipmode, l_returnflag")
+EMPTY_GLOBAL = ("select count(*), sum(l_quantity), max(l_discount) "
+                "from lineitem where l_quantity > 1000")
+
+
+def _stats(res, prefix):
+    return {k[len(prefix):]: int(v.get("sum", 0))
+            for k, v in (res.runtime_stats or {}).items()
+            if k.startswith(prefix)}
+
+
+@pytest.fixture(scope="module")
+def ref():
+    return jrunner.LocalQueryRunner(
+        "sf0.01", config=jpipe.tuned_config(scan_kernel="xla"),
+        plan_cache=JPlanCache())
+
+
+@pytest.fixture(scope="module")
+def unfused():
+    return trunner.LocalQueryRunner(
+        "sf0.01", config=tpipe.tuned_config(fuse_pipelines=False),
+        device="cpu")
+
+
+@pytest.fixture(scope="module")
+def port():
+    return trunner.LocalQueryRunner("sf0.01", device="cpu")
+
+
+@pytest.mark.parametrize("sql", [GROUPED, EMPTY_GLOBAL],
+                         ids=["grouped", "empty_global"])
+def test_unfused_rows_equal_reference(ref, unfused, sql):
+    exp = ref.execute(sql)
+    got = unfused.execute(sql)
+    assert_rows_close(got, exp, ordered=False)
+    assert _stats(got, "fusionDeclined") == {"Disabled": 1}
+    assert "torchStreamingAggregation" in got.runtime_stats
+    if sql is EMPTY_GLOBAL:
+        assert got.rows == [[0, None, None]]
+
+
+@pytest.mark.parametrize("sql", [COUNT_DISTINCT, GLOBAL_DISTINCT],
+                         ids=["grouped", "global"])
+def test_aggregation_over_an_aggregation(ref, port, sql):
+    """count(distinct x): a dedup aggregation (fused chain) under an
+    aggregation that streams its batches (fusionDeclinedPlanShape)."""
+    exp = ref.execute(sql)
+    got = port.execute(sql)
+    assert_rows_close(got, exp, ordered=False)
+    assert _stats(got, "fusionDeclined") == {"PlanShape": 1}
+
+
+def _orders_plan(runner):
+    """The port's plan of a three-column orders scan, below its output."""
+    root = runner.plan("select o_orderpriority, o_custkey, o_totalprice "
+                       "from orders")
+    return root.source, {v.name: v for v in root.source.output_variables}
+
+
+def _run_both(troot, cols):
+    """Run a hand-built port plan and its JSON twin in the reference."""
+    jroot = JP.PlanNode.from_dict(troot.to_dict())
+    out = []
+    for pipe, run, root in ((tpipe, trunner, troot),
+                            (jpipe, jrunner, jroot)):
+        cfg = pipe.tuned_config()
+        ctx = (pipe.TaskContext(config=cfg, device=torch.device("cpu"))
+               if pipe is tpipe else pipe.TaskContext(config=cfg))
+        comp = pipe.PlanCompiler(ctx)
+        src = comp.compile(root)
+        res = run.pages_to_result(list(comp.run_to_pages(root)), src.names,
+                                  src.types)
+        res.column_names = cols
+        out.append(res)
+    return out
+
+
+def test_mark_distinct_mixed_aggregation(port):
+    """MarkDistinct (row_number over the distinct keys, marker = rn == 1,
+    through the window path) under count(o_custkey) masked by the marker
+    beside a plain count(*) and sum: the mixed-distinct plan shape."""
+    src, v = _orders_plan(port)
+    prio, cust, price = (v[n] for n in v)
+    marker = VariableReferenceExpression("is_first", BOOLEAN)
+    md = TP.MarkDistinctNode("md", src, marker, [prio, cust])
+    outs = [VariableReferenceExpression(n, BIGINT)
+            for n in ("n_cust", "n_rows")]
+    tot = VariableReferenceExpression("total", price.type)
+    agg = TP.AggregationNode("agg", md, {
+        outs[0]: TP.Aggregation(CallExpression("count", BIGINT, [cust]),
+                                False, marker),
+        outs[1]: TP.Aggregation(CallExpression("count", BIGINT, [])),
+        tot: TP.Aggregation(CallExpression("sum", price.type, [price]))},
+        [prio], TP.SINGLE)
+    got, exp = _run_both(agg, ["prio", "n_cust", "n_rows", "total"])
+    assert_rows_close(got, exp, ordered=False)
+    assert len(got.rows) == 5
+    sql = port.execute(COUNT_DISTINCT)
+    assert sorted([r[0], r[1]] for r in got.rows) == sorted(sql.rows)
+
+
+def test_masked_aggregates(port):
+    """agg(x) MASK m == agg(IF(m, x, NULL)) and count(*) MASK m ==
+    count(IF(m, 1, NULL)), over a fused chain."""
+    src, v = _orders_plan(port)
+    prio, cust, price = (v[n] for n in v)
+    m = VariableReferenceExpression("m", BOOLEAN)
+    proj = TP.ProjectNode("p", src, {
+        prio: prio, price: price,
+        m: call("gt", BOOLEAN, call("cast", DOUBLE, price),
+                ConstantExpression(150000.0, DOUBLE))})
+    outs = {n: VariableReferenceExpression(n, t) for n, t in
+            (("c_all", BIGINT), ("c_big", BIGINT), ("s_big", price.type))}
+    agg = TP.AggregationNode("agg", proj, {
+        outs["c_all"]: TP.Aggregation(CallExpression("count", BIGINT, [])),
+        outs["c_big"]: TP.Aggregation(CallExpression("count", BIGINT, []),
+                                      False, m),
+        outs["s_big"]: TP.Aggregation(
+            CallExpression("sum", price.type, [price]), False, m)},
+        [prio], TP.SINGLE)
+    got, exp = _run_both(agg, ["prio", "c_all", "c_big", "s_big"])
+    assert_rows_close(got, exp, ordered=False)
+    assert all(r[2] < r[1] for r in got.rows)
+
+
+def test_null_key_restarts_on_the_hashed_path():
+    """Direct mode is chosen on a NULL-free first batch; a later batch
+    with a NULL key restarts the whole aggregation on the hashed table
+    (held to a numpy count)."""
+    k1 = np.array([0, 1, 1, 0], dtype=np.int32)
+    k2 = np.array([1, 0, 1, 1], dtype=np.int32)
+    k2n = np.array([False, False, True, True])
+    batches = [Batch({"k": Column(torch.from_numpy(k1), None, ("a", "b"))},
+                     torch.ones(4, dtype=torch.bool)),
+               Batch({"k": Column(torch.from_numpy(k2),
+                                  torch.from_numpy(k2n), ("a", "b"))},
+                     torch.ones(4, dtype=torch.bool))]
+    kv = VariableReferenceExpression("k", VARCHAR)
+    n = VariableReferenceExpression("n", BIGINT)
+    # a leaf whose compiled source the test supplies
+    leaf = TP.ValuesNode("vals", [kv], [])
+    agg = TP.AggregationNode("agg", leaf, {
+        n: TP.Aggregation(CallExpression("count", BIGINT, []))}, [kv],
+        TP.SINGLE)
+    comp = tpipe.PlanCompiler(tpipe.TaskContext(
+        config=tpipe.tuned_config(), device=torch.device("cpu")))
+    opened = []
+
+    def gen():
+        opened.append(1)
+        yield from batches
+    comp._sources[leaf.id] = tpipe.BatchSource(gen, ["k"], [kv.type])
+    src = comp.compile(agg)
+    res = trunner.pages_to_result(list(comp.run_to_pages(agg)), src.names,
+                                  src.types)
+    assert sorted(res.rows, key=str) == sorted(
+        [["a", 3], ["b", 3], [None, 2]], key=str)
+    assert len(opened) == 2          # the restart re-opened the source
+
+
+def test_percentile_with_approx_distinct_raises(port):
+    with pytest.raises(NotImplementedError, match="approx_distinct in the "
+                       "same aggregation"):
+        port.execute("select approx_percentile(l_quantity, 0.5), "
+                     "approx_distinct(l_orderkey) from lineitem")
+
+
+def test_over_budget_aggregation_raises_naming_spill():
+    """A budgeted pool keeps the spill paths: the port raises (here at the
+    budgeted scan, which the aggregation's fused chain compiles first)."""
+    r = trunner.LocalQueryRunner(
+        "sf0.01", config=tpipe.tuned_config(memory_budget_bytes=1 << 20),
+        device="cpu")
+    with pytest.raises(NotImplementedError, match="memory budget"):
+        r.execute(GROUPED)
+
+
+def _injected_agg(specs, budget):
+    """An aggregation by k over a leaf whose batches the test supplies,
+    compiled under a memory budget of `budget` bytes."""
+    kv = VariableReferenceExpression("k", BIGINT)
+    xv = VariableReferenceExpression("x", BIGINT)
+    leaf = TP.ValuesNode("vals", [kv, xv], [])
+    aggs = {VariableReferenceExpression(f"o{i}", t):
+            TP.Aggregation(CallExpression(name, t, [xv] + extra))
+            for i, (name, t, extra) in enumerate(specs)}
+    agg = TP.AggregationNode("agg", leaf, aggs, [kv], TP.SINGLE)
+    comp = tpipe.PlanCompiler(tpipe.TaskContext(
+        config=tpipe.tuned_config(memory_budget_bytes=budget),
+        device=torch.device("cpu")))
+    n = 4096
+    b = Batch({"k": Column(torch.arange(n) % 7), "x": Column(torch.arange(n))},
+              torch.ones(n, dtype=torch.bool))
+    comp._sources[leaf.id] = tpipe.BatchSource(
+        lambda: iter([b, b]), ["k", "x"], [BIGINT, BIGINT])
+    return comp, agg
+
+
+@pytest.mark.parametrize("specs", [
+    [("sum", BIGINT, [])],
+    [("approx_percentile", BIGINT, [ConstantExpression(0.5, DOUBLE)])]],
+    ids=["hash_table", "sort_input"])
+def test_spill_paths_raise(specs):
+    """A grouped aggregation whose table, or a percentile whose sort
+    input, passes the memory budget: spill is not ported."""
+    comp, agg = _injected_agg(specs, budget=4096)
+    with pytest.raises(NotImplementedError, match="spill is not ported"):
+        list(comp.run_to_pages(agg))
+    assert comp.ctx.memory.reserved == 0
+
+
+@pytest.mark.parametrize("q", [13, 16])
+def test_string_column_scans_still_raise(port, q):
+    """Q13 scans o_comment and Q16 s_comment: host-generated string
+    columns, not ported; they raise at the scan, no longer at the
+    aggregation."""
+    from presto_tpu_torch.benchmarks.tpch_queries import ALL
+    with pytest.raises(NotImplementedError, match="only device-generated"):
+        port.execute(ALL[q])
+
+
+def test_streaming_join_still_raises(port):
+    """Q17's probe side is an aggregation: the streaming join."""
+    from presto_tpu_torch.benchmarks.tpch_queries import Q17
+    with pytest.raises(NotImplementedError, match="JoinNode"):
+        port.execute(Q17)

@@ -93,14 +93,14 @@ def test_declined_function_runs_window_batch(port, xla):
     assert _declined(got) == {"WindowFunctionShape": 1}
 
 
-def test_xla_mode_declines_disabled_and_raises():
-    """Only the function shape sends work to window_batch: scan_kernel=xla
-    is metered and raises (a pool too small for the launch likewise,
-    tests/test_torch_window_kernel.py)."""
+def test_xla_mode_declines_disabled_and_raises(xla):
+    """scan_kernel=xla is metered (Disabled) and runs operators.window_batch,
+    as the reference does; its rows equal the reference's (a pool too
+    small for the launch still raises, tests/test_torch_window_kernel.py)."""
     r = LocalQueryRunner("sf0.01", config=tuned_config(scan_kernel="xla"),
                          device="cpu")
     before = sk.KERNEL_METRICS.snapshot()["declined"].get("Disabled", 0)
-    with pytest.raises(NotImplementedError,
-                       match="kernelDeclinedDisabled"):
-        r.execute(WQ.W2)
+    got = r.execute(WQ.W2)
     assert sk.KERNEL_METRICS.snapshot()["declined"]["Disabled"] == before + 1
+    assert _window_programs(got) == 0
+    _assert_rows_equal(got, xla.execute(WQ.W2), ordered=True)
