@@ -140,6 +140,19 @@ Phases, each printed with its wall time:
      every scan kernel launched with the ring; the client's median wall
      beside the in-process one.  The process is stopped at the end.
 
+ 15. generate and encode the device-generated columns of TPC-H customer,
+     part, partsupp and the rest of orders at the scale factor;
+ 16. the TPC-H path (benchmarks/tpch_run.py run): Q1-Q22 at sf0.01 held
+     to the JAX package's golden rows (benchmarks/tpch_sf001_rows.json),
+     then Q1-Q22 at the scale factor through LocalQueryRunner: the cold
+     wall (with the host generation of the late-materialized string
+     columns), the median of 3 warm walls, the aggregation modes, the
+     scan kernels launched and every kernelDeclined{reason}, and one run
+     under scan_kernel="xla" held to the kernels' rows row for row; the
+     launch counters (and those of launches carrying a join probe) set
+     to 0 just before the phase and read just after: the direct and hash
+     kernels and the join probe must have launched.
+
 Any failed check raises and exits non-zero.  The second-to-last line is
 the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1774,6 +1787,41 @@ def main() -> int:
         server = run_server(server_queries, schema, args.runs, results,
                             inproc_wall, sk.SCAN_KERNELS)
 
+    # -- the TPC-H path: all 22 queries -----------------------------------
+    with phase(f"generate + encode customer, part, partsupp and orders at "
+               f"{schema}"):
+        n_res = 0
+        for table in ("customer", "part", "partsupp", "orders"):
+            n = catalog.table_row_count(table, sf, "tpch")
+            for c, _t in catalog.schema(table, "tpch"):
+                if (table, c) in catalog.OPEN_DOMAIN \
+                        or not device_gen.supported("tpch", table, c):
+                    continue
+                as_i32 = (c.endswith("date") or catalog.column_type(
+                    table, c, "tpch").storage == "INT_ARRAY")
+                ent = store.get_or_build(
+                    "tpch", table, c, sf, n, cfg.batch_rows, as_i32,
+                    zone_rows=cfg.storage_zone_rows)
+                assert ent is not None, f"{table}.{c} not resident"
+                n_res += ent.nbytes
+        torch.cuda.synchronize()
+        print(f"  resident {n_res} bytes")
+    with phase(f"TPC-H path: Q1-Q22 at sf0.01 against the golden rows, "
+               f"then at {schema} (cold, warm, xla == auto)"):
+        from presto_tpu_torch.benchmarks import tpch_run as TR
+        for k in sk.LAUNCHES:
+            sk.LAUNCHES[k] = 0
+        for k in sk.JOIN_LAUNCHES:
+            sk.JOIN_LAUNCHES[k] = 0
+        tpch_records = TR.run(sf, 3, device, card=f"on {card}")
+        tpch_launches = {k: sk.LAUNCHES[k] for k in sk.SCAN_KERNELS}
+        tpch_join_launches = sum(sk.JOIN_LAUNCHES.values())
+        print(f"  TPC-H path launches {tpch_launches}, carrying a join "
+              f"probe {dict(sk.JOIN_LAUNCHES)}")
+        for name in ("scan_direct", "scan_hash"):
+            assert tpch_launches[name] > 0, (name, tpch_launches)
+        assert tpch_join_launches > 0, dict(sk.JOIN_LAUNCHES)
+
     summary = {"scan_direct": "q1", "scan_span": "s1", "scan_hash": "h1"}
     join_summary = {"scan_direct": "j2", "scan_span": "j3", "scan_hash": "j1"}
     sources = {"scan_direct": "codegen.py",
@@ -1798,6 +1846,9 @@ def main() -> int:
                           + sources[name],
                 "replaces": replaces[name],
                 "launches": main_launches[name],
+                # launches on the TPC-H path (Q1-Q22 at sf0.01 and at
+                # the scale factor)
+                "tpch_launches": tpch_launches[name],
                 "max_abs_err": max(r["err"] for r in records.values()
                                    if r["kernel"] == name),
                 "ms": rec["ms"],
@@ -1851,6 +1902,7 @@ def main() -> int:
             "source": "presto_tpu_torch/exec/kernels/csrc/scan_common.cuh",
             "replaces": "presto_tpu/exec/kernels/join.py:191",
             "launches": sum(join_launches.values()),
+            "tpch_launches": tpch_join_launches,
             "max_abs_err": max(records[q]["err"] for q in (
                 "j1", "j2", "j3", "q3_shape", "q18_shape", "semi",
                 "semi_unique", "multi_probe", "partsupp")),
@@ -1940,6 +1992,16 @@ def main() -> int:
             print(f"  {q}: wall {r['wall_ms']:.3f} ms, modes {r['modes']}, "
                   f"passes {r['passes']}, steps {r['steps']}, chunks "
                   f"{r['chunks']}, streaming {r['streaming']}, declined "
+                  f"{r['declined']}")
+    # the TPC-H path's numbers again, where the end of the output keeps
+    # them
+    print(f"TPC-H summary at {schema} on {card}:")
+    for q, r in tpch_records.items():
+        if q.startswith("q"):
+            print(f"  {q}: cold {r['cold_s']:.3f} s, warm {r['warm_ms']:.3f} "
+                  f"ms, xla {r['xla_ms']:.3f} ms, programs "
+                  f"{r['kernel_programs']}, chain {r['chain']}, streaming "
+                  f"{r['streaming']}, launched {r['launched']}, declined "
                   f"{r['declined']}")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -48,3 +48,35 @@ def _key(row):
                   (0.0 if v != v else round(v, 6)) if isinstance(v, float)
                   else v)
                  for v in row)
+
+
+# -- golden rows: a JSON form of result rows ------------------------------
+# ints, strings and NULL as themselves; a float as {"f": repr(x)} (exact
+# round trip, NaN and infinities included); a Decimal as {"dec": str(x)}
+
+def encode_value(v):
+    import decimal
+    if isinstance(v, bool) or v is None or isinstance(v, (int, str)):
+        return v
+    if isinstance(v, float):
+        return {"f": repr(v)}
+    if isinstance(v, decimal.Decimal):
+        return {"dec": str(v)}
+    raise TypeError(f"no golden form for {type(v).__name__} {v!r}")
+
+
+def decode_value(v):
+    import decimal
+    if isinstance(v, dict):
+        if "f" in v:
+            return float(v["f"])
+        return decimal.Decimal(v["dec"])
+    return v
+
+
+def golden_result(entry: dict):
+    """A golden file's entry as an object with .rows (assert_rows_close's
+    argument)."""
+    class _Rows:
+        rows = [[decode_value(x) for x in r] for r in entry["rows"]]
+    return _Rows

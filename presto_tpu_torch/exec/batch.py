@@ -7,6 +7,11 @@ mask (the counterpart of presto_tpu/exec/batch.py).  Columns:
   nulls       optional bool tensor (True == SQL NULL)
   dictionary  optional tuple of python strings: `values` are int32 codes
               into it (host metadata; strings never reach the device)
+  lazy        optional (connector, table, column, sf): late
+              materialization of an open-domain string column -- `values`
+              are the table's global row ids, and the strings are
+              generated at the output boundary (batch_to_page) for live
+              rows only
 
 The mask subsumes selection (filters clear bits) and padding.  Every
 tensor of a batch lives on one device, the one its producer was given.
@@ -27,10 +32,12 @@ from ..common.types import (BooleanType, DateType, DecimalType, DoubleType,
 
 class Column:
     def __init__(self, values, nulls=None,
-                 dictionary: Optional[Tuple[str, ...]] = None):
+                 dictionary: Optional[Tuple[str, ...]] = None,
+                 lazy: Optional[Tuple] = None):
         self.values = values
         self.nulls = nulls
         self.dictionary = dictionary
+        self.lazy = lazy
 
     def null_mask(self):
         if self.nulls is None:
@@ -39,10 +46,15 @@ class Column:
         return self.nulls
 
     def gather(self, idx) -> "Column":
-        """Row gather preserving dictionary metadata."""
+        """Row gather preserving dictionary / lazy metadata."""
         return Column(self.values[idx],
                       None if self.nulls is None else self.nulls[idx],
-                      self.dictionary)
+                      self.dictionary, self.lazy)
+
+    def slice_rows(self, lo: int, hi: int) -> "Column":
+        return Column(self.values[lo:hi],
+                      None if self.nulls is None else self.nulls[lo:hi],
+                      self.dictionary, self.lazy)
 
     def __repr__(self):
         d = f", dict[{len(self.dictionary)}]" if self.dictionary else ""
@@ -70,6 +82,14 @@ class Batch:
 
     def with_mask(self, mask) -> "Batch":
         return Batch(self.columns, mask)
+
+    def with_columns(self, new: Dict[str, Column]) -> "Batch":
+        cols = dict(self.columns)
+        cols.update(new)
+        return Batch(cols, self.mask)
+
+    def select(self, names) -> "Batch":
+        return Batch({n: self.columns[n] for n in names}, self.mask)
 
     def with_params(self, params) -> "Batch":
         out = Batch(self.columns, self.mask)
@@ -170,6 +190,17 @@ def batch_to_page(batch: Batch, names, types) -> Page:
         col = batch.columns[name]
         values = col.values[keep].cpu().numpy()
         nulls = None if col.nulls is None else col.nulls[keep].cpu().numpy()
+        if col.lazy is not None:
+            # late-materialized strings: generated for the live rows only
+            from ..connectors import catalog
+            cid, table, column, sf = col.lazy
+            strings = catalog.generate_values_at(table, column, sf,
+                                                 values.astype(np.int64),
+                                                 cid)
+            if nulls is not None:
+                strings = [None if n else s for s, n in zip(strings, nulls)]
+            blocks.append(VariableWidthBlock.from_strings(strings))
+            continue
         if col.dictionary is not None:
             ids = values.astype(np.int32)
             entries = list(col.dictionary)

@@ -23,10 +23,12 @@ chunk at a time: `FusedChain.make` applies the scan leaf and every step
 to a chunk, a join through `_apply_join` (fanout 1: LEFT null-extension
 and the residual ON filter included) or `_apply_join_expand` (fanout k:
 each probe row expands into k candidate build slots, the chunk shrunk by
-the chain's fanout product), a semi step as the three-valued marker.
-Not ported: the uid step (AssignUniqueIdNode raises), the packed gather
-(each build column is gathered by index), fused_materialize and
-fused_stream.
+the chain's fanout product), a semi step as the three-valued marker, a uid
+step as position-keyed unique ids.  `fused_materialize` runs a whole
+chain into one batch (join build sides, cached per structural key), and
+`fused_stream` yields it chunk by chunk (the streaming Join / SemiJoin
+compilers).  Not ported: the packed gather (each build column is
+gathered by index).
 """
 from __future__ import annotations
 
@@ -127,6 +129,7 @@ class FusedChain:
       ("join", JoinNode)         aux entry: DirectTable | BuildTable
       ("semi", SemiJoinNode)     aux entry: (DirectTable | BuildTable,
                                              build-had-null-key)
+      ("uid", AssignUniqueIdNode)
     """
 
     def __init__(self, compiler, steps: List[tuple], scan_meta: dict):
@@ -180,8 +183,10 @@ class FusedChain:
         pd = self.scan_meta.get("pushdown")
         if zm and pd:
             from ..storage import prune_chunks
+            dyn = self.scan_meta.get("dyn_summaries")
             chunks, _skipped = prune_chunks(
-                chunks, zm, pd, self.compiler.ctx.params_fingerprint, None)
+                chunks, zm, pd, self.compiler.ctx.params_fingerprint,
+                dyn() if dyn is not None else None)
         return chunks
 
     def leaf_cap(self, expands: Tuple[int, ...]) -> int:
@@ -282,6 +287,23 @@ class FusedChain:
                 cols[node.semi_join_output.name] = Column(hit, nulls)
                 batch = Batch(cols, batch.mask)
                 ji += 1
+            elif kind == "uid":
+                # position-keyed unique ids: the id of (global leaf row r,
+                # expansion branch b) is (r * K + b) above the task's
+                # base, K the join expansion applied so far -- disjoint
+                # across chunks and steps, and the same for a deep-copied
+                # subtree (the decorrelated EXISTS plans join on them)
+                kprod = 1
+                for e in expands[:ji]:
+                    kprod *= e
+                cap_here = batch.capacity
+                leaf_c = cap_here // kprod
+                base = self.compiler.ctx.task_index << 40
+                sidx = torch.arange(cap_here, dtype=torch.int64,
+                                    device=batch.device)
+                ids = base + (pos + sidx % leaf_c) * kprod + sidx // leaf_c
+                batch = batch.with_columns(
+                    {step[1].id_variable.name: Column(ids)})
             else:
                 raise NotImplementedError(f"chain step {kind}")
         return batch
@@ -312,7 +334,8 @@ class FusedChain:
         miss = ~matched
         for n in gcols:
             c = cols[n]
-            cols[n] = Column(c.values, c.null_mask() | miss, c.dictionary)
+            cols[n] = Column(c.values, c.null_mask() | miss, c.dictionary,
+                             c.lazy)
         return Batch(cols, batch.mask)
 
     def _apply_join_expand(self, batch: Batch, node: P.JoinNode,
@@ -346,7 +369,7 @@ class FusedChain:
         for n, c in batch.columns.items():
             cols[n] = Column(c.values.repeat(k),
                              None if c.nulls is None else c.nulls.repeat(k),
-                             c.dictionary)
+                             c.dictionary, c.lazy)
         gcols = _join_build_cols(node, out_names, build_names)
         for n in gcols:
             cols[n] = tbl.columns[n].gather(bidx)
@@ -367,7 +390,8 @@ class FusedChain:
         fill = (first & (batch.mask & ~any_match)[None, :]).reshape(k * C)
         for n in gcols:
             c = cols[n]
-            cols[n] = Column(c.values, c.null_mask() | fill, c.dictionary)
+            cols[n] = Column(c.values, c.null_mask() | fill, c.dictionary,
+                             c.lazy)
         return Batch(cols, matched | fill)
 
 
@@ -418,14 +442,12 @@ def build_lookup(compiler, build_node: P.PlanNode, keys: Tuple[str, ...],
     pow2-rounded max key multiplicity (1 = unique keys) -- or None when
     fanout > MAX_EXPAND.  The null flag is computed only for semi builds
     (for_join=False); join builds report False (they drop NULL keys
-    either way).  The build side is drained from its streaming source
-    and, like the reference's fused materialization, compacted when
-    mostly dead."""
+    either way).  The build side is materialized once and cached per
+    structural key (compiler._materialize_node(cache=True))."""
     from .kernels.join import bucket_directory
-    from .pipeline import _maybe_compact
-    batch = compiler._materialize_node(build_node)
-    batch = (_empty_build_batch(build_node, compiler.ctx.device)
-             if batch is None else _maybe_compact(batch))
+    batch = compiler._materialize_node(build_node, cache=True)
+    if batch is None:
+        batch = _empty_build_batch(build_node, compiler.ctx.device)
     had_null = False if for_join else _build_has_null_key(batch, keys)
     batch = _drop_null_keys(batch, keys)
     if len(keys) == 1:
@@ -473,9 +495,10 @@ def assemble_chain(compiler, node: P.PlanNode) -> Optional[FusedChain]:
             steps.append(("semi", nd))
             nd = nd.source
         elif isinstance(nd, P.AssignUniqueIdNode):
-            raise NotImplementedError(
-                "the fused chain's uid step (AssignUniqueIdNode) is not "
-                "ported")
+            # unique ids derive from the scan position (see make), so the
+            # decorrelated EXISTS stacks stay in one chain
+            steps.append(("uid", nd))
+            nd = nd.source
         elif isinstance(nd, P.TableScanNode):
             meta = getattr(compiler._compile(nd), "fused_scan", None)
             if meta is None:
@@ -497,6 +520,149 @@ def _join_build_cols(node: P.JoinNode, out_names, build_names):
             if v.name in build_names and v.name not in needed:
                 needed.append(v.name)
     return needed
+
+
+# process-wide cap on device-resident cached build materializations (a
+# runner's plan cache holds many live compilers; a compiler's share is
+# returned when it is garbage-collected)
+_FMAT_CACHE_BYTES = 1 << 31
+_fmat_pool = {"bytes": 0}
+
+
+def _fmat_reserve(compiler, nb: int) -> bool:
+    import weakref
+    if _fmat_pool["bytes"] + nb > _FMAT_CACHE_BYTES:
+        return False
+    _fmat_pool["bytes"] += nb
+
+    def _release(n=nb):
+        _fmat_pool["bytes"] -= n
+    weakref.finalize(compiler, _release)
+    return True
+
+
+def _renamed_batch(batch: Batch, names: List[str],
+                   new_names: List[str]) -> Batch:
+    """Positionally rename a cached twin's columns to this subtree's
+    output names (structural equality aligns the output order)."""
+    if names == new_names:
+        return batch
+    return Batch({new: batch.columns[old]
+                  for old, new in zip(names, new_names)}, batch.mask)
+
+
+def _result_key(compiler, tag: str, node: P.PlanNode) -> tuple:
+    """The structural result-cache key of a materialized subtree: twins
+    (scalar-subquery re-plans, decorrelated copies: fresh node ids, same
+    shape) share one entry; a subtree with bound parameters is pinned to
+    this execution's values."""
+    sk = P.structural_key(node)
+    key = (tag, sk)
+    if '"@type": "parameter"' in sk:
+        key += (compiler.ctx.params_fingerprint,)
+    return key
+
+
+def _ready_chain(compiler, node: P.PlanNode):
+    """(chain, aux, expands) for a fusible subtree whose build sides
+    prepared and whose chain applies to an empty chunk, else None.  A
+    chain step the torch chain cannot apply (an expression over a
+    late-materialized build column, which the streaming operators hoist
+    to the host) is metered as fusionDeclinedProbeUnsupported, a fanout
+    past the expansion limits as fusionDeclinedPrepFanout."""
+    from .pipeline import PROBE_ROWS
+    chain = assemble_chain(compiler, node)
+    if chain is None or chain.empty:
+        return None
+    rs = compiler.ctx.runtime_stats
+    prep_res = chain.prep()
+    if prep_res is None:
+        if rs is not None:
+            rs.add("fusionDeclinedPrepFanout", 1)
+        return None
+    aux, expands = prep_res
+    try:
+        chain.make(0, 0, aux, expands, PROBE_ROWS)
+    except NotImplementedError:
+        if rs is not None:
+            rs.add("fusionDeclinedProbeUnsupported", 1)
+        return None
+    return chain, aux, expands
+
+
+def fused_materialize(compiler, node: P.PlanNode,
+                      cache: bool = False) -> Optional[Batch]:
+    """A fusible chain's whole output as one batch: the chain applied to
+    every scan chunk (in steps of up to CHAIN_STEP_ROWS rows), the pieces
+    concatenated and compacted when mostly dead.  cache=True keeps the result on the
+    device across re-executions and structural twins (generated data is
+    immutable).  None when the subtree is not a fusible chain (the caller
+    drains the streaming source)."""
+    from .memory import batch_bytes
+    from .pipeline import (CHAIN_STEP_ROWS, _chain_steps, _concat,
+                           _maybe_compact)
+    if compiler.ctx.memory.limited:
+        return None
+    ckey = _result_key(compiler, "fmat_result", node)
+    names = [v.name for v in node.output_variables]
+    if cache and ckey in compiler._cache:
+        cached, cnames = compiler._cache[ckey]
+        return _renamed_batch(cached, cnames, names)
+    ready = _ready_chain(compiler, node)
+    if ready is None:
+        return None
+    chain, aux, expands = ready
+    steps = _chain_steps(chain.chunks_for(expands), chain.leaf_cap(expands),
+                         max(1, CHAIN_STEP_ROWS // chain.cap))
+    out = _maybe_compact(_concat([chain.make(pos, cnt, aux, expands, cap)
+                                  for pos, cnt, cap in steps]))
+    if cache and _fmat_reserve(compiler, batch_bytes(out)):
+        compiler._cache[ckey] = (out, names)
+    return out
+
+
+def fused_stream(compiler, node: P.PlanNode):
+    """A fusible chain's output chunk by chunk (one batch per scan chunk,
+    no host sync: the fanout-bounded probes need no overflow checks), for
+    the streaming Join / SemiJoin compilers.  Returns a Batch iterator,
+    or None (the caller keeps the operator path)."""
+    if compiler.ctx.memory.limited:
+        return None
+    cfg = compiler.ctx.config
+    rs = compiler.ctx.runtime_stats
+    if not cfg.fuse_pipelines:
+        if rs is not None:
+            rs.add("fusionDeclinedDisabled", 1)
+        return None
+    key = ("fstream", node.id)
+    ent = compiler._cache.get(key, False)
+    if ent is None:                     # negative-cached
+        return None
+    cur_fp = compiler.ctx.params_fingerprint
+    if ent is False:
+        ready = _ready_chain(compiler, node)
+        if ready is None:
+            compiler._cache[key] = None
+            return None
+        chain, aux, expands = ready
+        ent = (chain, aux, expands, cur_fp)
+        compiler._cache[key] = ent
+    chain, aux, expands, ent_fp = ent
+    if chain.build_params and cur_fp != ent_fp:
+        # the build tables are a function of the bound constants
+        prep_res = chain.prep()
+        if prep_res is None or prep_res[1] != expands:
+            compiler._cache.pop(key, None)
+            return fused_stream(compiler, node)
+        aux = prep_res[0]
+        compiler._cache[key] = (chain, aux, expands, cur_fp)
+    leaf_cap = chain.leaf_cap(expands)
+    chunks = chain.chunks_for(expands)
+
+    def gen():
+        for pos, cnt in chunks:
+            yield chain.make(pos, cnt, aux, expands, leaf_cap)
+    return gen()
 
 
 def _empty_build_batch(build_node: P.PlanNode, device) -> Batch:

@@ -389,7 +389,7 @@ def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
                             key_dicts, span_info, est_slots, agg_inputs,
                             cache, declined, pool, state_bytes,
                             runtime_stats=None, aux=None, expands=(),
-                            dma: str = "single"):
+                            dma: str = "single", key_lazy=None):
     """Run a grouped (G > 64) aggregation chain through the span kernel
     when `span_info` (the caller's _direct_mode_info at
     gmax=KERNEL_SPAN_MAX_GROUPS) is set, else through the hash kernel.
@@ -442,7 +442,8 @@ def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
                 stride //= dom
                 key_arrays[k] = ((slot // stride) % dom).to(dt)
             out = ops.agg_span_finalize(state_of(plan, acc_i, acc_f), specs,
-                                        key_names, key_arrays, kdicts)
+                                        key_names, key_arrays, kdicts,
+                                        key_lazy=key_lazy)
         finally:
             pool.free(reserve)
         meter_kernel_run(runtime_stats, len(grid),
@@ -486,7 +487,7 @@ def try_grouped_scan_kernel(chain, params, *, specs, key_names, key_dtypes,
             if not bool(table.collision):
                 out = ops.agg_finalize(
                     hash_state(plan, table, key_names, key_dtypes), specs,
-                    key_names, key_dicts)
+                    key_names, key_dicts, key_lazy)
                 meter_kernel_run(runtime_stats, len(grid),
                                  *stage_counts(plan, columns, grid, br,
                                                num_slots, dma))

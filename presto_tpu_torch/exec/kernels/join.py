@@ -153,7 +153,7 @@ def plan_join_layout(steps, aux, expands, declined, max_bytes=None):
             gspec = []
             for n in _join_build_cols(node, out_names, build_names):
                 c = tbl.columns[n]
-                if c.dictionary is not None:
+                if c.dictionary is not None or c.lazy is not None:
                     declined("JoinShape")
                     return None
                 gspec.append((n, c.nulls is not None))

@@ -77,7 +77,7 @@ KERNEL_DECLINE_REASONS = (
     #                          plan/expression shape the port lacks
     "ColumnsNotResident",    # a scanned column is not device-resident
     "JoinShape",             # fanout-k join, residual ON filter,
-    #                          dictionary build column (join.py)
+    #                          dictionary or lazy build column (join.py)
     "JoinBuildSize",         # build operands over the byte cap, or a
     #                          failed operand reservation (join.py)
     "WindowFunctionShape",   # a window function outside the kernel's
@@ -86,6 +86,8 @@ KERNEL_DECLINE_REASONS = (
     "WindowInputSize",       # a failed reservation of the window launch's
     #                          sorted batch, scratch and outputs
     #                          (window.py); the query raises
+    "WindowKeyShape",        # a late-materialized (lazy) partition /
+    #                          order / argument column (window.py)
 )
 
 THREADS = 256

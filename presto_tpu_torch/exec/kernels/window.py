@@ -38,9 +38,11 @@ the reference's order:
                        (window_bytes); the reference's 8 MiB VMEM cap has
                        no counterpart on a multi-CTA scan over device
                        memory
-The reference's WindowKeyShape (lazy columns) cannot fire: the port's
-Column has no late-materialized form.  After WindowFunctionShape the
-caller runs ops.window_batch; WindowInputSize raises, since window_batch
+  WindowKeyShape       a late-materialized (lazy) partition / order /
+                       argument column: its values are row ids, which
+                       the kernel's compares do not order as strings
+After WindowFunctionShape or WindowKeyShape the caller runs
+ops.window_batch; WindowInputSize raises, since window_batch
 would allocate more than the launch, with nothing reserved.
 """
 from __future__ import annotations
@@ -299,6 +301,9 @@ def try_window_kernel(batch: Batch, partition_names, orderings, specs, *,
             declined("WindowFunctionShape")
             return None
     names = _needed(partition_names, orderings, specs)
+    if any(batch.columns[nm].lazy is not None for nm in names):
+        declined("WindowKeyShape")
+        return None
     n = batch.capacity
     nbytes = window_bytes(
         n, {nm: (c.values, c.nulls) for nm, c in batch.columns.items()},

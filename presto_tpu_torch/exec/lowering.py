@@ -362,6 +362,12 @@ class ExprProgram:
             name = OPS[op]
             if name == "COL":
                 c = columns[self.columns[arg]]
+                if c.lazy is not None:
+                    # row ids, not values: the string forms over a lazy
+                    # column are hoisted to the host by the compiler
+                    raise NotImplementedError(
+                        f"expression over the late-materialized column "
+                        f"{self.columns[arg]} ({c.lazy[1]}.{c.lazy[2]})")
                 v = c.values
                 if not v.is_floating_point():
                     v = v.to(torch.int64)

@@ -499,7 +499,8 @@ def agg_span_finalize(state: dict, specs: Tuple[AggSpec, ...],
                       key_names: Tuple[str, ...],
                       key_arrays: Dict[str, torch.Tensor],
                       key_dicts: Dict[str, Tuple[str, ...]],
-                      key_nulls: Optional[Dict[str, torch.Tensor]] = None
+                      key_nulls: Optional[Dict[str, torch.Tensor]] = None,
+                      key_lazy: Optional[Dict[str, Tuple]] = None
                       ) -> Batch:
     """key_arrays: slot index -> key value per key (rebuilt by the
     caller from the slot's stride decomposition, or the runtime span's
@@ -512,7 +513,7 @@ def agg_span_finalize(state: dict, specs: Tuple[AggSpec, ...],
         fake[f"__keynull_{k}"] = (key_nulls or {}).get(
             k, torch.zeros(G, dtype=torch.bool,
                            device=key_arrays[k].device))
-    return agg_finalize(fake, specs, key_names, key_dicts)
+    return agg_finalize(fake, specs, key_names, key_dicts, key_lazy)
 
 
 # ---------------------------------------------------------------------------
@@ -740,14 +741,18 @@ def _corr_update(state, out, o, slot, mask, col, col2, num_slots):
 
 def agg_finalize(state: dict, specs: Tuple[AggSpec, ...],
                  key_names: Tuple[str, ...],
-                 key_dicts: Dict[str, Tuple[str, ...]]) -> Batch:
+                 key_dicts: Dict[str, Tuple[str, ...]],
+                 key_lazy: Optional[Dict[str, Tuple]] = None) -> Batch:
     """Accumulator table -> output Batch (capacity == num_slots, mask ==
-    occupied)."""
+    occupied).  key_lazy carries the late-materialization tags of
+    open-domain string keys, which group by row identity (their values
+    are source row ids)."""
     cols: Dict[str, Column] = {}
     for name in key_names:
         cols[name] = Column(state[f"__key_{name}"],
                             state.get(f"__keynull_{name}"),
-                            key_dicts.get(name))
+                            key_dicts.get(name),
+                            (key_lazy or {}).get(name))
     _finalize_specs(state, specs, cols)
     return Batch(cols, state["__occupied"])
 
@@ -864,6 +869,145 @@ def semi_join_mark(batch: Batch, table: BuildTable, probe_keys: List[str],
     return _semi_marker(hit, probe_null, build_has_null)
 
 
+def _pair_filter(pairs: Batch, filter_fn):
+    """The ON filter's keep mask over joined pairs (NULL is not kept)."""
+    pred = filter_fn(pairs)
+    keep = pred.values.to(torch.bool)
+    if pred.nulls is not None:
+        keep = keep & ~pred.nulls
+    return keep
+
+
+def _mark_matched(matched, build_idx, alive):
+    """FULL joins: OR each surviving pair into its build row's flag."""
+    hits = torch.zeros(matched.shape[0], dtype=torch.int32,
+                       device=matched.device)
+    hits.index_add_(0, build_idx, alive.to(torch.int32))
+    return matched | (hits > 0)
+
+
+def probe_join(batch: Batch, table: BuildTable, probe_keys: List[str],
+               build_output: List[str], out_capacity: int,
+               salt: int = 0, join_type: str = "INNER", filter_fn=None,
+               matched=None):
+    """Equi-join probe: (joined Batch, overflow flag, live total, matched).
+
+    One searchsorted over the hash-sorted build gives each probe row its
+    run of equal key hashes; the runs are laid out end to end into
+    `out_capacity` output rows (overflow when they do not fit).  Output
+    columns are every probe column plus `build_output`.  INNER: one row
+    per (probe row, build row) pair passing the optional ON filter
+    `filter_fn` (Batch -> Column over the pairs).  LEFT: probe rows with
+    no surviving pair (the filter applies to pairs BEFORE
+    null-extension) add one row with NULL build columns, in an extra
+    region of batch.capacity rows.  `matched` (FULL joins) records the
+    build rows with a surviving pair.  The flag and total are device
+    scalars (no host sync)."""
+    dev = batch.device
+    kh = _orderable_hash(hash_columns(
+        [batch.columns[k] for k in probe_keys], salt))
+    nb = table.perm.shape[0]
+    lo = torch.searchsorted(table.keyhash_sorted, kh, side="left")
+    lo_c = lo.clamp(0, nb - 1)
+    hit = table.keyhash_sorted[lo_c] == kh
+    # SQL equi-join: a NULL key never matches
+    for k in probe_keys:
+        nn = batch.columns[k].nulls
+        if nn is not None:
+            hit = hit & ~nn
+    counts = torch.where(batch.mask & hit, table.run_len[lo_c].to(torch.int64),
+                         torch.zeros_like(lo))
+    offsets = torch.cumsum(counts, 0)
+    total = offsets[-1]
+    overflow = total > out_capacity
+    starts = offsets - counts
+
+    j = torch.arange(out_capacity, dtype=torch.int64, device=dev)
+    # the probe row of output j: each row's index scattered at its start
+    # slot, then forward-filled (cummax); starts past the capacity drop
+    rows = torch.arange(batch.capacity, dtype=torch.int64, device=dev)
+    at = torch.where((counts > 0) & (starts < out_capacity), starts,
+                     torch.full_like(starts, out_capacity))
+    rowmark = torch.zeros(out_capacity + 1, dtype=torch.int64, device=dev)
+    rowmark.scatter_reduce_(0, at, rows, reduce="amax")
+    row = torch.cummax(rowmark[:out_capacity], 0).values
+    k = j - starts[row]                       # match ordinal within the row
+    build_pos = (lo[row] + k).clamp(0, nb - 1)
+    build_idx = table.perm[build_pos].to(torch.int64)
+    out_mask = j < total
+
+    out_cols: Dict[str, Column] = {
+        name: col.gather(row) for name, col in batch.columns.items()}
+    for name in build_output:
+        out_cols[name] = table.columns[name].gather(build_idx)
+    pairs = Batch(out_cols, out_mask)
+    if filter_fn is not None:
+        pairs = pairs.with_mask(pairs.mask & _pair_filter(pairs, filter_fn))
+    if matched is not None:
+        matched = _mark_matched(matched, build_idx, pairs.mask)
+    if join_type == "INNER":
+        return pairs, overflow, total, matched
+
+    # LEFT / FULL: one null-extended row per probe row without a
+    # surviving pair (an extra region of batch.capacity rows)
+    has = torch.zeros(batch.capacity, dtype=torch.int32, device=dev)
+    has.index_add_(0, row, pairs.mask.to(torch.int32))
+    extra_mask = batch.mask & (has == 0)
+    final_cols: Dict[str, Column] = {}
+    for name, col in batch.columns.items():
+        pc = pairs.columns[name]
+        nulls = None
+        if pc.nulls is not None or col.nulls is not None:
+            nulls = torch.cat([pc.null_mask(), col.null_mask()])
+        final_cols[name] = Column(torch.cat([pc.values, col.values]), nulls,
+                                  col.dictionary, col.lazy)
+    for name in build_output:
+        pc = pairs.columns[name]
+        src = table.columns[name]
+        pad = torch.zeros(batch.capacity, dtype=pc.values.dtype, device=dev)
+        nulls = torch.cat([pc.null_mask(),
+                           torch.ones(batch.capacity, dtype=torch.bool,
+                                      device=dev)])
+        final_cols[name] = Column(torch.cat([pc.values, pad]), nulls,
+                                  src.dictionary, src.lazy)
+    final_mask = torch.cat([pairs.mask, extra_mask])
+    # the live total of the emitted batch (pairs + null-extended rows), so
+    # callers can right-size compaction; overflow is the pair region's
+    return (Batch(final_cols, final_mask), overflow,
+            total + extra_mask.to(torch.int64).sum(), matched)
+
+
+def probe_join_direct(batch: Batch, dt, probe_key: str,
+                      build_output: List[str], join_type: str = "INNER",
+                      filter_fn=None, matched=None):
+    """Fanout-1 equi-join probe against a direct-address table
+    (fused.DirectTable): one gather, and the output capacity is the probe
+    capacity, so no overflow and no live count.  probe_join's semantics:
+    the ON filter applies to pairs before null-extension, `matched`
+    (FULL joins) records the build rows with a surviving pair."""
+    hit, bidx = direct_lookup(batch, dt, probe_key)
+    hit = hit & batch.mask
+    bidx = torch.where(hit, bidx, torch.zeros_like(bidx)).to(torch.int64)
+    out_cols: Dict[str, Column] = dict(batch.columns)
+    for name in build_output:
+        out_cols[name] = dt.columns[name].gather(bidx)
+    pairs = Batch(out_cols, hit)
+    if filter_fn is not None:
+        hit = hit & _pair_filter(pairs, filter_fn)
+        pairs = pairs.with_mask(hit)
+    if matched is not None:
+        matched = _mark_matched(matched, bidx, hit)
+    if join_type == "INNER":
+        return pairs, matched
+    # LEFT / FULL: the null-extended row IS the probe row (fanout 1)
+    final_cols = dict(batch.columns)
+    for name in build_output:
+        c = pairs.columns[name]
+        nulls = ~hit if c.nulls is None else (~hit | c.nulls)
+        final_cols[name] = Column(c.values, nulls, c.dictionary, c.lazy)
+    return Batch(final_cols, batch.mask), matched
+
+
 # ---------------------------------------------------------------------------
 # sort / compaction
 # ---------------------------------------------------------------------------
@@ -878,6 +1022,13 @@ def sort_indices(batch: Batch, keys: List[Tuple[str, str]]):
         col = batch.columns[name]
         v = col.values
         desc = order.startswith("DESC")
+        if col.lazy is not None:
+            from ..connectors import catalog as _catalog
+            _, table, column, _sf = col.lazy
+            if (table, column) not in _catalog.ROWID_ORDERED:
+                raise NotImplementedError(
+                    "ORDER BY on a late-materialized string column")
+            # values are row ids; the generator's id order is lex order
         if col.dictionary is not None:
             # codes -> lexical ranks (host-precomputed)
             rank = np.argsort(np.argsort(np.array(col.dictionary)))
@@ -1194,14 +1345,15 @@ def window_batch(batch: Batch, partition_names: Tuple[str, ...],
             default = spec.extra[1] if (spec.name in ("lag", "lead")
                                         and len(spec.extra) > 1) else None
             if default is not None:
-                if col.dictionary is not None:
+                if col.dictionary is not None or col.lazy is not None:
                     raise NotImplementedError(
                         "lag/lead default over string columns")
                 vals = torch.where(valid, vals, torch.full_like(vals,
                                                                 default))
                 nulls = torch.where(valid, col.null_mask()[src_c],
                                     torch.zeros_like(valid))
-            out[spec.output] = Column(vals, nulls, col.dictionary)
+            out[spec.output] = Column(vals, nulls, col.dictionary,
+                                      col.lazy)
             continue
 
         # frame aggregates
@@ -1272,6 +1424,11 @@ def window_batch(batch: Batch, partition_names: Tuple[str, ...],
                 vals = code_of_rank[torch.where(isempty,
                                                 torch.zeros_like(vals), vals)]
                 out[spec.output] = Column(vals, isempty, col.dictionary)
+            elif col.lazy is not None:
+                # min / max over lazy row ids: ROWID_ORDERED columns only
+                # (the compiler encodes the others first)
+                vals = torch.where(isempty, torch.zeros_like(vals), vals)
+                out[spec.output] = Column(vals, isempty, None, col.lazy)
             else:
                 out[spec.output] = Column(vals, isempty)
         else:
@@ -1295,7 +1452,7 @@ def compact(batch: Batch, out_capacity: Optional[int] = None) -> Batch:
 
     cols = {name: Column(scat(c.values),
                          None if c.nulls is None else scat(c.nulls),
-                         c.dictionary)
+                         c.dictionary, c.lazy)
             for name, c in batch.columns.items()}
     return Batch(cols, scat(batch.mask))
 
@@ -1485,7 +1642,7 @@ def sort_group_aggregate(batch: Batch, key_names: Tuple[str, ...],
                 p * torch.clamp(cntp - 1, min=0).to(torch.float64)
                 + 0.5).to(torch.int64)
             cols[o] = Column(vx_sorted[pos.clamp(0, n - 1)], cntp == 0,
-                             xc.dictionary)
+                             xc.dictionary, xc.lazy)
         else:
             raise NotImplementedError(spec.name)
     return Batch(cols, is_start)

@@ -1,8 +1,15 @@
 """Plan -> executable pipelines over torch tensors.
 
 The port of presto_tpu/exec/pipeline.py for the ported slices: a
-TableScan over device-resident encoded columns, streaming Filter/Project,
-Aggregation, MarkDistinct, Sort, TopN, Limit, Window and Output.  An
+TableScan over device-resident encoded columns, host-generated columns
+and late-materialized strings (row ids, the string forms over them
+hoisted to whole-column host caches), streaming Filter/Project,
+Aggregation, MarkDistinct, Sort, TopN, Limit, Window, Values, Union,
+Join (INNER / LEFT / FULL), SemiJoin, AssignUniqueId, EnforceSingleRow
+and Output.  A Join or SemiJoin over a fusible chain streams the torch
+fused chain (fused.fused_stream); otherwise the build side is
+materialized (cached per structural key) and the probe batches stream
+through operators.probe_join / probe_join_direct.  An
 aggregation over a fused scan -> filter -> project -> join / semi-join
 chain runs through the hand-written CUDA scan kernels (direct slots for
 G <= 64, exec/kernels/scan_kernel.py; span or hash slots beyond,
@@ -15,21 +22,27 @@ A WindowNode's functions run in one launch of the CUDA window kernel over
 the sorted run (exec/kernels/window.py), operators.window_batch after its
 metered decline.  Every tensor is allocated on the task's device
 (TaskContext.device).  A plan shape or option outside the slices raises
-NotImplementedError naming what is missing (a streaming Join / SemiJoin
-and spill among them); nothing falls back quietly.
+NotImplementedError naming what is missing (spill, budgeted scans,
+on-the-fly generation, DistinctLimit, GroupId, Unnest, TableWriter among
+them); nothing falls back quietly.
 """
 from __future__ import annotations
 
+import json
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..common.page import Page
-from ..common.types import DoubleType, RealType, Type
+from ..common.types import (BOOLEAN, CharType, DoubleType, RealType, Type,
+                            VarcharType)
 from ..connectors import catalog
 from ..spi import plan as P
-from ..spi.expr import VariableReferenceExpression
+from ..spi.expr import (CallExpression, ConstantExpression, RowExpression,
+                        SpecialFormExpression, VariableReferenceExpression)
 from . import operators as ops
 from .batch import Batch, Column, batch_to_page
 from .lowering import (Lowering, canonical_name, constant_device_value,
@@ -52,6 +65,12 @@ CHAIN_STEP_ROWS = 1 << 20
 _COMPACT_BUCKETS = (1 << 12, 1 << 16, 1 << 18, 1 << 20)
 
 
+def _bucket_for(live: int):
+    """Smallest standard bucket holding `live` rows (None above the
+    largest bucket)."""
+    return next((s for s in _COMPACT_BUCKETS if s >= live), None)
+
+
 def _maybe_compact(batch: Batch) -> Batch:
     """Compact a single mostly-dead batch (a sparse aggregation table) to
     a bucketed capacity so downstream sorts don't pay full-capacity
@@ -59,10 +78,41 @@ def _maybe_compact(batch: Batch) -> Batch:
     live = int(batch.mask.sum())
     if live * 4 >= batch.capacity:
         return batch
-    bucket = next((s for s in _COMPACT_BUCKETS if s >= live), None)
+    bucket = _bucket_for(live)
     if bucket is None or bucket >= batch.capacity:
         return batch
     return ops.compact(batch, bucket)
+
+
+def _compact_concat(batches: List[Batch]) -> Batch:
+    """Concatenate batches, dropping masked-out padding when it
+    dominates: when under 1/4 of the merged rows are live, each batch is
+    compacted to a power-of-two bucket first (one host sync for the live
+    counts), so a materialized selective input does not carry its dead
+    capacity into sorts, windows and join builds."""
+    if len(batches) == 1:
+        return batches[0]
+    total_cap = sum(b.capacity for b in batches)
+    counts = torch.stack([b.mask.sum() for b in batches]).tolist()
+    if sum(counts) * 4 >= total_cap:
+        return _concat(batches)
+    out = []
+    for b, n in zip(batches, counts):
+        if n == 0:
+            continue
+        bucket = _bucket_for(n) or 1 << (int(n) - 1).bit_length()
+        out.append(b if bucket >= b.capacity else ops.compact(b, bucket))
+    if not out:
+        return batches[0]      # all rows masked: keep an all-dead batch
+    return _concat(out)
+
+
+def _split_batch(batch: Batch) -> List[Batch]:
+    """A probe batch halved (the join's overflow recursion)."""
+    cap = batch.capacity
+    half = cap // 2
+    return [Batch({n: c.slice_rows(lo, hi) for n, c in batch.columns.items()},
+                  batch.mask[lo:hi]) for lo, hi in ((0, half), (half, cap))]
 
 
 @dataclass
@@ -95,6 +145,19 @@ class ExecutionConfig:
     # operators.window_batch or the torch fused chain.
     # Config key scan.kernel / session scan_kernel
     scan_kernel: str = "auto"
+    # output capacity of a streaming join probe (operators.probe_join):
+    # a probe batch whose pairs overflow it is halved and retried
+    join_out_capacity: int = 1 << 21
+    # runtime dynamic filters: a streaming INNER join narrows its probe
+    # stream to the build keys' [min, max]; scans read the summaries
+    # delivered in TaskContext.dynamic_filters (config key
+    # optimizer.dynamic-filtering / session dynamic_filtering)
+    dynamic_filtering: bool = True
+    # bounded wait for an expected summary (the remote scheduler's; the
+    # local runner delivers none) and the distinct-value cap of a set
+    # summary (dynamic-filtering.wait-timeout / .max-distinct-values)
+    dynamic_filtering_wait_timeout_s: float = 0.5
+    dynamic_filtering_max_distinct: int = 256
     # staging discipline of the scan kernels' per-row input arrays
     # (SCAN_KERNEL_DMA_MODES): "single" loads them from device memory as
     # each tile computes; "double" keeps the next tiles of the arrays the
@@ -123,8 +186,10 @@ SCAN_KERNEL_DMA_MODES = ("single", "double")
 
 
 def tuned_config(**overrides) -> "ExecutionConfig":
-    """The runner default ExecutionConfig: 64K-row scan batches."""
-    return ExecutionConfig(batch_rows=1 << 16, **overrides)
+    """The runner default ExecutionConfig: 64K-row scan batches and
+    256K-row join output."""
+    return ExecutionConfig(batch_rows=1 << 16, join_out_capacity=1 << 18,
+                           **overrides)
 
 
 @dataclass
@@ -140,6 +205,11 @@ class TaskContext:
     # bound-parameter vector (one int64 device tensor) and its host values
     params: Optional[torch.Tensor] = None
     params_fingerprint: Optional[Tuple] = None
+    # this task's index in its stage: namespaces AssignUniqueId's ids
+    task_index: int = 0
+    # runtime dynamic-filter summaries (filter id -> wire dict), read by
+    # the scans lazily at drain time
+    dynamic_filters: Dict[str, dict] = field(default_factory=dict)
 
 
 class BatchSource:
@@ -156,22 +226,54 @@ class BatchSource:
 
 
 def _concat(batches: List[Batch]) -> Batch:
-    """One batch holding every input batch's rows (dictionaries must
-    agree)."""
+    """One batch holding every input batch's rows.  A varchar column
+    whose batches disagree on their dictionary or lazy tag is re-encoded
+    to one merged dictionary first (_recode_strings)."""
     if len(batches) == 1:
         return batches[0]
     cols = {}
     for name, c0 in batches[0].columns.items():
         parts = [b.columns[name] for b in batches]
-        if any(p.dictionary != c0.dictionary for p in parts):
-            raise NotImplementedError("concatenating batches whose "
-                                      "dictionaries differ")
+        if any(p.dictionary != c0.dictionary or p.lazy != c0.lazy
+               for p in parts):
+            parts = _recode_strings(parts)
+            c0 = parts[0]
         nulls = None
         if any(p.nulls is not None for p in parts):
             nulls = torch.cat([p.null_mask() for p in parts])
         cols[name] = Column(torch.cat([p.values for p in parts]), nulls,
-                            c0.dictionary)
+                            c0.dictionary, c0.lazy)
     return Batch(cols, torch.cat([b.mask for b in batches]))
+
+
+def _lazy_strings(col: Column) -> List[str]:
+    """The strings of every row of a late-materialized column (host)."""
+    cid, table, column, sf = col.lazy
+    n = catalog.table_row_count(table, sf, cid)
+    ids = np.clip(col.values.cpu().numpy().astype(np.int64), 0, n - 1)
+    return catalog.generate_values_at(table, column, sf, ids, cid)
+
+
+def _recode_strings(parts: List[Column]) -> List[Column]:
+    """Varchar columns re-encoded onto one sorted merged dictionary (the
+    reference's union re-encoding; lazy columns are generated for every
+    row).  Each dictionary is remapped through a lookup table; a part
+    already on the merged dictionary is kept."""
+    strings = [p.dictionary if p.dictionary is not None
+               else _lazy_strings(p) for p in parts]
+    merged = tuple(sorted({s for ss in strings for s in ss})) or ("",)
+    index = {s: i for i, s in enumerate(merged)}
+    out = []
+    for p, ss in zip(parts, strings):
+        if p.dictionary == merged:
+            out.append(p)
+            continue
+        codes = torch.tensor([index[s] for s in ss], dtype=torch.int32,
+                             device=p.values.device)
+        if p.dictionary is not None:     # a lookup table per code
+            codes = codes[p.values.to(torch.int64).clamp(0, len(ss) - 1)]
+        out.append(Column(codes, p.nulls, merged))
+    return out
 
 
 class PlanCompiler:
@@ -183,6 +285,9 @@ class PlanCompiler:
         self.ctx = ctx
         self._sources: Dict[str, BatchSource] = {}
         self.lowering = Lowering()
+        # materialized results (join builds, keyed structurally) and
+        # fused-stream entries, kept across re-executions of the plan
+        self._cache: Dict = {}
 
     # -- public -----------------------------------------------------------
     def compile(self, root: P.PlanNode) -> BatchSource:
@@ -208,9 +313,39 @@ class PlanCompiler:
         self._sources[node.id] = src
         return src
 
-    def _materialize_node(self, node: P.PlanNode) -> Optional[Batch]:
-        batches = list(self._compile(node).batches())
-        return _concat(batches) if batches else None
+    def _materialize(self, src: BatchSource) -> Optional[Batch]:
+        batches = list(src.batches())
+        if not batches:
+            return None
+        return _compact_concat(batches)
+
+    def _materialize_node(self, node: P.PlanNode,
+                          cache: bool = False) -> Optional[Batch]:
+        """A subtree's whole output as one batch: the fused chain when the
+        subtree is a fusible chain, else the streaming source drained.
+        cache=True keeps the result on the device across re-executions
+        and structurally identical replays of the subtree (join build
+        sides; generated data is immutable)."""
+        from .fused import (_fmat_reserve, _renamed_batch, _result_key,
+                            fused_materialize)
+        b = fused_materialize(self, node, cache=cache)
+        if b is not None:
+            return b
+        skey = None
+        names = [v.name for v in node.output_variables]
+        if cache and not self.ctx.memory.limited:
+            skey = _result_key(self, "mat_result", node)
+            ent = self._cache.get(skey)
+            if ent is not None:
+                cached, cnames = ent
+                return (None if cached is None
+                        else _renamed_batch(cached, cnames, names))
+        out = self._materialize(self._compile(node))
+        if skey is not None:
+            nb = 0 if out is None else batch_bytes(out)
+            if _fmat_reserve(self, nb):
+                self._cache[skey] = (out, names)
+        return out
 
     def _params_for(self, expr) -> Optional[torch.Tensor]:
         return self.ctx.params if expr_has_params(expr) else None
@@ -226,9 +361,14 @@ class PlanCompiler:
 
     # -- leaves -----------------------------------------------------------
     def _compile_TableScanNode(self, node: P.TableScanNode) -> BatchSource:
-        """Scan over device-resident encoded columns (storage/).  On-the-fly
-        generation, host-generated columns and late-materialized strings
-        are not ported yet."""
+        """Scan over device-resident encoded columns (storage/), plus
+        host-generated columns (catalog.generate_column per chunk, copied
+        to the device: nation, region) and late-materialized open-domain
+        strings (kind "lazy": the column holds global row ids, strings are
+        generated at the output boundary or hoisted to whole-column host
+        caches).  Only an all-device-generated scan is a fused-chain leaf
+        (`fused_scan`).  Scans under a memory budget and on-the-fly
+        generation are not ported."""
         names = [v.name for v in node.outputs]
         types = [v.type for v in node.outputs]
         columns = [node.assignments[v].name for v in node.outputs]
@@ -242,12 +382,17 @@ class PlanCompiler:
         table, cid = th.table_name, th.connector_id
         device = self.ctx.device
         from ..connectors import device_gen
-        for colname in columns:
-            if (table, colname) in catalog.OPEN_DOMAIN \
-                    or not device_gen.supported(cid, table, colname):
-                raise NotImplementedError(
-                    f"scan of {cid}.{table}.{colname}: only device-generated "
-                    f"columns are ported")
+        # device-generated (resident store), late-materialized (row ids)
+        # and host-generated columns
+        dev: List[Tuple[str, str, str]] = []   # (out name, column, kind)
+        host: List[Tuple[str, str]] = []
+        for name, colname in zip(names, columns):
+            if (table, colname) in catalog.OPEN_DOMAIN:
+                dev.append((name, colname, "lazy"))
+            elif device_gen.supported(cid, table, colname):
+                dev.append((name, colname, "gen"))
+            else:
+                host.append((name, colname))
         if self.ctx.memory.limited:
             raise NotImplementedError(
                 "scans under a memory budget (outside the resident "
@@ -258,7 +403,9 @@ class PlanCompiler:
         n_rows = catalog.table_row_count(table, sf, cid)
         cached_cols: Dict[str, object] = {}
         zone_maps: Dict[str, object] = {}
-        for colname in columns:
+        for _name, colname, kind in dev:
+            if kind != "gen":
+                continue
             as_i32 = (colname.endswith("date")
                       or catalog.column_type(table, colname, cid).storage
                       == "INT_ARRAY")
@@ -270,8 +417,19 @@ class PlanCompiler:
                 cached_cols[colname] = ent.column
                 zone_maps[colname] = ent.zones
         pushdown = [dict(e) for e in getattr(node, "pushdown", ())]
+        # runtime dynamic filters this scan may consume, read lazily at
+        # drain time from ctx.dynamic_filters
+        runtime_filters = ([dict(e) for e in
+                            getattr(node, "runtime_filters", ())]
+                           if cfg.dynamic_filtering else [])
+
+        def dyn_summaries():
+            if not runtime_filters:
+                return None
+            return self.ctx.dynamic_filters or None
+
         dicts = {name: device_gen.dictionary(cid, table, colname)
-                 for name, colname in zip(names, columns)}
+                 for name, colname, kind in dev if kind == "gen"}
 
         def split_chunks(split):
             out = []
@@ -282,28 +440,77 @@ class PlanCompiler:
             if zone_maps and pushdown:
                 out, _skipped = prune_chunks(out, zone_maps, pushdown,
                                              self.ctx.params_fingerprint,
-                                             None, keep_one=False)
+                                             dyn_summaries(),
+                                             keep_one=False)
             return out
 
         def make_factory(cap2):
             """The scan leaf at chunk capacity cap2 (a fused chain with a
             fanout-k join shrinks its chunks): decode rows [pos, pos+cap2)
-            of the resident columns, zeroed past the `valid` live rows."""
+            of the resident columns, zeroed past the `valid` live rows;
+            a lazy column's live rows hold their row ids (padding row 0,
+            a valid id)."""
             idx0 = torch.arange(cap2, device=device)
 
             def make(pos, valid, cached):
                 live = idx0 < valid
                 outs = {}
-                for name, colname in zip(names, columns):
-                    v = cached[colname].slice_decode(pos, cap2)
+                for name, colname, kind in dev:
+                    if kind == "lazy":
+                        outs[name] = torch.where(live, idx0 + pos,
+                                                 torch.zeros_like(idx0))
+                        continue
+                    arr = cached.get(colname)
+                    if arr is None:
+                        raise NotImplementedError(
+                            f"ColumnsNotResident: {table}.{colname} "
+                            f"(on-the-fly generation is not ported)")
+                    v = arr.slice_decode(pos, cap2)
                     outs[name] = torch.where(
                         live, v, torch.zeros((), dtype=v.dtype,
                                              device=device))
                 return outs, live
             return make
 
+        def host_column(split, colname, pos, n) -> Column:
+            """One chunk of a host-generated column as a device column."""
+            raw = catalog.generate_column(table, colname, split.sf, pos, n,
+                                          split.connector)
+            nulls = None
+            if isinstance(raw, catalog.HostColumn):
+                if raw.nulls is not None:
+                    nbuf = np.zeros(cap, dtype=bool)
+                    nbuf[:n] = raw.nulls
+                    nulls = torch.from_numpy(nbuf).to(device)
+                raw = raw.values
+            if isinstance(raw, tuple):
+                codes, values = raw
+                buf = np.zeros(cap, dtype=np.int32)
+                buf[:n] = codes
+                return Column(torch.from_numpy(buf).to(device), nulls,
+                              tuple(values))
+            if isinstance(raw, list):
+                raise NotImplementedError(
+                    f"host-generated string column {table}.{colname} "
+                    f"outside the late-materialized set")
+            if raw.dtype == np.bool_:
+                dtype = np.bool_
+            elif raw.dtype in (np.float64, np.float32):
+                dtype = np.float64
+            elif (raw.dtype == np.int32 or colname.endswith("date")
+                  or catalog.column_type(table, colname,
+                                         split.connector).storage
+                  == "INT_ARRAY"):
+                dtype = np.int32
+            else:
+                dtype = np.int64
+            buf = np.zeros(cap, dtype=dtype)
+            buf[:n] = raw
+            return Column(torch.from_numpy(buf).to(device), nulls)
+
         def gen():
-            missing = [c for c in columns if c not in cached_cols]
+            missing = [c for _n, c, kind in dev
+                       if kind == "gen" and c not in cached_cols]
             if missing:
                 raise NotImplementedError(
                     f"ColumnsNotResident: {missing} (on-the-fly generation "
@@ -311,30 +518,117 @@ class PlanCompiler:
             make = make_factory(cap)
             for split in splits:
                 for pos, n in split_chunks(split):
-                    outs, live = make(pos, n, cached_cols)
-                    yield Batch({name: Column(outs[name], None, dicts[name])
-                                 for name in names}, live)
+                    cols = {}
+                    if dev:
+                        outs, mask = make(pos, n, cached_cols)
+                        for name, colname, kind in dev:
+                            cols[name] = Column(
+                                outs[name], None, dicts.get(name),
+                                (split.connector, table, colname, split.sf)
+                                if kind == "lazy" else None)
+                    else:
+                        mask = torch.arange(cap, device=device) < n
+                    for name, colname in host:
+                        cols[name] = host_column(split, colname, pos, n)
+                    yield Batch(cols, mask)
 
-        src = BatchSource(gen, names, types)
-        src.fused_scan = {
-            "make_factory": make_factory,
-            "splits": splits, "cap": cap, "cached_cols": cached_cols,
-            "dicts": dicts, "table": table, "cid": cid, "sf": sf,
-            "colmap": dict(zip(names, columns)),
-            "types": dict(zip(names, types)),
-            "zone_maps": zone_maps, "pushdown": pushdown,
-        }
+        # the row-level runtime filter: plain integer device columns only
+        # (dictionary codes and lazy row ids are not in key units); a
+        # dropped row is one the annotated join would drop anyway
+        rf_cols = []
+        for e in runtime_filters:
+            for v, ch in node.assignments.items():
+                if ch.name == e["column"]:
+                    rf_cols.append((e["id"], v.name))
+
+        def apply_runtime_filters(batches):
+            rows_in = rows_out = None
+            for b in batches:
+                dyn = dyn_summaries()
+                for fid, vname in (rf_cols if dyn else ()):
+                    summ = dyn.get(fid)
+                    if not (isinstance(summ, dict)
+                            and isinstance(summ.get("min"), int)
+                            and isinstance(summ.get("max"), int)):
+                        continue
+                    c = b.columns.get(vname)
+                    if c is None or c.dictionary is not None \
+                            or c.lazy is not None \
+                            or c.values.is_floating_point() \
+                            or c.values.dtype == torch.bool:
+                        continue
+                    keep = b.mask & (c.values >= summ["min"]) \
+                        & (c.values <= summ["max"])
+                    inn, kept = b.mask.sum(), keep.sum()
+                    rows_in = inn if rows_in is None else rows_in + inn
+                    rows_out = kept if rows_out is None else rows_out + kept
+                    b = b.with_mask(keep)
+                yield b
+            rs = self.ctx.runtime_stats
+            if rows_in is not None and rs is not None:
+                inn, out = int(rows_in), int(rows_out)
+                rs.add("dynamicFilterRowsIn", inn)
+                rs.add("dynamicFilterRowsPruned", inn - out)
+
+        def gen_filtered():
+            yield from apply_runtime_filters(gen())
+
+        src = BatchSource(gen_filtered if rf_cols else gen, names, types)
+        if not host and all(kind == "gen" for _n, _c, kind in dev):
+            src.fused_scan = {
+                "make_factory": make_factory,
+                "splits": splits, "cap": cap, "cached_cols": cached_cols,
+                "dicts": dicts, "table": table, "cid": cid, "sf": sf,
+                "colmap": dict(zip(names, columns)),
+                "types": dict(zip(names, types)),
+                "zone_maps": zone_maps, "pushdown": pushdown,
+                "dyn_summaries": dyn_summaries,
+            }
         return src
+
+    def _compile_ValuesNode(self, node: P.ValuesNode) -> BatchSource:
+        """Literal rows (LIMIT 0 plans as an empty one) as one batch."""
+        from ..common.block import block_from_values
+        from .batch import block_to_column
+        from .lowering import constant_device_value
+        names = [v.name for v in node.outputs]
+        types = [v.type for v in node.outputs]
+        device = self.ctx.device
+
+        def gen():
+            n = len(node.rows)
+            cap = max(n, 1)
+            cols = {}
+            for i, (name, typ) in enumerate(zip(names, types)):
+                vals = [constant_device_value(r[i].value, typ)
+                        for r in node.rows]
+                if isinstance(typ, (VarcharType, CharType)):
+                    vals = [None if v is None else str(v) for v in vals]
+                cols[name] = block_to_column(
+                    typ, block_from_values(typ, vals), cap, device)
+            mask = torch.arange(cap, device=device) < n
+            yield Batch(cols, mask)
+        return BatchSource(gen, names, types)
 
     # -- streaming transforms --------------------------------------------
     def _compile_FilterNode(self, node: P.FilterNode) -> BatchSource:
+        """A streaming filter.  LIKE / substr / starts_with / ends_with /
+        concat over a late-materialized column are hoisted: the first
+        batch shows which columns are lazy, and those calls become host
+        columns read from whole-column caches (_StringHoister)."""
         src = self._compile(node.source)
         low = self.lowering
+        hoister = _StringHoister([node.predicate])
+        cache: dict = {}
 
         def gen():
             for b in src.batches():
-                pb = b.with_params(self._params_for(node.predicate))
-                yield ops.apply_filter(b, low.eval(node.predicate, pb))
+                if "pred" not in cache:
+                    (cache["pred"],), cache["hoisted"] = hoister.resolve(b)
+                pred = cache["pred"]
+                b = _add_hoisted(b, cache["hoisted"])
+                pb = b.with_params(self._params_for(pred))
+                yield ops.apply_filter(b, low.eval(pred, pb))
         return BatchSource(gen, src.names, src.types)
 
     def _compile_ProjectNode(self, node: P.ProjectNode) -> BatchSource:
@@ -343,11 +637,16 @@ class PlanCompiler:
         types = [v.type for v in node.assignments]
         items = list(node.assignments.items())
         low = self.lowering
+        hoister = _StringHoister([e for _v, e in items])
+        cache: dict = {}
 
         def gen():
             for b in src.batches():
+                if "exprs" not in cache:
+                    cache["exprs"], cache["hoisted"] = hoister.resolve(b)
+                b = _add_hoisted(b, cache["hoisted"])
                 cols = {}
-                for v, e in items:
+                for (v, _e), e in zip(items, cache["exprs"]):
                     cols[v.name] = low.eval(
                         e, b.with_params(self._params_for(e)))
                 yield Batch(cols, b.mask)
@@ -377,6 +676,8 @@ class PlanCompiler:
             merged = self._materialize_node(node.source)
             if merged is None:
                 return
+            merged = _encode_unordered_lazy_keys(merged,
+                                                 [k for k, _o in keys])
             yield ops.sort_batch(merged, keys)
         return BatchSource(gen, names, types)
 
@@ -403,8 +704,10 @@ class PlanCompiler:
         n = node.count
 
         def gen():
+            key_names = [k for k, _o in keys]
             buf = None
             for b in src.batches():
+                b = _encode_unordered_lazy_keys(b, key_names)
                 merged = b if buf is None else _concat([buf, b])
                 buf = ops.topn(merged, keys, n)
             if buf is not None:
@@ -453,6 +756,26 @@ class PlanCompiler:
             merged = self._materialize_node(node.source)
             if merged is None:
                 return
+            # late-materialized keys: the window both sorts by and
+            # compares every key, so a lazy column's row ids must sort
+            # like its values AND be distinct per value (min / max
+            # arguments need the sort property only); otherwise encode to
+            # whole-column dictionaries on the host
+            minmax_args = {s.arg for s in specs
+                           if s.name in ("min", "max") and s.arg}
+            key_cols = set(part_names) | {k for k, _ in orderings}
+            encode = []
+            for k in sorted(key_cols | minmax_args):
+                col = merged.columns[k]
+                if col.lazy is None:
+                    continue
+                _, tbl, coln, _sf = col.lazy
+                if not ((tbl, coln) in catalog.ROWID_ORDERED and (
+                        k not in key_cols
+                        or (tbl, coln) in catalog.ROWID_DISTINCT)):
+                    encode.append(k)
+            if encode:
+                merged = _encode_lazy_keys(merged, encode)
             kres = None
             if self.ctx.config.scan_kernel == "xla":
                 self._meter_declined("Disabled")
@@ -482,6 +805,297 @@ class PlanCompiler:
         assigns = {v: v for v in node.source.output_variables}
         assigns[node.marker] = call("eq", BOOLEAN, rn, constant(1, BIGINT))
         return self._compile(P.ProjectNode(node.id + ".mark", win, assigns))
+
+    # -- union / joins / unique ids ---------------------------------------
+    def _compile_UnionNode(self, node: P.UnionNode) -> BatchSource:
+        """UNION ALL: the source streams concatenated.  Numeric columns
+        stream straight through; varchar columns are re-encoded onto one
+        merged dictionary (lazy columns generated), which makes the union
+        a materialization point only when strings are involved."""
+        srcs = [self._compile(s) for s in node.inputs]
+        out_names = [v.name for v in node.outputs]
+        out_types = [v.type for v in node.outputs]
+        string_cols = [n for n, t in zip(out_names, out_types)
+                       if isinstance(t, (VarcharType, CharType))]
+
+        # the planner projects every source onto the output variables
+        def gen():
+            if not string_cols:
+                for s in srcs:
+                    yield from s.batches()
+                return
+            all_b = [b for s in srcs for b in s.batches()]
+            if not all_b:
+                return
+            for n in string_cols:
+                parts = _recode_strings([b.columns[n] for b in all_b])
+                all_b = [b.with_columns({n: c})
+                         for b, c in zip(all_b, parts)]
+            yield _concat(all_b)
+        return BatchSource(gen, out_names, out_types)
+
+    def _compile_JoinNode(self, node: P.JoinNode) -> BatchSource:
+        """INNER / LEFT / FULL equi-join.  Over a fusible probe chain the
+        torch fused chain streams it (fused_stream).  Otherwise the build
+        side is materialized (cached structurally) and the probe batches
+        stream through probe_join_direct (a dense unique integer key: no
+        host sync) or probe_join, whose output overflow halves the probe
+        batch and retries (one host sync per window of in-flight
+        batches).  An INNER join with dynamic filters first narrows the
+        probe stream to the build keys' [min, max]."""
+        if node.join_type not in (P.INNER, P.LEFT, P.FULL):
+            raise NotImplementedError(f"join type {node.join_type}")
+        if not node.criteria:
+            raise NotImplementedError("a join without equi-join criteria "
+                                      "(cross join)")
+        full = node.join_type == P.FULL
+        probe_src_node, build_src_node = node.left, node.right
+        probe_keys = [l.name for l, _r in node.criteria]
+        build_keys = [r.name for _l, r in node.criteria]
+        out_names = [v.name for v in node.outputs]
+        out_types = [v.type for v in node.outputs]
+        from .fused import (_drop_null_keys, _join_build_cols, fused_stream,
+                            try_direct_table)
+        from .lowering import torch_dtype
+        build_names = [v.name for v in build_src_node.output_variables]
+        # join outputs plus ON-filter-referenced build columns
+        build_out = _join_build_cols(node, out_names, set(build_names))
+        probe_names = [n for n in out_names if n not in build_out]
+        build_types = {v.name: v.type
+                       for v in build_src_node.output_variables}
+        probe_types = {v.name: v.type for v in node.left.output_variables}
+        cfg = self.ctx.config
+        low = self.lowering
+        jtype = "LEFT" if full else node.join_type
+        filter_fn = (None if node.filter is None
+                     else (lambda pairs: low.eval(node.filter, pairs)))
+        device = self.ctx.device
+
+        def null_column(t, n):
+            if isinstance(t, (VarcharType, CharType)):
+                return Column(torch.zeros(n, dtype=torch.int32,
+                                          device=device),
+                              torch.ones(n, dtype=torch.bool, device=device),
+                              ("",))
+            return Column(torch.zeros(n, dtype=torch_dtype(t),
+                                      device=device),
+                          torch.ones(n, dtype=torch.bool, device=device))
+
+        def null_extended(batch):
+            """LEFT join rows against an empty build side."""
+            cols = dict(batch.columns)
+            for name in build_out:
+                cols[name] = null_column(build_types[name], batch.capacity)
+            return Batch(cols, batch.mask).select(out_names)
+
+        def unmatched_build(build_batch, matched):
+            """FULL: build rows no probe row matched, probe side NULL."""
+            cap = build_batch.capacity
+            cols = {name: build_batch.columns[name] for name in build_out}
+            for name in probe_names:
+                cols[name] = null_column(probe_types[name], cap)
+            return Batch(cols, build_batch.mask & ~matched) \
+                .select(out_names)
+
+        def shrink(joined, live: int):
+            """Compact a joined batch whose output padding dominates."""
+            bucket = _bucket_for(live)
+            if bucket is None or bucket * 4 > joined.capacity:
+                return joined
+            return ops.compact(joined, bucket)
+
+        def make_dynamic_filter(build_batch):
+            """INNER only (a LEFT join's probe is preserved): the probe
+            rows outside the integer build keys' [min, max]."""
+            if node.join_type != P.INNER or not node.dynamic_filters \
+                    or not cfg.dynamic_filtering:
+                return None
+            numeric = []
+            for ln, rn in zip(probe_keys, build_keys):
+                c = build_batch.columns[rn]
+                if c.dictionary is None and c.lazy is None \
+                        and not c.values.is_floating_point() \
+                        and c.values.dtype != torch.bool:
+                    numeric.append((ln, c))
+            if not numeric:
+                return None
+            bounds = []
+            for ln, c in numeric:
+                m = build_batch.mask if c.nulls is None \
+                    else build_batch.mask & ~c.nulls
+                v = c.values.to(torch.int64)
+                bounds.append((ln, torch.where(m, v, torch.full_like(
+                    v, ops.INT64_MAX)).min(), torch.where(
+                        m, v, torch.full_like(v, ops.INT64_MIN)).max()))
+
+            def apply(batch):
+                keep = batch.mask
+                for ln, lo, hi in bounds:
+                    v = batch.columns[ln].values
+                    keep = keep & (v >= lo) & (v <= hi)
+                return batch.with_mask(keep)
+            return apply
+
+        def probe_stream_direct(dt, batches, build_batch):
+            matched = (torch.zeros(build_batch.capacity, dtype=torch.bool,
+                                   device=device) if full else None)
+            for b in batches:
+                out, matched = ops.probe_join_direct(
+                    b, dt, probe_keys[0], build_out, join_type=jtype,
+                    filter_fn=filter_fn, matched=matched)
+                yield out.select(out_names)
+            if full:
+                yield unmatched_build(build_batch, matched)
+
+        def probe_stream(table, batches, build_batch):
+            """Windowed drain: up to K probe batches in flight, then one
+            host sync for all their (overflow, live) scalars; a piece
+            whose pairs overflow join_out_capacity is halved and
+            retried."""
+            matched = (torch.zeros(build_batch.capacity, dtype=torch.bool,
+                                   device=device) if full else None)
+            work: deque = deque()
+            inflight: deque = deque()
+            K = max(2, min(8, (1 << 22) // max(1, cfg.join_out_capacity)))
+            batches = iter(batches)
+            exhausted = False
+            while True:
+                while len(inflight) < K:
+                    if work:
+                        piece = work.popleft()
+                    elif exhausted:
+                        break
+                    else:
+                        piece = next(batches, None)
+                        if piece is None:
+                            exhausted = True
+                            break
+                    joined, overflow, total, matched = ops.probe_join(
+                        piece, table, probe_keys, build_out,
+                        cfg.join_out_capacity, join_type=jtype,
+                        filter_fn=filter_fn, matched=matched)
+                    inflight.append((piece, joined, overflow, total))
+                if not inflight:
+                    break
+                metas = torch.stack([torch.stack([ov.to(torch.int64), tot])
+                                     for _p, _j, ov, tot in inflight]
+                                    ).tolist()
+                window = list(inflight)
+                inflight.clear()
+                for (piece, joined, _o, _t), (ovv, livev) in zip(window,
+                                                                 metas):
+                    if ovv:
+                        # recursive halving: a high-fanout probe splits
+                        # until each piece fits
+                        if piece.capacity <= 1:
+                            raise RuntimeError(
+                                "join output overflow on a single probe "
+                                "row: raise join_out_capacity")
+                        work.extendleft(reversed(_split_batch(piece)))
+                        continue
+                    yield shrink(joined, livev).select(out_names)
+            if full:
+                yield unmatched_build(build_batch, matched)
+
+        def gen():
+            fs = fused_stream(self, node)
+            if fs is not None:
+                for b in fs:
+                    yield b.select(out_names)
+                return
+            build_batch = self._materialize_node(build_src_node, cache=True)
+            probe = self._compile(probe_src_node)
+            if build_batch is None:
+                if node.join_type == P.INNER:
+                    return
+                for batch in probe.batches():
+                    yield null_extended(batch)
+                return
+            dyn = make_dynamic_filter(build_batch)
+            batches = probe.batches()
+            if dyn is not None:
+                batches = (dyn(b) for b in batches)
+            dropped = _drop_null_keys(build_batch, tuple(build_keys))
+            dt = (try_direct_table(dropped, build_keys[0], allow_dup=False)
+                  if len(build_keys) == 1 else None)
+            if dt is not None:
+                yield from probe_stream_direct(dt, batches, build_batch)
+                return
+            table = ops.build_table(dropped, list(build_keys))
+            yield from probe_stream(table, batches, build_batch)
+        return BatchSource(gen, out_names, out_types)
+
+    def _compile_SemiJoinNode(self, node: P.SemiJoinNode) -> BatchSource:
+        """The three-valued IN marker over a materialized build (direct
+        table or hash-sorted), or the fused chain's semi step."""
+        src = self._compile(node.source)
+        names = src.names + [node.semi_join_output.name]
+        types = src.types + [BOOLEAN]
+        key = node.source_join_variable.name
+        fkey = node.filtering_source_join_variable.name
+        mark = node.semi_join_output.name
+        from .fused import (_build_has_null_key, _drop_null_keys,
+                            fused_stream, try_direct_table)
+
+        def gen():
+            fs = fused_stream(self, node)
+            if fs is not None:
+                yield from (b.select(names) for b in fs)
+                return
+            build_batch = self._materialize_node(node.filtering_source,
+                                                 cache=True)
+            if build_batch is None:
+                for b in src.batches():
+                    yield b.with_columns({mark: Column(torch.zeros(
+                        b.capacity, dtype=torch.bool, device=b.device))})
+                return
+            has_null = _build_has_null_key(build_batch, (fkey,))
+            dropped = _drop_null_keys(build_batch, (fkey,))
+            dt = try_direct_table(dropped, fkey, allow_dup=True)
+            if dt is not None:
+                for b in src.batches():
+                    yield b.with_columns({mark: ops.semi_join_mark_direct(
+                        b, dt, key, build_has_null=has_null)})
+                return
+            table = ops.build_table(dropped, [fkey])
+            for b in src.batches():
+                yield b.with_columns({mark: ops.semi_join_mark(
+                    b, table, [key], build_has_null=has_null)})
+        return BatchSource(gen, names, types)
+
+    def _compile_AssignUniqueIdNode(self, node: P.AssignUniqueIdNode
+                                    ) -> BatchSource:
+        """Row ids unique within the query: the task index in the high
+        bits, a running per-task offset below.  Deterministic for a fixed
+        split set, so a deep-copied subtree replays identical ids."""
+        src = self._compile(node.source)
+        names = src.names + [node.id_variable.name]
+        types = src.types + [node.id_variable.type]
+        base = self.ctx.task_index << 40
+        id_name = node.id_variable.name
+
+        def gen():
+            offset = 0
+            for b in src.batches():
+                ids = torch.arange(b.capacity, dtype=torch.int64,
+                                   device=b.device) + (base + offset)
+                offset += b.capacity
+                yield b.with_columns({id_name: Column(ids)})
+        return BatchSource(gen, names, types)
+
+    def _compile_EnforceSingleRowNode(self, node) -> BatchSource:
+        """A scalar subquery's source: more than one row raises."""
+        src = self._compile(node.source)
+
+        def gen():
+            seen = 0
+            for b in src.batches():
+                seen += int(b.mask.sum())
+                if seen > 1:
+                    raise RuntimeError(
+                        "scalar subquery produced more than one row")
+                yield b
+        return BatchSource(gen, src.names, src.types)
 
     # -- aggregation ------------------------------------------------------
     def _compile_AggregationNode(self, node: P.AggregationNode) -> BatchSource:
@@ -560,19 +1174,52 @@ class PlanCompiler:
                     specs, num_slots, salt, key_names, _agg_exprs2(b))
             return update
 
-        def hash_finalize(state, key_dicts):
+        def hash_finalize(state, key_dicts, key_lazy):
             if not key_names and not bool(state["__occupied"].any()):
                 # a global aggregation over empty input: one row
                 state["__occupied"][0] = True
-            return ops.agg_finalize(state, specs, key_names, key_dicts)
+            return ops.agg_finalize(state, specs, key_names, key_dicts,
+                                    key_lazy)
+
+        hll_outs = [s.output for s in specs if s.name in ops.HLL_AGGS]
+
+        def lazy_keys(batch):
+            """(key_lazy, encode_keys) of the first batch: a lazy key
+            whose row id is its value's identity (ROWID_DISTINCT) keeps
+            its tag; any other lazy key, and a lazy HLL input (the sketch
+            hashes the device values), is whole-column encoded."""
+            key_lazy, encode = {}, []
+            for k in key_names:
+                col = batch.columns[k]
+                if col.lazy is not None:
+                    _, tbl, coln, _sf = col.lazy
+                    if (tbl, coln) in catalog.ROWID_DISTINCT:
+                        key_lazy[k] = col.lazy
+                    else:
+                        encode.append(k)
+            for out in hll_outs:
+                expr = input_exprs[out]
+                if isinstance(expr, VariableReferenceExpression):
+                    col = batch.columns.get(expr.name)
+                    if col is not None and col.lazy is not None \
+                            and (col.lazy[1], col.lazy[2]) \
+                            not in catalog.ROWID_DISTINCT \
+                            and expr.name not in encode:
+                        encode.append(expr.name)
+            return key_lazy, encode
 
         # -- the streaming aggregation -----------------------------------
         def run_once(num_slots: int, salt: int, allow_direct: bool = True):
             batches = self._compile(src_node).batches()
             state, update, direct = None, None, None
             key_dicts: Dict[str, Tuple[str, ...]] = {}
+            key_lazy: Dict[str, Tuple] = {}
+            encode_keys: List[str] = []
             for batch in batches:
                 if state is None:
+                    key_lazy, encode_keys = lazy_keys(batch)
+                    if encode_keys:
+                        batch = _encode_lazy_keys(batch, encode_keys)
                     key_cols = [batch.columns[k] for k in key_names]
                     key_dicts = {k: c.dictionary
                                  for k, c in zip(key_names, key_cols)
@@ -594,6 +1241,8 @@ class PlanCompiler:
                             num_slots, specs, key_names,
                             [c.values.dtype for c in key_cols], device)
                         update = hash_update(num_slots, salt)
+                elif encode_keys:
+                    batch = _encode_lazy_keys(batch, encode_keys)
                 if direct is not None and any(
                         batch.columns[k].nulls is not None
                         for k in key_names):
@@ -607,15 +1256,16 @@ class PlanCompiler:
             if state is None:
                 state = ops.agg_init(num_slots, specs, key_names,
                                      [torch.int64] * len(key_names), device)
-            return state, key_dicts, direct
+            return state, key_dicts, key_lazy, direct
 
         def run_retrying():
             num_slots, salt = initial_slots, 0
             for _attempt in range(cfg.max_agg_retries):
-                state, key_dicts, direct = run_once(num_slots, salt)
+                state, key_dicts, key_lazy, direct = run_once(num_slots,
+                                                              salt)
                 # one host sync per pass
                 if direct is not None or not bool(state["__collision"]):
-                    return state, key_dicts, direct
+                    return state, key_dicts, key_lazy, direct
                 num_slots *= 2
                 salt += 1
             raise RuntimeError("aggregation collision retries exhausted")
@@ -642,7 +1292,7 @@ class PlanCompiler:
                     over_batch = b
                     break
             if over_batch is None:
-                merged = _concat(collected) if collected else None
+                merged = _compact_concat(collected) if collected else None
                 pool.free(reserved)
                 if merged is None:
                     # a zero-batch source: an all-masked batch, so a
@@ -747,6 +1397,14 @@ class PlanCompiler:
             if any(c is None for c in key_cols):
                 _fusion_declined("KeyMissing")
                 return None
+            key_lazy: Dict[str, Tuple] = {}
+            for k, c in zip(key_names, key_cols):
+                if c.lazy is not None:
+                    if (c.lazy[1], c.lazy[2]) not in catalog.ROWID_DISTINCT:
+                        # needs a host dictionary encoding
+                        _fusion_declined("KeyEncoding")
+                        return None
+                    key_lazy[k] = c.lazy
             key_dicts = {k: c.dictionary for k, c in zip(key_names, key_cols)
                          if c.dictionary is not None}
             key_dtypes = tuple(c.values.dtype for c in key_cols)
@@ -806,7 +1464,7 @@ class PlanCompiler:
                 kres = try_grouped_scan_kernel(
                     chain, self.ctx.params, specs=specs,
                     key_names=key_names, key_dtypes=key_dtypes,
-                    key_dicts=key_dicts,
+                    key_dicts=key_dicts, key_lazy=key_lazy,
                     span_info=_direct_mode_info(
                         key_names, key_cols, gmax=KERNEL_SPAN_MAX_GROUPS),
                     est_slots=initial_slots, agg_inputs=input_exprs,
@@ -840,7 +1498,8 @@ class PlanCompiler:
                         stride //= dom
                         key_arrays[k] = ((slot // stride) % dom).to(dt)
                     return _maybe_compact(ops.agg_span_finalize(
-                        state, specs, key_names, key_arrays, kdicts))
+                        state, specs, key_names, key_arrays, kdicts,
+                        key_lazy=key_lazy))
                 finally:
                     pool.free(nbytes)
 
@@ -875,13 +1534,16 @@ class PlanCompiler:
                     ranges = list(zip(los.tolist(), his.tolist()))
                     fused_cache[span_key] = ranges
                 # anchor order: "key"-named columns widest span first (the
-                # finest key is the likeliest group identity), then the
-                # rest; the first anchor that verifies is cached
+                # finest key is the likeliest group identity), then lazy
+                # row ids (row identity), then the rest; the first anchor
+                # that verifies is cached
                 viable = []
                 for ci, (lo, hi) in zip(candidates, ranges):
                     span = hi - lo + 1
                     if hi >= lo and span <= ops.SPAN_AGG_MAX_GROUPS:
-                        rank = 0 if "key" in key_names[ci].lower() else 2
+                        rank = (0 if "key" in key_names[ci].lower()
+                                else 1 if key_cols[ci].lazy is not None
+                                else 2)
                         viable.append((rank, -span, ci, span, lo))
                 viable.sort()
                 anchor_key = ("span_anchor", cand_names, expands, pfp)
@@ -932,7 +1594,7 @@ class PlanCompiler:
                             key_nulls[k] = state[f"__dep_{k}$nulls"] > 0
                         return _maybe_compact(ops.agg_span_finalize(
                             state, specs, key_names, key_arrays, key_dicts,
-                            key_nulls))
+                            key_nulls, key_lazy))
                     finally:
                         pool.free(G * 24 * nacc)
                 else:
@@ -995,8 +1657,8 @@ class PlanCompiler:
                         "Hash")
                     # one host sync per pass
                     if not bool(state["__collision"]):
-                        return _maybe_compact(hash_finalize(state,
-                                                            key_dicts))
+                        return _maybe_compact(hash_finalize(
+                            state, key_dicts, key_lazy))
                 finally:
                     pool.free(est)
                 num_slots *= 2
@@ -1024,6 +1686,9 @@ class PlanCompiler:
                         "query into two aggregations")
                 merged, stream = drain_sort_input()
                 if stream is None:
+                    encode = lazy_keys(merged)[1]
+                    if encode:
+                        merged = _encode_lazy_keys(merged, encode)
                     yield _maybe_compact(sortagg(merged))
                     return
                 stream.close()
@@ -1036,13 +1701,13 @@ class PlanCompiler:
                     f"aggregation table over the memory budget "
                     f"{pool.budget} bytes: spill is not ported")
             try:
-                state, key_dicts, direct = run_retrying()
+                state, key_dicts, key_lazy, direct = run_retrying()
                 if direct is not None:
                     yield ops.agg_direct_finalize(
                         state, specs, key_names, direct[0], direct[1],
                         key_dicts, force_row=not key_names)
                     return
-                yield hash_finalize(state, key_dicts)
+                yield hash_finalize(state, key_dicts, key_lazy)
             finally:
                 if key_names:
                     pool.free(est_state_bytes)
@@ -1128,7 +1793,7 @@ def _direct_mode_info(key_names, key_cols,
     ineligible, else (doms, G, strides, key_dtypes, key_dicts)."""
     doms = []
     for c in key_cols:
-        if c.nulls is not None:
+        if c.nulls is not None or c.lazy is not None:
             return None
         if c.dictionary is not None:
             doms.append(len(c.dictionary))
@@ -1151,3 +1816,303 @@ def _direct_mode_info(key_names, key_cols,
                  if c.dictionary is not None}
     return (doms, G, tuple(strides),
             tuple(c.values.dtype for c in key_cols), key_dicts)
+
+
+# ---------------------------------------------------------------------------
+# host hoisting of string functions over late-materialized columns
+#
+# LIKE / substr / starts_with / ends_with / concat over an open-domain
+# column (catalog.OPEN_DOMAIN) cannot run on the device: the column holds
+# row ids, the strings exist only in the generator.  The compiler rewrites
+# such calls into synthetic variables, computed per batch as a gather of a
+# whole-column host result (generated once per column and call, in bounded
+# FIFO caches).
+# ---------------------------------------------------------------------------
+
+# batch-independent substr dictionaries, keyed by (cid, table, column, sf,
+# start, length)
+_SUBSTR_DICT_CACHE: Dict[Tuple, Tuple[str, ...]] = {}
+# whole-column substr codes / LIKE masks / transform codes / predicate
+# values, indexed by row id (entries are O(table rows): FIFO-bounded)
+_SUBSTR_CODES_CACHE: Dict[Tuple, np.ndarray] = {}
+_LIKE_MASK_CACHE: Dict[Tuple, np.ndarray] = {}
+_XFORM_DICT_CACHE: Dict[Tuple, Tuple[str, ...]] = {}
+_XFORM_CODES_CACHE: Dict[Tuple, np.ndarray] = {}
+_PRED_VALUE_CACHE: Dict[Tuple, np.ndarray] = {}
+# whole-column codes on a device (the sort keys' gathers)
+_DEV_CODES_CACHE: Dict[Tuple, torch.Tensor] = {}
+_COLUMN_CACHE_MAX_ENTRIES = 64
+# rows generated per host step of a whole-column pass
+_HOST_CHUNK = 1 << 18
+
+
+def _cache_put(cache: Dict, key, value) -> None:
+    if len(cache) >= _COLUMN_CACHE_MAX_ENTRIES:
+        cache.pop(next(iter(cache)))
+    cache[key] = value
+
+
+def _column_chunks(cid: str, table: str, column: str, sf: float):
+    """(pos, strings) over every row of the column, _HOST_CHUNK at a
+    time."""
+    n = catalog.table_row_count(table, sf, cid)
+    for pos in range(0, n, _HOST_CHUNK):
+        cnt = min(_HOST_CHUNK, n - pos)
+        yield pos, catalog.generate_values_at(
+            table, column, sf, np.arange(pos, pos + cnt, dtype=np.int64),
+            cid)
+
+
+def _py_substr(s: str, start: int, length) -> str:
+    i = start - 1 if start > 0 else len(s) + start
+    return s[i:i + length] if length is not None else s[i:]
+
+
+def _canonical_substr_dict(cid: str, table: str, column: str, sf: float,
+                           start: int, length) -> Tuple[str, ...]:
+    """Whole-column (batch-independent) sorted dictionary of substr over
+    an open-domain column: codes are stable across batches and rank
+    ordered for ORDER BY / GROUP BY consumers."""
+    key = (cid, table, column, sf, start, length)
+    if key not in _SUBSTR_DICT_CACHE:
+        uniq = set()
+        for _pos, strings in _column_chunks(cid, table, column, sf):
+            uniq.update(_py_substr(s, start, length) for s in strings)
+        _SUBSTR_DICT_CACHE[key] = tuple(sorted(uniq))
+    return _SUBSTR_DICT_CACHE[key]
+
+
+def _column_substr_codes(cid: str, table: str, column: str, sf: float,
+                         start: int, length) -> np.ndarray:
+    """int32 substr dictionary codes for every row of the column."""
+    key = (cid, table, column, sf, start, length)
+    codes_all = _SUBSTR_CODES_CACHE.get(key)
+    if codes_all is None:
+        cdict = _canonical_substr_dict(cid, table, column, sf, start,
+                                       length)
+        index = {s: i for i, s in enumerate(cdict)}
+        codes_all = np.empty(catalog.table_row_count(table, sf, cid),
+                             dtype=np.int32)
+        for pos, strings in _column_chunks(cid, table, column, sf):
+            codes_all[pos:pos + len(strings)] = np.fromiter(
+                (index[_py_substr(s, start, length)] for s in strings),
+                dtype=np.int32, count=len(strings))
+        _cache_put(_SUBSTR_CODES_CACHE, key, codes_all)
+    return codes_all
+
+
+def _column_like_mask(cid: str, table: str, column: str, sf: float,
+                      pattern: str) -> np.ndarray:
+    """LIKE results for every row of the column."""
+    from .lowering import like_matcher
+    key = (cid, table, column, sf, pattern)
+    mask_all = _LIKE_MASK_CACHE.get(key)
+    if mask_all is None:
+        match = like_matcher(pattern)
+        mask_all = np.empty(catalog.table_row_count(table, sf, cid),
+                            dtype=bool)
+        for pos, strings in _column_chunks(cid, table, column, sf):
+            mask_all[pos:pos + len(strings)] = np.fromiter(
+                (match(s) for s in strings), dtype=bool, count=len(strings))
+        _cache_put(_LIKE_MASK_CACHE, key, mask_all)
+    return mask_all
+
+
+def _column_xform_codes(cid, table, column, sf, tag, fn):
+    """(sorted dictionary, int32 codes of every row) of a per-string
+    transform of the column."""
+    key = (cid, table, column, sf, tag)
+    cdict = _XFORM_DICT_CACHE.get(key)
+    codes_all = _XFORM_CODES_CACHE.get(key)
+    if cdict is None or codes_all is None:
+        mapped = np.empty(catalog.table_row_count(table, sf, cid),
+                          dtype=object)
+        for pos, strings in _column_chunks(cid, table, column, sf):
+            mapped[pos:pos + len(strings)] = [fn(x) for x in strings]
+        cdict = tuple(sorted(set(mapped.tolist())))
+        index = {x: i for i, x in enumerate(cdict)}
+        codes_all = np.fromiter((index[x] for x in mapped), dtype=np.int32,
+                                count=len(mapped))
+        _cache_put(_XFORM_DICT_CACHE, key, cdict)
+        _cache_put(_XFORM_CODES_CACHE, key, codes_all)
+    return cdict, codes_all
+
+
+def _column_pred_values(cid, table, column, sf, tag, fn, dtype):
+    """Per-row results of a value-returning string function over the
+    whole column."""
+    key = (cid, table, column, sf, tag)
+    out = _PRED_VALUE_CACHE.get(key)
+    if out is None:
+        out = np.empty(catalog.table_row_count(table, sf, cid), dtype=dtype)
+        for pos, strings in _column_chunks(cid, table, column, sf):
+            out[pos:pos + len(strings)] = np.fromiter(
+                (fn(x) for x in strings), dtype=dtype, count=len(strings))
+        _cache_put(_PRED_VALUE_CACHE, key, out)
+    return out
+
+
+# value-returning string functions hoisted over lazy columns: column
+# first, constant extras, never-NULL results
+_HOIST_PRED = ("starts_with", "ends_with")
+
+
+def _gather_rows(table_all: np.ndarray, col: Column) -> torch.Tensor:
+    """table_all[row id] for every row of a lazy column, on its device
+    (padding rows hold id 0; ids are clamped for the gather)."""
+    ids = np.clip(col.values.cpu().numpy(), 0, len(table_all) - 1)
+    return torch.from_numpy(np.ascontiguousarray(table_all[ids])).to(
+        col.values.device)
+
+
+def _host_string_column(call_expr: CallExpression, batch: Batch) -> Column:
+    col = batch.columns[_hoistable_var(call_expr).name]
+    cid, table, column, sf = col.lazy
+    name = canonical_name(call_expr.display_name)
+    if name in _HOIST_PRED:
+        from .lowering import STRING_TO_VALUE
+        extra = tuple(a.value for a in call_expr.arguments[1:])
+        kern, dtype = STRING_TO_VALUE[name]
+        vals_all = _column_pred_values(
+            cid, table, column, sf, (name,) + extra,
+            lambda x, _k=kern, _e=extra: _k(x, *_e), dtype)
+        return Column(_gather_rows(vals_all, col), col.nulls)
+    if name == "concat":
+        parts = tuple(None if isinstance(a, VariableReferenceExpression)
+                      else str(a.value) for a in call_expr.arguments)
+        cdict, codes_all = _column_xform_codes(
+            cid, table, column, sf, ("concat", parts),
+            lambda x, _p=parts: "".join(x if p is None else p for p in _p))
+        return Column(_gather_rows(codes_all, col), col.nulls, cdict)
+    if name == "like":
+        pattern = str(call_expr.arguments[1].value)
+        mask_all = _column_like_mask(cid, table, column, sf, pattern)
+        return Column(_gather_rows(mask_all, col), col.nulls)
+    start = int(call_expr.arguments[1].value)
+    length = (int(call_expr.arguments[2].value)
+              if len(call_expr.arguments) > 2 else None)
+    cdict = _canonical_substr_dict(cid, table, column, sf, start, length)
+    codes_all = _column_substr_codes(cid, table, column, sf, start, length)
+    return Column(_gather_rows(codes_all, col), col.nulls, cdict)
+
+
+def _add_hoisted(batch: Batch, hoisted: Dict[str, CallExpression]) -> Batch:
+    if not hoisted:
+        return batch
+    return batch.with_columns({name: _host_string_column(c, batch)
+                               for name, c in hoisted.items()})
+
+
+class _StringHoister:
+    """Finds the hoistable string calls rooted at a variable, and -- once
+    the first batch shows which of those variables are late-materialized
+    -- rewrites them into host-computed columns."""
+
+    def __init__(self, exprs):
+        self.exprs = list(exprs)
+        self.candidates: Dict[str, CallExpression] = {}
+        for e in self.exprs:
+            _find_string_calls(e, self.candidates)
+
+    def resolve(self, first_batch: Batch):
+        active: Dict[str, Tuple] = {}
+        for key, c in self.candidates.items():
+            col = first_batch.columns.get(_hoistable_var(c).name)
+            if col is not None and col.lazy is not None:
+                var = VariableReferenceExpression(
+                    f"__hoist_{len(active)}_{abs(hash(key)) % 10**8}",
+                    c.type)
+                active[key] = (var, c)
+        if not active:
+            return self.exprs, {}
+        table = {k: v for k, (v, _) in active.items()}
+        rewritten = [_rewrite_expr(e, table) for e in self.exprs]
+        return rewritten, {v.name: c for v, c in active.values()}
+
+
+def _hoist_key(e: RowExpression) -> str:
+    return json.dumps(e.to_dict(), sort_keys=True, default=str)
+
+
+def _hoistable_var(e: CallExpression):
+    """The single column argument of a host-hoistable string call, or
+    None: like / substr / starts_with / ends_with take the column first
+    and constants after; concat takes one column among non-NULL constant
+    parts."""
+    name = canonical_name(e.display_name)
+    if name in ("like", "substr") + _HOIST_PRED \
+            and e.arguments and isinstance(
+                e.arguments[0], VariableReferenceExpression) \
+            and all(isinstance(a, ConstantExpression)
+                    for a in e.arguments[1:]):
+        return e.arguments[0]
+    if name == "concat":
+        var_args = [a for a in e.arguments
+                    if isinstance(a, VariableReferenceExpression)]
+        # a NULL constant part makes every result NULL: not a transform
+        if len(var_args) == 1 and all(
+                isinstance(a, ConstantExpression) and a.value is not None
+                for a in e.arguments
+                if not isinstance(a, VariableReferenceExpression)):
+            return var_args[0]
+    return None
+
+
+def _find_string_calls(e: RowExpression, out: Dict[str, CallExpression]):
+    if isinstance(e, CallExpression) and _hoistable_var(e) is not None:
+        out[_hoist_key(e)] = e
+        return
+    for a in getattr(e, "arguments", None) or []:
+        _find_string_calls(a, out)
+
+
+def _rewrite_expr(e: RowExpression, table: Dict[str, RowExpression]):
+    if isinstance(e, CallExpression):
+        k = _hoist_key(e)
+        if k in table:
+            return table[k]
+        return CallExpression(e.display_name, e.type,
+                              [_rewrite_expr(a, table) for a in e.arguments])
+    if isinstance(e, SpecialFormExpression):
+        return SpecialFormExpression(
+            e.form, e.type, [_rewrite_expr(a, table) for a in e.arguments])
+    return e
+
+
+def _encode_unordered_lazy_keys(batch: Batch, keys: List[str]) -> Batch:
+    """Whole-column dictionary-encode every sort-key column whose lazy row
+    ids do not sort like its values (catalog.ROWID_ORDERED).  The codes
+    table is copied to the device once; each batch is a device gather, so
+    a streamed consumer (TopN) adds no host sync."""
+    new_cols = {}
+    for k in keys:
+        col = batch.columns.get(k)
+        if col is None or col.lazy is None:
+            continue
+        cid, tbl, coln, sf = col.lazy
+        if (tbl, coln) in catalog.ROWID_ORDERED:
+            continue
+        cdict = _canonical_substr_dict(cid, tbl, coln, sf, 1, None)
+        ck = (cid, tbl, coln, sf, str(col.values.device))
+        codes_dev = _DEV_CODES_CACHE.get(ck)
+        if codes_dev is None:
+            codes_dev = torch.from_numpy(_column_substr_codes(
+                cid, tbl, coln, sf, 1, None)).to(col.values.device)
+            _cache_put(_DEV_CODES_CACHE, ck, codes_dev)
+        ids = col.values.to(torch.int64).clamp(0, codes_dev.shape[0] - 1)
+        new_cols[k] = Column(codes_dev[ids], col.nulls, cdict)
+    return batch.with_columns(new_cols) if new_cols else batch
+
+
+def _encode_lazy_keys(batch: Batch, keys: List[str]) -> Batch:
+    """Late-materialized key columns replaced by whole-column dictionary
+    codes (GROUP BY on a small-pool open-domain column, where row ids
+    would split value groups)."""
+    new_cols = {}
+    for k in keys:
+        col = batch.columns[k]
+        cid, table, column, sf = col.lazy
+        cdict = _canonical_substr_dict(cid, table, column, sf, 1, None)
+        codes_all = _column_substr_codes(cid, table, column, sf, 1, None)
+        new_cols[k] = Column(_gather_rows(codes_all, col), col.nulls, cdict)
+    return batch.with_columns(new_cols)

@@ -14,7 +14,6 @@ from presto_tpu.exec.runner import LocalQueryRunner as JRunner
 from presto_tpu.exec.runner import _assert_rows_equal
 from presto_tpu.serving import PlanCache as JPlanCache
 from presto_tpu_torch.benchmarks import join_queries as JQ
-from presto_tpu_torch.exec import fused as tfused
 from presto_tpu_torch.exec import memory as tmem
 from presto_tpu_torch.exec.kernels import join as tjoin
 from presto_tpu_torch.exec.kernels import scan_kernel as sk
@@ -156,12 +155,20 @@ def test_join_parity_fuzz(ref, port, seed):
 
 
 def test_uid_step_is_not_ported():
-    node = TP.AssignUniqueIdNode("uid", None, None)
-    with pytest.raises(NotImplementedError, match="uid step"):
-        tfused.assemble_chain(None, node)
+    """The torch fused chain carries AssignUniqueId as its uid step; the
+    scan kernels do not run it, so a chain holding one declines
+    PlanShape."""
+    class _Chain:
+        steps = [("filter", None), ("uid", TP.AssignUniqueIdNode(
+            "uid", None, None))]
+    seen = []
+    assert sk.chain_eligible(_Chain, seen.append) is None
+    assert seen == ["PlanShape"]
 
 
-def test_semi_join_outside_an_aggregation_raises(port):
-    with pytest.raises(NotImplementedError, match="SemiJoinNode"):
-        port.execute("select l_orderkey from lineitem where l_suppkey in "
-                     "(select s_suppkey from supplier where s_nationkey = 7)")
+def test_semi_join_outside_an_aggregation_raises(ref, port):
+    """The streaming SemiJoin is ported: a semi join whose rows are
+    returned streams the fused chain and equals the reference."""
+    sql = ("select l_orderkey from lineitem where l_suppkey in "
+           "(select s_suppkey from supplier where s_nationkey = 7)")
+    assert_rows_close(port.execute(sql), ref.execute(sql), ordered=False)

@@ -179,3 +179,41 @@ def test_unsupported_expression_raises(builder):
     expr = builder(TE, TT, TE.variable("i", TT.BIGINT))
     with pytest.raises(NotImplementedError):
         compile_expr(expr)
+
+
+# -- a divergence by design: decimal -> double is the exact quotient -------
+# The reference's source divides exactly (`v.astype(float64) /
+# _pow10(scale)`, presto_tpu/exec/lowering.py:130, :838), but XLA's
+# simplifier turns some of its jitted divides into a multiply by the
+# reciprocal (7442.900000000001 for 744290 cents) and leaves others exact,
+# so the reference disagrees with itself; the port's quotient is what that
+# source says, held here to numpy.
+DOUBLE_ROWS = ("select l_extendedprice, l_quantity, cast(l_extendedprice "
+               "as double) from lineitem where l_orderkey < 100")
+DOUBLE_KEYS = ("select count(*) from (select cast(l_extendedprice as double)"
+               " / l_quantity k from lineitem where l_orderkey < 100 "
+               "group by 1)")
+
+
+@pytest.fixture(scope="module")
+def port_runner():
+    from presto_tpu_torch.exec.runner import LocalQueryRunner
+    return LocalQueryRunner("sf0.01", device="cpu")
+
+
+def _unscaled(d) -> int:
+    return int(d.scaleb(2))
+
+
+def test_decimal_to_double_is_the_exact_quotient(port_runner):
+    rows = port_runner.execute(DOUBLE_ROWS).rows
+    assert rows
+    for price, _qty, dbl in rows:
+        assert dbl == np.float64(_unscaled(price)) / 10 ** 2, (price, dbl)
+
+
+def test_double_group_keys_count_exact_quotients(port_runner):
+    rows = port_runner.execute(DOUBLE_ROWS).rows
+    keys = {(np.float64(_unscaled(p)) / 10 ** 2)
+            / (np.float64(_unscaled(q)) / 10 ** 2) for p, q, _d in rows}
+    assert port_runner.execute(DOUBLE_KEYS).rows == [[len(keys)]]

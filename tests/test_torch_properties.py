@@ -184,7 +184,9 @@ SESSIONS = [
     ({"spill_enabled": "true"}, "spill_enabled"),
     ({"exchange_compression": "true"}, "exchange_compression"),
     ({"lock_validation": "on"}, "lock_validation"),
-    ({"dynamic_filtering": "false"}, "dynamic_filtering"),
+    # ported with the streaming join (its dynamic filter)
+    ({"dynamic_filtering": "false",
+      "dynamic_filtering_max_distinct_values": "64"}, None),
     ({"profile": "true"}, "profile"),
 ]
 
