@@ -153,6 +153,38 @@ Phases, each printed with its wall time:
      to 0 just before the phase and read just after: the direct and hash
      kernels and the join probe must have launched.
 
+ 17. (run right after the build, on an empty card) scans beyond the
+     resident store at SF100 (benchmarks/scale_run.py run_sf100): Q1,
+     Q3, Q5, Q6, Q11, Q12, Q14 and Q19 (Q18 exhausts the
+     hashed table's retries on its 150 M-group aggregation there)
+     through a fresh LocalQueryRunner each, unbudgeted, with the store's
+     defaults (6 GiB, 1 GiB per column, so every lineitem column and
+     every orders column but o_orderdate are generated on the fly per
+     chunk): the cold
+     wall, the median warm wall, the modes, declines and launches, the
+     device's peak memory per query, the store's resident columns and
+     those over its per-column cap; Q1 and Q6 held to a plain chunked
+     torch computation over device_gen.column (sums and counts exact);
+     each query's peak within 90% of the card (scale_run.PEAK_SHARE);
+     Q11's scan kernel launch or its decline;
+ 18. on the fly at the scale factor (run_onthefly): Q1, Q6, Q14 and Q18
+     with storage_enabled=False equal to the TPC-H phase's resident
+     rows, each with a
+     metered kernelDeclinedColumnsNotResident;
+ 19. under a memory budget at the scale factor (run_budgeted): Q1, Q3,
+     Q5, Q9, Q13, Q18 and Q21 under memory_budget_bytes = 48 MiB, equal
+     to the TPC-H phase's unbudgeted rows, with spilled bytes, the spill
+     stage and wait walls (device -> host copies on the spill store's CUDA stream into
+     pinned buffers), the overlap fraction and the peak device memory;
+     spillBytes > 0 for Q3 (grace join) and Q18; Q18 again with a 64 MiB
+     host spill budget and spill_path build/spill (the LZ4 disk tier
+     written and read back); W1 under a budget its window kernel
+     reservation fits and one that declines WindowInputSize (then
+     operators.window_batch), both equal to the unbudgeted rows; Q18
+     under 96 MiB, where the open fault of ROADMAP section 3 raises
+     "collision retries exhausted": that error or the unbudgeted rows
+     is recorded, any other outcome fails.
+
 Any failed check raises and exits non-zero.  The second-to-last line is
 the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -360,6 +392,15 @@ def main() -> int:
             for line in build.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
+
+    # -- beyond the resident store at SF100 (first, on an empty card: its
+    # joins peak near the card's 80 GB) ----------------------------------
+    from presto_tpu_torch.benchmarks import scale_run as SR
+    with phase("beyond the store at sf100: Q1, Q3, Q5, Q6, Q11, Q12, Q14, "
+               "Q19 through LocalQueryRunner, unbudgeted"):
+        sf100_records = SR.run_sf100(100.0, device, card=f"on {card}",
+                                     warm=1)
+    torch.cuda.empty_cache()
 
     schema = f"sf{args.sf}"
     runner = LocalQueryRunner(schema, device=device)
@@ -1767,8 +1808,10 @@ def main() -> int:
         from presto_tpu_torch.benchmarks import torch_chain as TC
         for k in sk.LAUNCHES:
             sk.LAUNCHES[k] = 0
+        # at most 3 timed runs here: the phase is host-bound, and the
+        # script's later phases need the time
         chain_records = TC.run(
-            runner, sf, args.runs, device,
+            runner, sf, min(args.runs, 3), device,
             kernel_results={q: results[q] for q in TC.KERNEL_QUERIES},
             card=f"on {card}")
         # the kernel queries' reference rows came from the main path: the
@@ -1821,6 +1864,17 @@ def main() -> int:
         for name in ("scan_direct", "scan_hash"):
             assert tpch_launches[name] > 0, (name, tpch_launches)
         assert tpch_join_launches > 0, dict(sk.JOIN_LAUNCHES)
+
+    # -- on the fly and under a memory budget at the scale factor --------
+    with phase(f"on the fly at {schema}: Q1, Q6, Q14, Q18 with "
+               f"storage_enabled=False"):
+        fly_records = SR.run_onthefly(sf, device, card=f"on {card}",
+                                      resident_rows=tpch_records["results"])
+    with phase(f"under a memory budget at {schema}: Q1, Q3, Q5, Q9, Q13, "
+               f"Q18, Q21, Q18 through the disk tier, Q18 at 96 MiB, W1"):
+        budget_records = SR.run_budgeted(
+            sf, device, card=f"on {card}", spill_dir="build/spill",
+            free_rows=tpch_records["results"])
 
     summary = {"scan_direct": "q1", "scan_span": "s1", "scan_hash": "h1"}
     join_summary = {"scan_direct": "j2", "scan_span": "j3", "scan_hash": "j1"}
@@ -2003,6 +2057,25 @@ def main() -> int:
                   f"{r['kernel_programs']}, chain {r['chain']}, streaming "
                   f"{r['streaming']}, launched {r['launched']}, declined "
                   f"{r['declined']}")
+    # the new phases' numbers again, where the end of the output keeps
+    # them
+    print(f"beyond the store at sf100 on {card}:")
+    for q, r in sf100_records.items():
+        if q.startswith("q"):
+            print(f"  {q}: cold {r['cold_s']:.3f} s, warm {r['warm_ms']:.3f} "
+                  f"ms, peak {r['peak_bytes']} B, programs "
+                  f"{r['kernel_programs']}, chain {r['chain']}, streaming "
+                  f"{r['streaming']}, launched {r['launched']}, declined "
+                  f"{r['declined']}")
+    print(f"  store: resident {sf100_records['store']['resident']}, over "
+          f"the cap {sf100_records['store']['rejected']}")
+    print(f"on the fly at {schema} on {card}:")
+    for q, r in fly_records.items():
+        print(f"  {q}: {r['wall_s']:.3f} s, declined {r['declined']}")
+    print(f"under a memory budget at {schema} on {card}:")
+    for q, r in budget_records.items():
+        print(f"  {q}: " + ", ".join(f"{k} {v}" for k, v in r.items()
+                                     if k not in ("fusion_declined",)))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

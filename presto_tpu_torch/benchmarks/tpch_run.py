@@ -107,6 +107,8 @@ def run(sf: float, runs: int, device, card: str = "") -> dict:
     xla = LocalQueryRunner(schema, device=device,
                            config=tuned_config(scan_kernel="xla"))
     queries = queries_for_sf(sf)
+    # each query's warm rows, for callers that hold other runs to them
+    out["results"] = {}
     for q in sorted(queries):
         sql = queries[q]
         before = _launches()
@@ -120,6 +122,7 @@ def run(sf: float, runs: int, device, card: str = "") -> dict:
         assert_rows_close(res, first, ordered=q in ORDERED, rtol=RTOL)
         xres, xwall = _wall(xla, sql, device)
         assert_rows_close(res, xres, ordered=q in ORDERED, rtol=RTOL)
+        out["results"][q] = res
         rec = out[f"q{q}"] = {
             "rows": len(res.rows), "cold_s": cold,
             "warm_ms": float(np.median(walls)) * 1e3,

@@ -78,6 +78,11 @@ class JoinPlan(NamedTuple):
         return self.nbytes + self.dir_bytes
 
 
+# buckets of a directory computed at once: at SF100 a 600 M-row build has
+# 2^31 buckets, whose int64 bounds and search results at once took 32 GiB
+DIRECTORY_CHUNK = 1 << 24
+
+
 def bucket_directory(khs: torch.Tensor) -> torch.Tensor:
     """A unique table's bucket directory over its keyhash_sorted `khs`
     (n entries, order-preserving int64): for k = directory_bits(n), an
@@ -85,20 +90,26 @@ def bucket_directory(khs: torch.Tensor) -> torch.Tensor:
     orderable(b << (64 - k)), side="left") for b < 2^k -- the lower bound
     of the first hash whose unsigned top k bits are b -- and D[2^k] = n.
     The lower bound of any hash in bucket b lies in [D[b], D[b + 1]]
-    (csrc/scan_common.cuh probe_unique).  Built on the table's device."""
+    (csrc/scan_common.cuh probe_unique).  Built on the table's device,
+    DIRECTORY_CHUNK buckets at a time, so its temporaries stay small
+    beside the int32 directory itself."""
     n = int(khs.numel())
     k = directory_bits(n)
     half = 1 << (k - 1)
-    if k == 1:
-        starts = torch.tensor([ops.INT64_MIN, 0], dtype=torch.int64,
-                              device=khs.device)
-    else:
-        # orderable(b << (64 - k)) = (b - 2^(k-1)) * 2^(64-k), in range
-        starts = torch.arange(-half, half, dtype=torch.int64,
-                              device=khs.device) * (1 << (64 - k))
-    lower = torch.searchsorted(khs, starts, side="left").to(torch.int32)
-    end = torch.full((1,), n, dtype=torch.int32, device=khs.device)
-    return torch.cat([lower, end])
+    out = torch.empty((1 << k) + 1, dtype=torch.int32, device=khs.device)
+    out[1 << k] = n
+    for lo in range(0, 1 << k, DIRECTORY_CHUNK):
+        hi = min(1 << k, lo + DIRECTORY_CHUNK)
+        if k == 1:
+            starts = torch.tensor([ops.INT64_MIN, 0], dtype=torch.int64,
+                                  device=khs.device)
+        else:
+            # orderable(b << (64 - k)) = (b - 2^(k-1)) * 2^(64-k), in range
+            starts = torch.arange(lo - half, hi - half, dtype=torch.int64,
+                                  device=khs.device) * (1 << (64 - k))
+        out[lo:hi] = torch.searchsorted(khs, starts, side="left",
+                                        out_int32=True)
+    return out
 
 
 def directory_bits(n: int) -> int:

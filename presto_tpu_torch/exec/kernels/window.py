@@ -41,9 +41,8 @@ the reference's order:
   WindowKeyShape       a late-materialized (lazy) partition / order /
                        argument column: its values are row ids, which
                        the kernel's compares do not order as strings
-After WindowFunctionShape or WindowKeyShape the caller runs
-ops.window_batch; WindowInputSize raises, since window_batch
-would allocate more than the launch, with nothing reserved.
+After any decline the caller runs ops.window_batch, as the reference
+does (presto_tpu/exec/pipeline.py:1566-1587).
 """
 from __future__ import annotations
 
@@ -285,11 +284,11 @@ def try_window_kernel(batch: Batch, partition_names, orderings, specs, *,
     """Evaluate a WindowNode's shared-spec functions through the window
     kernel when eligible.  Returns the output Batch (sorted row order, the
     same contract as ops.window_batch), or None after metering
-    kernelDeclinedWindowFunctionShape: ops.window_batch takes over only
-    for the functions the kernel does not compute.  `pool` (the task's
-    MemoryContext) is charged window_bytes for the launch; when it cannot
-    hold them, kernelDeclinedWindowInputSize is metered and the call
-    raises (window_batch would allocate more, unaccounted)."""
+    kernelDeclined{reason}, after which ops.window_batch computes the
+    node's functions.  `pool` (the task's MemoryContext) is charged
+    window_bytes for the launch; when it cannot hold them,
+    kernelDeclinedWindowInputSize is metered and window_batch takes over,
+    as in the reference (presto_tpu/exec/pipeline.py:1566-1587)."""
     for spec in specs:
         if (spec.name not in _SUPPORTED or spec.frame is not None
                 or spec.extra):
@@ -310,10 +309,7 @@ def try_window_kernel(batch: Batch, partition_names, orderings, specs, *,
         specs)
     if pool is not None and not pool.try_reserve(nbytes):
         declined("WindowInputSize")
-        raise NotImplementedError(
-            f"kernelDeclinedWindowInputSize: the window launch needs "
-            f"{nbytes} bytes beyond the task's memory budget (a spilling "
-            f"window is not ported)")
+        return None
     try:
         # the sort and gather are shared with window_batch: one definition
         # of order semantics, one permutation

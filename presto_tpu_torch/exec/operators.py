@@ -1458,6 +1458,58 @@ def compact(batch: Batch, out_capacity: Optional[int] = None) -> Batch:
 
 
 # ---------------------------------------------------------------------------
+# mergeable percentile summaries (the spilled percentile paths): m
+# equi-spaced order statistics per batch, each standing for count / m
+# rows; rank error <= 1/(2m), and the union step is exact
+# ---------------------------------------------------------------------------
+
+PERCENTILE_SKETCH_POINTS = 8192
+
+
+def _alive_first_order(v, alive):
+    """Positions ordered alive rows first, each part by value (NaN last):
+    the reference's lexsort((v, ~alive))."""
+    perm = torch.argsort(v, stable=True)
+    return perm[torch.argsort((~alive[perm]).to(torch.int8), stable=True)]
+
+
+def percentile_batch_summary(values, alive,
+                             m: int = PERCENTILE_SKETCH_POINTS):
+    """(values, alive mask) -> (points: (m,) float64, count: int64): the m
+    equi-spaced order statistics of the alive values (all NaN when the
+    count is 0)."""
+    v = values.to(torch.float64)
+    vs = v[_alive_first_order(v, alive)]
+    cnt = alive.to(torch.int64).sum()
+    j = torch.arange(m, dtype=torch.int64, device=v.device)
+    pos = torch.floor((j * torch.clamp(cnt - 1, min=0)).to(torch.float64)
+                      / (m - 1) + 0.5).to(torch.int64)
+    pts = vs[torch.clamp(pos, 0, vs.shape[0] - 1)]
+    pts = torch.where(cnt > 0, pts, torch.full_like(pts, float("nan")))
+    return pts, cnt
+
+
+def percentile_union_value(points, counts, p: float):
+    """(B, m) summary points + (B,) counts -> (value, is_null): the
+    weighted nearest rank over the union, point i of batch b standing
+    for counts[b] / m rows."""
+    _b, m = points.shape
+    w = (counts.to(torch.float64) / m).repeat_interleave(m)
+    flat = points.reshape(-1)
+    valid = ~torch.isnan(flat)
+    w = torch.where(valid, w, torch.zeros_like(w))
+    order = _alive_first_order(flat, valid)
+    fv, fw = flat[order], w[order]
+    cum = torch.cumsum(fw, dim=0)
+    total = counts.sum()
+    target = torch.floor(p * torch.clamp(total - 1, min=0)
+                         .to(torch.float64) + 0.5)
+    idx = torch.searchsorted(cum, target.reshape(1), right=True)[0]
+    val = fv[torch.clamp(idx, 0, fv.shape[0] - 1)]
+    return val, total == 0
+
+
+# ---------------------------------------------------------------------------
 # sort aggregation: argsort + segmented prefix sums, no scatter table
 # ---------------------------------------------------------------------------
 

@@ -1,9 +1,10 @@
 """Plan -> executable pipelines over torch tensors.
 
 The port of presto_tpu/exec/pipeline.py for the ported slices: a
-TableScan over device-resident encoded columns, host-generated columns
-and late-materialized strings (row ids, the string forms over them
-hoisted to whole-column host caches), streaming Filter/Project,
+TableScan over device-resident encoded columns or columns generated on
+the fly, host-generated columns and late-materialized strings (row ids,
+the string forms over them hoisted to whole-column host caches),
+streaming Filter/Project,
 Aggregation, MarkDistinct, Sort, TopN, Limit, Window, Values, Union,
 Join (INNER / LEFT / FULL), SemiJoin, AssignUniqueId, EnforceSingleRow
 and Output.  A Join or SemiJoin over a fusible chain streams the torch
@@ -20,15 +21,19 @@ the torch fused chain (exec/fused.py FusedChain.make) in the reference's
 XLA-chain mode order; without a fused chain, the streaming aggregation.
 A WindowNode's functions run in one launch of the CUDA window kernel over
 the sorted run (exec/kernels/window.py), operators.window_batch after its
-metered decline.  Every tensor is allocated on the task's device
-(TaskContext.device).  A plan shape or option outside the slices raises
-NotImplementedError naming what is missing (spill, budgeted scans,
-on-the-fly generation, DistinctLimit, GroupId, Unnest, TableWriter among
-them); nothing falls back quietly.
+metered decline.  A column the resident store does not hold, and every
+column under a memory budget, is generated on the fly per chunk; under a
+budget a join build past it spills into the grace hash join and an
+aggregation into a key-partitioned store (exec/memory.py).  Every tensor
+is allocated on the task's device (TaskContext.device).  A plan shape or
+option outside the slices raises NotImplementedError naming what is
+missing (DistinctLimit, GroupId, Unnest, TableWriter among them);
+nothing falls back quietly.
 """
 from __future__ import annotations
 
 import json
+import threading
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
@@ -47,7 +52,8 @@ from . import operators as ops
 from .batch import Batch, Column, batch_to_page
 from .lowering import (Lowering, canonical_name, constant_device_value,
                        expr_has_params)
-from .memory import MemoryContext, MemoryPool, batch_bytes
+from .memory import (MemoryContext, MemoryExceededError, MemoryPool,
+                     PartitionedSpillStore, batch_bytes)
 
 DEFAULT_CAPACITY = 1 << 20
 # ceiling on the materialized (keys + aggregate inputs) bytes of the
@@ -121,9 +127,29 @@ class ExecutionConfig:
     agg_slots: int = 4096                   # initial group table size
     max_agg_retries: int = 6                # hashed-table collision retries
     splits_per_scan: int = 4
-    # device-memory accounting (exec/memory.py); None = unlimited
+    # device-memory accounting and spill (exec/memory.py); None =
+    # unlimited.  Config key query.max-memory-per-node
     memory_budget_bytes: Optional[int] = None
-    # query-level memory ceiling (query.max-memory); None = unlimited
+    # spill a join build or an aggregation that outgrows the budget into
+    # a partitioned host store (experimental.spill-enabled); False raises
+    # MemoryExceededError instead
+    spill_enabled: bool = True
+    spill_partitions: int = 8
+    # host-RAM ceiling for spill staging (None = unlimited); past it whole
+    # buckets overflow to LZ4-compressed disk files (config keys
+    # experimental.spiller-max-used-space / spill.host-budget-bytes)
+    spill_budget_bytes: Optional[int] = None
+    # directory of the disk tier (experimental.spiller-spill-path /
+    # spill.path); None = the system temp dir
+    spill_path: Optional[str] = None
+    # on the card, stage device -> host spill copies on the store's own
+    # CUDA stream into pinned buffers, two in flight, so eviction overlaps
+    # the operator's compute (spillOverlapFraction); False copies
+    # synchronously.  Config key spill.async-staging
+    spill_async_staging: bool = True
+    # query-level memory ceiling (query.max-memory): a typed user error
+    # that fails fast; revocable (spillable) bytes are exempt.  None =
+    # unlimited
     memory_max_query_bytes: Optional[int] = None
     # run an aggregation's scan -> filter/project -> join chain as one
     # fused chain (the CUDA scan kernels, or the torch chain after their
@@ -133,6 +159,9 @@ class ExecutionConfig:
     # plan sanity/type validation (presto_tpu_torch/analysis)
     plan_validation: str = "on"
     # -- device-resident columnar storage (presto_tpu_torch/storage) -----
+    # scans read device-generated columns from the resident store; False
+    # (and any column the store does not take) generates them per chunk
+    storage_enabled: bool = True
     storage_budget_bytes: Optional[int] = 6 << 30
     storage_max_column_bytes: int = 1 << 30
     storage_zone_rows: int = 1 << 16
@@ -225,6 +254,112 @@ class BatchSource:
         return self._fn()
 
 
+class _RevocableBuildBuffer:
+    """A join build side staged under a REVOCABLE reservation: under
+    memory pressure (this build's own reservation miss, or the
+    arbitrator serving another operator) the collected batches move into
+    a partitioned host spill store, the grace join's build input, instead
+    of the query failing.
+
+    `add` reserves before taking the buffer lock (the arbitrator may pick
+    this holder as its victim while the reservation waits), and the
+    revoke callback never blocks: mid-mutation it declines (returns 0)."""
+
+    def __init__(self, compiler: "PlanCompiler", keys, spill_enabled: bool):
+        self._compiler = compiler
+        self._pool = compiler.ctx.memory
+        self._keys = list(keys)
+        self._spill_enabled = spill_enabled
+        self._lock = threading.Lock()
+        self._finished = False
+        self.collected: List[Batch] = []
+        self.spill = None
+        self._reserved = 0
+        self._table_bytes = 0
+        self._holder = self._pool.register_revocable(
+            "join-build", self._revoke)
+
+    # -- arbitrator-facing -------------------------------------------------
+    def _revoke(self) -> int:
+        if not self._spill_enabled:
+            return 0
+        if not self._lock.acquire(blocking=False):
+            return 0   # mid-mutation: decline, never block
+        try:
+            if self._finished or not self._reserved:
+                return 0
+            return self._spill_locked()
+        finally:
+            self._lock.release()
+
+    def _spill_locked(self) -> int:
+        freed = self._reserved
+        if self.spill is None:
+            self.spill = self._compiler._new_spill_store()
+        for cb in self.collected:
+            self.spill.add(cb, self._keys)
+        self.collected = []
+        if freed:
+            self._holder.free(freed)
+            self._reserved = 0
+        return freed
+
+    # -- build-loop-facing -------------------------------------------------
+    def add(self, b: Batch) -> None:
+        nb = batch_bytes(b)
+        ok = self.spill is None and self._holder.try_reserve(nb)
+        with self._lock:
+            if ok and self.spill is None:
+                self.collected.append(b)
+                self._reserved += nb
+                return
+            if ok:
+                # revoked between the reservation and the lock: the batch
+                # goes to the store, so the bytes go back
+                self._holder.free(nb)
+            if self.spill is None:
+                if not self._spill_enabled:
+                    raise MemoryExceededError(
+                        f"join build side exceeds memory budget "
+                        f"{self._pool.budget} bytes and spill is disabled")
+                self._spill_locked()
+            self.spill.add(b, self._keys)
+
+    def finish(self):
+        """-> (collected, spill).  Past this point the batches feed the
+        device hash table, which spilling cannot shrink: the bytes stop
+        being revocable and are re-charged as plain user memory (where
+        the query.max-memory ceiling fires); pool pressure at the handoff
+        instead turns the build into a grace join spill."""
+        with self._lock:
+            if self._reserved and self.spill is None:
+                n = self._reserved
+                self._holder.free(n)
+                self._reserved = 0
+                if self._pool.try_reserve(n):
+                    self._table_bytes = n
+                elif self._spill_enabled:
+                    self._spill_locked()
+                else:
+                    self._finished = True
+                    raise MemoryExceededError(
+                        f"join build table of {n} bytes exceeds memory "
+                        f"budget {self._pool.budget} bytes and spill is "
+                        f"disabled")
+            self._finished = True
+            return self.collected, self.spill
+
+    def close(self) -> None:
+        with self._lock:
+            self._finished = True
+            self._holder.close()   # frees whatever is still reserved
+            if self._table_bytes:
+                self._pool.free(self._table_bytes)
+                self._table_bytes = 0
+            self.collected = []
+            self._reserved = 0
+
+
 def _concat(batches: List[Batch]) -> Batch:
     """One batch holding every input batch's rows.  A varchar column
     whose batches disagree on their dictionary or lazy tag is re-encoded
@@ -288,6 +423,24 @@ class PlanCompiler:
         # materialized results (join builds, keyed structurally) and
         # fused-stream entries, kept across re-executions of the plan
         self._cache: Dict = {}
+        # this execution's spill stores, closed (disk files deleted, host
+        # rows dropped) when its pages are drained
+        self._spill_stores: List[PartitionedSpillStore] = []
+
+    def _new_spill_store(self, salt: Optional[int] = None
+                         ) -> PartitionedSpillStore:
+        """An operator's spill store under the task's spill config: its
+        bytes and walls land in this query's RuntimeStats and memory
+        context."""
+        cfg = self.ctx.config
+        kw = {} if salt is None else {"salt": salt}
+        store = PartitionedSpillStore(
+            cfg.spill_partitions, budget_bytes=cfg.spill_budget_bytes,
+            spill_path=cfg.spill_path, stats=self.ctx.runtime_stats,
+            async_staging=cfg.spill_async_staging, pool=self.ctx.memory,
+            **kw)
+        self._spill_stores.append(store)
+        return store
 
     # -- public -----------------------------------------------------------
     def compile(self, root: P.PlanNode) -> BatchSource:
@@ -295,10 +448,14 @@ class PlanCompiler:
 
     def run_to_pages(self, root: P.PlanNode) -> Iterator[Page]:
         src = self.compile(root)
-        for batch in src.batches():
-            page = batch_to_page(batch, src.names, src.types)
-            if page.position_count:
-                yield page
+        try:
+            for batch in src.batches():
+                page = batch_to_page(batch, src.names, src.types)
+                if page.position_count:
+                    yield page
+        finally:
+            while self._spill_stores:
+                self._spill_stores.pop().close()
 
     # -- dispatch ---------------------------------------------------------
     def _compile(self, node: P.PlanNode) -> BatchSource:
@@ -361,14 +518,16 @@ class PlanCompiler:
 
     # -- leaves -----------------------------------------------------------
     def _compile_TableScanNode(self, node: P.TableScanNode) -> BatchSource:
-        """Scan over device-resident encoded columns (storage/), plus
-        host-generated columns (catalog.generate_column per chunk, copied
-        to the device: nation, region) and late-materialized open-domain
-        strings (kind "lazy": the column holds global row ids, strings are
-        generated at the output boundary or hoisted to whole-column host
-        caches).  Only an all-device-generated scan is a fused-chain leaf
-        (`fused_scan`).  Scans under a memory budget and on-the-fly
-        generation are not ported."""
+        """Scan over device-generated columns: device-resident encoded
+        columns (storage/) outside a memory budget, and on the fly per
+        chunk (connectors/device_gen.py) for a column the store does not
+        hold and for every column under a budget; plus host-generated
+        columns (catalog.generate_column per chunk, copied to the device:
+        nation, region) and late-materialized open-domain strings (kind
+        "lazy": the column holds global row ids, strings are generated at
+        the output boundary or hoisted to whole-column host caches).  Only
+        an all-device-generated scan is a fused-chain leaf
+        (`fused_scan`)."""
         names = [v.name for v in node.outputs]
         types = [v.type for v in node.outputs]
         columns = [node.assignments[v].name for v in node.outputs]
@@ -393,29 +552,29 @@ class PlanCompiler:
                 dev.append((name, colname, "gen"))
             else:
                 host.append((name, colname))
-        if self.ctx.memory.limited:
-            raise NotImplementedError(
-                "scans under a memory budget (outside the resident "
-                "store) are not ported")
+        i32 = {colname: (colname.endswith("date")
+                         or catalog.column_type(table, colname, cid).storage
+                         == "INT_ARRAY")
+               for _n, colname, kind in dev if kind == "gen"}
+        # the resident store, outside a memory budget (its residency is
+        # outside the query's accounting); a column it does not take (over
+        # the per-column cap, a full store, storage_enabled=False, every
+        # column under a budget) is generated on the fly per chunk
         from ..storage import get_store, prune_chunks
-        store = get_store(cfg.storage_budget_bytes,
-                          cfg.storage_max_column_bytes, device)
-        n_rows = catalog.table_row_count(table, sf, cid)
         cached_cols: Dict[str, object] = {}
         zone_maps: Dict[str, object] = {}
-        for _name, colname, kind in dev:
-            if kind != "gen":
-                continue
-            as_i32 = (colname.endswith("date")
-                      or catalog.column_type(table, colname, cid).storage
-                      == "INT_ARRAY")
-            ent = store.get_or_build(
-                cid, table, colname, sf, n_rows, cap, as_i32,
-                zone_rows=cfg.storage_zone_rows,
-                encodings=cfg.storage_encodings)
-            if ent is not None:
-                cached_cols[colname] = ent.column
-                zone_maps[colname] = ent.zones
+        if not self.ctx.memory.limited and i32 and cfg.storage_enabled:
+            store = get_store(cfg.storage_budget_bytes,
+                              cfg.storage_max_column_bytes, device)
+            n_rows = catalog.table_row_count(table, sf, cid)
+            for colname, as_i32 in i32.items():
+                ent = store.get_or_build(
+                    cid, table, colname, sf, n_rows, cap, as_i32,
+                    zone_rows=cfg.storage_zone_rows,
+                    encodings=cfg.storage_encodings)
+                if ent is not None:
+                    cached_cols[colname] = ent.column
+                    zone_maps[colname] = ent.zones
         pushdown = [dict(e) for e in getattr(node, "pushdown", ())]
         # runtime dynamic filters this scan may consume, read lazily at
         # drain time from ctx.dynamic_filters
@@ -446,8 +605,9 @@ class PlanCompiler:
 
         def make_factory(cap2):
             """The scan leaf at chunk capacity cap2 (a fused chain with a
-            fanout-k join shrinks its chunks): decode rows [pos, pos+cap2)
-            of the resident columns, zeroed past the `valid` live rows;
+            fanout-k join shrinks its chunks): rows [pos, pos+cap2) of
+            each column, decoded from the resident store or generated on
+            the fly (device_gen.column), zeroed past the `valid` live rows;
             a lazy column's live rows hold their row ids (padding row 0,
             a valid id)."""
             idx0 = torch.arange(cap2, device=device)
@@ -461,11 +621,13 @@ class PlanCompiler:
                                                  torch.zeros_like(idx0))
                         continue
                     arr = cached.get(colname)
-                    if arr is None:
-                        raise NotImplementedError(
-                            f"ColumnsNotResident: {table}.{colname} "
-                            f"(on-the-fly generation is not ported)")
-                    v = arr.slice_decode(pos, cap2)
+                    if arr is not None:
+                        v = arr.slice_decode(pos, cap2)
+                    else:
+                        v = device_gen.column(cid, table, colname, sf,
+                                              idx0 + pos)
+                        if v.dtype == torch.int64 and i32[colname]:
+                            v = v.to(torch.int32)
                     outs[name] = torch.where(
                         live, v, torch.zeros((), dtype=v.dtype,
                                              device=device))
@@ -509,12 +671,6 @@ class PlanCompiler:
             return Column(torch.from_numpy(buf).to(device), nulls)
 
         def gen():
-            missing = [c for _n, c, kind in dev
-                       if kind == "gen" and c not in cached_cols]
-            if missing:
-                raise NotImplementedError(
-                    f"ColumnsNotResident: {missing} (on-the-fly generation "
-                    f"is not ported)")
             make = make_factory(cap)
             for split in splits:
                 for pos, n in split_chunks(split):
@@ -718,9 +874,9 @@ class PlanCompiler:
         """Materialize the source, then every window function of the node
         in one launch of the window kernel (kernels/window.py) over the
         sorted run.  After a metered WindowFunctionShape decline, and
-        under scan_kernel="xla" (metered Disabled), ops.window_batch
-        computes them, as in the reference; a failed memory reservation
-        (WindowInputSize) is metered and raises."""
+        under scan_kernel="xla" (metered Disabled) or a failed memory
+        reservation (WindowInputSize), ops.window_batch computes them, as
+        in the reference."""
         src = self._compile(node.source)
         part_names = tuple(v.name for v in node.partition_by)
         orderings = tuple((v.name, o) for v, o in
@@ -837,7 +993,9 @@ class PlanCompiler:
     def _compile_JoinNode(self, node: P.JoinNode) -> BatchSource:
         """INNER / LEFT / FULL equi-join.  Over a fusible probe chain the
         torch fused chain streams it (fused_stream).  Otherwise the build
-        side is materialized (cached structurally) and the probe batches
+        side is materialized (cached structurally; under a memory budget
+        staged under a revocable reservation, and past the budget spilled
+        into the grace hash join, `grace`) and the probe batches
         stream through probe_join_direct (a dense unique integer key: no
         host sync) or probe_join, whose output overflow halves the probe
         batch and retries (one host sync per window of in-flight
@@ -997,13 +1155,91 @@ class PlanCompiler:
             if full:
                 yield unmatched_build(build_batch, matched)
 
+        def grace(spill):
+            """The grace hash join: the probe partitioned like the build,
+            then joined bucket by bucket.  A bucket whose build side still
+            does not fit the budget is re-partitioned with a new salt, up
+            to depth 4; only a bucket that stops shrinking (one key's
+            rows) fails."""
+            pool = self.ctx.memory
+            probe_store = self._new_spill_store()
+            for b in self._compile(probe_src_node).batches():
+                probe_store.add(b, probe_keys)
+            work = [(spill, probe_store, p, 0)
+                    for p in range(cfg.spill_partitions)]
+            while work:
+                bstore, pstore, p, depth = work.pop()
+                p_rows = pstore.bucket_rows(p)
+                b_rows = bstore.bucket_rows(p)
+                # FULL still visits probe-empty buckets: their build rows
+                # come out null-extended
+                if p_rows == 0 and (not full or b_rows == 0):
+                    continue
+                if b_rows == 0:
+                    if node.join_type == P.INNER:
+                        continue
+                    yield from map(null_extended, pstore.bucket_batches(
+                        p, cfg.batch_rows))
+                    continue
+                # the bucket goes back on the device at a power-of-two
+                # capacity: account for it
+                bcap = 1 << max(0, b_rows - 1).bit_length()
+                nbytes = bstore.bucket_bytes(p) * bcap // max(1, b_rows)
+                if not pool.try_reserve(nbytes):
+                    if depth >= 4:
+                        raise MemoryExceededError(
+                            f"join build bucket of {nbytes} bytes "
+                            f"exceeds memory budget {pool.budget} after "
+                            f"{depth} re-partitions (key skew)")
+                    salt2 = bstore.salt * 33 + 0x9E37
+                    sub_b = self._new_spill_store(salt2)
+                    for bb in bstore.bucket_batches(p, cfg.batch_rows):
+                        sub_b.add(bb, build_keys)
+                    sub_p = self._new_spill_store(salt2)
+                    for pb in pstore.bucket_batches(p, cfg.batch_rows):
+                        sub_p.add(pb, probe_keys)
+                    work.extend((sub_b, sub_p, q, depth + 1)
+                                for q in range(cfg.spill_partitions))
+                    continue
+                try:
+                    bucket = next(bstore.bucket_batches(p, bcap))
+                    table = ops.build_table(
+                        _drop_null_keys(bucket, tuple(build_keys)),
+                        list(build_keys))
+                    yield from probe_stream(
+                        table, pstore.bucket_batches(p, cfg.batch_rows),
+                        bucket)
+                finally:
+                    pool.free(nbytes)
+
         def gen():
             fs = fused_stream(self, node)
             if fs is not None:
                 for b in fs:
                     yield b.select(out_names)
                 return
-            build_batch = self._materialize_node(build_src_node, cache=True)
+            if not self.ctx.memory.limited:
+                yield from probe_built(
+                    self._materialize_node(build_src_node, cache=True))
+                return
+            # under a budget the build is staged under a revocable
+            # reservation; a miss, or the arbitrator, turns it into the
+            # grace join's partitioned store
+            buf = _RevocableBuildBuffer(self, build_keys, cfg.spill_enabled)
+            try:
+                for b in self._compile(build_src_node).batches():
+                    buf.add(b)
+                collected, spill = buf.finish()
+                if spill is None:
+                    yield from probe_built(_compact_concat(collected)
+                                           if collected else None)
+                else:
+                    yield from grace(spill)
+            finally:
+                buf.close()
+
+        def probe_built(build_batch):
+            """The probe stream against a materialized build side."""
             probe = self._compile(probe_src_node)
             if build_batch is None:
                 if node.join_type == P.INNER:
@@ -1108,7 +1344,11 @@ class PlanCompiler:
         aggregation, hashed table with collision retries.  Otherwise the
         streaming aggregation over the compiled source (direct or hashed
         table, restarted on the hashed path when a NULL key shows up; the
-        sort aggregation for approx_percentile).  Spill is not ported."""
+        sort aggregation for approx_percentile).  Past a memory budget
+        the input spills into a key-partitioned host store and aggregates
+        bucket by bucket (run_hash_spilled, run_sorted_spilled); a global
+        percentile streams mergeable summaries
+        (run_global_percentile_stream)."""
         node = _rewrite_agg_masks(node)
         src_node = node.source
         key_vars = node.grouping_keys
@@ -1209,8 +1449,10 @@ class PlanCompiler:
             return key_lazy, encode
 
         # -- the streaming aggregation -----------------------------------
-        def run_once(num_slots: int, salt: int, allow_direct: bool = True):
-            batches = self._compile(src_node).batches()
+        def run_once(num_slots: int, salt: int, batches_fn=None,
+                     allow_direct: bool = True):
+            batches = (self._compile(src_node).batches()
+                       if batches_fn is None else batches_fn())
             state, update, direct = None, None, None
             key_dicts: Dict[str, Tuple[str, ...]] = {}
             key_lazy: Dict[str, Tuple] = {}
@@ -1251,7 +1493,8 @@ class PlanCompiler:
                     # no NULL slot, so the whole aggregation restarts on
                     # the hashed path (the source closed first)
                     batches.close()
-                    return run_once(num_slots, salt, allow_direct=False)
+                    return run_once(num_slots, salt, batches_fn,
+                                    allow_direct=False)
                 state = update(state, batch)
             if state is None:
                 state = ops.agg_init(num_slots, specs, key_names,
@@ -1309,6 +1552,208 @@ class PlanCompiler:
                 finally:
                     pool.free(reserved)
             return None, stream()
+
+        # -- spill: the partitioned store, bucket by bucket ---------------
+        def fill_spill_store(batches=None):
+            """The source streamed into a key-partitioned host store.  A
+            lazy key whose row ids are not its value's identity is
+            whole-column encoded first (row ids would split a value's
+            group across buckets)."""
+            store = self._new_spill_store()
+            encode_keys = None
+            if batches is None:
+                batches = self._compile(src_node).batches()
+            for batch in batches:
+                if encode_keys is None:
+                    encode_keys = []
+                    for k in key_names:
+                        col = batch.columns[k]
+                        if col.lazy is not None and (
+                                col.lazy[1], col.lazy[2]) \
+                                not in catalog.ROWID_DISTINCT:
+                            encode_keys.append(k)
+                if encode_keys:
+                    batch = _encode_lazy_keys(batch, encode_keys)
+                store.add(batch, list(key_names))
+            return store
+
+        def subdivide_bucket(bstore, p, depth, work):
+            """A K-way sub-partition of an over-budget bucket with a new
+            salt (the grace join's re-partition), for the sorted and the
+            hashed spill paths; the sort path stops at depth 2 (only one
+            key's rows remain to split), the hashed one at 4."""
+            salt2 = bstore.salt * 33 + 0x9E37
+            sub = self._new_spill_store(salt2)
+            for bb in bstore.bucket_batches(p, cfg.batch_rows):
+                sub.add(bb, list(key_names))
+            work.extend((sub, q, depth + 1)
+                        for q in range(cfg.spill_partitions))
+
+        def run_sorted_spilled(batches):
+            """A grouped percentile-class aggregation over the budget: the
+            rows hash-partitioned by group key (disjoint key sets), then
+            the exact sort aggregation bucket by bucket."""
+            store = fill_spill_store(batches)
+            pool = self.ctx.memory
+            work = [(store, p, 0) for p in range(cfg.spill_partitions)]
+            while work:
+                bstore, p, depth = work.pop()
+                rows_p = bstore.bucket_rows(p)
+                if rows_p == 0:
+                    continue
+                bcap = 1 << max(0, rows_p - 1).bit_length()
+                nb = bstore.bucket_bytes(p) * bcap // max(1, rows_p)
+                if not pool.try_reserve(nb):
+                    if depth >= 2:
+                        # one key owns more rows than the budget: per-key
+                        # streaming summaries instead of the sort
+                        yield self._skewed_percentile_bucket(
+                            bstore, p, key_names, specs, input_exprs,
+                            input_exprs2)
+                        continue
+                    subdivide_bucket(bstore, p, depth, work)
+                    continue
+                try:
+                    bucket = next(bstore.bucket_batches(p, bcap))
+                    yield _maybe_compact(sortagg(bucket))
+                finally:
+                    pool.free(nb)
+
+        def run_global_percentile_stream(batches):
+            """A global approx_percentile over an input past the budget:
+            one streaming pass keeping an m-point mergeable summary per
+            batch (rank error <= 1/(2m)), plus the running state of the
+            sibling aggregates; host memory O(batches x m)."""
+            m = ops.PERCENTILE_SKETCH_POINTS
+            pct_specs = tuple(s for s in specs
+                              if s.name == "approx_percentile")
+            other_specs = tuple(s for s in specs
+                                if s.name != "approx_percentile")
+            state = (ops.agg_init(256, other_specs, (), (), device)
+                     if other_specs else None)
+            summaries = {s.output: [] for s in pct_specs}
+            for b in batches:
+                for s in pct_specs:
+                    col = low.eval(input_exprs[s.output], b.with_params(
+                        self._params_for(input_exprs[s.output])))
+                    summaries[s.output].append(ops.percentile_batch_summary(
+                        col.values, b.mask & ~col.null_mask(), m))
+                if state is not None:
+                    ins = _agg_exprs(b)
+                    ins2 = _agg_exprs2(b)
+                    state = ops.agg_update(
+                        state, b, [], {s.output: ins[s.output]
+                                       for s in other_specs},
+                        other_specs, 256, 0, (),
+                        {s.output: ins2[s.output] for s in other_specs
+                         if s.name in ops.CORR_AGGS})
+            if state is not None:
+                if not bool(state["__occupied"].any()):
+                    state["__occupied"][0] = True
+                row = ops.agg_finalize(state, other_specs, (), {}, {})
+            else:
+                row = Batch({}, torch.ones(1, dtype=torch.bool,
+                                           device=device))
+            cols = dict(row.columns)
+            for s in pct_specs:
+                chunks = summaries[s.output]
+                if chunks:
+                    pts = torch.stack([c[0] for c in chunks])
+                    cnts = torch.stack([c[1] for c in chunks])
+                else:
+                    pts = torch.full((1, m), float("nan"),
+                                     dtype=torch.float64, device=device)
+                    cnts = torch.zeros(1, dtype=torch.int64, device=device)
+                p = float(s.param if s.param is not None else 0.5)
+                val, is_null = ops.percentile_union_value(pts, cnts, p)
+                if not s.is_float:
+                    val = val.to(torch.int64)
+                # every column of a Batch shares the finalize row's
+                # capacity
+                cap = row.capacity
+                cols[s.output] = Column(val.reshape(1).expand(cap).clone(),
+                                        is_null.reshape(1).expand(cap)
+                                        .clone())
+            order = [v.name for v in node.aggregations]
+            return Batch({o: cols[o] for o in order}, row.mask)
+
+        def run_hash_spilled():
+            """The hashed aggregation past the budget: the input
+            hash-partitioned by group keys into host buckets (disjoint key
+            sets, so each bucket's finalize is exact), each bucket
+            aggregated in a table sized to its rows, halved until the
+            reservation fits, sub-partitioned when even the 256-slot
+            table does not (up to depth 4)."""
+            pool = self.ctx.memory
+            store = fill_spill_store()
+            per_slot = max(1, est_state_bytes // max(1, initial_slots))
+            work = [(store, pp, 0) for pp in range(cfg.spill_partitions)]
+            while work:
+                bstore, p, depth = work.pop()
+                rows_p = bstore.bucket_rows(p)
+                if rows_p == 0:
+                    continue
+                bucket_slots = max(
+                    256, min(initial_slots // cfg.spill_partitions,
+                             1 << (2 * rows_p - 1).bit_length()))
+                held = 0
+                while True:
+                    nbytes = bucket_slots * per_slot
+                    if pool.try_reserve(nbytes):
+                        held = nbytes
+                        break
+                    if bucket_slots <= 256:
+                        break
+                    bucket_slots = max(256, bucket_slots // 2)
+                if not held:
+                    if depth < 4:
+                        subdivide_bucket(bstore, p, depth, work)
+                        continue
+                    # even the smallest table exceeds the budget after 4
+                    # re-partitions
+                    pool.reserve(nbytes)
+                    held = nbytes
+                # a collision doubles the table, re-reserved each time;
+                # a table that cannot grow sub-partitions instead
+                num_slots, salt = bucket_slots, 0
+                done = False
+                try:
+                    for _attempt in range(cfg.max_agg_retries):
+                        state, key_dicts, key_lazy, direct = run_once(
+                            num_slots, salt,
+                            lambda b=bstore, p=p: b.bucket_batches(
+                                p, cfg.batch_rows))
+                        if direct is not None:
+                            yield ops.agg_direct_finalize(
+                                state, specs, key_names, direct[0],
+                                direct[1], key_dicts)
+                            done = True
+                            break
+                        if not bool(state["__collision"]):
+                            yield ops.agg_finalize(state, specs, key_names,
+                                                   key_dicts, key_lazy)
+                            done = True
+                            break
+                        grown = 2 * num_slots * per_slot
+                        pool.free(held)
+                        held = 0
+                        if not pool.try_reserve(grown):
+                            if depth < 4:
+                                subdivide_bucket(bstore, p, depth, work)
+                                done = True
+                                break
+                            raise MemoryExceededError(
+                                f"aggregation table of {grown} bytes "
+                                f"exceeds memory budget {pool.budget} "
+                                f"after {depth} re-partitions")
+                        held = grown
+                        num_slots *= 2
+                        salt += 1
+                    if not done:
+                        raise RuntimeError(
+                            "aggregation collision retries exhausted")
+                finally:
+                    pool.free(held)
 
         # -- the fused chain -----------------------------------------------
         def _meter(name: str, n: int) -> None:
@@ -1691,15 +2136,31 @@ class PlanCompiler:
                         merged = _encode_lazy_keys(merged, encode)
                     yield _maybe_compact(sortagg(merged))
                     return
-                stream.close()
-                raise NotImplementedError(
-                    f"sort-aggregation input over the memory budget "
-                    f"{pool.budget} bytes: spill is not ported")
-            got = not key_names or pool.try_reserve(est_state_bytes)
-            if not got:
-                raise NotImplementedError(
-                    f"aggregation table over the memory budget "
-                    f"{pool.budget} bytes: spill is not ported")
+                if not cfg.spill_enabled:
+                    stream.close()
+                    raise MemoryExceededError(
+                        f"sort-aggregation input exceeds memory budget "
+                        f"{pool.budget} bytes and spill is disabled")
+                if key_names:
+                    yield from run_sorted_spilled(stream)
+                else:
+                    yield run_global_percentile_stream(stream)
+                return
+            # the grouped table is a revocable holder, so arbitration sees
+            # it, whose callback declines (a table mid-scatter cannot be
+            # spilled consistently): this operator spills itself only when
+            # its own reservation misses
+            agg_holder = (pool.register_revocable("agg-state", lambda: 0)
+                          if key_names else None)
+            if agg_holder is not None \
+                    and not agg_holder.try_reserve(est_state_bytes):
+                agg_holder.close()
+                if not cfg.spill_enabled:
+                    raise MemoryExceededError(
+                        f"aggregation table exceeds memory budget "
+                        f"{pool.budget} bytes and spill is disabled")
+                yield from run_hash_spilled()
+                return
             try:
                 state, key_dicts, key_lazy, direct = run_retrying()
                 if direct is not None:
@@ -1709,9 +2170,195 @@ class PlanCompiler:
                     return
                 yield hash_finalize(state, key_dicts, key_lazy)
             finally:
-                if key_names:
-                    pool.free(est_state_bytes)
+                if agg_holder is not None:
+                    agg_holder.close()
         return BatchSource(gen, out_names, out_types)
+
+
+    def _skewed_percentile_bucket(self, bstore, p, key_names, specs,
+                                  input_exprs, input_exprs2) -> Batch:
+        """A percentile aggregation over a spill bucket still over the
+        budget after re-partitioning (single keys own more rows than fit;
+        no key-hash split helps a sort).  The percentiles come from
+        per-key mergeable summaries computed chunk by chunk over the
+        bucket's host rows (the m-point construction of
+        operators.percentile_batch_summary, rank error <= 1/(2m)); every
+        other aggregate runs exactly through the hashed table over the
+        bucket (per-key state, small under skew); the two join on the
+        grouping keys."""
+        cfg = self.ctx.config
+        pool = self.ctx.memory
+        device = self.ctx.device
+        low = self.lowering
+        pct_specs = [s for s in specs if s.name == "approx_percentile"]
+        other_specs = tuple(s for s in specs
+                            if s.name != "approx_percentile")
+        for s in pct_specs:
+            if not isinstance(input_exprs[s.output],
+                              VariableReferenceExpression):
+                raise NotImplementedError(
+                    "approx_percentile over a computed expression on a "
+                    "skew-spilled bucket")
+
+        # per-key percentile summaries over the host chunks (numpy); a
+        # summary carries min(m, cnt) points
+        m = ops.PERCENTILE_SKETCH_POINTS
+        per_key: Dict[tuple, Dict[str, list]] = {}
+        for rows in bstore.bucket_chunks(p):
+            n = len(next(iter(rows.values()))[0])
+            arrs = []
+            for k in key_names:
+                vals, nulls = rows[k]
+                arrs.append(vals)
+                arrs.append(nulls if nulls is not None
+                            else np.zeros(n, dtype=bool))
+            rec = np.rec.fromarrays(arrs)
+            uniq, inverse = np.unique(rec, return_inverse=True)
+            inverse = inverse.reshape(-1)
+            order = np.argsort(inverse, kind="stable")
+            bounds = np.searchsorted(inverse[order],
+                                     np.arange(len(uniq) + 1))
+            for g in range(len(uniq)):
+                t = tuple(None if uniq[g][2 * j + 1] else
+                          uniq[g][2 * j].item()
+                          for j in range(len(key_names)))
+                idxs = order[bounds[g]:bounds[g + 1]]
+                ent = per_key.setdefault(
+                    t, {s.output: [] for s in pct_specs})
+                for s in pct_specs:
+                    vals, nulls = rows[input_exprs[s.output].name]
+                    v = vals[idxs]
+                    if nulls is not None:
+                        v = v[~nulls[idxs]]
+                    cnt = len(v)
+                    if cnt == 0:
+                        continue
+                    v = np.sort(v.astype(np.float64))
+                    k_pts = min(m, cnt)
+                    if k_pts < cnt:
+                        pos = np.floor(np.arange(k_pts) * (cnt - 1)
+                                       / (k_pts - 1) + 0.5) \
+                            .astype(np.int64)
+                        v = v[np.clip(pos, 0, cnt - 1)]
+                    ent[s.output].append((v, cnt))
+
+        def pct_value(chunks, frac):
+            if not chunks:
+                return 0.0, True
+            pts = np.concatenate([c[0] for c in chunks])
+            w = np.concatenate([np.full(len(c[0]), c[1] / len(c[0]))
+                                for c in chunks])
+            order = np.argsort(pts, kind="stable")
+            cum = np.cumsum(w[order])
+            total = sum(c[1] for c in chunks)
+            target = np.floor(frac * max(total - 1, 0) + 0.5)
+            idx = int(np.searchsorted(cum, target, side="right"))
+            return float(pts[order][min(idx, len(pts) - 1)]), False
+
+        def pct_column(vals, nulls, s):
+            arr = torch.from_numpy(vals).to(device)
+            if not s.is_float:
+                arr = arr.to(torch.int64)
+            return Column(arr, torch.from_numpy(nulls).to(device))
+
+        key_batch0 = next(iter(bstore.bucket_batches(p, cfg.batch_rows)))
+        key_cols0 = [key_batch0.columns[k] for k in key_names]
+        key_dtypes = [c.values.dtype for c in key_cols0]
+        key_dicts = {k: c.dictionary for k, c in zip(key_names, key_cols0)
+                     if c.dictionary is not None}
+        key_lazy = {k: c.lazy for k, c in zip(key_names, key_cols0)
+                    if c.lazy is not None}
+        if other_specs:
+            # the other aggregates: the exact hashed table over the bucket
+            out_batch = None
+            num_slots, salt = 256, 0
+            for _attempt in range(cfg.max_agg_retries):
+                est = _agg_state_bytes(num_slots, key_names, other_specs)
+                pool.reserve(est)
+                try:
+                    state = ops.agg_init(num_slots, other_specs,
+                                         tuple(key_names), key_dtypes,
+                                         device)
+                    for b in bstore.bucket_batches(p, cfg.batch_rows):
+                        ins = {s.output: (
+                            None if input_exprs[s.output] is None
+                            else low.eval(input_exprs[s.output], b))
+                            for s in other_specs}
+                        ins2 = {s.output: low.eval(input_exprs2[s.output], b)
+                                for s in other_specs
+                                if s.name in ops.CORR_AGGS}
+                        state = ops.agg_update(
+                            state, b, [b.columns[k] for k in key_names],
+                            ins, other_specs, num_slots, salt,
+                            tuple(key_names), ins2)
+                    if not bool(state["__collision"]):
+                        out_batch = ops.agg_finalize(
+                            state, other_specs, tuple(key_names),
+                            key_dicts, key_lazy)
+                        break
+                finally:
+                    pool.free(est)
+                num_slots *= 2
+                salt += 1
+            if out_batch is None:
+                raise RuntimeError("skewed-bucket aggregation collision "
+                                   "retries exhausted")
+            # the percentile columns attached by key lookup on the host
+            kcols = [out_batch.columns[k].values.cpu().numpy()
+                     for k in key_names]
+            knulls = [None if out_batch.columns[k].nulls is None
+                      else out_batch.columns[k].nulls.cpu().numpy()
+                      for k in key_names]
+            mask = out_batch.mask.cpu().numpy()
+            cap = out_batch.capacity
+            new_cols = dict(out_batch.columns)
+            for s in pct_specs:
+                frac = float(s.param if s.param is not None else 0.5)
+                vals = np.zeros(cap, dtype=np.float64)
+                nulls = np.ones(cap, dtype=bool)
+                for i in range(cap):
+                    if not mask[i]:
+                        continue
+                    t = tuple(
+                        (None if (knulls[j] is not None and knulls[j][i])
+                         else kcols[j][i].item())
+                        for j in range(len(key_names)))
+                    ent = per_key.get(t)
+                    if ent is None:
+                        continue
+                    vals[i], nulls[i] = pct_value(ent[s.output], frac)
+                new_cols[s.output] = pct_column(vals, nulls, s)
+            return Batch(new_cols, out_batch.mask)
+
+        # a percentile-only aggregation: the output from the host map
+        keys = sorted(per_key, key=lambda t: tuple(
+            (v is None, v) for v in t))
+        cap = max(1, len(keys))
+        cols: Dict[str, Column] = {}
+        np_dtypes = [torch.empty(0, dtype=d).numpy().dtype
+                     for d in key_dtypes]
+        for j, k in enumerate(key_names):
+            kv = np.zeros(cap, dtype=np_dtypes[j])
+            kn = np.zeros(cap, dtype=bool)
+            for i, t in enumerate(keys):
+                if t[j] is None:
+                    kn[i] = True
+                else:
+                    kv[i] = t[j]
+            cols[k] = Column(torch.from_numpy(kv).to(device),
+                             torch.from_numpy(kn).to(device)
+                             if kn.any() else None,
+                             key_dicts.get(k), key_lazy.get(k))
+        for s in pct_specs:
+            frac = float(s.param if s.param is not None else 0.5)
+            vals = np.zeros(cap, dtype=np.float64)
+            nulls = np.ones(cap, dtype=bool)
+            for i, t in enumerate(keys):
+                vals[i], nulls[i] = pct_value(per_key[t][s.output], frac)
+            cols[s.output] = pct_column(vals, nulls, s)
+        mask = np.zeros(cap, dtype=bool)
+        mask[:len(keys)] = True
+        return Batch(cols, torch.from_numpy(mask).to(device))
 
 
 def _chain_steps(chunks, leaf_cap: int, per_step: int):

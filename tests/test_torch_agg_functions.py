@@ -1,6 +1,7 @@
 """The aggregate functions beyond the BASIC set against the reference's
 operators, on numpy inputs made from a seed (NULLs included), and through
-both runners at sf0.01.
+both runners at sf0.01; the spilled percentile paths' mergeable summaries
+against the reference's, bit for bit.
 
 Tolerances: integers, HLL estimates, approx_percentile values, group keys
 and NULL masks equal exactly.  Moments and corr fold batch states with
@@ -25,6 +26,7 @@ from presto_tpu_torch.exec.batch import Batch as TB, Column as TC
 from presto_tpu_torch.exec.pipeline import tuned_config
 from presto_tpu_torch.exec.runner import LocalQueryRunner
 from torch_rows import assert_rows_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 MOMENTS = ("stddev", "stddev_pop", "stddev_samp", "variance", "var_pop",
            "var_samp")
@@ -237,6 +239,47 @@ QUERIES = {
                           "approx_percentile(l_orderkey, 0.9) "
                           "from lineitem group by l_returnflag"),
 }
+
+
+@pytest.mark.parametrize("n_live,dtype", [
+    ((9000, 20000, 0, 8193), np.float64),
+    ((16384, 12000), np.int64)], ids=["floats", "ints_with_ties"])
+def test_percentile_summaries_equal_reference_bit_for_bit(n_live, dtype):
+    """The spilled percentile paths' mergeable summaries,
+    percentile_batch_summary and percentile_union_value, against the
+    reference's functions of the same names on batches past m live rows,
+    with dead lanes (NaN payloads among the floats), an empty batch and,
+    among the ints, ties."""
+    rng = np.random.default_rng(12)
+    pts, cnts, jpts, jcnts = [], [], [], []
+    cap = 24000     # one shape, so the reference compiles once
+    for n in n_live:
+        if dtype is np.float64:
+            v = rng.normal(1e4, 3e3, cap)
+            v[rng.random(cap) < 0.05] = np.nan
+        else:
+            v = rng.integers(0, 500, cap)
+        alive = np.zeros(cap, dtype=bool)
+        alive[rng.permutation(cap)[:n]] = True
+        if dtype is np.float64:
+            v[alive & np.isnan(v)] = 7.0
+        p_pts, p_cnt = TO.percentile_batch_summary(torch.from_numpy(v),
+                                                   torch.from_numpy(alive))
+        j_pts, j_cnt = JO.percentile_batch_summary(jnp.asarray(v),
+                                                   jnp.asarray(alive))
+        np.testing.assert_array_equal(p_pts.numpy(), np.asarray(j_pts))
+        assert int(p_cnt) == int(j_cnt) == n
+        pts.append(p_pts)
+        cnts.append(p_cnt)
+        jpts.append(j_pts)
+        jcnts.append(j_cnt)
+    for frac in (0.0, 0.01, 0.37, 0.5, 0.9, 1.0):
+        val, null = TO.percentile_union_value(torch.stack(pts),
+                                              torch.stack(cnts), frac)
+        jval, jnull = JO.percentile_union_value(jnp.stack(jpts),
+                                                jnp.stack(jcnts), frac)
+        assert float(val) == float(jval) and bool(null) == bool(jnull), (
+            frac, float(val), float(jval))
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,7 @@ import shutil
 import pytest
 
 from presto_tpu_torch.exec.kernels import build
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

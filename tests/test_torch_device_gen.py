@@ -11,6 +11,7 @@ from presto_tpu.connectors import device_gen as jgen
 from presto_tpu.exec import operators as jops
 from presto_tpu_torch.connectors import device_gen as tgen
 from presto_tpu_torch.exec import operators as tops
+from torch_threads import one_torch_thread  # noqa: F401
 
 INT64_MIN = np.iinfo(np.int64).min
 INT64_MAX = np.iinfo(np.int64).max

@@ -18,6 +18,7 @@ from presto_tpu_torch.exec import lowering
 from presto_tpu_torch.exec.kernels import build, codegen
 from presto_tpu_torch.exec.kernels import scan_kernel as sk
 from presto_tpu_torch.exec.runner import LocalQueryRunner
+from torch_threads import one_torch_thread  # noqa: F401
 
 Q6_OTHER = Q6.replace("date '1994-01-01'", "date '1995-03-01'")
 QUERIES = {"q6": Q6, "q1": Q1, "j2": JQ.J2, "q6_other": Q6_OTHER}

@@ -24,6 +24,7 @@ from presto_tpu_torch.exec.kernels import scan_kernel as sk
 from presto_tpu_torch.exec.pipeline import ExecutionConfig
 from presto_tpu_torch.exec.runner import LocalQueryRunner
 from presto_tpu_torch.storage.encodings import ResidentColumn
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the reference's double-buffer test query (tests/test_scan_kernel.py:176)
 REF_SQL = ("select l_orderkey, sum(l_quantity), count(*) from lineitem "

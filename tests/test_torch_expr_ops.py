@@ -39,6 +39,7 @@ from presto_tpu_torch.exec.lowering import Lowering as TLowering
 from presto_tpu_torch.exec.lowering import OP, compile_expr
 from presto_tpu_torch.benchmarks.expr_queries import QUERIES
 from presto_tpu_torch.exec.runner import LocalQueryRunner
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 600
 INT32_MIN = -2 ** 31

@@ -21,6 +21,7 @@ from presto_tpu_torch.exec import pipeline as tpipe
 from presto_tpu_torch.exec.kernels import scan_kernel as sk
 from presto_tpu_torch.exec.runner import LocalQueryRunner
 from torch_rows import assert_rows_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 STATIC_SPAN = ("select l_shipmode, l_shipinstruct, l_returnflag, count(*), "
                "sum(l_quantity), min(l_discount) from lineitem "

@@ -18,6 +18,7 @@ from presto_tpu_torch.exec.kernels import scan_kernel as sk
 from presto_tpu_torch.exec.pipeline import tuned_config
 from presto_tpu_torch.exec.runner import LocalQueryRunner
 from torch_rows import assert_rows_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 ORDERKEY = "select l_orderkey, count(*) from lineitem group by l_orderkey"
 

@@ -33,6 +33,7 @@ from presto_tpu_torch.exec.kernels import grouped as tgk
 from presto_tpu_torch.exec.kernels import scan_kernel as tsk
 from presto_tpu_torch.exec.lowering import param_vector
 from presto_tpu_torch.storage.encodings import resident_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_ROWS = 12000
 CAP = 4096

@@ -12,6 +12,7 @@ from presto_tpu.exec import batch as jbatch
 from presto_tpu.exec import operators as jops
 from presto_tpu_torch.exec import batch as tbatch
 from presto_tpu_torch.exec import operators as tops
+from torch_threads import one_torch_thread  # noqa: F401
 
 I64 = np.iinfo(np.int64)
 I32 = np.iinfo(np.int32)

@@ -26,6 +26,7 @@ from presto_tpu_torch.exec.kernels import grouped as gk
 from presto_tpu_torch.exec.kernels import scan_kernel as sk
 from presto_tpu_torch.exec.runner import LocalQueryRunner
 from presto_tpu_torch.sql.stats import StatsCalculator
+from torch_threads import one_torch_thread  # noqa: F401
 
 QUERIES = {"h1": H1, "h2": H2, "j1": J1, "hash_f": HASH_F,
            "collide": COLLIDE}

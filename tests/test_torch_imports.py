@@ -9,6 +9,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

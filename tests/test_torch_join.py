@@ -28,6 +28,7 @@ from presto_tpu_torch.exec.pipeline import TaskContext as TContext
 from presto_tpu_torch.exec.pipeline import tuned_config as ttuned
 from presto_tpu_torch.exec.runner import LocalQueryRunner
 from presto_tpu_torch.spi import plan as TP
+from torch_threads import one_torch_thread  # noqa: F401
 
 # a semi join against a sparse key set: a hash-sorted unique table at
 # sf0.01 (J2's build is a DirectTable there)

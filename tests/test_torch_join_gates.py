@@ -20,6 +20,7 @@ from presto_tpu_torch.exec.kernels import scan_kernel as sk
 from presto_tpu_torch.exec.runner import LocalQueryRunner
 from presto_tpu_torch.spi import plan as TP
 from torch_rows import assert_rows_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 JOIN_SHAPE = {
     # LEFT join onto a build whose keys repeat: fanout-k

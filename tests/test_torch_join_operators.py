@@ -19,6 +19,7 @@ from presto_tpu_torch.exec import batch as tb
 from presto_tpu_torch.exec import fused as tfused
 from presto_tpu_torch.exec import operators as tops
 from presto_tpu_torch.exec.kernels import join as tjoin
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 3000
 

@@ -18,6 +18,7 @@ import presto_tpu_torch.spi.expr as TE
 from presto_tpu_torch.exec.batch import Batch as TBatch, Column as TColumn
 from presto_tpu_torch.exec.lowering import (Lowering as TLowering,
                                             compile_expr, param_vector)
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 512
 

@@ -15,6 +15,7 @@ import presto_tpu_torch.common.types as TT
 from presto_tpu_torch.exec import batch as tbatch
 from presto_tpu_torch.exec import memory as tmem
 from presto_tpu_torch.exec import operators as tops
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 400
 

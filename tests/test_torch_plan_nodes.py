@@ -9,7 +9,8 @@ NULL key, LEFT / FULL joins whose rows are returned, the string forms
 over late-materialized columns (LIKE, substr, starts_with, ends_with,
 concat) and their sort, group and window keys, and the shapes the port
 still leaves out, each raising NotImplementedError naming the
-missing piece."""
+missing piece (the budgeted scan and on-the-fly generation, ported
+since, return the resident scan's rows)."""
 import numpy as np
 import pytest
 import torch
@@ -30,6 +31,7 @@ from presto_tpu_torch.spi import expr as TE
 from presto_tpu_torch.spi import plan as TP
 from presto_tpu_torch.worker import properties as tprops
 from torch_rows import assert_rows_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 QUERIES = {
     "limit_0": ("select l_orderkey from lineitem limit 0", False),
@@ -257,17 +259,16 @@ def test_left_out_shapes_raise_naming_the_piece(ports, case):
             ["l_orderkey"], [TE.VariableReferenceExpression("n", BIGINT)])
         with pytest.raises(NotImplementedError, match="TableWriterNode"):
             tpipe.PlanCompiler(tpipe.TaskContext()).compile(node)
-    elif case == "budgeted_scan":
-        runner = LocalQueryRunner("sf0.01", device="cpu", config=tuned_config(
-            memory_budget_bytes=1 << 30))
-        with pytest.raises(NotImplementedError,
-                           match="scans under a memory budget"):
-            runner.execute("select sum(l_quantity) from lineitem")
-    elif case == "on_the_fly_generation":
-        runner = LocalQueryRunner("sf0.01", device="cpu", config=tuned_config(
-            storage_max_column_bytes=1))
-        with pytest.raises(NotImplementedError, match="ColumnsNotResident"):
-            runner.execute("select sum(l_quantity) from lineitem")
+    elif case in ("budgeted_scan", "on_the_fly_generation"):
+        # ported since: a budgeted scan, and a column over the store's
+        # cap, generate their columns on the fly and return the resident
+        # scan's rows
+        cfg = (tuned_config(memory_budget_bytes=1 << 30)
+               if case == "budgeted_scan"
+               else tuned_config(storage_max_column_bytes=1))
+        runner = LocalQueryRunner("sf0.01", device="cpu", config=cfg)
+        sql = "select sum(l_quantity) from lineitem"
+        assert runner.execute(sql).rows == ports["auto"].execute(sql).rows
     else:
         with pytest.raises(NotImplementedError,
                            match="task.max-drivers-per-task"):

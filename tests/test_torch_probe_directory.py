@@ -24,6 +24,7 @@ from presto_tpu.exec.kernels import join as jjoin
 from presto_tpu_torch.exec import operators as ops
 from presto_tpu_torch.exec.batch import Batch, Column
 from presto_tpu_torch.exec.kernels import join as tjoin
+from torch_threads import one_torch_thread  # noqa: F401
 
 INT64_MIN, INT64_MAX = ops.INT64_MIN, ops.INT64_MAX
 
@@ -268,3 +269,20 @@ def test_empty_directory_bits():
     assert tjoin.directory_bits(1) == 2 and tjoin.directory_bits(4000) == 13
     d = tjoin.bucket_directory(torch.zeros(0, dtype=torch.int64))
     assert d.tolist() == [0, 0, 0]
+
+
+@pytest.mark.parametrize("n", [1, 4000, 65536])
+def test_directory_built_in_chunks_equals_one_search(monkeypatch, n):
+    """bucket_directory's chunked build (DIRECTORY_CHUNK buckets at a
+    time, a ragged last chunk here) equals one searchsorted over every
+    bucket's first hash."""
+    rng = np.random.default_rng(n + 7)
+    khs = torch.sort(ops._orderable_hash(ops.hash_columns([Column(
+        torch.from_numpy(rng.integers(-10 ** 12, 10 ** 12, n)))]))).values
+    k = tjoin.directory_bits(n)
+    starts = torch.tensor([(b - (1 << (k - 1))) << (64 - k)
+                           for b in range(1 << k)], dtype=torch.int64)
+    want = torch.cat([torch.searchsorted(khs, starts, side="left"),
+                      torch.tensor([n])]).to(torch.int32)
+    monkeypatch.setattr(tjoin, "DIRECTORY_CHUNK", 1000)
+    assert torch.equal(tjoin.bucket_directory(khs), want)

@@ -17,6 +17,7 @@ from presto_tpu.exec import operators as jops
 from presto_tpu_torch.exec import batch as tb
 from presto_tpu_torch.exec import fused as tfused
 from presto_tpu_torch.exec import operators as tops
+from torch_threads import one_torch_thread  # noqa: F401
 
 NB, NP = 1500, 2048
 OUT_NAMES = ("k", "pv", "bv", "bf")

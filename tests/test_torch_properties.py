@@ -14,6 +14,7 @@ from presto_tpu.worker import properties as jprops
 from presto_tpu.worker import protocol as jproto
 from presto_tpu_torch.worker import properties as tprops
 from presto_tpu_torch.worker import protocol as tproto
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _port_fields_equal(jcfg, tcfg):
@@ -53,7 +54,7 @@ CONFIGS = [
       "experimental.spill-enabled": "false",
       "exchange.compression-enabled": "true",
       "exchange.compression-codec": "zstd", "task.batch-rows": "8192",
-      "coordinator-only.key": "ignored"}, "experimental.spill-enabled"),
+      "coordinator-only.key": "ignored"}, "exchange.compression-enabled"),
     ({"exchange.ici-chunk-rows": "4096"}, "exchange.ici-chunk-rows"),
     ({"task.fault-injection-probability": "0.1"},
      "task.fault-injection-probability"),
@@ -63,6 +64,13 @@ CONFIGS = [
     ({"retry-policy": "task"}, "retry-policy"),
     # ExecutionConfig.fuse_pipelines is a field since the torch chain
     ({"task.fuse-pipelines": "false", "task.batch-rows": "8192"}, None),
+    # the spill fields are ported with execution under a memory budget
+    ({"query.max-memory-per-node": "512MB",
+      "experimental.spill-enabled": "false",
+      "experimental.spiller-max-used-space": "2GB",
+      "experimental.spiller-spill-path": "/x/spill",
+      "spill.async-staging": "false"}, None),
+    ({"spill.host-budget-bytes": "4096", "spill.path": "/y"}, None),
 ]
 
 
@@ -181,13 +189,16 @@ SESSIONS = [
       "plan_validation": "off"}, None),
     ({"query_max_memory_per_node": "1GB", "query_max_memory": "2GB",
       "storage_zone_rows": "4096"}, None),
-    ({"spill_enabled": "true"}, "spill_enabled"),
+    ({"spill_enabled": "true"}, None),
     ({"exchange_compression": "true"}, "exchange_compression"),
     ({"lock_validation": "on"}, "lock_validation"),
     # ported with the streaming join (its dynamic filter)
     ({"dynamic_filtering": "false",
       "dynamic_filtering_max_distinct_values": "64"}, None),
     ({"profile": "true"}, "profile"),
+    ({"spill_enabled": "false", "spill_partitions": "4",
+      "spill_path": "/x", "spill_host_budget_bytes": "1024",
+      "spill_async_staging": "false"}, None),
 ]
 
 

@@ -24,6 +24,7 @@ from presto_tpu_torch.exec import operators as tops
 from presto_tpu_torch.exec.kernels import scan_kernel as tsk
 from presto_tpu_torch.exec.lowering import param_vector
 from presto_tpu_torch.storage.encodings import resident_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_ROWS = 10000
 CAP = 4096

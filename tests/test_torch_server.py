@@ -28,6 +28,7 @@ from presto_tpu_torch.benchmarks.tpch_queries import Q1, Q6
 from presto_tpu_torch.benchmarks.window_queries import W1
 from presto_tpu_torch.client import QueryError, StatementClient
 from presto_tpu_torch.worker import WorkerServer
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -101,8 +102,9 @@ def _get(url):
 @pytest.mark.parametrize("sql,session,match", [
     ("explain analyze " + Q6, {}, "NotImplementedError: EXPLAIN ANALYZE"),
     ("prepare p from select 1", {}, "NotImplementedError: Prepare"),
-    (Q6, {"spill_enabled": "true"},
-     "NotImplementedError: session property 'spill_enabled' is not ported"),
+    (Q6, {"exchange_compression": "true"},
+     "NotImplementedError: session property 'exchange_compression' is not "
+     "ported"),
     (Q6, {"scan_kernel": "bogus"}, "ValueError: scan_kernel must be one"),
 ], ids=["explain_analyze", "prepare", "unported_session", "bad_session"])
 def test_failed_statements_carry_the_error(servers, sql, session, match):

@@ -23,6 +23,7 @@ from presto_tpu_torch.exec.kernels import build, codegen
 from presto_tpu_torch.exec.kernels import grouped as gk
 from presto_tpu_torch.exec.kernels import scan_kernel as sk
 from presto_tpu_torch.exec.runner import LocalQueryRunner
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPAN_F = ("select l_returnflag, l_linestatus, l_shipmode, l_shipinstruct, "
           "sum(cast(l_extendedprice as double)) as s, "

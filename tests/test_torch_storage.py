@@ -10,6 +10,7 @@ from presto_tpu.storage import encodings as jenc
 from presto_tpu.storage.store import ResidentStore as JStore
 from presto_tpu_torch.storage import encodings as tenc
 from presto_tpu_torch.storage.store import ResidentStore as TStore
+from torch_threads import one_torch_thread  # noqa: F401
 
 PAD = 1 << 12
 

@@ -5,8 +5,9 @@ single-distinct rewrite of count(distinct ...)), MarkDistinct with a
 mixed distinct / plain aggregation, masked aggregates, the global
 aggregate over empty input, and the restart on the hashed path when a
 NULL key shows up under direct mode.  The forms that still raise raise
-at their gates: approx_percentile with approx_distinct in one node, an
-aggregation over the memory budget (spill), the streaming join.
+at their gates: approx_percentile with approx_distinct in one node; an
+aggregation over the memory budget spills (its table and a percentile's
+sort input).
 Integers and decimals equal, floats within rtol 1e-12."""
 import numpy as np
 import pytest
@@ -20,10 +21,12 @@ from presto_tpu_torch.common.types import BIGINT, BOOLEAN, DOUBLE, VARCHAR
 from presto_tpu_torch.exec import pipeline as tpipe
 from presto_tpu_torch.exec import runner as trunner
 from presto_tpu_torch.exec.batch import Batch, Column
+from presto_tpu_torch.exec.memory import MemoryExceededError
 from presto_tpu_torch.spi import plan as TP
 from presto_tpu_torch.spi.expr import (CallExpression, ConstantExpression,
                                        VariableReferenceExpression, call)
 from torch_rows import assert_rows_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 COUNT_DISTINCT = ("select o_orderpriority, count(distinct o_custkey) "
                   "from orders group by o_orderpriority")
@@ -198,14 +201,18 @@ def test_percentile_with_approx_distinct_raises(port):
                      "approx_distinct(l_orderkey) from lineitem")
 
 
-def test_over_budget_aggregation_raises_naming_spill():
-    """A budgeted pool keeps the spill paths: the port raises (here at the
-    budgeted scan, which the aggregation's fused chain compiles first)."""
+def test_over_budget_aggregation_raises_naming_spill(port):
+    """A budgeted pool takes the spill paths (ported since): the fused
+    chain declines BudgetedPool, the streaming aggregation's table does
+    not fit, and the input is aggregated bucket by bucket from the
+    partitioned spill store, equal to the unbudgeted rows."""
     r = trunner.LocalQueryRunner(
-        "sf0.01", config=tpipe.tuned_config(memory_budget_bytes=1 << 20),
+        "sf0.01", config=tpipe.tuned_config(memory_budget_bytes=1 << 18),
         device="cpu")
-    with pytest.raises(NotImplementedError, match="memory budget"):
-        r.execute(GROUPED)
+    res = r.execute(GROUPED)
+    assert res.runtime_stats["fusionDeclinedBudgetedPool"]["sum"] >= 1
+    assert res.runtime_stats["spillBytes"]["sum"] > 0
+    assert_rows_close(res, port.execute(GROUPED), ordered=False)
 
 
 def _injected_agg(specs, budget):
@@ -235,11 +242,33 @@ def _injected_agg(specs, budget):
     ids=["hash_table", "sort_input"])
 def test_spill_paths_raise(specs):
     """A grouped aggregation whose table, or a percentile whose sort
-    input, passes the memory budget: spill is not ported."""
-    comp, agg = _injected_agg(specs, budget=4096)
-    with pytest.raises(NotImplementedError, match="spill is not ported"):
-        list(comp.run_to_pages(agg))
+    input, passes the memory budget spills (ported since): the rows are
+    partitioned by key into the host store and aggregated bucket by
+    bucket, equal to numpy's, and every reservation is returned.  A
+    budget under the smallest bucket table (256 slots) raises
+    MemoryExceededError after the re-partitions."""
+    if specs[0][0] == "sum":
+        comp, agg = _injected_agg(specs, budget=4096)
+        with pytest.raises(MemoryExceededError):
+            list(comp.run_to_pages(agg))
+        assert comp.ctx.memory.reserved == 0
+    comp, agg = _injected_agg(specs, budget=20_000)
+    pages = list(comp.run_to_pages(agg))
     assert comp.ctx.memory.reserved == 0
+    assert comp.ctx.memory.revocable == 0
+    assert comp.ctx.memory.pool.spilled_bytes > 0
+    got = {}
+    for page in pages:
+        ks, vs = (page.blocks[0].values, page.blocks[1].values)
+        got.update(zip(ks.tolist(), vs.tolist()))
+    x = np.concatenate([np.arange(4096)] * 2)
+    k = x % 7
+    if specs[0][0] == "sum":
+        want = {g: int(x[k == g].sum()) for g in range(7)}
+    else:
+        want = {g: int(np.sort(x[k == g])[int(np.floor(
+            0.5 * (int((k == g).sum()) - 1) + 0.5))]) for g in range(7)}
+    assert got == want
 
 
 @pytest.mark.parametrize("q", [13, 16])

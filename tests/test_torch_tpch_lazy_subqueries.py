@@ -17,6 +17,7 @@ from presto_tpu_torch.exec.pipeline import tuned_config
 from presto_tpu_torch.exec.runner import LocalQueryRunner
 from torch_rows import assert_rows_close
 import torch_tpch_golden as golden
+from torch_threads import one_torch_thread  # noqa: F401
 
 QUERIES = (15, 18, 20, 21, 22)
 

@@ -21,6 +21,7 @@ import presto_tpu_torch.common.types as TT
 import presto_tpu_torch.spi.expr as TE
 from presto_tpu_torch.exec import lowering as tlow
 from presto_tpu_torch.exec.batch import Batch as TBatch, Column as TColumn
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 400
 D1 = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")

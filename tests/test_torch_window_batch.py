@@ -27,6 +27,7 @@ from presto_tpu_torch.benchmarks.tpch_queries import Q1
 from presto_tpu_torch.exec import operators as ops
 from presto_tpu_torch.exec.batch import Batch, Column
 from presto_tpu_torch.exec.runner import LocalQueryRunner
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-12
 

@@ -6,8 +6,9 @@ keys with ties (ASC and DESC), NULL keys and arguments, a dictionary
 key, a float64 key with NaNs and dead rows interleaved, every function
 the kernel supports.  Live rows are equal bit for bit: every output is
 int64 arithmetic.  Then the gates: WindowFunctionShape (float sum, an
-explicit frame, lag) with the reference's reason, WindowInputSize (which
-raises) through a memory context whose pool is too small, and
+explicit frame, lag) with the reference's reason, WindowInputSize (a
+metered decline, then window_batch) through a memory context whose pool
+is too small, and
 kernelWindowPrograms."""
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,7 @@ from presto_tpu_torch.exec.kernels import scan_kernel as sk
 from presto_tpu_torch.exec.kernels import window as wk
 from presto_tpu_torch.exec.memory import MemoryContext, MemoryPool
 from presto_tpu_torch.utils.runtime_stats import RuntimeStats
+from torch_threads import one_torch_thread  # noqa: F401
 
 DICT = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
 
@@ -198,10 +200,11 @@ def test_input_size_declines_and_raises_when_the_reservation_fails():
                                         for nm in ("p", "o", "x")}, specs)
     small = MemoryContext(MemoryPool(need - 1))
     reasons = []
-    with pytest.raises(NotImplementedError,
-                       match="kernelDeclinedWindowInputSize"):
-        wk.try_window_kernel(tb, ("p",), (("o", "ASC_NULLS_LAST"),),
-                             specs, declined=reasons.append, pool=small)
+    # the metered decline hands the node to ops.window_batch (None), as
+    # the reference's pipeline does after every decline
+    assert wk.try_window_kernel(tb, ("p",), (("o", "ASC_NULLS_LAST"),),
+                                specs, declined=reasons.append,
+                                pool=small) is None
     assert reasons == ["WindowInputSize"] and small.reserved == 0
     # a pool that holds the launch runs it and frees the reservation
     fits = MemoryContext(MemoryPool(need))

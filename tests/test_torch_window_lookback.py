@@ -18,6 +18,7 @@ from presto_tpu_torch.exec.kernels import window as wk
 
 from test_torch_window_kernel import (_BY_DF, _BY_P, _EDGE_FIELDS, _FIELDS,
                                       _batches, _columns, _spec_sets)
+from torch_threads import one_torch_thread  # noqa: F401
 
 MASK = (1 << 64) - 1
 
