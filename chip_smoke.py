@@ -155,18 +155,27 @@ Phases, each printed with its wall time:
 
  17. (run right after the build, on an empty card) scans beyond the
      resident store at SF100 (benchmarks/scale_run.py run_sf100): Q1,
-     Q3, Q5, Q6, Q11, Q12, Q14 and Q19 (Q18 exhausts the
-     hashed table's retries on its 150 M-group aggregation there)
+     Q3, Q5, Q6, Q11, Q12, Q14, Q18 and Q19
      through a fresh LocalQueryRunner each, unbudgeted, with the store's
      defaults (6 GiB, 1 GiB per column, so every lineitem column and
      every orders column but o_orderdate are generated on the fly per
      chunk): the cold
      wall, the median warm wall, the modes, declines and launches, the
+     grouped lifespans (engaged or not, how many, the gen and compute
+     walls: Q3 and Q18 must engage under auto, the others must not), the
      device's peak memory per query, the store's resident columns and
-     those over its per-column cap; Q1 and Q6 held to a plain chunked
-     torch computation over device_gen.column (sums and counts exact);
-     each query's peak within 90% of the card (scale_run.PEAK_SHARE);
-     Q11's scan kernel launch or its decline;
+     those over its per-column cap; Q3 again with grouped_lifespans=1,
+     equal to its lifespans' rows; Q1, Q6 and Q18 held to plain chunked
+     torch computations over device_gen.column (sums and counts exact;
+     Q18's orders, prices, dates and quantity sums exact in the same
+     order); each query's peak within 90% of the card
+     (scale_run.PEAK_SHARE); Q11's scan kernel launch or its decline;
+ 17b. drivers and lifespans at the scale factor (run_lifespans): Q3,
+     Q18 and the reference test's Q18 shape with grouped_lifespans=4
+     (prefetch depth 1, then 0) equal to their unforced rows; Q1 and the
+     reference test's o_orderstatus query with task_concurrency=4 and
+     fuse_pipelines=False equal to their single-driver rows, with each
+     split driver's wall;
  18. on the fly at the scale factor (run_onthefly): Q1, Q6, Q14 and Q18
      with storage_enabled=False equal to the TPC-H phase's resident
      rows, each with a
@@ -397,7 +406,7 @@ def main() -> int:
     # joins peak near the card's 80 GB) ----------------------------------
     from presto_tpu_torch.benchmarks import scale_run as SR
     with phase("beyond the store at sf100: Q1, Q3, Q5, Q6, Q11, Q12, Q14, "
-               "Q19 through LocalQueryRunner, unbudgeted"):
+               "Q18, Q19 through LocalQueryRunner, unbudgeted"):
         sf100_records = SR.run_sf100(100.0, device, card=f"on {card}",
                                      warm=1)
     torch.cuda.empty_cache()
@@ -1865,7 +1874,12 @@ def main() -> int:
             assert tpch_launches[name] > 0, (name, tpch_launches)
         assert tpch_join_launches > 0, dict(sk.JOIN_LAUNCHES)
 
-    # -- on the fly and under a memory budget at the scale factor --------
+    # -- drivers and lifespans, on the fly and under a memory budget at
+    # the scale factor ----------------------------------------------------
+    with phase(f"drivers and lifespans at {schema}: Q3, Q18, the Q18 "
+               f"shape with 4 lifespans; Q1, o_orderstatus with 4 "
+               f"drivers"):
+        lifespan_records = SR.run_lifespans(sf, device, card=f"on {card}")
     with phase(f"on the fly at {schema}: Q1, Q6, Q14, Q18 with "
                f"storage_enabled=False"):
         fly_records = SR.run_onthefly(sf, device, card=f"on {card}",
@@ -2069,6 +2083,14 @@ def main() -> int:
                   f"{r['declined']}")
     print(f"  store: resident {sf100_records['store']['resident']}, over "
           f"the cap {sf100_records['store']['rejected']}")
+    for q, r in sf100_records.items():
+        if "grouped" in r:
+            print(f"  {q} lifespans: {r['grouped']}")
+    if "whole_q3" in sf100_records:
+        print(f"  q3 with grouped_lifespans=1: {sf100_records['whole_q3']}")
+    print(f"drivers and lifespans at {schema} on {card}:")
+    for q, r in lifespan_records.items():
+        print(f"  {q}: {r}")
     print(f"on the fly at {schema} on {card}:")
     for q, r in fly_records.items():
         print(f"  {q}: {r['wall_s']:.3f} s, declined {r['declined']}")

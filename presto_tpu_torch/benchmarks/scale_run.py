@@ -4,26 +4,38 @@
         [--sf100 100] [--sf 10] [--device cuda]
     python -m presto_tpu_torch.benchmarks.scale_run --trace-peak 12
 
-Three phases, each through LocalQueryRunner (chip_smoke.py runs all
-three):
+Four phases, each through LocalQueryRunner (chip_smoke.py runs all
+four):
 
   * `sf100`: SF100 TPC-H, unbudgeted, with the store's defaults (6 GiB,
     1 GiB per column): every lineitem column and every orders column but
     o_orderdate are over the per-column cap (a column that is neither a
     date nor INT_ARRAY is sized at 8 bytes a row), so they are generated
-    on the fly per chunk.  Q1, Q3, Q5, Q6, Q11, Q12, Q14 and Q19 (the
-    queries with no whole-column host string pass but Q18, see
-    SF100_QUERIES), one fresh runner per query (the structural build
-    cache is unbounded under an unlimited pool): the cold
+    on the fly per chunk.  Q1, Q3, Q5, Q6, Q11, Q12, Q14, Q18 and Q19
+    (the queries with no whole-column host string pass), one fresh
+    runner per query (the structural build cache is unbounded under an
+    unlimited pool): the cold
     wall, the median warm wall, the modes, declines and kernel launches,
-    and the device's peak memory (torch.cuda.max_memory_allocated over
-    the query's runs), which must stay within PEAK_SHARE of the card;
-    then the store's resident and rejected columns.
-    Q1 and Q6 are held to a plain chunked torch computation over
-    device_gen.column's values (plain_q1 / plain_q6, sharing no code with
-    the chain): sums and counts exact, each average within half a unit of
-    its scale of sum / count.  Q11 must launch a scan kernel, or its
-    decline is printed.
+    the grouped lifespans (whether they engaged, groupedRunWallNanos > 0;
+    how many; the gen and compute walls), and the device's peak memory
+    (torch.cuda.max_memory_allocated over the query's runs), which must
+    stay within PEAK_SHARE of the card; then the store's resident and
+    rejected columns.  Under auto, Q3 and Q18 (grouped by an orderkey,
+    whose 150 M-key span passes grouped.AUTO_SPAN_THRESHOLD) must engage
+    lifespans and the others must not (LIFESPAN_QUERIES); Q3 once more
+    with grouped_lifespans=1 (the whole-table path) must give the same
+    rows.  Q1, Q6 and Q18 are held to plain chunked torch computations
+    over device_gen.column's values (plain_q1 / plain_q6 / plain_q18,
+    sharing no code with the chain): sums and counts exact, each average
+    within half a unit of its scale of sum / count; Q18's orders, prices,
+    dates, customers and quantity sums exact in the same top-100 order.
+    Q11 must launch a scan kernel, or its decline is printed.
+  * `lifespans`: at --sf, Q3, Q18 and the reference test's Q18 shape
+    with grouped_lifespans=4 (and once more with
+    grouped_prefetch_depth=0) equal to their unforced rows; Q1 and the
+    reference test's o_orderstatus query with task_concurrency=4 and
+    fuse_pipelines=False equal to their single-driver rows, with each
+    split driver's wall.
   * `onthefly`: Q1, Q6, Q14 and Q18 at --sf with storage_enabled=False,
     equal to the resident runner's rows of the same call; the scan
     kernels meter kernelDeclinedColumnsNotResident.
@@ -63,11 +75,23 @@ from .rows import assert_rows_close
 from .tpch_queries import ORDERED, queries_for_sf
 from .tpch_run import _launches, _sync, _wall, modes
 
-# Q18 is left out: its l_orderkey aggregation has 150 M groups at SF100,
-# past the runtime span (2^26), the sort path's 6 GiB and the hashed
-# table's last retry (2^27 slots), and raises "collision retries
-# exhausted" (the reference runs it through grouped lifespans)
-SF100_QUERIES = (1, 3, 5, 6, 11, 12, 14, 19)
+SF100_QUERIES = (1, 3, 5, 6, 11, 12, 14, 18, 19)
+# the SF100 queries whose aggregation is grouped by an orderkey: under
+# auto their lifespans engage at SF100, and no other query's do
+LIFESPAN_QUERIES = (3, 18)
+# the reference tests' shapes (tests/test_grouped.py,
+# tests/test_local_exchange.py) for the forced-lifespan and driver checks
+Q18_SHAPE = """
+select l_orderkey, o_orderdate, o_totalprice, sum(l_quantity) q
+from lineitem join orders on l_orderkey = o_orderkey
+group by l_orderkey, o_orderdate, o_totalprice
+having sum(l_quantity) > 150
+order by o_totalprice desc, o_orderdate limit 20
+"""
+ORDERSTATUS = ("select o_orderstatus, count(*), sum(o_totalprice) "
+               "from orders group by o_orderstatus")
+FORCED_LIFESPANS = 4
+DRIVERS = 4
 ONTHEFLY_QUERIES = (1, 6, 14, 18)
 BUDGETED_QUERIES = (1, 3, 5, 9, 13, 18, 21)
 # query.max-memory-per-node for the budgeted phase: at SF10 under Q3's
@@ -93,6 +117,18 @@ PLAIN_CHUNK = 1 << 24
 
 def _stat(res, key: str) -> float:
     return float((res.runtime_stats or {}).get(key, {}).get("sum", 0))
+
+
+def lifespans(res) -> dict:
+    """Whether grouped lifespans engaged (groupedRunWallNanos > 0), how
+    many buckets were aggregated, and the gen / compute / run walls."""
+    rs = res.runtime_stats or {}
+    return {"engaged": _stat(res, "groupedRunWallNanos") > 0,
+            "lifespans": int(rs.get("groupedBucketComputeWallNanos",
+                                    {}).get("count", 0)),
+            "gen_s": _stat(res, "groupedBucketGenWallNanos") / 1e9,
+            "compute_s": _stat(res, "groupedBucketComputeWallNanos") / 1e9,
+            "run_s": _stat(res, "groupedRunWallNanos") / 1e9}
 
 
 # -- plain chunked computations over device_gen.column ---------------------
@@ -160,6 +196,42 @@ def plain_q1(sf: float, device) -> Dict[tuple, list]:
     return out
 
 
+def plain_q18(sf: float, device, limit: int = 100) -> list:
+    """Q18's rows without the customer name: (o_orderkey, o_custkey,
+    o_orderdate day, o_totalprice unscaled, sum(l_quantity) unscaled) of
+    the orders whose lines' quantities sum past 300, by o_totalprice
+    descending and o_orderdate: the quantities summed per orderkey into
+    an int64 array of one slot per order (orderkeys are dense)."""
+    from ..connectors import catalog, device_gen
+    n_orders = catalog.table_row_count("orders", sf, "tpch")
+    qty = torch.zeros(n_orders + 1, dtype=torch.int64, device=device)
+    for idx in _chunks(sf, device):
+        qty.index_add_(0, _col("orderkey", sf, idx), _col("quantity", sf,
+                                                          idx))
+    okeys = torch.nonzero(qty > 300 * 100).flatten()
+    rows = okeys - 1
+
+    def ocol(name):
+        return device_gen.column("tpch", "orders", name, sf, rows) \
+            .to(torch.int64)
+    price, day, cust = ocol("totalprice"), ocol("orderdate"), ocol("custkey")
+    out = sorted(zip(okeys.tolist(), cust.tolist(), day.tolist(),
+                     price.tolist(), qty[okeys].tolist()),
+                 key=lambda r: (-r[3], r[2]))
+    return out[:limit]
+
+
+def check_q18(res, want: list) -> None:
+    assert len(res.rows) == len(want), (len(res.rows), len(want))
+    epoch = np.datetime64("1970-01-01", "D")
+    for r, w in zip(res.rows, want):
+        day = int((np.datetime64(str(r[3]), "D") - epoch)
+                  .astype(np.int64))
+        got = (r[2], r[1], day, int(r[4].scaleb(2)), int(r[5].scaleb(2)))
+        assert got == w and r[4].scaleb(2) == got[3] \
+            and r[5].scaleb(2) == got[4], (r, w)
+
+
 def check_q1(res, want: Dict[tuple, list]) -> None:
     got = {(r[0], r[1]): r for r in res.rows}
     assert set(got) == set(want), (sorted(got), sorted(want))
@@ -205,6 +277,8 @@ def check_headroom(q: int, peak: int, device) -> None:
 def run_sf100(sf: float, device, card: str = "", warm: int = 2,
               queries=SF100_QUERIES) -> dict:
     from ..connectors import catalog, device_gen
+    from ..exec.grouped import AUTO_SPAN_THRESHOLD
+    from ..exec.pipeline import tuned_config
     from ..exec.runner import LocalQueryRunner
     from ..storage import get_store
     from ..storage.store import STORAGE_METRICS
@@ -237,16 +311,41 @@ def run_sf100(sf: float, device, card: str = "", warm: int = 2,
             "rows": len(first.rows), "cold_s": cold,
             "warm_ms": float(np.median(walls)) * 1e3 if walls else None,
             "peak_bytes": _peak(device), "launched": launched,
-            **modes(first)}
+            "grouped": lifespans(first), **modes(first)}
         warm_txt = ("no warm run" if not walls else
                     f"warm median {rec['warm_ms']:.3f} ms ({warm} runs)")
+        gr = rec["grouped"]
         print(f"  {schema} Q{q}: {rec['rows']} rows, cold {cold:.3f} s, "
               f"{warm_txt}, peak "
               f"device memory {rec['peak_bytes']} B, kernel programs "
               f"{rec['kernel_programs']}, chain {rec['chain']}, streaming "
               f"{rec['streaming']}, launched {launched}, declined "
-              f"{rec['declined']} {card}", flush=True)
+              f"{rec['declined']}, lifespans engaged {gr['engaged']} "
+              f"({gr['lifespans']} on the cold run, gen {gr['gen_s']:.3f} "
+              f"s, compute {gr['compute_s']:.3f} s, run {gr['run_s']:.3f} "
+              f"s) {card}", flush=True)
+        if catalog.table_row_count("orders", sf, "tpch") \
+                > AUTO_SPAN_THRESHOLD:
+            assert gr["engaged"] == (q in LIFESPAN_QUERIES), (q, gr)
         del runner
+        if q == 3:
+            # the whole-table path (no lifespans) for the same rows
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            whole = LocalQueryRunner(schema, device=device,
+                                     config=tuned_config(grouped_lifespans=1))
+            _sync(device)
+            _peak_reset(device)
+            got, wall = _wall(whole, qs[q], device)
+            assert_rows_close(got, first, ordered=True, rtol=RTOL)
+            assert not lifespans(got)["engaged"]
+            check_headroom(q, _peak(device), device)
+            out["whole_q3"] = {"cold_s": wall, "peak_bytes": _peak(device)}
+            print(f"  {schema} Q3 with grouped_lifespans=1: cold "
+                  f"{wall:.3f} s, peak device memory {_peak(device)} B, "
+                  f"rows == the lifespans' rows {card}", flush=True)
+            del whole
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -290,6 +389,12 @@ def run_sf100(sf: float, device, card: str = "", warm: int = 2,
         assert got == int(got) and int(got) == want, (got, want)
         print(f"  {schema} Q6 unscaled revenue {want} == plain chunked "
               f"torch ({time.perf_counter() - t0:.3f} s)")
+    if 18 in results:
+        t0 = time.perf_counter()
+        check_q18(results[18], plain_q18(sf, device))
+        print(f"  {schema} Q18's {len(results[18].rows)} rows == plain "
+              f"chunked torch over device_gen "
+              f"({time.perf_counter() - t0:.3f} s)")
     if 11 in results:
         q11 = out["q11"]
         if q11["kernel_programs"]:
@@ -298,6 +403,79 @@ def run_sf100(sf: float, device, card: str = "", warm: int = 2,
             print(f"  {schema} Q11 launched no scan kernel: declined "
                   f"{q11['declined']}, fusion declined "
                   f"{q11['fusion_declined']}")
+    return out
+
+
+def _with_node_stats(runner, sql):
+    """The query through a compiler of the runner's config whose
+    per-node operator stats are on (TaskContext.stats): its result and
+    the scans' driver walls."""
+    from ..exec.pipeline import PlanCompiler, TaskContext
+    from ..exec.runner import pages_to_result
+    from ..spi import plan as P
+    from ..sql import parser as A
+    from ..sql.planner import Planner
+    output = Planner(default_schema=runner.schema, default_catalog="tpch") \
+        .plan_query_to_output(A.parse_sql(sql))
+    comp = PlanCompiler(TaskContext(config=runner.config,
+                                    device=runner.device, stats={}))
+    res = pages_to_result(comp.run_to_pages(output), output.column_names,
+                          [v.type for v in output.outputs])
+    walls = [comp.ctx.stats[n.id]["driver_walls"]
+             for n in P.walk_plan(output)
+             if isinstance(n, P.TableScanNode)
+             and "driver_walls" in comp.ctx.stats.get(n.id, {})]
+    return res, walls
+
+
+def run_lifespans(sf: float, device, card: str = "") -> dict:
+    """Forced lifespans and scan drivers at `sf`: rows against the
+    unforced and single-driver rows of the same call."""
+    from ..exec.pipeline import tuned_config
+    from ..exec.runner import LocalQueryRunner
+    schema = f"sf{sf:g}"
+    qs = queries_for_sf(sf)
+    out = {}
+    free = LocalQueryRunner(schema, device=device)
+    forced = {d: LocalQueryRunner(schema, device=device, config=tuned_config(
+        grouped_lifespans=FORCED_LIFESPANS, grouped_prefetch_depth=d))
+        for d in (1, 0)}
+    for name, sql in (("q3", qs[3]), ("q18", qs[18]),
+                      ("q18_shape", Q18_SHAPE)):
+        want, wall = _wall(free, sql, device)
+        assert not lifespans(want)["engaged"], name
+        rec = out[name] = {"unforced_s": wall}
+        for d, r in forced.items():
+            got, wall = _wall(r, sql, device)
+            assert_rows_close(got, want, ordered=True, rtol=RTOL)
+            gr = lifespans(got)
+            assert gr["engaged"] and gr["lifespans"] >= FORCED_LIFESPANS, gr
+            rec[f"depth{d}"] = {"wall_s": wall, **gr}
+        d1, d0 = rec["depth1"], rec["depth0"]
+        print(f"  {schema} {name} with grouped_lifespans="
+              f"{FORCED_LIFESPANS}: == unforced rows; wall unforced "
+              f"{rec['unforced_s']:.3f} s, prefetch depth 1 "
+              f"{d1['wall_s']:.3f} s ({d1['lifespans']} lifespans, gen "
+              f"{d1['gen_s']:.3f} s, compute {d1['compute_s']:.3f} s, run "
+              f"{d1['run_s']:.3f} s), depth 0 {d0['wall_s']:.3f} s (run "
+              f"{d0['run_s']:.3f} s) {card}", flush=True)
+    serial = LocalQueryRunner(schema, device=device,
+                              config=tuned_config(fuse_pipelines=False))
+    drivers = LocalQueryRunner(schema, device=device, config=tuned_config(
+        fuse_pipelines=False, task_concurrency=DRIVERS))
+    for name, sql in (("q1", qs[1]), ("orderstatus", ORDERSTATUS)):
+        want, w_serial = _wall(serial, sql, device)
+        got, w_drv = _wall(drivers, sql, device)
+        assert_rows_close(got, want, ordered=False, rtol=RTOL)
+        res, walls = _with_node_stats(drivers, sql)
+        assert_rows_close(res, want, ordered=False, rtol=RTOL)
+        assert walls and all(len(w) > 1 for w in walls), walls
+        out[f"drivers_{name}"] = {"serial_s": w_serial, "drivers_s": w_drv,
+                                  "driver_walls": walls}
+        print(f"  {schema} {name} with task_concurrency={DRIVERS}, "
+              f"fuse_pipelines=False: == single-driver rows; wall "
+              f"{w_drv:.3f} s against {w_serial:.3f} s single; driver "
+              f"walls (s) per scan {walls} {card}", flush=True)
     return out
 
 
@@ -523,7 +701,8 @@ def trace_peak(sf: float, q: int, device, top: int = 12) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", default="all",
-                    choices=("all", "sf100", "onthefly", "budgeted"))
+                    choices=("all", "sf100", "lifespans", "onthefly",
+                             "budgeted"))
     ap.add_argument("--sf100", default="100")
     ap.add_argument("--sf", default="10")
     ap.add_argument("--warm", type=int, default=2)
@@ -547,6 +726,8 @@ def main() -> int:
           if args.queries else SF100_QUERIES)
     if args.phase in ("all", "sf100"):
         run_sf100(float(args.sf100), device, warm=args.warm, queries=qs)
+    if args.phase in ("all", "lifespans"):
+        run_lifespans(float(args.sf), device)
     if args.phase in ("all", "onthefly"):
         run_onthefly(float(args.sf), device)
     if args.phase in ("all", "budgeted"):

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -77,7 +77,9 @@ def _direct_builder(size: int):
         counts = torch.zeros(size + 1, dtype=torch.int32,
                              device=values.device)
         counts.index_add_(0, k, mask.to(torch.int32))
-        return slots[:size], bool((counts[:size] > 1).any())
+        # the dup flag stays on the device (a bool tensor): the grouped
+        # runner reads it without a host sync
+        return slots[:size], (counts[:size] > 1).any()
     return build
 
 
@@ -89,13 +91,18 @@ def _key_stats(values, mask):
     return int(vmin), int(vmax), int(mask.sum())
 
 
-def _max_run(table: ops.BuildTable) -> int:
+def _max_run_device(table: ops.BuildTable) -> torch.Tensor:
     """Largest live-key duplicate run (the join's max fanout; padding runs
-    excluded)."""
+    excluded), as a device scalar."""
     n = table.run_len.shape[0]
     pos = torch.arange(n, dtype=torch.int32, device=table.run_len.device)
-    return int(torch.where(pos < table.valid_count, table.run_len,
-                           torch.zeros_like(table.run_len)).max())
+    return torch.where(pos < table.valid_count, table.run_len,
+                       torch.zeros_like(table.run_len)).max()
+
+
+def _max_run(table: ops.BuildTable) -> int:
+    """_max_run_device on the host."""
+    return int(_max_run_device(table))
 
 
 def _build_has_null_key(batch: Batch, key_names: Tuple[str, ...]) -> bool:
@@ -195,18 +202,31 @@ class FusedChain:
             kprod *= k
         return max(1 << 12, self.cap // kprod)
 
-    def prep(self) -> Optional[Tuple[tuple, Tuple[int, ...]]]:
+    def prep(self, defer: Optional[Callable] = None
+             ) -> Optional[Tuple[tuple, Tuple[int, ...], List[tuple]]]:
         """Materialize every build side and construct its lookup table.
-        Returns (aux, expands): aux[0] is the scan's resident columns and
-        aux[ji + 1] the table of the ji-th join or semi step; expands is
-        each join's fanout (1 = unique build keys).  None when a fanout
-        exceeds the expansion limits."""
+        Returns (aux, expands, deferred): aux[0] is the scan's resident
+        columns and aux[ji + 1] the table of the ji-th join or semi step;
+        expands is each join's fanout (1 = unique build keys).  None when
+        a fanout exceeds the expansion limits.  defer(step_index,
+        JoinNode) -> k (falsy = build here) reserves the join's aux slot
+        (None) instead of building it, with fanout k (grouped execution
+        fills those slots per bucket lifespan: k == 1 a unique-key direct
+        table, k > 1 a hash-sorted table probed with k-way expansion);
+        deferred lists (aux_index, step_index, JoinNode)."""
         aux: List = [self.scan_meta.get("cached_cols", {})]
         expands: List[int] = []
-        for step in self.steps:
+        deferred: List[tuple] = []
+        for si, step in enumerate(self.steps):
             kind = step[0]
             if kind == "join":
                 node = step[1]
+                k_defer = defer(si, node) if defer is not None else 0
+                if k_defer:
+                    aux.append(None)
+                    deferred.append((len(aux) - 1, si, node))
+                    expands.append(int(k_defer))
+                    continue
                 res = build_lookup(
                     self.compiler, node.right,
                     tuple(r.name for _l, r in node.criteria), for_join=True)
@@ -228,7 +248,7 @@ class FusedChain:
             kprod *= k
         if kprod > MAX_EXPAND_PRODUCT:
             return None
-        return tuple(aux), tuple(expands)
+        return tuple(aux), tuple(expands), deferred
 
 
     # -- runtime: the chain over one scan chunk (torch) --------------------
@@ -430,7 +450,7 @@ def try_direct_table(batch: Batch, key: str,
         return None
     size = 1 << (span - 1).bit_length()
     slots, dup = _direct_builder(size)(col.values, batch.mask, vmin)
-    if not allow_dup and dup:
+    if not allow_dup and bool(dup):
         return None
     base = torch.tensor([vmin], dtype=torch.int64, device=col.values.device)
     return DirectTable(slots, base, dict(batch.columns))
@@ -554,10 +574,10 @@ def _renamed_batch(batch: Batch, names: List[str],
 def _result_key(compiler, tag: str, node: P.PlanNode) -> tuple:
     """The structural result-cache key of a materialized subtree: twins
     (scalar-subquery re-plans, decorrelated copies: fresh node ids, same
-    shape) share one entry; a subtree with bound parameters is pinned to
-    this execution's values."""
+    shape) over the same splits share one entry; a subtree with bound
+    parameters is pinned to this execution's values."""
     sk = P.structural_key(node)
-    key = (tag, sk)
+    key = (tag, sk, compiler._splits_fingerprint(node))
     if '"@type": "parameter"' in sk:
         key += (compiler.ctx.params_fingerprint,)
     return key
@@ -580,7 +600,7 @@ def _ready_chain(compiler, node: P.PlanNode):
         if rs is not None:
             rs.add("fusionDeclinedPrepFanout", 1)
         return None
-    aux, expands = prep_res
+    aux, expands, _ = prep_res
     try:
         chain.make(0, 0, aux, expands, PROBE_ROWS)
     except NotImplementedError:

@@ -21,7 +21,11 @@ the torch fused chain (exec/fused.py FusedChain.make) in the reference's
 XLA-chain mode order; without a fused chain, the streaming aggregation.
 A WindowNode's functions run in one launch of the CUDA window kernel over
 the sorted run (exec/kernels/window.py), operators.window_batch after its
-metered decline.  A column the resident store does not hold, and every
+metered decline.  An aggregation grouped by the bucket key of a
+co-bucketed scan runs one bucket lifespan at a time when the key span
+is large or the lifespans are forced (exec/grouped.py), and a scan with
+several splits drains them on task_concurrency driver threads
+(exec/local_exchange.py).  A column the resident store does not hold, and every
 column under a memory budget, is generated on the fly per chunk; under a
 budget a join build past it spills into the grace hash join and an
 aggregation into a key-partitioned store (exec/memory.py).  Every tensor
@@ -196,6 +200,21 @@ class ExecutionConfig:
     # metered as kernelDmaStagedBlocks / kernelDmaPrefetchedBlocks /
     # kernelDmaOverlapFraction.  Config key scan.kernel-dma
     scan_kernel_dma: str = "single"
+    # grouped (lifespan) execution over connector co-bucketed tables
+    # (exec/grouped.py): 0 = auto (engage when the anchor keyspace exceeds
+    # grouped.AUTO_SPAN_THRESHOLD), 1 = off, N >= 2 = force N bucket
+    # lifespans.  Config key task.grouped-lifespans / session
+    # grouped_lifespans
+    grouped_lifespans: int = 0
+    # lifespans staged AHEAD of the one being computed (their builds
+    # materialized, their dup flags copied to the host without a sync);
+    # 0 = strictly serial.  Config key task.grouped-prefetch-depth /
+    # session grouped_prefetch_depth
+    grouped_prefetch_depth: int = 1
+    # intra-task driver concurrency (driver-per-split, exec/
+    # local_exchange.py): a leaf scan with more than one split drains its
+    # splits on this many threads.  Config key task.max-drivers-per-task
+    task_concurrency: int = 1
 
     def __post_init__(self):
         if self.scan_kernel not in SCAN_KERNEL_MODES:
@@ -227,10 +246,18 @@ class TaskContext:
     config: ExecutionConfig = field(default_factory=ExecutionConfig)
     # every tensor of the task is allocated here
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    # table-scan node id -> the splits this task scans (absent: the whole
+    # table in splits_per_scan splits); grouped execution overrides a
+    # bucketed build's scan with one bucket's row range
+    splits: Dict[str, List[catalog.TableSplit]] = field(default_factory=dict)
     # device byte accounting for this task (created by PlanCompiler if absent)
     memory: Optional[MemoryContext] = None
     # runner-provided RuntimeStats sink (utils/runtime_stats.py)
     runtime_stats: Optional[object] = None
+    # per-node operator stats, node id -> {rows, wall_s, batches, ...}
+    # (None = off): a scan's driver walls land here, and the aggregation
+    # keeps the single-lifespan path while it is on
+    stats: Optional[Dict[str, dict]] = None
     # bound-parameter vector (one int64 device tensor) and its host values
     params: Optional[torch.Tensor] = None
     params_fingerprint: Optional[Tuple] = None
@@ -504,6 +531,18 @@ class PlanCompiler:
                 self._cache[skey] = (out, names)
         return out
 
+    def _splits_fingerprint(self, node: P.PlanNode) -> str:
+        """Task-assigned splits under a subtree, in walk order -- part of
+        the structural result-cache key: two structurally equal subtrees
+        only share data when their scans cover the same splits."""
+        parts = []
+        for n in P.walk_plan(node):
+            if isinstance(n, P.TableScanNode):
+                sp = self.ctx.splits.get(n.id)
+                parts.append("-" if sp is None else json.dumps(
+                    [s.to_dict() for s in sp], sort_keys=True))
+        return "|".join(parts)
+
     def _params_for(self, expr) -> Optional[torch.Tensor]:
         return self.ctx.params if expr_has_params(expr) else None
 
@@ -533,9 +572,11 @@ class PlanCompiler:
         columns = [node.assignments[v].name for v in node.outputs]
         th = node.table
         sf = dict(th.extra).get("scaleFactor", 0.01)
-        splits = catalog.make_splits(th.table_name, sf,
-                                     self.ctx.config.splits_per_scan,
-                                     th.connector_id)
+        splits = self.ctx.splits.get(node.id)
+        if splits is None:
+            splits = catalog.make_splits(th.table_name, sf,
+                                         self.ctx.config.splits_per_scan,
+                                         th.connector_id)
         cfg = self.ctx.config
         cap = cfg.batch_rows
         table, cid = th.table_name, th.connector_id
@@ -670,23 +711,41 @@ class PlanCompiler:
             buf[:n] = raw
             return Column(torch.from_numpy(buf).to(device), nulls)
 
+        make = make_factory(cap)
+
+        def split_gen(split):
+            for pos, n in split_chunks(split):
+                cols = {}
+                if dev:
+                    outs, mask = make(pos, n, cached_cols)
+                    for name, colname, kind in dev:
+                        cols[name] = Column(
+                            outs[name], None, dicts.get(name),
+                            (split.connector, table, colname, split.sf)
+                            if kind == "lazy" else None)
+                else:
+                    mask = torch.arange(cap, device=device) < n
+                for name, colname in host:
+                    cols[name] = host_column(split, colname, pos, n)
+                yield Batch(cols, mask)
+
         def gen():
-            make = make_factory(cap)
+            tc = cfg.task_concurrency
+            if tc > 1 and len(splits) > 1:
+                # driver-per-split leaf parallelism (LocalExchange +
+                # task_concurrency): split drains overlap host work; the
+                # batches arrive in no fixed order
+                from .local_exchange import on_caller_stream, parallel_drain
+                dstats = None
+                if self.ctx.stats is not None:
+                    dstats = self.ctx.stats.setdefault(
+                        node.id, {"rows": 0, "wall_s": 0.0, "batches": 0})
+                yield from parallel_drain(on_caller_stream(
+                    [lambda s=s: split_gen(s) for s in splits], device),
+                    tc, dstats)
+                return
             for split in splits:
-                for pos, n in split_chunks(split):
-                    cols = {}
-                    if dev:
-                        outs, mask = make(pos, n, cached_cols)
-                        for name, colname, kind in dev:
-                            cols[name] = Column(
-                                outs[name], None, dicts.get(name),
-                                (split.connector, table, colname, split.sf)
-                                if kind == "lazy" else None)
-                    else:
-                        mask = torch.arange(cap, device=device) < n
-                    for name, colname in host:
-                        cols[name] = host_column(split, colname, pos, n)
-                    yield Batch(cols, mask)
+                yield from split_gen(split)
 
         # the row-level runtime filter: plain integer device columns only
         # (dictionary codes and lazy row ids are not in key units); a
@@ -1812,7 +1871,7 @@ class PlanCompiler:
                     return None
                 fused_cache["prep"], fused_cache["prep_fp"] = prep_res, pfp
                 fused_cache.pop("probe", None)
-            aux, expands = prep_res
+            aux, expands, _ = prep_res
 
             def chunks_and_steps():
                 """The pruned scan chunks and the chain's steps over them,
@@ -2112,9 +2171,28 @@ class PlanCompiler:
                                "exhausted")
 
         def gen():
-            # the reference's grouped (lifespan) runner is not ported: a
-            # fused chain runs whole
             fused = get_fused()
+            # grouped (lifespan) execution first, so an eligible chain
+            # never reaches a scan kernel; per-node operator stats keep
+            # the single-lifespan path
+            if fused is not None and self.ctx.stats is None:
+                grouped = fused_cache.get("grouped", False)
+                if grouped is not False and grouped is not None \
+                        and fused.build_params \
+                        and grouped.params_fp != self.ctx.params_fingerprint:
+                    # parameterized build tables (shared builds, bucket-0
+                    # fanout probe) were sized under the old constants:
+                    # rebuild the runner for this fingerprint
+                    grouped = False
+                if grouped is False:
+                    from .grouped import make_grouped_runner
+                    grouped = make_grouped_runner(
+                        self, node, fused, key_names, specs, _agg_exprs,
+                        basic_specs, bool(input_exprs2), cfg)
+                    fused_cache["grouped"] = grouped
+                if grouped is not None:
+                    yield from grouped.run()
+                    return
             if fused is not None:
                 out = run_fused(fused)
                 if out is not None:
@@ -2493,10 +2571,16 @@ _COLUMN_CACHE_MAX_ENTRIES = 64
 _HOST_CHUNK = 1 << 18
 
 
+# the FIFO eviction is a read-modify-write; scan drivers
+# (task_concurrency) may fill the caches from several threads
+_CACHE_LOCK = threading.Lock()
+
+
 def _cache_put(cache: Dict, key, value) -> None:
-    if len(cache) >= _COLUMN_CACHE_MAX_ENTRIES:
-        cache.pop(next(iter(cache)))
-    cache[key] = value
+    with _CACHE_LOCK:
+        if len(cache) >= _COLUMN_CACHE_MAX_ENTRIES:
+            cache.pop(next(iter(cache)))
+        cache[key] = value
 
 
 def _column_chunks(cid: str, table: str, column: str, sf: float):

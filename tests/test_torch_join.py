@@ -172,7 +172,7 @@ def test_prep_tables_match_reference(ref, port, sql):
         TCompiler(TContext(config=ttuned(), device=torch.device("cpu"))),
         _agg_source(port.plan(sql), TP))
     jaux, jexp, _ = jchain.prep()
-    taux, texp = tchain.prep()
+    taux, texp, _ = tchain.prep()
     assert texp == tuple(jexp)
     want, got = _tables(jaux), _tables(taux)
     assert [k for k, _a in got] == [k for k, _a in want]

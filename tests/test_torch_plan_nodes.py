@@ -225,7 +225,7 @@ def test_uid_step_ids_equal_reference(ref, ports):
     assert [s[0] for s in tchain.steps] == [s[0] for s in jchain.steps]
     assert tchain.steps[-1][0] == "uid"
     jaux, jexp, _d = jchain.prep()
-    taux, texp = tchain.prep()
+    taux, texp, _ = tchain.prep()
     assert tuple(jexp) == tuple(texp) and max(texp) > 1
     cap = tchain.leaf_cap(texp)
     for pos, cnt in tchain.chunks_for(texp)[:2]:
@@ -270,7 +270,12 @@ def test_left_out_shapes_raise_naming_the_piece(ports, case):
         sql = "select sum(l_quantity) from lineitem"
         assert runner.execute(sql).rows == ports["auto"].execute(sql).rows
     else:
-        with pytest.raises(NotImplementedError,
-                           match="task.max-drivers-per-task"):
-            tprops.execution_config_from_properties(
-                {"task.max-drivers-per-task": "4"})
+        # ported since: the key sets the scan drivers, whose rows equal
+        # the single-driver rows
+        cfg = tprops.execution_config_from_properties(
+            {"task.max-drivers-per-task": "4",
+             "task.fuse-pipelines": "false"}, base=tuned_config())
+        assert cfg.task_concurrency == 4
+        runner = LocalQueryRunner("sf0.01", device="cpu", config=cfg)
+        sql = "select sum(l_quantity) from lineitem"
+        assert runner.execute(sql).rows == ports["auto"].execute(sql).rows

@@ -71,6 +71,11 @@ CONFIGS = [
       "experimental.spiller-spill-path": "/x/spill",
       "spill.async-staging": "false"}, None),
     ({"spill.host-budget-bytes": "4096", "spill.path": "/y"}, None),
+    # ported with the scan drivers and grouped lifespans
+    ({"task.max-drivers-per-task": "4", "task.grouped-lifespans": "4",
+      "task.grouped-prefetch-depth": "2"}, None),
+    ({"task.grouped-lifespan-sharding": "false"},
+     "task.grouped-lifespan-sharding"),
 ]
 
 
@@ -199,6 +204,9 @@ SESSIONS = [
     ({"spill_enabled": "false", "spill_partitions": "4",
       "spill_path": "/x", "spill_host_budget_bytes": "1024",
       "spill_async_staging": "false"}, None),
+    # ported with grouped lifespans; the scheduler's sharding is not
+    ({"grouped_lifespans": "3", "grouped_prefetch_depth": "0"}, None),
+    ({"grouped_lifespan_sharding": "false"}, "grouped_lifespan_sharding"),
 ]
 
 
