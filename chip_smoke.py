@@ -152,6 +152,24 @@ Phases, each printed with its wall time:
      launch counters (and those of launches carrying a join probe) set
      to 0 just before the phase and read just after: the direct and hash
      kernels and the join probe must have launched.
+ 16b. the distributed scheduler (benchmarks/distributed_run.py run_all,
+     right after the TPC-H phase, whose local rows and warm walls it
+     reads): Q1-Q22 at sf0.01 through DistributedQueryRunner against the
+     golden rows (2 tasks; Q21, where the reference's distributed runner
+     returns other rows, through partitioned joins), then Q1-Q22 at the
+     scale factor with 2 tasks, cold and once warm, equal to the local
+     rows (exact, doubles at rtol 1e-9; Q21's equality recorded, not
+     held), with each stage's task and stage walls, the exchange's host
+     bytes and wall, the dynamic filters, adaptive flips and swaps, the
+     warm run's launches and peak memory; the direct kernel launched in
+     Q1's and Q6's source stages; Q3 and Q18 with 3 tasks and
+     partitioned joins; W1 with the window kernel launched in the hash
+     stage over the exchange; batch mode on Q1 and Q3 with task 0 of a
+     source stage failing once and retried once; the Q18 shape's 4
+     lifespans sharded over 2 tasks; one torch.profiler capture of
+     distributed Q3 (idle share, copy ms).  The launch counters are set
+     to 0 just before the phase and read just after: the direct and
+     window kernels must have launched;
 
  17. (run right after the build, on an empty card) scans beyond the
      resident store at SF100 (benchmarks/scale_run.py run_sf100): Q1,
@@ -1874,6 +1892,25 @@ def main() -> int:
             assert tpch_launches[name] > 0, (name, tpch_launches)
         assert tpch_join_launches > 0, dict(sk.JOIN_LAUNCHES)
 
+    # -- the distributed scheduler: stages of tasks on the card ----------
+    with phase(f"distributed at {schema}: Q1-Q22 through "
+               f"DistributedQueryRunner (2 tasks) against the local rows, "
+               f"Q3 and Q18 partitioned, W1, batch mode, sharded "
+               f"lifespans, a profile of Q3"):
+        from presto_tpu_torch.benchmarks import distributed_run as DR
+        for d in (sk.LAUNCHES, sk.JOIN_LAUNCHES, gk.ONCHIP_LAUNCHES):
+            for k in d:
+                d[k] = 0
+        dist_records = DR.run_all(sf, device, local=tpch_records,
+                                  card=f"on {card}")
+        dist_launches = {k: sk.LAUNCHES[k]
+                         for k in sk.SCAN_KERNELS + ("window_scan",)}
+        dist_join_launches = sum(sk.JOIN_LAUNCHES.values())
+        print(f"  distributed-path launches {dist_launches}, carrying a "
+              f"join probe {dict(sk.JOIN_LAUNCHES)}")
+        for name in ("scan_direct", "window_scan"):
+            assert dist_launches[name] > 0, (name, dist_launches)
+
     # -- drivers and lifespans, on the fly and under a memory budget at
     # the scale factor ----------------------------------------------------
     with phase(f"drivers and lifespans at {schema}: Q3, Q18, the Q18 "
@@ -1917,6 +1954,8 @@ def main() -> int:
                 # launches on the TPC-H path (Q1-Q22 at sf0.01 and at
                 # the scale factor)
                 "tpch_launches": tpch_launches[name],
+                # launches on the distributed path (its tasks' stages)
+                "distributed_launches": dist_launches[name],
                 "max_abs_err": max(r["err"] for r in records.values()
                                    if r["kernel"] == name),
                 "ms": rec["ms"],
@@ -1971,6 +2010,7 @@ def main() -> int:
             "replaces": "presto_tpu/exec/kernels/join.py:191",
             "launches": sum(join_launches.values()),
             "tpch_launches": tpch_join_launches,
+            "distributed_launches": dist_join_launches,
             "max_abs_err": max(records[q]["err"] for q in (
                 "j1", "j2", "j3", "q3_shape", "q18_shape", "semi",
                 "semi_unique", "multi_probe", "partsupp")),
@@ -2030,6 +2070,7 @@ def main() -> int:
             "source": "presto_tpu_torch/exec/kernels/csrc/window_scan.cu",
             "replaces": "presto_tpu/exec/kernels/window.py:111",
             "launches": window_launches,
+            "distributed_launches": dist_launches["window_scan"],
             "max_abs_err": max(r["err"] for r in w_records.values()),
             "ms": wr["ms"],
             "call_ms": wr["call_ms"],
@@ -2098,6 +2139,31 @@ def main() -> int:
     for q, r in budget_records.items():
         print(f"  {q}: " + ", ".join(f"{k} {v}" for k, v in r.items()
                                      if k not in ("fusion_declined",)))
+    print(f"distributed at {schema} on {card}:")
+    for q, r in dist_records["tpch"].items():
+        print(f"  {q}: cold {r['cold_s']:.3f} s, warm {r['warm_ms']:.3f} "
+              f"ms, local warm {r['local_warm_ms']:.3f} ms, "
+              f"{len(r['stages'])} stages, http "
+              f"{r['exchangeFabricHttpBytes']:.0f} B / "
+              f"{r['exchangeFabricHttpExchangeWallNanos'] / 1e6:.3f} ms, "
+              f"filters {r['dynamicFiltersCollected']:.0f}, flips "
+              f"{r['adaptiveExchangeFlips']:.0f}, swaps "
+              f"{r['adaptiveSideSwaps']:.0f}, peak {r['peak_bytes']} B, "
+              f"launched {r['launched']}"
+              + ("" if "equal_to_local" not in r
+                 else f", equal to local {r['equal_to_local']}"))
+    for part in ("partitioned", "batch"):
+        for q, r in dist_records[part].items():
+            print(f"  {part} {q}: {r['wall_s']:.3f} s")
+    print(f"  window: {dist_records['window']['wall_s']:.3f} s, launched "
+          f"{dist_records['window']['launched']}")
+    print(f"  sharded: {dist_records['sharded']['wall_s']:.3f} s, "
+          f"lifespans per shard "
+          f"{dist_records['sharded']['lifespans_per_shard']}")
+    t3 = dist_records["trace_q3"]
+    print(f"  q3 profile: wall {t3['wall_ms']:.3f} ms, busy "
+          f"{t3['busy_ms']:.3f} ms, idle {t3['idle_share']:.4f}, DtoH "
+          f"{t3['d2h_ms']:.3f} ms, HtoD {t3['h2d_ms']:.3f} ms")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,6 @@
 """Grouped (lifespan) execution: run a fused join + aggregation pipeline
 bucket by bucket, so peak device memory is about 1/K of the whole-table
-footprint (the port of presto_tpu/exec/grouped.py, less the scheduler's
-lifespan sharding).
+footprint (the port of presto_tpu/exec/grouped.py).
 
 When the tables under a join are bucketed on the join key, a stage runs
 one bucket Lifespan at a time instead of building the whole hash table
@@ -23,6 +22,11 @@ without spilling.
     DirectTable over the bucket's key span for a unique key, a
     hash-sorted BuildTable probed with a k-way expansion otherwise);
     other builds are shared by every bucket.
+  * Lifespan sharding: the distributed scheduler gives every task of a
+    grouped-eligible source stage (stage_shards_lifespans) the full
+    splits and TaskContext.grouped_shard = (i, N); task i then runs
+    buckets i, i+N, ... and the FINAL stage merges the per-bucket
+    partial aggregates.
 
 Correctness: the anchor group key IS the bucket key, so every output
 group lives in exactly one bucket; a bucketed build restricted to the
@@ -301,6 +305,10 @@ class GroupedRunner:
         consumed, so bucket k+1's build work is queued while bucket k is
         computed and consumed.  Depth 0 is the strictly serial loop.
 
+        With lifespan sharding (TaskContext.grouped_shard = (i, n)) this
+        task runs only buckets i, i+n, ... -- the scheduler hands every
+        task full splits and disjoint bucket subsets.
+
         RuntimeStats (the runner's sink in the context):
         groupedBucketGenWallNanos -- host wall staging each bucket;
         groupedBucketComputeWallNanos -- wall from starting a bucket's
@@ -312,8 +320,13 @@ class GroupedRunner:
         stats = ctx.runtime_stats
         aux0 = self._aux0
         self._aux0 = None           # one-shot: don't pin memory across runs
+        indices = range(len(self.layout))
+        shard = ctx.grouped_shard
+        if shard is not None:
+            indices = range(shard[0], len(self.layout), shard[1])
         t_run = time.perf_counter_ns()  # lint: allow-wall-clock
-        it = iter(range(len(self.layout)))
+        it = iter(indices)
+        ran = 0
         staged = deque()
         exhausted = False
         while True:
@@ -335,12 +348,18 @@ class GroupedRunner:
             self._check_dups(dups)
             t0 = time.perf_counter_ns()  # lint: allow-wall-clock
             yield self._aggregate(chunks, aux)
+            ran += 1
             if stats is not None:
                 stats.add("groupedBucketComputeWallNanos",
                           time.perf_counter_ns() - t0)  # lint: allow-wall-clock
         if stats is not None:
             stats.add("groupedRunWallNanos",
                       time.perf_counter_ns() - t_run)  # lint: allow-wall-clock
+            if shard is not None:
+                # a stage's tasks share one RuntimeStats: the lifespans
+                # each shard ran, under a name of its own
+                stats.add(f"groupedShard{shard[0]}of{shard[1]}Lifespans",
+                          ran)
 
 
 def make_grouped_runner(compiler, node, chain, key_names, specs,
@@ -513,3 +532,75 @@ def make_grouped_runner(compiler, node, chain, key_names, specs,
     runner.key_dtypes = key_dtypes
     runner.key_dicts = key_dicts
     return runner
+
+
+# wrappers a fragment plants above its aggregation that don't change
+# whether the agg itself can run grouped
+_PEELABLE = (P.ProjectNode, P.FilterNode, P.SortNode, P.TopNNode,
+             P.LimitNode)
+
+_SHARDABLE_AGGS = {"sum", "avg", "count", "count_star", "min", "max"}
+
+
+def stage_shards_lifespans(root: P.PlanNode, cfg) -> bool:
+    """Plan-time predicate for the scheduler: may the tasks of this
+    SOURCE-distributed fragment be given FULL splits plus disjoint
+    round-robin lifespan subsets (TaskContext.grouped_shard) instead of
+    the usual split round-robin?
+
+    Mirrors make_grouped_runner's STATIC eligibility conditions (the
+    ones decidable without compiling): one bucketed scan, a grouped
+    basic aggregation keyed on its bucket column, config gates, and the
+    force/auto lifespan-count decision.  A misprediction is safe in
+    both directions -- if grouped execution then fails to engage at
+    runtime, shard 0 runs the ordinary fallback over the full splits
+    and the other shards contribute nothing (the aggregation's gen());
+    if it would have engaged but this predicate said no, tasks fall back
+    to split subsets, which _full_coverage rejects, and each task runs
+    the ordinary single-lifespan path over its subset."""
+    from .lowering import canonical_name
+    if not cfg.grouped_lifespan_sharding or not cfg.fuse_pipelines:
+        return False
+    if cfg.grouped_lifespans == 1 or cfg.memory_budget_bytes is not None \
+            or cfg.memory_max_query_bytes is not None:
+        return False
+    node = root
+    while isinstance(node, _PEELABLE):
+        node = node.source
+    if not isinstance(node, P.AggregationNode):
+        return False
+    if getattr(node, "step", P.SINGLE) not in (P.SINGLE, P.PARTIAL):
+        return False
+    if not node.grouping_keys:
+        return False
+    for agg in node.aggregations.values():
+        if agg.distinct or agg.mask is not None:
+            return False
+        fname = canonical_name(agg.call.display_name)
+        if fname == "count" and not agg.call.arguments:
+            fname = "count_star"
+        if fname not in _SHARDABLE_AGGS:
+            return False
+    # exactly one scan subtree: broadcast build sides arrive as
+    # RemoteSources in a SOURCE fragment, so >1 scan means a co-located
+    # join shape the runtime walker would have to re-verify per task
+    scans = [n for n in P.walk_plan(node)
+             if isinstance(n, P.TableScanNode)]
+    if len(scans) != 1:
+        return False
+    scan = scans[0]
+    table = scan.table.table_name
+    cid = scan.table.connector_id
+    bcol = catalog.bucket_column(table, cid)
+    if bcol is None:
+        return False
+    if not any((_resolve_to_scan(node.source, k.name) or (None, None))
+               == (scan, bcol) for k in node.grouping_keys):
+        return False
+    if cfg.grouped_lifespans >= 2:
+        return True
+    sf = dict(scan.table.extra).get("scaleFactor", 0.01)
+    layout1 = catalog.bucket_layout(sf, 1, cid)
+    if not layout1:
+        return False
+    return layout1[-1].key_hi - layout1[0].key_lo > AUTO_SPAN_THRESHOLD

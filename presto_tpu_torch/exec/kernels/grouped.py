@@ -275,7 +275,7 @@ def scan_span(plan: ScanPlan, columns, grid, br: int, params, joins=None,
                 acc_f=acc_f, counts=counts, joins=joins, dma=dma)
         count_launch("scan_span", plan,
                      launch_staging(plan, columns, dma, plan.G) is not None)
-        ONCHIP_LAUNCHES["scan_span"] += plan.layout(plan.G).on_chip
+        sk.bump(ONCHIP_LAUNCHES, "scan_span", plan.layout(plan.G).on_chip)
     return acc_i, acc_f, counts
 
 
@@ -308,7 +308,7 @@ def scan_hash(plan: ScanPlan, columns, grid, br: int, params,
         count_launch("scan_hash", plan,
                      launch_staging(plan, columns, dma, num_slots)
                      is not None)
-        ONCHIP_LAUNCHES["scan_hash"] += plan.layout(num_slots).on_chip
+        sk.bump(ONCHIP_LAUNCHES, "scan_hash", plan.layout(num_slots).on_chip)
     return HashTable(keyhash, keys, keynull, acc_i, acc_f, counts,
                      meta[0] != 0)
 

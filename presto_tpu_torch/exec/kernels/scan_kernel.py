@@ -1343,13 +1343,25 @@ def scan_direct(plan: ScanPlan, columns, grid, br: int, params,
     return acc_i, acc_f, counts
 
 
+# guards the launch counters: the distributed scheduler's tasks launch
+# kernels from several threads at once, and a bare += can lose a count
+COUNT_LOCK = threading.Lock()
+
+
+def bump(counts: Dict[str, int], name: str, n: int = 1) -> None:
+    """counts[name] += n under COUNT_LOCK."""
+    with COUNT_LOCK:
+        counts[name] += n
+
+
 def count_launch(name: str, plan: ScanPlan, staged: bool = False) -> None:
     """One launch of `name`; `staged`: it ran the stage ring."""
-    LAUNCHES[name] += 1
-    if plan.joins:
-        JOIN_LAUNCHES[name] += 1
-    if staged:
-        STAGED_LAUNCHES[name] += 1
+    with COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if plan.joins:
+            JOIN_LAUNCHES[name] += 1
+        if staged:
+            STAGED_LAUNCHES[name] += 1
 
 
 def _truthy(c: Column):

@@ -54,7 +54,7 @@ import torch
 
 from .. import operators as ops
 from ..batch import Batch, Column
-from .scan_kernel import _DTYPES, KERNEL_METRICS, LAUNCHES
+from .scan_kernel import _DTYPES, KERNEL_METRICS, LAUNCHES, bump
 
 _SUPPORTED = ("row_number", "rank", "dense_rank", "count", "count_star",
               "sum", "avg")
@@ -256,7 +256,7 @@ def _launch(mask, arrays, names, partition_names, orderings, specs, outs):
             scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"window_scan launch failed: CUDA error {rc}")
-    LAUNCHES["window_scan"] += 1
+    bump(LAUNCHES, "window_scan")
 
 
 def window_scan_plain(mask, arrays: Dict[str, tuple], partition_names,

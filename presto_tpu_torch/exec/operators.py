@@ -686,6 +686,116 @@ def agg_update(state: dict, batch: Batch, key_cols: List[Column],
     return out
 
 
+def agg_merge(a: dict, b: dict, specs: Tuple[AggSpec, ...],
+              key_names: Tuple[str, ...], num_slots: int) -> dict:
+    """Merge accumulator state `b` into `a` (partial->final combining).
+
+    With probing, the same key can occupy different slots in the two
+    tables, so b's occupied slots are re-inserted into a as a
+    pseudo-batch: the slot arrays of b become "rows" whose values are b's
+    accumulators (the probe rounds of agg_update over b's keyhashes)."""
+    out = dict(a)
+    mask = b["__occupied"]
+    kh = b["__keyhash"]
+    slot = umod(kh, num_slots)
+    table = a["__keyhash"]
+    pending = mask
+    placed_slot = torch.zeros_like(slot)
+    empty = torch.full_like(kh, EMPTY_SLOT)
+    for _ in range(PROBE_ROUNDS):
+        attempt = _scatter_umin(num_slots, slot,
+                                torch.where(pending, kh, empty))
+        table = torch.where(table == EMPTY_SLOT, attempt, table)
+        win = pending & (table[slot] == kh)
+        placed_slot = torch.where(win, slot, placed_slot)
+        pending = pending & ~win
+        slot = torch.where(pending, (slot + 1) % num_slots, slot)
+    out["__collision"] = a["__collision"] | b["__collision"] | pending.any()
+    out["__keyhash"] = table
+    out["__occupied"] = table != EMPTY_SLOT
+    mask = mask & ~pending
+    slot = torch.where(mask, placed_slot,
+                       torch.full_like(placed_slot, num_slots))
+
+    for kname in key_names:
+        for name in (f"__key_{kname}", f"__keynull_{kname}"):
+            out[name] = _scatter(a[name], slot, b[name], "set")
+
+    def _masked(key):
+        return torch.where(mask, b[key], torch.zeros_like(b[key]))
+
+    def _add(key):
+        out[key] = _scatter(a[key], slot, _masked(key), "add")
+
+    def _realign(key, dtype=torch.float64):
+        # b's per-slot values re-addressed to a's slot space; distinct keys
+        # land on distinct slots, so add-into-zeros is an exact placement
+        return _scatter(torch.zeros(num_slots, dtype=dtype,
+                                    device=mask.device),
+                        slot, _masked(key), "add")
+
+    for spec in specs:
+        o = spec.output
+        if spec.name in MOMENT_AGGS:
+            n, mean, m2 = _chan_merge(
+                a[o + "$count"], a[o + "$mean"], a[o + "$m2"],
+                _realign(o + "$count", torch.int64), _realign(o + "$mean"),
+                _realign(o + "$m2"))
+            out[o + "$count"], out[o + "$mean"], out[o + "$m2"] = \
+                n, mean, m2
+        elif spec.name in CORR_AGGS:
+            na = a[o + "$count"]
+            nb = _realign(o + "$count", torch.int64)
+            mxb = _realign(o + "$mx")
+            myb = _realign(o + "$my")
+            n, mx, m2x = _chan_merge(na, a[o + "$mx"], a[o + "$m2x"], nb,
+                                     mxb, _realign(o + "$m2x"))
+            _, my, m2y = _chan_merge(na, a[o + "$my"], a[o + "$m2y"], nb,
+                                     myb, _realign(o + "$m2y"))
+            nf = torch.clamp(n.to(torch.float64), min=1.0)
+            dx = mxb - a[o + "$mx"]
+            dy = myb - a[o + "$my"]
+            out[o + "$cxy"] = (a[o + "$cxy"] + _realign(o + "$cxy")
+                               + dx * dy * na.to(torch.float64)
+                               * nb.to(torch.float64) / nf)
+            out[o + "$count"], out[o + "$mx"], out[o + "$my"] = n, mx, my
+            out[o + "$m2x"], out[o + "$m2y"] = m2x, m2y
+        elif spec.name in ("count", "count_star"):
+            _add(o)
+        elif spec.name == "avg":
+            _add(o + "$sum")
+            _add(o + "$count")
+        elif spec.name == "sum":
+            _add(o)
+            _add(o + "$count")
+        elif spec.name in ("min", "max"):
+            is_min = spec.name == "min"
+            if spec.is_float:
+                fill = float("inf") if is_min else float("-inf")
+            else:
+                fill = INT64_MAX if is_min else INT64_MIN
+            out[o] = _scatter(a[o], slot,
+                              torch.where(mask, b[o],
+                                          torch.full_like(b[o], fill)),
+                              "amin" if is_min else "amax")
+            _add(o + "$count")
+        elif spec.name in HLL_AGGS:
+            m = spec.param or HLL_DEFAULT_BUCKETS
+            key = o + "$hll"
+            breg = torch.where(mask[:, None], b[key].reshape(-1, m),
+                               torch.zeros((), dtype=torch.int8,
+                                           device=mask.device))
+            rows = a[key].shape[0] // m
+            buf = torch.cat([a[key].reshape(-1, m),
+                             torch.zeros((1, m), dtype=torch.int8,
+                                         device=mask.device)])
+            idx = torch.where(mask, slot, torch.full_like(slot, rows))
+            buf.scatter_reduce_(0, idx[:, None].expand(-1, m), breg,
+                                "amax", include_self=True)
+            out[key] = buf[:rows].reshape(-1)
+    return out
+
+
 def _batch_moments(slot, valid, x, num_slots):
     """This batch's per-slot (count, mean) of x over the valid rows, and
     each row's deviation from its slot's mean (0 elsewhere)."""

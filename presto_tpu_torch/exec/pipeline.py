@@ -6,8 +6,10 @@ the fly, host-generated columns and late-materialized strings (row ids,
 the string forms over them hoisted to whole-column host caches),
 streaming Filter/Project,
 Aggregation, MarkDistinct, Sort, TopN, Limit, Window, Values, Union,
-Join (INNER / LEFT / FULL), SemiJoin, AssignUniqueId, EnforceSingleRow
-and Output.  A Join or SemiJoin over a fusible chain streams the torch
+Join (INNER / LEFT / FULL), SemiJoin, AssignUniqueId, EnforceSingleRow,
+Output, a local Exchange and a RemoteSource (the distributed scheduler's
+exchange input, host pages moved to the task's device).  A Join or
+SemiJoin over a fusible chain streams the torch
 fused chain (fused.fused_stream); otherwise the build side is
 materialized (cached per structural key) and the probe batches stream
 through operators.probe_join / probe_join_direct.  An
@@ -53,7 +55,7 @@ from ..spi import plan as P
 from ..spi.expr import (CallExpression, ConstantExpression, RowExpression,
                         SpecialFormExpression, VariableReferenceExpression)
 from . import operators as ops
-from .batch import Batch, Column, batch_to_page
+from .batch import Batch, Column, batch_to_page, pages_to_batches
 from .lowering import (Lowering, canonical_name, constant_device_value,
                        expr_has_params)
 from .memory import (MemoryContext, MemoryExceededError, MemoryPool,
@@ -71,6 +73,10 @@ PROBE_ROWS = 8
 # fanout expansion (a step's ops cost the host the same at 64K rows as
 # at 1M, so fewer, larger steps keep the card busy)
 CHAIN_STEP_ROWS = 1 << 20
+# rows an exchange consumer packs its input pages into per batch (at
+# least batch_rows): the operators over an exchange stream batch by batch,
+# and their host dispatch is the same at 64K rows as at 256K
+EXCHANGE_PACK_ROWS = 1 << 18
 # capacities a sparse aggregation table is compacted to
 _COMPACT_BUCKETS = (1 << 12, 1 << 16, 1 << 18, 1 << 20)
 
@@ -211,15 +217,40 @@ class ExecutionConfig:
     # 0 = strictly serial.  Config key task.grouped-prefetch-depth /
     # session grouped_prefetch_depth
     grouped_prefetch_depth: int = 1
+    # distributed grouped stages: when a source stage is grouped-eligible
+    # (exec/grouped.py stage_shards_lifespans), every task gets the FULL
+    # split set plus a disjoint round-robin subset of the bucket layout
+    # (task i runs lifespans i, i+N, ...); the per-bucket partial
+    # aggregates merge at the FINAL stage.  Config key
+    # task.grouped-lifespan-sharding / session grouped_lifespan_sharding
+    grouped_lifespan_sharding: bool = True
     # intra-task driver concurrency (driver-per-split, exec/
     # local_exchange.py): a leaf scan with more than one split drains its
     # splits on this many threads.  Config key task.max-drivers-per-task
     task_concurrency: int = 1
+    # concurrent readers of a multi-source exchange input
+    # (exec/scheduler.py _remote_reader over local_exchange.parallel_drain;
+    # config key exchange.client-threads / session exchange_client_threads)
+    exchange_client_threads: int = 4
+    # which fabric hashed remote-exchange edges ride (parallel/fabric.py
+    # FABRICS): "auto", "http" (host pages) or "ici" (a device all_to_all
+    # over a mesh, not ported: with no mesh every edge resolves to http).
+    # Config key exchange.fabric
+    exchange_fabric: str = "auto"
+    # re-decide broadcast-vs-partitioned exchange (and INNER join sides)
+    # at stage boundaries from the OBSERVED build cardinality
+    # (exec/adaptive.py; config key adaptive.exchange / session
+    # adaptive_exchange)
+    adaptive_exchange: bool = True
 
     def __post_init__(self):
         if self.scan_kernel not in SCAN_KERNEL_MODES:
             raise ValueError(f"scan_kernel must be one of "
                              f"{SCAN_KERNEL_MODES}, got {self.scan_kernel!r}")
+        from ..parallel.fabric import FABRICS
+        if self.exchange_fabric not in FABRICS:
+            raise ValueError(f"exchange_fabric must be one of {FABRICS}, "
+                             f"got {self.exchange_fabric!r}")
         if self.scan_kernel_dma not in SCAN_KERNEL_DMA_MODES:
             raise ValueError(f"scan_kernel_dma must be one of "
                              f"{SCAN_KERNEL_DMA_MODES}, got "
@@ -264,8 +295,28 @@ class TaskContext:
     # this task's index in its stage: namespaces AssignUniqueId's ids
     task_index: int = 0
     # runtime dynamic-filter summaries (filter id -> wire dict), read by
-    # the scans lazily at drain time
+    # the scans lazily at drain time; the scheduler shares one dict
+    # across a query's tasks and fills it as build stages finish
     dynamic_filters: Dict[str, dict] = field(default_factory=dict)
+    # remote-source node id -> callable returning an iterator of host
+    # Pages (the exchange input the scheduler wires per task)
+    remote_pages: Dict[str, Callable[[], Iterator[Page]]] = field(
+        default_factory=dict)
+    # remote-source node id -> the rows those pages hold, counted by the
+    # scheduler before the task starts (an aggregation with no group
+    # estimate reads them)
+    remote_rows: Dict[str, int] = field(default_factory=dict)
+    # remote-source node id -> callable returning device Batches (the
+    # reference's ICI exchange input); never set without a mesh
+    remote_batches: Dict[str, Callable[[], Iterator[Batch]]] = field(
+        default_factory=dict)
+    # lifespan sharding (exec/grouped.py stage_shards_lifespans): when set
+    # to (shard_index, shard_count) this task owns bucket lifespans
+    # shard_index, shard_index + shard_count, ... of the grouped layout;
+    # its scans hold the FULL split set, and if grouped execution does
+    # not engage only shard 0 runs the aggregation's fallback, so no row
+    # is counted twice
+    grouped_shard: Optional[Tuple[int, int]] = None
 
 
 class BatchSource:
@@ -546,6 +597,22 @@ class PlanCompiler:
     def _params_for(self, expr) -> Optional[torch.Tensor]:
         return self.ctx.params if expr_has_params(expr) else None
 
+    def _exchange_rows(self, node: P.PlanNode) -> Optional[int]:
+        """The rows an exchange feeds into `node`'s stream, as the
+        scheduler counted them (TaskContext.remote_rows): the stream
+        followed through filters, projections and the probe sides of joins
+        to a remote source.  None where it ends elsewhere."""
+        while True:
+            if isinstance(node, (P.FilterNode, P.ProjectNode,
+                                 P.AssignUniqueIdNode, P.SemiJoinNode)):
+                node = node.source
+            elif isinstance(node, P.JoinNode):
+                node = node.left
+            elif isinstance(node, P.RemoteSourceNode):
+                return self.ctx.remote_rows.get(node.id)
+            else:
+                return None
+
     def _meter_declined(self, reason: str) -> None:
         """One kernelDeclined{reason}: the process roll-up and the query's
         RuntimeStats."""
@@ -757,6 +824,7 @@ class PlanCompiler:
                     rf_cols.append((e["id"], v.name))
 
         def apply_runtime_filters(batches):
+            from .adaptive import ADAPTIVE_METRICS
             rows_in = rows_out = None
             for b in batches:
                 dyn = dyn_summaries()
@@ -775,15 +843,20 @@ class PlanCompiler:
                     keep = b.mask & (c.values >= summ["min"]) \
                         & (c.values <= summ["max"])
                     inn, kept = b.mask.sum(), keep.sum()
+                    if rows_in is None:
+                        ADAPTIVE_METRICS.incr("filters_applied")
                     rows_in = inn if rows_in is None else rows_in + inn
                     rows_out = kept if rows_out is None else rows_out + kept
                     b = b.with_mask(keep)
                 yield b
-            rs = self.ctx.runtime_stats
-            if rows_in is not None and rs is not None:
+            if rows_in is not None:
                 inn, out = int(rows_in), int(rows_out)
-                rs.add("dynamicFilterRowsIn", inn)
-                rs.add("dynamicFilterRowsPruned", inn - out)
+                ADAPTIVE_METRICS.incr("filter_rows_in", inn)
+                ADAPTIVE_METRICS.incr("filter_rows_pruned", inn - out)
+                rs = self.ctx.runtime_stats
+                if rs is not None:
+                    rs.add("dynamicFilterRowsIn", inn)
+                    rs.add("dynamicFilterRowsPruned", inn - out)
 
         def gen_filtered():
             yield from apply_runtime_filters(gen())
@@ -800,6 +873,31 @@ class PlanCompiler:
                 "dyn_summaries": dyn_summaries,
             }
         return src
+
+    def _compile_RemoteSourceNode(self, node: P.RemoteSourceNode
+                                  ) -> BatchSource:
+        """Exchange input: the host pages the scheduler wired for this
+        task (TaskContext.remote_pages), moved to the task's device with
+        every string column on one union dictionary
+        (batch.pages_to_batches).  Device batches (the reference's ICI
+        path, TaskContext.remote_batches) need a mesh, which the port does
+        not have yet."""
+        names = [v.name for v in node.outputs]
+        types = [v.type for v in node.outputs]
+        cfg = self.ctx.config
+        ctx = self.ctx
+
+        def gen():
+            if ctx.remote_batches.get(node.id) is not None:
+                raise NotImplementedError(
+                    "device-resident exchange input (the ICI fabric) is "
+                    "not ported yet (multi-device exchange on "
+                    "torch.distributed: ROADMAP queue 1, item 5)")
+            yield from pages_to_batches(
+                ctx.remote_pages[node.id](), names, types, cfg.batch_rows,
+                ctx.device, pack_rows=max(cfg.batch_rows,
+                                          EXCHANGE_PACK_ROWS))
+        return BatchSource(gen, names, types)
 
     def _compile_ValuesNode(self, node: P.ValuesNode) -> BatchSource:
         """Literal rows (LIMIT 0 plans as an empty one) as one batch."""
@@ -1392,6 +1490,26 @@ class PlanCompiler:
                 yield b
         return BatchSource(gen, src.names, src.types)
 
+    def _compile_ExchangeNode(self, node: P.ExchangeNode) -> BatchSource:
+        """A local exchange: one source passes through; several are
+        concatenated stream after stream, each renamed positionally onto
+        the scheme's output layout (node.inputs)."""
+        if len(node.exchange_sources) == 1 and not node.inputs:
+            return self._compile(node.exchange_sources[0])
+        sources = [self._compile(s) for s in node.exchange_sources]
+        out_vars = node.partitioning_scheme.output_layout
+        names = [v.name for v in out_vars]
+        types = [v.type for v in out_vars]
+
+        def gen():
+            for i, s in enumerate(sources):
+                in_names = ([v.name for v in node.inputs[i]]
+                            if node.inputs else s.names)
+                for b in s.batches():
+                    cols = {o: b.columns[n] for o, n in zip(names, in_names)}
+                    yield Batch(cols, b.mask)
+        return BatchSource(gen, names, types)
+
     # -- aggregation ------------------------------------------------------
     def _compile_AggregationNode(self, node: P.AggregationNode) -> BatchSource:
         """Aggregation in the reference's mode order.  Over a fused scan
@@ -1444,7 +1562,20 @@ class PlanCompiler:
         cfg = self.ctx.config
         device = self.ctx.device
         fused_cache: dict = {}
-        initial_slots = _initial_slots(node, key_names, cfg.agg_slots)
+        est_groups = _group_estimate(node) if key_names else None
+        initial_slots = _initial_slots(est_groups, key_names, cfg.agg_slots)
+        # with no group estimate (a FINAL step, a join in a hash stage) the
+        # rows the exchange input holds decide: more than half the first
+        # table's slots aggregate by sort (a table started at agg_slots
+        # runs out of retries past about 10^5 groups, and one sized from
+        # those rows, bounding groups far from above, ran the distributed
+        # TPC-H phase slower on the card); fewer hash into agg_slots as in
+        # the reference.  HLL needs the hashed table
+        exchange_rows = (self._exchange_rows(node.source)
+                         if key_names and not est_groups else None)
+        exchange_sort = (exchange_rows is not None
+                         and 2 * exchange_rows > cfg.agg_slots
+                         and not any(s.name in ops.HLL_AGGS for s in specs))
         est_state_bytes = _agg_state_bytes(initial_slots, key_names, specs)
 
         def _agg_exprs(b):
@@ -2193,6 +2324,13 @@ class PlanCompiler:
                 if grouped is not None:
                     yield from grouped.run()
                     return
+            shard = self.ctx.grouped_shard
+            if shard is not None and shard[0] != 0:
+                # the scheduler promised this stage disjoint lifespan
+                # subsets over FULL splits, but grouped execution did not
+                # engage: shard 0 alone runs the fallback over everything,
+                # the other shards contribute nothing
+                return
             if fused is not None:
                 out = run_fused(fused)
                 if out is not None:
@@ -2200,7 +2338,9 @@ class PlanCompiler:
                     return
             pool = self.ctx.memory
             _meter("torchStreamingAggregation", 1)
-            if sort_only_specs:
+            if exchange_sort:
+                _meter("exchangeSortAggregation", 1)
+            if sort_only_specs or exchange_sort:
                 if any(s.name in ops.HLL_AGGS for s in specs):
                     # percentiles need the sort path, HLL the hashed table
                     raise NotImplementedError(
@@ -2485,19 +2625,21 @@ def _rewrite_agg_masks(node: P.AggregationNode) -> P.AggregationNode:
                              node.grouping_keys, node.step)
 
 
-def _initial_slots(node: P.AggregationNode, key_names, agg_slots: int) -> int:
+def _group_estimate(node: P.AggregationNode) -> Optional[float]:
+    """The optimizer's group-count estimate of an aggregation, or None."""
+    try:
+        from ..sql.stats import StatsCalculator
+        return StatsCalculator().rows(node)
+    except Exception:   # noqa: BLE001 -- an estimate only
+        return None
+
+
+def _initial_slots(est_groups, key_names, agg_slots: int) -> int:
     """The hash table's first size: agg_slots, raised to the pow2 ceiling
     of twice the optimizer's group estimate (~2x probing headroom), the
     estimate term clamped to 2**20 so a wild overestimate cannot blow up
     device memory."""
-    if not key_names:
-        return agg_slots
-    try:
-        from ..sql.stats import StatsCalculator
-        est_groups = StatsCalculator().rows(node)
-    except Exception:   # noqa: BLE001 -- an estimate only
-        est_groups = None
-    if not est_groups:
+    if not key_names or not est_groups:
         return agg_slots
     est_based = 1 << max(0, (int(2 * est_groups) - 1).bit_length())
     return max(agg_slots, min(est_based, 1 << 20))

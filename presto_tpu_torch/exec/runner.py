@@ -4,7 +4,9 @@ The port of presto_tpu/exec/runner.py's main path: parse -> plan ->
 parameterize -> canonical plan cache -> optimize -> PlanCompiler ->
 result pages (execute), the same with the rows decoded page by page as
 they are produced (execute_streaming, the statement server's path), and
-EXPLAIN's plan text.  The runner runs on the card by default; tests pass
+EXPLAIN's plan text; DistributedQueryRunner / BatchQueryRunner run the
+fragmented plan as stages of tasks through exec/scheduler.py.  The
+runners run on the card by default; tests pass
 device="cpu", where every kernel wrapper runs its plain torch version.
 Asking for the card where CUDA is absent raises: the runner never moves
 to the CPU on its own.  EXPLAIN ANALYZE, EXPLAIN (TYPE ...), PREPARE /
@@ -235,3 +237,152 @@ class LocalQueryRunner:
         text = format_plan(output)
         return QueryResult(["Query Plan"], [VarcharType(max(1, len(text)))],
                            [[text]])
+
+
+class DistributedQueryRunner(LocalQueryRunner):
+    """Plans with exchange insertion + fragmentation and executes the
+    fragment DAG as multi-task stages through the in-process scheduler
+    (exec/scheduler.py), every task on the runner's device -- the port of
+    presto_tpu/exec/runner.py DistributedQueryRunner, with in-process
+    "workers".  Plain EXPLAIN prints the fragments.  A mesh, EXPLAIN
+    ANALYZE and EXPLAIN (TYPE ...), a tracer provider, query history and
+    DDL raise NotImplementedError."""
+
+    # materialized exchanges can't stay device-resident; overridden by
+    # BatchQueryRunner so fabric resolution keeps its edges on http
+    _batch_mode = False
+
+    def __init__(self, schema: str = "sf0.01",
+                 config: Optional[ExecutionConfig] = None,
+                 n_tasks: int = 2, broadcast_threshold: int = 600_000,
+                 catalog: str = "tpch", mesh=None, tracer_provider=None,
+                 history=None, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh (the ICI exchange fabric) is not ported yet "
+                "(multi-device exchange on torch.distributed: ROADMAP "
+                "queue 1, item 5)")
+        if tracer_provider is not None or history is not None:
+            raise NotImplementedError(
+                "tracing and query history are not ported yet (telemetry: "
+                "ROADMAP queue 1, item 7)")
+        super().__init__(schema, config, catalog, device=device)
+        self.n_tasks = n_tasks
+        self.broadcast_threshold = broadcast_threshold
+        self.mesh = mesh
+        # the scheduler of the last execute(): its stages (task and stage
+        # walls, lifespan shards) and adaptive decisions
+        self.last_scheduler = None
+
+    def _annotate_fabrics(self, subplan):
+        """Resolve and stamp each remote-exchange edge's fabric on the
+        fragment output schemes (sql/fragmenter annotate_exchange_fabrics)
+        so EXPLAIN shows the choice the scheduler makes at runtime."""
+        from ..parallel.mesh import mesh_size
+        from ..sql.fragmenter import annotate_exchange_fabrics
+        return annotate_exchange_fabrics(
+            subplan, exec_config=self.config,
+            mesh_size=mesh_size(self.mesh),
+            batch_mode=self._batch_mode)
+
+    def plan_subplan(self, sql: str, ast=None):
+        from ..sql.fragmenter import plan_distributed
+        with self._validation():
+            if ast is not None:
+                output = Planner(default_schema=self.schema,
+                                 default_catalog=self.catalog) \
+                    .plan_query_to_output(ast)
+            else:
+                output = self.plan(sql)
+            names = output.column_names
+            types = [v.type for v in output.outputs]
+            subplan = plan_distributed(output, self._fragmenter_config(),
+                                       exec_config=self.config)
+            self._annotate_fabrics(subplan)
+        return subplan, names, types
+
+    def _fragmenter_config(self):
+        from ..sql.fragmenter import FragmenterConfig
+        return FragmenterConfig(
+            broadcast_threshold=self.broadcast_threshold)
+
+    def _explain_distributed(self, ast) -> QueryResult:
+        """EXPLAIN over the fragmented (distributed) plan: one section per
+        fragment (the reference's EXPLAIN on this runner, without
+        ANALYZE)."""
+        from ..common.types import VarcharType
+        from ..sql.explain import format_subplan
+        from ..sql.fragmenter import plan_distributed
+        with self._validation():
+            output = Planner(default_schema=self.schema,
+                             default_catalog=self.catalog) \
+                .plan_query_to_output(ast.query)
+            subplan = plan_distributed(output, self._fragmenter_config(),
+                                       exec_config=self.config)
+            self._annotate_fabrics(subplan)
+        text = format_subplan(subplan, None)
+        return QueryResult(["Query Plan"], [VarcharType(max(1, len(text)))],
+                           [[text]])
+
+    def execute(self, sql: str, prepared: Optional[Dict[str, str]] = None
+                ) -> QueryResult:
+        from ..sql import parser as A
+        from .scheduler import InProcessScheduler
+        from ..utils.runtime_stats import RuntimeStats
+        ast = self._parse(sql, RuntimeStats())
+        if isinstance(ast, A.Explain):
+            return self._explain_distributed(ast)
+        restore = self._apply_history_sizing(ast)
+        try:
+            subplan, names, types = self.plan_subplan(sql, ast=ast)
+            sched = InProcessScheduler(self._scheduler_config())
+            self.last_scheduler = sched
+            result = pages_to_result(sched.execute(subplan), names, types)
+        finally:
+            restore()
+        # fabric-tagged exchange stats (bytes / walls per fabric) and the
+        # adaptive counters collected while the stages ran
+        result.runtime_stats = sched.stats.to_dict()
+        # query-level context peak (all tasks' reservations bubbled up)
+        result.peak_memory_bytes = sched.memory.peak
+        return result
+
+    def _apply_history_sizing(self, ast):
+        """adaptive.history-sizing: a no-op without query history (the
+        reference's, history=None); returns the restore callback."""
+        return lambda: None
+
+    def _scheduler_config(self):
+        from .scheduler import SchedulerConfig
+        return SchedulerConfig(
+            exec_config=self.config, source_tasks=self.n_tasks,
+            hash_tasks=self.n_tasks, mesh=self.mesh,
+            broadcast_threshold=self.broadcast_threshold,
+            device=self.device)
+
+
+class BatchQueryRunner(DistributedQueryRunner):
+    """Batch-mode execution -- the Presto-on-Spark analog.  The same
+    fragment DAG runs stage by stage with every inter-stage exchange
+    MATERIALIZED to local shuffle files and per-task retry from those
+    durable inputs -- batch fault tolerance instead of fail-fast MPP."""
+
+    _batch_mode = True
+
+    def __init__(self, schema: str = "sf0.01", config=None,
+                 n_tasks: int = 2, catalog: str = "tpch",
+                 task_retries: int = 2, temp_dir=None,
+                 fault_injector=None, device="cuda"):
+        super().__init__(schema, config, n_tasks=n_tasks, catalog=catalog,
+                         device=device)
+        self.task_retries = task_retries
+        self.temp_dir = temp_dir
+        self.fault_injector = fault_injector
+
+    def _scheduler_config(self):
+        cfg = super()._scheduler_config()
+        cfg.batch_mode = True
+        cfg.task_retries = self.task_retries
+        cfg.temp_dir = self.temp_dir
+        cfg.fault_injector = self.fault_injector
+        return cfg

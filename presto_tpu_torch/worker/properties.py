@@ -125,11 +125,12 @@ def execution_config_from_properties(props: Dict[str, str],
         kw["exchange_max_buffer_bytes"] = parse_data_size(
             props["exchange.max-buffer-size"])
     if "exchange.fabric" in props:
-        # the reference validates against parallel/fabric.py FABRICS,
-        # which is not ported, before it sets exchange_fabric
-        raise NotImplementedError(
-            "config key 'exchange.fabric' is not ported (the shuffle "
-            "fabric, parallel/fabric.py)")
+        from ..parallel.fabric import FABRICS
+        fabric = props["exchange.fabric"].strip().lower()
+        if fabric not in FABRICS:
+            raise ValueError(
+                f"exchange.fabric must be one of {FABRICS}, got {fabric!r}")
+        kw["exchange_fabric"] = fabric
     if "exchange.ici-chunk-rows" in props:
         # an EXPLICIT property pins the chunk size and must be a real
         # row count; auto-tuning is requested by OMITTING the key (the

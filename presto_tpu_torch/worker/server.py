@@ -285,6 +285,55 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 lines.append(f"# TYPE presto_tpu_storage_{k}_total counter")
                 lines.append(f"presto_tpu_storage_{k}_total {st[k]}")
+        # adaptive-execution counters (exec/adaptive.py ADAPTIVE_METRICS):
+        # dynamic-filter collection/application/pruning plus the runtime
+        # exchange-strategy decisions; all monotonic counters
+        from ..exec.adaptive import ADAPTIVE_METRICS
+        for k, v in sorted(ADAPTIVE_METRICS.snapshot().items()):
+            lines.append(f"# TYPE presto_tpu_adaptive_{k}_total counter")
+            lines.append(f"presto_tpu_adaptive_{k}_total {v}")
+        # per-fabric shuffle section (parallel/fabric.py FABRIC_METRICS):
+        # the http/ici comparison surface — bytes moved per fabric, the
+        # dispatch/compute/wait walls, and the measured overlap fraction
+        from ..parallel.fabric import FABRIC_METRICS
+        fm = FABRIC_METRICS.snapshot()
+        lines += [
+            "# TYPE presto_tpu_exchange_fabric_exchanges_total counter",
+            "# TYPE presto_tpu_exchange_fabric_chunks_total counter",
+            "# TYPE presto_tpu_exchange_fabric_bytes_total counter",
+            "# TYPE presto_tpu_exchange_fabric_host_bytes_total counter",
+            "# TYPE presto_tpu_exchange_fabric_exchange_wall_seconds_total"
+            " counter",
+            "# TYPE presto_tpu_exchange_fabric_compute_wall_seconds_total"
+            " counter",
+            "# TYPE presto_tpu_exchange_fabric_wait_wall_seconds_total"
+            " counter",
+            "# TYPE presto_tpu_exchange_fabric_fallbacks_total counter",
+            "# TYPE presto_tpu_exchange_fabric_overlap_fraction gauge",
+        ]
+        for fabric in sorted(fm):
+            f = fm[fabric]
+            tag = 'fabric="%s"' % fabric
+            lines += [
+                f"presto_tpu_exchange_fabric_exchanges_total{{{tag}}} "
+                f"{f['exchanges']}",
+                f"presto_tpu_exchange_fabric_chunks_total{{{tag}}} "
+                f"{f['chunks']}",
+                f"presto_tpu_exchange_fabric_bytes_total{{{tag}}} "
+                f"{f['bytes_moved']}",
+                f"presto_tpu_exchange_fabric_host_bytes_total{{{tag}}} "
+                f"{f['host_bytes']}",
+                f"presto_tpu_exchange_fabric_exchange_wall_seconds_total"
+                f"{{{tag}}} {f['exchange_wall_s']:.6f}",
+                f"presto_tpu_exchange_fabric_compute_wall_seconds_total"
+                f"{{{tag}}} {f['compute_wall_s']:.6f}",
+                f"presto_tpu_exchange_fabric_wait_wall_seconds_total"
+                f"{{{tag}}} {f['wait_wall_s']:.6f}",
+                f"presto_tpu_exchange_fabric_fallbacks_total{{{tag}}} "
+                f"{f['fallbacks']}",
+                f"presto_tpu_exchange_fabric_overlap_fraction{{{tag}}} "
+                f"{f['overlap_fraction']:.6f}",
+            ]
         km = s.process_metrics()["kernel"]
         for k in ("scan_programs", "window_programs", "dma_staged_blocks",
                   "dma_prefetched_blocks"):

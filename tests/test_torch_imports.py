@@ -85,3 +85,36 @@ def test_runner_has_its_own_plan_cache():
     b = LocalQueryRunner(device="cpu")
     assert a.plan_cache is not b.plan_cache
     assert a.plan_cache is not GLOBAL_PLAN_CACHE
+
+
+def test_the_scheduler_slice_is_scanned():
+    """The distributed scheduler's modules are among the scanned files."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for rel in ("presto_tpu_torch/parallel/__init__.py",
+                "presto_tpu_torch/parallel/fabric.py",
+                "presto_tpu_torch/parallel/mesh.py",
+                "presto_tpu_torch/exec/scheduler.py",
+                "presto_tpu_torch/exec/adaptive.py",
+                "presto_tpu_torch/benchmarks/distributed_run.py"):
+        assert rel in scanned, rel
+
+
+def test_distributed_query_runs_without_loading_jax():
+    code = (
+        "import sys\n"
+        "from presto_tpu_torch.benchmarks.tpch_queries import Q1\n"
+        "from presto_tpu_torch.exec.runner import DistributedQueryRunner\n"
+        "res = DistributedQueryRunner('sf0.01', n_tasks=2, "
+        "device='cpu').execute(Q1)\n"
+        "assert len(res.rows) == 4, res.rows\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'presto_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

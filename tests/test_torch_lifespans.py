@@ -14,7 +14,10 @@ tests/test_grouped.py):
   * a bucket's DirectTable and BuildTable are bit-identical to the
     reference's builders' tables over the same bucket rows;
   * a build whose key multiplicity passes the reserved fanout in a later
-    lifespan raises as in the reference (_check_dups)."""
+    lifespan raises as in the reference (_check_dups);
+  * lifespan sharding through the distributed runner: each task stages
+    its round-robin share of the buckets, and stage_shards_lifespans'
+    auto decision agrees with the reference's at sf0.01 and SF100."""
 import numpy as np
 import pytest
 import torch
@@ -365,3 +368,49 @@ def test_later_bucket_over_its_fanout_raises(monkeypatch):
     with pytest.raises(NotImplementedError,
                        match="exceeds the reserved fanout"):
         _runner(grouped_lifespans=4).execute(Q3)
+
+
+def test_sharded_tasks_run_disjoint_bucket_subsets(monkeypatch, oracle):
+    """Lifespan sharding through the distributed runner: with K = 4 over
+    2 tasks, task 0 stages buckets 0 and 2 and task 1 buckets 1 and 3
+    (GroupedRunner.run's shard branch), each over the full splits; the
+    rows equal the oracle's."""
+    from presto_tpu_torch.exec.runner import DistributedQueryRunner
+    staged = []
+    orig = G.GroupedRunner._stage_bucket
+
+    def spy(self, bi, aux0):
+        staged.append((self.compiler.ctx.grouped_shard, bi))
+        return orig(self, bi, aux0)
+    monkeypatch.setattr(G.GroupedRunner, "_stage_bucket", spy)
+    r = DistributedQueryRunner("sf0.01", n_tasks=2, device="cpu",
+                               config=tuned_config(grouped_lifespans=4))
+    assert_rows_close(r.execute(Q18_SHAPE), oracle(Q18_SHAPE), ordered=True)
+    by_shard = {}
+    for shard, bi in staged:
+        by_shard.setdefault(shard, []).append(bi)
+    assert by_shard == {(0, 2): [0, 2], (1, 2): [1, 3]}
+
+
+@pytest.mark.parametrize("schema,k", [("sf0.01", 0), ("sf100", 0),
+                                      ("sf0.01", 4)])
+def test_stage_shards_lifespans_auto_threshold(schema, k):
+    """The predicate's auto decision (grouped_lifespans = 0) engages above
+    AUTO_SPAN_THRESHOLD orderkeys only, as the reference's, on the source
+    fragments of the distributed Q18 shape (planning only: nothing is
+    generated at SF100)."""
+    from presto_tpu.exec.grouped import stage_shards_lifespans as jpred
+    from presto_tpu.exec.pipeline import ExecutionConfig as JCfg
+    from presto_tpu.exec.runner import DistributedQueryRunner as JD
+    from presto_tpu_torch.exec.runner import DistributedQueryRunner
+    sql = ("select l_orderkey, sum(l_quantity) q from lineitem "
+           "group by l_orderkey")
+    tcfg = ExecutionConfig(grouped_lifespans=k)
+    jcfg = JCfg(grouped_lifespans=k)
+    tsub = DistributedQueryRunner(schema, config=tcfg, device="cpu") \
+        .plan_subplan(sql)[0]
+    jsub = JD(schema, config=jcfg).plan_subplan(sql)[0]
+    got = [G.stage_shards_lifespans(f.root, tcfg)
+           for f in tsub.all_fragments()]
+    assert got == [jpred(f.root, jcfg) for f in jsub.all_fragments()]
+    assert any(got) == (schema == "sf100" or k == 4)

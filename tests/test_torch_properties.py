@@ -59,7 +59,8 @@ CONFIGS = [
     ({"task.fault-injection-probability": "0.1"},
      "task.fault-injection-probability"),
     ({"telemetry.profile-dir": "/x"}, "telemetry.profile-dir"),
-    ({"exchange.fabric": "http"}, "exchange.fabric"),
+    # ported with the distributed scheduler (parallel/fabric.py)
+    ({"exchange.fabric": "http"}, None),
     ({"debug.lock-validation": "true"}, "debug.lock-validation"),
     ({"retry-policy": "task"}, "retry-policy"),
     # ExecutionConfig.fuse_pipelines is a field since the torch chain
@@ -74,8 +75,9 @@ CONFIGS = [
     # ported with the scan drivers and grouped lifespans
     ({"task.max-drivers-per-task": "4", "task.grouped-lifespans": "4",
       "task.grouped-prefetch-depth": "2"}, None),
-    ({"task.grouped-lifespan-sharding": "false"},
-     "task.grouped-lifespan-sharding"),
+    ({"task.grouped-lifespan-sharding": "false"}, None),
+    ({"exchange.client-threads": "8", "exchange.fabric": "AUTO",
+      "task.grouped-lifespan-sharding": "true"}, None),
 ]
 
 
@@ -97,6 +99,9 @@ def test_execution_config_mapping(props, missing):
     ({"scan.kernel-dma": "triple"}, "scan.kernel-dma must be one of"),
     ({"task.plan-validation": "loud"}, "task.plan-validation must be"),
     ({"task.batch-rows": "many"}, "invalid literal"),
+    ({"exchange.fabric": "bogus"}, "exchange.fabric must be one of"),
+    ({"exchange.client-threads": "0"},
+     "exchange.client-threads must be >= 1"),
 ])
 def test_bad_values_raise_the_reference_errors(props, match):
     for mod in (jprops, tprops):
@@ -204,9 +209,14 @@ SESSIONS = [
     ({"spill_enabled": "false", "spill_partitions": "4",
       "spill_path": "/x", "spill_host_budget_bytes": "1024",
       "spill_async_staging": "false"}, None),
-    # ported with grouped lifespans; the scheduler's sharding is not
+    # ported with grouped lifespans
     ({"grouped_lifespans": "3", "grouped_prefetch_depth": "0"}, None),
-    ({"grouped_lifespan_sharding": "false"}, "grouped_lifespan_sharding"),
+    # ported with the distributed scheduler
+    ({"grouped_lifespan_sharding": "false"}, None),
+    ({"exchange_client_threads": "2", "adaptive_exchange": "false"}, None),
+    # the reference maps no exchange_fabric session property: both
+    # packages leave the config's fabric as it is
+    ({"exchange_fabric": "http"}, None),
 ]
 
 
@@ -227,7 +237,9 @@ def test_session_properties(session, missing):
 @pytest.mark.parametrize("session,match", [
     ({"scan_kernel": "bogus"}, "scan_kernel must be one of"),
     ({"exchange_compression_codec": "LZO"}, "LZO"),
-    ({"storage_zone_rows": "0"}, "storage_zone_rows must be >= 1")])
+    ({"storage_zone_rows": "0"}, "storage_zone_rows must be >= 1"),
+    ({"exchange_client_threads": "0"},
+     "exchange_client_threads must be >= 1")])
 def test_bad_session_values_raise_the_reference_errors(session, match):
     from presto_tpu.exec.pipeline import tuned_config as jtuned
     from presto_tpu_torch.exec.pipeline import tuned_config

@@ -150,6 +150,24 @@ def test_query_info_carries_kernel_stats(servers):
     assert "presto_tpu_kernel_dma_staged_blocks_total" in text
 
 
+def _metric_types(uri, prefixes):
+    text = urllib.request.urlopen(uri + "/v1/metrics").read().decode()
+    return sorted(line for line in text.splitlines()
+                  if line.startswith("# TYPE ")
+                  and line.split()[2].startswith(prefixes))
+
+
+def test_metrics_carry_adaptive_and_fabric_sections(servers):
+    """/v1/metrics has the reference's presto_tpu_adaptive_* and
+    presto_tpu_exchange_fabric_* sections, metric for metric."""
+    ref, port = servers
+    prefixes = ("presto_tpu_adaptive_", "presto_tpu_exchange_fabric_")
+    got = _metric_types(port.uri, prefixes)
+    assert got and got == _metric_types(ref.uri, prefixes)
+    assert any("adaptive_filters_applied_total" in t for t in got)
+    assert any("exchange_fabric_bytes_total" in t for t in got)
+
+
 def test_unported_routes_name_what_is_missing(servers):
     _ref, port = servers
     for method, path in (("GET", "/v1/task/t1"), ("POST", "/v1/task/t1"),
