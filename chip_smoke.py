@@ -115,8 +115,9 @@ Phases, each printed with its wall time:
      read once, 8 bytes per function per row written, 9 for sum / avg);
  13. an independent numpy computation of W1, W2, W3, W1 with lag and the
      two edge queries from the decoded resident orders columns;
- 13b. the torch fused chain and the streaming aggregation
-     (benchmarks/torch_chain.py run): TPC-H Q12, Q14 and Q19 (a metered
+ 13b. the torch fused chain and the streaming aggregation at SF1 (the
+     script's time limit; benchmarks/torch_chain.py run): TPC-H Q12,
+     Q14 and Q19 (a metered
      JoinShape decline each, then the torch chain; the median of the
      timed walls, the mode, its chunks), one query per aggregate form
      (stddev and corr, approx_distinct, approx_percentile,
@@ -156,7 +157,9 @@ Phases, each printed with its wall time:
      right after the TPC-H phase, whose local rows and warm walls it
      reads): Q1-Q22 at sf0.01 through DistributedQueryRunner against the
      golden rows (2 tasks; Q21, where the reference's distributed runner
-     returns other rows, through partitioned joins), then Q1-Q22 at the
+     returns other rows, through partitioned joins), then the recorded
+     subset distributed_run.SMOKE_QUERIES (Q1, Q2, Q6, Q11, Q13, Q15,
+     Q16, Q22: the script's time limit) at the
      scale factor with 2 tasks, cold and once warm, equal to the local
      rows (exact, doubles at rtol 1e-9; Q21's equality recorded, not
      held), with each stage's task and stage walls, the exchange's host
@@ -199,18 +202,41 @@ Phases, each printed with its wall time:
      rows, each with a
      metered kernelDeclinedColumnsNotResident;
  19. under a memory budget at the scale factor (run_budgeted): Q1, Q3,
-     Q5, Q9, Q13, Q18 and Q21 under memory_budget_bytes = 48 MiB, equal
-     to the TPC-H phase's unbudgeted rows, with spilled bytes, the spill
+     Q5, Q9 and Q13 under memory_budget_bytes = 48 MiB, and Q18 and Q21
+     at SF1 under the same budget (BUDGETED_AT_SF1: the script's time
+     limit), equal to the unbudgeted rows, with spilled bytes, the spill
      stage and wait walls (device -> host copies on the spill store's CUDA stream into
      pinned buffers), the overlap fraction and the peak device memory;
-     spillBytes > 0 for Q3 (grace join) and Q18; Q18 again with a 64 MiB
-     host spill budget and spill_path build/spill (the LZ4 disk tier
-     written and read back); W1 under a budget its window kernel
+     spillBytes > 0 for Q3 (grace join) and Q18; Q18 at SF1 again with
+     a 64 MiB host spill budget and spill_path build/spill (the LZ4 disk
+     tier written and read back); W1 under a budget its window kernel
      reservation fits and one that declines WindowInputSize (then
-     operators.window_batch), both equal to the unbudgeted rows; Q18
-     under 96 MiB, where the open fault of ROADMAP section 3 raises
-     "collision retries exhausted": that error or the unbudgeted rows
-     is recorded, any other outcome fails.
+     operators.window_batch), both equal to the unbudgeted rows
+     (run_window_budgets); Q18 at the scale factor under 96 MiB
+     (q18_fault_outcome), where the open fault of ROADMAP section 3
+     raises "collision retries exhausted": that error or the unbudgeted
+     rows is recorded, any other outcome fails;
+ 20. TPC-DS (benchmarks/tpcds_run.py run; the fact tables generated on
+     the device): the bank at sf0.01 held to the JAX package's golden
+     rows (benchmarks/tpcds_sf001_rows.json); the 21 conformance
+     queries, the shape queries and two store_sales aggregations at the
+     scale factor (q37 and q82, over host-generated inventory rows, at
+     SF1), cold, the median of 3 warm walls, launches or declines, and
+     xla equal to auto (the five queries over a host-generated fact
+     table: one warm wall, xla only where auto launched a kernel); store_sales queries on the fly
+     equal to the resident rows; TPC-DS Q3 through DistributedQueryRunner
+     (3 tasks, partitioned joins) equal to the local rows; BASELINE
+     config 5, Q95 at SF100 (official: cold, warm, peak device memory;
+     widened: equal to xla; under a budget only after an out-of-memory
+     error, which is printed); Q95's join core at SF100 with auto
+     lifespans (which must engage) equal to grouped_lifespans=1.  The
+     launch counters are set to 0 just before the phase and read just
+     after: a scan kernel must have launched on a TPC-DS table;
+ 21. the scalar function set (benchmarks/functions_run.py run): every
+     query of benchmarks/function_queries.py at sf0.01 on the card equal
+     to the same process's CPU rows (rtol 1e-12), and one lineitem
+     aggregation per family at the scale factor (cold, warm, xla == auto,
+     kernelDeclinedPlanShape metered).
 
 Any failed check raises and exits non-zero.  The second-to-last line is
 the kernels' JSON record; the last line is
@@ -236,6 +262,11 @@ NOSTAGE = ("select count(*), sum(l_extendedprice) from lineitem "
 FLOAT_QUERY = ("select sum(cast(l_extendedprice as double)) as s "
                "from lineitem where l_discount > 0.05")
 UNIT_ROUNDOFF = 2.0 ** -53
+# the budgeted queries run at SF1, not at the scale factor (the script's
+# time limit): Q18 with its disk-tier run (about 67 s at SF10 on a slow
+# host) and Q21 (its 1.2 GB build spilled 35 GB in 92 s at SF10); Q18's
+# 96 MiB run stays at the scale factor, where the open fault shows
+BUDGETED_AT_SF1 = (18, 21)
 
 
 @contextmanager
@@ -381,6 +412,7 @@ def main() -> int:
         return 2
     import numpy as np
     from presto_tpu_torch.benchmarks import expr_queries as EQ
+    from presto_tpu_torch.benchmarks import function_queries as FQ
     from presto_tpu_torch.benchmarks import hash_split as HS
     from presto_tpu_torch.benchmarks import kernel_times as KT
     from presto_tpu_torch.benchmarks import join_queries as JQ
@@ -1829,22 +1861,28 @@ def main() -> int:
         print("  w_global and w_single_row: top 10 == port")
 
     # -- the torch fused chain and the streaming aggregation --------------
-    with phase(f"torch chain at {schema}: Q12, Q14, Q19, the aggregate "
-               f"forms, the kernel queries under scan_kernel=xla and a "
-               f"torch.profiler trace of Q14"):
+    # at SF1 (the script's time limit: its numpy checks and aggregate
+    # forms over SF10's 60 M rows took most of 249 s on a slow host; the
+    # TPC-H phase times Q12, Q14 and Q19 through the chain at SF10)
+    chain_sf = min(sf, 1.0)
+    with phase(f"torch chain at sf{chain_sf:g}: Q12, Q14, Q19, the "
+               f"aggregate forms, the kernel queries under scan_kernel=xla "
+               f"and a torch.profiler trace of Q14"):
         from presto_tpu_torch.benchmarks import torch_chain as TC
         for k in sk.LAUNCHES:
             sk.LAUNCHES[k] = 0
         # at most 3 timed runs here: the phase is host-bound, and the
         # script's later phases need the time
         chain_records = TC.run(
-            runner, sf, min(args.runs, 3), device,
-            kernel_results={q: results[q] for q in TC.KERNEL_QUERIES},
+            LocalQueryRunner(f"sf{chain_sf:g}", device=device), chain_sf,
+            min(args.runs, 3), device,
+            kernel_results=({q: results[q] for q in TC.KERNEL_QUERIES}
+                            if chain_sf == sf else None),
             card=f"on {card}")
-        # the kernel queries' reference rows came from the main path: the
-        # phase's scan kernel launches are the aggregate forms' (a dedup
-        # aggregation's kernel); TC.run asserts that Q12, Q14, Q19 and the
-        # scan_kernel=xla runs launched none
+        # the phase's scan kernel launches are the aggregate forms' (a
+        # dedup aggregation's kernel) and, below the scale factor, the
+        # kernel queries' reference runs; TC.run asserts that Q12, Q14,
+        # Q19 and the scan_kernel=xla runs launched none
         print(f"  scan kernel launches in the phase {dict(sk.LAUNCHES)}")
 
     # -- the statement server booted from an etc directory (kernel #2) ----
@@ -1893,15 +1931,18 @@ def main() -> int:
         assert tpch_join_launches > 0, dict(sk.JOIN_LAUNCHES)
 
     # -- the distributed scheduler: stages of tasks on the card ----------
-    with phase(f"distributed at {schema}: Q1-Q22 through "
+    from presto_tpu_torch.benchmarks import distributed_run as DR
+    DR_SMOKE = ", ".join(f"Q{q}" for q in DR.SMOKE_QUERIES)
+    with phase(f"distributed at {schema}: Q1-Q22 at sf0.01 against the "
+               f"golden rows, {DR_SMOKE} at {schema} through "
                f"DistributedQueryRunner (2 tasks) against the local rows, "
                f"Q3 and Q18 partitioned, W1, batch mode, sharded "
                f"lifespans, a profile of Q3"):
-        from presto_tpu_torch.benchmarks import distributed_run as DR
         for d in (sk.LAUNCHES, sk.JOIN_LAUNCHES, gk.ONCHIP_LAUNCHES):
             for k in d:
                 d[k] = 0
         dist_records = DR.run_all(sf, device, local=tpch_records,
+                                  queries=DR.SMOKE_QUERIES,
                                   card=f"on {card}")
         dist_launches = {k: sk.LAUNCHES[k]
                          for k in sk.SCAN_KERNELS + ("window_scan",)}
@@ -1922,10 +1963,46 @@ def main() -> int:
         fly_records = SR.run_onthefly(sf, device, card=f"on {card}",
                                       resident_rows=tpch_records["results"])
     with phase(f"under a memory budget at {schema}: Q1, Q3, Q5, Q9, Q13, "
-               f"Q18, Q21, Q18 through the disk tier, Q18 at 96 MiB, W1"):
+               f"W1, Q18 at 96 MiB; at sf1: Q18, Q18 through the disk "
+               f"tier, Q21"):
         budget_records = SR.run_budgeted(
             sf, device, card=f"on {card}", spill_dir="build/spill",
+            queries=tuple(q for q in SR.BUDGETED_QUERIES
+                          if q not in BUDGETED_AT_SF1),
             free_rows=tpch_records["results"])
+        budget_records.update(SR.run_window_budgets(sf, device,
+                                                    card=f"on {card}"))
+        budget_records["q18_fault"] = SR.q18_fault_outcome(
+            schema, SR.queries_for_sf(sf)[18], tpch_records["results"][18],
+            device, f"on {card}")
+        budget_records.update({
+            f"{k}_sf1": v for k, v in SR.run_budgeted(
+                1.0, device, card=f"on {card}", spill_dir="build/spill",
+                queries=BUDGETED_AT_SF1).items()})
+
+    # -- TPC-DS: the device-generated fact tables, the bank, BASELINE
+    # config 5 (Q95 at SF100) ---------------------------------------------
+    with phase(f"TPC-DS: the bank at sf0.01 against the golden rows and "
+               f"at {schema} (cold, warm, xla == auto), Q95 at sf100, its "
+               f"join core's lifespans, distributed Q3, on the fly"):
+        from presto_tpu_torch.benchmarks import tpcds_run as DSR
+        for d in (sk.LAUNCHES, sk.JOIN_LAUNCHES):
+            for k in d:
+                d[k] = 0
+        tpcds_records = DSR.run(sf, 100.0, 3, device, card=f"on {card}")
+        tpcds_launches = {k: sk.LAUNCHES[k]
+                          for k in sk.SCAN_KERNELS + ("window_scan",)}
+        tpcds_join_launches = sum(sk.JOIN_LAUNCHES.values())
+        print(f"  TPC-DS path launches {tpcds_launches}, carrying a join "
+              f"probe {dict(sk.JOIN_LAUNCHES)}")
+        assert sum(tpcds_records["bank"]["launches"].values()) > 0
+    torch.cuda.empty_cache()
+
+    # -- the rest of the scalar function set --------------------------------
+    with phase(f"functions: {len(FQ.ALL)} queries at sf0.01 against the "
+               f"CPU rows, one per family at {schema}"):
+        from presto_tpu_torch.benchmarks import functions_run as FR
+        fn_records = FR.run(sf, 3, device, card=f"on {card}")
 
     summary = {"scan_direct": "q1", "scan_span": "s1", "scan_hash": "h1"}
     join_summary = {"scan_direct": "j2", "scan_span": "j3", "scan_hash": "j1"}
@@ -1956,6 +2033,9 @@ def main() -> int:
                 "tpch_launches": tpch_launches[name],
                 # launches on the distributed path (its tasks' stages)
                 "distributed_launches": dist_launches[name],
+                # launches on the TPC-DS path (its bank at sf0.01 and at
+                # the scale factor, Q95 at SF100)
+                "tpcds_launches": tpcds_launches[name],
                 "max_abs_err": max(r["err"] for r in records.values()
                                    if r["kernel"] == name),
                 "ms": rec["ms"],
@@ -2011,6 +2091,7 @@ def main() -> int:
             "launches": sum(join_launches.values()),
             "tpch_launches": tpch_join_launches,
             "distributed_launches": dist_join_launches,
+            "tpcds_launches": tpcds_join_launches,
             "max_abs_err": max(records[q]["err"] for q in (
                 "j1", "j2", "j3", "q3_shape", "q18_shape", "semi",
                 "semi_unique", "multi_probe", "partsupp")),
@@ -2071,6 +2152,7 @@ def main() -> int:
             "replaces": "presto_tpu/exec/kernels/window.py:111",
             "launches": window_launches,
             "distributed_launches": dist_launches["window_scan"],
+            "tpcds_launches": tpcds_launches["window_scan"],
             "max_abs_err": max(r["err"] for r in w_records.values()),
             "ms": wr["ms"],
             "call_ms": wr["call_ms"],
@@ -2087,7 +2169,7 @@ def main() -> int:
         })
     # the torch-chain phase's numbers again, where the end of the output
     # keeps them
-    print(f"torch chain summary at {schema} on {card}:")
+    print(f"torch chain summary at sf{chain_sf:g} on {card}:")
     for q, r in chain_records.items():
         if q == "trace_q14":
             print(f"  {q}: wall {r['wall_ms']:.3f} ms, busy "
@@ -2127,8 +2209,7 @@ def main() -> int:
     for q, r in sf100_records.items():
         if "grouped" in r:
             print(f"  {q} lifespans: {r['grouped']}")
-    if "whole_q3" in sf100_records:
-        print(f"  q3 with grouped_lifespans=1: {sf100_records['whole_q3']}")
+    print(f"  q3 with grouped_lifespans=1: {sf100_records['whole_q3']}")
     print(f"drivers and lifespans at {schema} on {card}:")
     for q, r in lifespan_records.items():
         print(f"  {q}: {r}")
@@ -2164,6 +2245,29 @@ def main() -> int:
     print(f"  q3 profile: wall {t3['wall_ms']:.3f} ms, busy "
           f"{t3['busy_ms']:.3f} ms, idle {t3['idle_share']:.4f}, DtoH "
           f"{t3['d2h_ms']:.3f} ms, HtoD {t3['h2d_ms']:.3f} ms")
+    print(f"TPC-DS at {schema} on {card}:")
+    for name, r in tpcds_records["bank"].items():
+        if name not in ("results", "launches"):
+            xla = ("not run" if r["xla_ms"] is None
+                   else f"{r['xla_ms']:.3f} ms")
+            print(f"  {r['schema']} {name}: cold {r['cold_s']:.3f} s, warm "
+                  f"{r['warm_ms']:.3f} ms, xla {xla}, "
+                  f"programs {r['kernel_programs']}, chain {r['chain']}, "
+                  f"launched {r['launched']}, declined {r['declined']}")
+    for part in ("official", "wide"):
+        r = tpcds_records["q95"][part]
+        print(f"  sf100 Q95 {part} ({r['how']}): {r['rows']}, cold "
+              f"{r['cold_s']:.3f} s, warm {r['warm_s']}, peak "
+              f"{r['peak_bytes']} B")
+    for k, r in tpcds_records["core"].items():
+        print(f"  sf100 Q95 join core {k}: {r}")
+    print(f"  distributed Q3: {tpcds_records['dist']}")
+    print(f"  phase walls: {tpcds_records['walls']}")
+    print(f"functions on {card}:")
+    for fam, r in fn_records["at_scale"].items():
+        print(f"  {schema} {fam}: cold {r['cold_s']:.3f} s, warm "
+              f"{r['warm_ms']:.3f} ms, xla {r['xla_ms']:.3f} ms, declined "
+              f"{r['declined']}")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -47,10 +47,11 @@ four):
     unspill walls and overlap fraction; spillBytes > 0 for Q3 (the grace
     join) and Q18; Q18 once more with a small spill_budget_bytes and a
     spill_path under build/ (the disk tier round trip: spillDiskBytes and
-    unspillBytes > 0, the same rows); W1 under a budget its window kernel
-    reservation fits and one that declines WindowInputSize, both equal to
-    the unbudgeted rows; Q18 under FAULT_BUDGET, which records whether
-    the open fault of ROADMAP section 3 still raises.
+    unspillBytes > 0, the same rows) (run_budgeted); W1 under a budget
+    its window kernel reservation fits and one that declines
+    WindowInputSize, both equal to the unbudgeted rows
+    (run_window_budgets); Q18 under FAULT_BUDGET, which records whether
+    the open fault of ROADMAP section 3 still raises (q18_fault_outcome).
 
 `--trace-peak Q` runs only query Q at --sf100 once with the CUDA
 allocator's history on, and prints what is live at its peak by the
@@ -523,13 +524,13 @@ def run_budgeted(sf: float, device, card: str = "",
                  queries=BUDGETED_QUERIES, budget: int = BUDGET,
                  spill_dir: str = "build/spill",
                  disk_host_bytes: int = DISK_TIER_HOST_BYTES,
-                 window_budgets=(WINDOW_FITS, WINDOW_DECLINES),
                  free_rows=None) -> dict:
-    """`free_rows` ({query: QueryResult}) are unbudgeted rows of the same
-    call (tpch_run's); a query without them runs unbudgeted here."""
+    """`queries` under `budget`, and Q18 through the disk tier when it is
+    one of them.  `free_rows` ({query: QueryResult}) are unbudgeted rows
+    of the same call (tpch_run's); a query without them runs unbudgeted
+    here."""
     from ..exec.pipeline import ExecutionConfig
     from ..exec.runner import LocalQueryRunner
-    from .window_queries import W1
 
     schema = f"sf{sf:g}"
     qs = queries_for_sf(sf)
@@ -585,13 +586,22 @@ def run_budgeted(sf: float, device, card: str = "",
               f"{rec['unspill_bytes']:.0f} B read back in "
               f"{rec['unspill_s']:.3f} s, {len(left)} files left {card}",
               flush=True)
-    if 18 in queries:
-        out["q18_fault"] = q18_fault_outcome(schema, qs[18], free_rows[18],
-                                             device, card)
-    want, _w = _wall(free, W1, device)
-    for name, b, path in (("w1_fits", window_budgets[0],
-                           "kernelWindowPrograms"),
-                          ("w1_declines", window_budgets[1],
+    return out
+
+
+def run_window_budgets(sf: float, device, card: str = "",
+                       budgets=(WINDOW_FITS, WINDOW_DECLINES)) -> dict:
+    """W1 under a budget its window kernel reservation fits and one that
+    declines WindowInputSize, each equal to the unbudgeted rows."""
+    from ..exec.pipeline import ExecutionConfig
+    from ..exec.runner import LocalQueryRunner
+    from .window_queries import W1
+
+    schema = f"sf{sf:g}"
+    out = {}
+    want, _w = _wall(LocalQueryRunner(schema, device=device), W1, device)
+    for name, b, path in (("w1_fits", budgets[0], "kernelWindowPrograms"),
+                          ("w1_declines", budgets[1],
                            "kernelDeclinedWindowInputSize")):
         r = LocalQueryRunner(schema, device=device,
                              config=ExecutionConfig(memory_budget_bytes=b))
@@ -731,10 +741,16 @@ def main() -> int:
     if args.phase in ("all", "onthefly"):
         run_onthefly(float(args.sf), device)
     if args.phase in ("all", "budgeted"):
-        run_budgeted(float(args.sf), device, budget=args.budget,
-                     disk_host_bytes=args.disk_host_bytes,
-                     window_budgets=tuple(
-                         int(b) for b in args.window_budgets.split(",")))
+        from ..exec.runner import LocalQueryRunner
+        sf = float(args.sf)
+        run_budgeted(sf, device, budget=args.budget,
+                     disk_host_bytes=args.disk_host_bytes)
+        run_window_budgets(sf, device, budgets=tuple(
+            int(b) for b in args.window_budgets.split(",")))
+        schema, sql = f"sf{sf:g}", queries_for_sf(sf)[18]
+        want, _w = _wall(LocalQueryRunner(schema, device=device), sql,
+                         device)
+        q18_fault_outcome(schema, sql, want, device)
     return 0
 
 

@@ -41,15 +41,23 @@ for the slot's dictionary and applied on the device as one gather
 _substr, _string_fn with _reencode, _merge_dictionaries).  The tables
 are cached per dictionary.  A decimal divide whose numerator scales up
 divides by long division (DIVQS_I), exact where the reference's int64
-rescale wraps.  The CUDA kernels run the opcodes before CONST_S only
-(KERNEL_OPS); a program with a later one declines their plan build,
-naming it.  Anything else raises NotImplementedError naming
-the missing piece.
+rescale wraps.  The rest of the reference's scalar functions follow
+F2I: the double functions (FN_F, FN2_F, FPRED_F), sign, ceiling /
+floor / round on decimals and doubles, greatest / least, day_of_week,
+day_of_year, ISO week, date_trunc / date_add / date_diff, concat over
+dictionaries (CONCAT_S, a fold over their product), the bitwise
+functions and shifts, and width_bucket; the regexp, URL and JSON string
+functions are MAP_S folds.  The CUDA kernels run the opcodes before
+CONST_S only (KERNEL_OPS); a program with a later one declines their
+plan build, naming it.  Anything else (the array functions) raises
+NotImplementedError naming the missing piece.
 """
 from __future__ import annotations
 
-import struct
+import functools
+import math
 import re
+import struct
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -278,7 +286,11 @@ def torch_dtype(typ: Type):
 # CMP_S and the other binary ops pop two; IS_NULL, IN_*, MAP_S and the
 # unary ops pop one; each pushes one.  DIV_I, MOD_I, DIVQ_I and NULLIF_*
 # can make a row NULL, and so can a MAP_S whose fold maps an entry to
-# NULL.
+# NULL.  After F2I: FN_F / FN2_F / FPRED_F an index into their name
+# tuples below; CEILD_I / FLOORD_I / ROUNDD_I a power of ten; ROUND_F the
+# float64 bits of 10**digits; DTRUNC / DADD / DDIFF an index into
+# DATE_UNITS; CONCAT_S pops its argument's count of slots, WBUCKET four
+# (x, lo, hi, n); SHL / SHR / SAR and WBUCKET can make a row NULL.
 OPS = (
     "COL", "CONST_I", "CONST_F", "NULL_I", "NULL_F", "PARAM_I", "PARAM_F",
     "MULC_I", "DIVR_I", "I2F", "DIVC_F", "WRAP32",
@@ -293,15 +305,37 @@ OPS = (
     "IN_I", "IN_F", "LIT", "DIVQS_I",
     # -- the torch interpreter's alone (KERNEL_OPS ends before them) ----
     "CONST_S", "NULL_S", "CMP_S", "MAP_S", "IF_S", "NULLIF_X", "F2I",
+    # the rest of the scalar function set (the reference's Lowering._call)
+    "FN_F", "FN2_F", "FPRED_F", "SIGN_I", "SIGN_F", "CEILD_I", "FLOORD_I",
+    "ROUNDD_I", "ROUND_F", "MAX_I", "MIN_I", "MAX_F", "MIN_F",
+    "DOW", "DOY", "WEEK", "DTRUNC", "DADD", "DDIFF", "CONCAT_S",
+    "BAND", "BOR", "BXOR", "BNOT", "SHL", "SHR", "SAR", "WBUCKET",
 )
 OP = {name: i for i, name in enumerate(OPS)}
 # the opcodes the CUDA scan kernels run (codegen.py, scan_common.cuh)
 KERNEL_OPS = frozenset(range(OP["CONST_S"]))
 _UNARY = frozenset(("MULC_I", "DIVR_I", "I2F", "DIVC_F", "WRAP32", "NOT",
                     "NEG_I", "NEG_F", "ABS_I", "ABS_F", "YEAR", "MONTH",
-                    "DAY", "QUARTER", "MULC_F", "RINT_I", "F2I"))
+                    "DAY", "QUARTER", "MULC_F", "RINT_I", "F2I",
+                    "FN_F", "FPRED_F", "SIGN_I", "SIGN_F", "CEILD_I",
+                    "FLOORD_I", "ROUNDD_I", "ROUND_F", "DOW", "DOY", "WEEK",
+                    "DTRUNC", "BNOT"))
 _NULLING = frozenset(("DIV_I", "MOD_I", "DIVQ_I", "NULLIF_I", "NULLIF_F",
-                      "NULLIF_X", "DIVQS_I"))
+                      "NULLIF_X", "DIVQS_I", "SHL", "SHR", "SAR"))
+# the binary forms of the scalar function set (NULL is the OR of the
+# operands' NULLs, and a negative shift count's row)
+_BINARY_FNS = frozenset(("FN2_F", "MAX_I", "MIN_I", "MAX_F", "MIN_F",
+                         "DADD", "DDIFF", "BAND", "BOR", "BXOR", "SHL",
+                         "SHR", "SAR"))
+# FN_F's functions of one double (the reference's _DOUBLE_FNS, ceiling,
+# floor and truncate), FN2_F's of two, FPRED_F's predicates
+FN_F = ("sqrt", "exp", "ln", "log2", "log10", "sin", "cos", "tan", "asin",
+        "acos", "atan", "cbrt", "degrees", "radians", "sinh", "cosh", "tanh",
+        "ceil", "floor", "trunc")
+FN2_F = ("power", "log", "atan2")
+FPRED_F = ("is_nan", "is_finite", "is_infinite")
+# DTRUNC / DADD / DDIFF's units
+DATE_UNITS = ("day", "week", "month", "quarter", "year")
 # deepest stack a program may need (it sizes the scan kernel's
 # shared-memory stack)
 MAX_STACK = 16
@@ -310,6 +344,12 @@ _CMP = ("lt", "lte", "gt", "gte", "eq", "neq")
 _ARITH = {"add": "ADD", "subtract": "SUB", "multiply": "MUL",
           "divide": "DIV", "modulus": "MOD"}
 _DATE_PARTS = ("year", "month", "day", "quarter")
+_DATE_FNS = ("date_trunc", "date_add", "date_diff", "day_of_week",
+             "day_of_year", "week")
+_BITWISE = {"bitwise_and": "BAND", "bitwise_or": "BOR",
+            "bitwise_xor": "BXOR", "bitwise_left_shift": "SHL",
+            "bitwise_right_shift": "SHR",
+            "bitwise_arithmetic_shift_right": "SAR"}
 
 
 def _bits_float(arg: int) -> float:
@@ -380,7 +420,8 @@ class ExprProgram:
                                          device=device),
                               ("",) if name == "NULL_S" else None))
             elif name == "CONST_S":
-                stack.append((full(0, False), None, (self.strings[arg],)))
+                stack.append((full(0, False), None,
+                              _literal_dictionary(self.strings[arg])))
             elif name in ("PARAM_I", "PARAM_F"):
                 p = params[arg].expand(n)
                 stack.append((p.view(torch.float64) if name == "PARAM_F"
@@ -391,6 +432,25 @@ class ExprProgram:
             elif name == "MAP_S":
                 v, nl, d = stack.pop()
                 stack.append(_apply_fold(self.maps[arg], v, nl, d))
+            elif name == "CONCAT_S":
+                parts = stack[-arg:]
+                del stack[-arg:]
+                stack.append(_concat(parts, n, device))
+            elif name == "WBUCKET":
+                parts = stack[-4:]
+                del stack[-4:]
+                v, made = _width_bucket(*(p[0] for p in parts))
+                nulls = made
+                for p in parts:
+                    nulls = orn(nulls, p[1])
+                stack.append((v, nulls, None))
+            elif name in _BINARY_FNS:
+                (b, bn, _bd), (a, an, _ad) = stack.pop(), stack.pop()
+                v, made = _binary_fn(name, arg, a, b)
+                # date_add's NULLs are its date's alone (the reference
+                # reads the count's values only)
+                nulls = bn if name == "DADD" else orn(an, bn)
+                stack.append((v, orn(nulls, made), None))
             elif name == "CMP_S":
                 (b, bn, bd), (a, an, ad) = stack.pop(), stack.pop()
                 stack.append((_compare_codes(_CMP[arg], a, ad, b, bd),
@@ -538,6 +598,73 @@ def _substr(s, start, length=None):
     return s[i:i + length] if length is not None else s[i:]
 
 
+# regexp / URL / JSON functions over dictionary entries or host strings
+# (the reference's helpers: RegexpFunctions with re2j approximated by
+# `re`, UrlFunctions, JsonFunctions); None is SQL NULL
+
+def _regexp_like(s, pattern):
+    return re.compile(str(pattern)).search(s) is not None
+
+
+def _regexp_extract(s, pattern, group=0):
+    m = re.compile(str(pattern)).search(s)
+    if m is None:
+        return None
+    try:
+        return m.group(int(group))
+    except IndexError:
+        return None
+
+
+def _regexp_replace(s, pattern, repl=""):
+    # Presto's replacement references are $N / ${name}; python's \N
+    py = re.sub(r"\$(\d+)", r"\\\1", str(repl))
+    py = re.sub(r"\$\{(\w+)\}", r"\\g<\1>", py)
+    return re.compile(str(pattern)).sub(py, s)
+
+
+def _url_parts(s):
+    from urllib.parse import urlparse
+    return urlparse(s)
+
+
+def _url_port(s):
+    try:
+        return _url_parts(s).port       # None when absent
+    except ValueError:                  # a malformed port is NULL
+        return None
+
+
+def _json_extract_scalar(s, path):
+    """The reference's subset of the JsonExtract path language:
+    $.a.b[0].c -- object fields and array subscripts."""
+    import json as _json
+    try:
+        v = _json.loads(s)
+    except (ValueError, TypeError):
+        return None
+    p = str(path)
+    if not p.startswith("$"):
+        return None
+    for tok in re.findall(r"\.([A-Za-z_][\w]*)|\[(\d+)\]|\[\"([^\"]+)\"\]",
+                          p[1:]):
+        field, idx, qfield = tok
+        key = field or qfield
+        if key:
+            if not isinstance(v, dict) or key not in v:
+                return None
+            v = v[key]
+        else:
+            if not isinstance(v, list) or int(idx) >= len(v):
+                return None
+            v = v[int(idx)]
+    if isinstance(v, (dict, list)) or v is None:
+        return None          # scalars only
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    return str(v)
+
+
 # string -> string functions over dictionary entries (None = SQL NULL)
 STRING_TO_STRING = {
     "upper": lambda s: s.upper(),
@@ -550,6 +677,14 @@ STRING_TO_STRING = {
     "lpad": _lpad,
     "rpad": _rpad,
     "split_part": _split_part,
+    "regexp_extract": _regexp_extract,
+    "regexp_replace": _regexp_replace,
+    "url_extract_protocol": lambda s: _url_parts(s).scheme or None,
+    "url_extract_host": lambda s: _url_parts(s).hostname or None,
+    "url_extract_path": lambda s: _url_parts(s).path,
+    "url_extract_query": lambda s: _url_parts(s).query or None,
+    "url_extract_fragment": lambda s: _url_parts(s).fragment or None,
+    "json_extract_scalar": _json_extract_scalar,
 }
 # string -> value functions: name -> (fn(entry, *args), numpy dtype)
 STRING_TO_VALUE = {
@@ -558,10 +693,19 @@ STRING_TO_VALUE = {
     "starts_with": (lambda s, p: s.startswith(str(p)), bool),
     "ends_with": (lambda s, p: s.endswith(str(p)), bool),
     "codepoint": (lambda s: ord(s[0]) if s else None, np.int64),
+    "regexp_like": (_regexp_like, bool),
+    "url_extract_port": (_url_port, np.int64),
 }
 
 # host folds cached per (tag, dictionaries' ids, device): (dicts, result)
 _FOLDS: Dict[tuple, tuple] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _literal_dictionary(s: str) -> tuple:
+    """A string literal's one-entry dictionary: one object per literal,
+    so a fold over it is built and cached once, not once per chunk."""
+    return (s,)
 
 
 def _fold(spec: tuple, dictionary, device):
@@ -714,9 +858,242 @@ def _unary(name: str, arg: int, v):
         return -v
     if name in ("ABS_I", "ABS_F"):
         return torch.abs(v)
+    if name == "FN_F":
+        return _double_fn(FN_F[arg], v)
+    if name == "FPRED_F":
+        return {"is_nan": torch.isnan, "is_finite": torch.isfinite,
+                "is_infinite": torch.isinf}[FPRED_F[arg]](v).to(torch.int64)
+    if name == "SIGN_I":
+        return torch.sign(v)
+    if name == "SIGN_F":
+        return torch.where(torch.isnan(v), v, torch.sign(v))   # jnp.sign
+    if name == "CEILD_I":
+        return -_floor_div(-v, arg)
+    if name == "FLOORD_I":
+        return _floor_div(v, arg)
+    if name == "ROUNDD_I":
+        # to a multiple of arg, half away from zero (the reference's round)
+        return torch.sign(v) * _floor_div(torch.abs(v) + arg // 2, arg) * arg
+    if name == "ROUND_F":
+        # SQL rounds half AWAY from zero: sign * floor(|v| * s + 0.5) / s
+        scale = _bits_float(arg)
+        return torch.sign(v) * torch.floor(torch.abs(v) * scale + 0.5) \
+            / scale
+    if name == "BNOT":
+        return ~v
+    if name in ("DOW", "DOY", "WEEK", "DTRUNC"):
+        return _date_part(name, arg, v)
     y, m, d = civil_from_days(v)
     return {"YEAR": y, "MONTH": m, "DAY": d,
             "QUARTER": _floor_div(m + 2, 3)}[name]
+
+
+def _double_fn(fn: str, v):
+    """FN_F: the reference's jnp function of one double."""
+    if fn == "ln":
+        return torch.log(v)
+    if fn in ("log2", "log10"):
+        # jnp.log(v) / jnp.log(2.0 | 10.0), as the reference divides
+        return torch.log(v) / math.log(2.0 if fn == "log2" else 10.0)
+    if fn == "cbrt":
+        return torch.sign(v) * torch.abs(v).pow(1.0 / 3.0)
+    if fn == "degrees":
+        return v * (180.0 / math.pi)
+    if fn == "radians":
+        return v * (math.pi / 180.0)
+    return getattr(torch, fn)(v)
+
+
+def _binary_fn(name: str, arg: int, a, b):
+    """The binary forms of the scalar function set: (values, rows the
+    call itself makes NULL or None)."""
+    if name == "FN2_F":
+        fn = FN2_F[arg]
+        if fn == "power":
+            return torch.pow(a, b), None
+        if fn == "log":                 # log(base a, x b)
+            return torch.log(b) / torch.log(a), None
+        return torch.atan2(a, b), None
+    if name in ("MAX_I", "MAX_F"):
+        return torch.maximum(a, b), None
+    if name in ("MIN_I", "MIN_F"):
+        return torch.minimum(a, b), None
+    if name == "DADD":                  # date_add(unit, n a, date b)
+        unit = DATE_UNITS[arg]
+        if unit in ("day", "week"):
+            return b + a * (7 if unit == "week" else 1), None
+        return _add_months(b, a * {"month": 1, "quarter": 3,
+                                   "year": 12}[unit]), None
+    if name == "DDIFF":
+        return _date_diff(DATE_UNITS[arg], a, b), None
+    if name == "BAND":
+        return a & b, None
+    if name == "BOR":
+        return a | b, None
+    if name == "BXOR":
+        return a ^ b, None
+    # shifts: a count >= 64 shifts everything out (0, or the sign fill of
+    # an arithmetic right shift); a negative count makes the row NULL
+    big = b >= 64
+    sh = b.clamp(0, 63)
+    zero = torch.zeros_like(a)
+    if name == "SHL":
+        out = torch.where(big, zero, a << sh)
+    elif name == "SAR":
+        out = a >> torch.where(big, torch.full_like(sh, 63), sh)
+    else:                               # logical: the sign fill masked off
+        mask = (torch.ones_like(sh) << (64 - sh).clamp(max=63)) - 1
+        out = torch.where(big, zero,
+                          torch.where(sh == 0, a, (a >> sh) & mask))
+    return out, b < 0
+
+
+def _width_bucket(x, lo, hi, n):
+    """width_bucket(x, lo, hi, n) over doubles x, lo, hi and an integer
+    n: the reference's formula, its 1-ulp nudge before the floor, and
+    NULL where n <= 0."""
+    span = torch.where(hi == lo, torch.ones_like(hi), hi - lo)
+    v = (x - lo) * n.to(torch.float64) / span
+    bucket = _saturating_int(torch.floor(v * (1 + 2.0 ** -40)), 64) + 1
+    top = torch.clamp(n + 1, min=0)
+    return torch.minimum(torch.clamp(bucket, min=0), top), n <= 0
+
+
+def days_from_civil(y, m, d):
+    """(year, month, day) -> days since the epoch: the reference's
+    _days_from_civil, the inverse of civil_from_days."""
+    y = y - (m <= 2).to(y.dtype)
+    era = _floor_div(torch.where(y >= 0, y, y - 399), 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = _floor_div(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _floor_div(yoe, 4) - _floor_div(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def _dow(days):
+    return torch.remainder(days + 3, 7) + 1
+
+
+def _iso_weeks_in_year(y):
+    """52 or 53 (ISO-8601): 53 iff Jan 1 or Dec 31 is a Thursday."""
+    one = torch.ones_like(y)
+    jan1 = days_from_civil(y, one, one)
+    dec31 = days_from_civil(y, one * 12, one * 31)
+    thu = (_dow(jan1) == 4) | (_dow(dec31) == 4)
+    return torch.where(thu, 53, 52)
+
+
+def _date_part(name: str, arg: int, days):
+    """DOW / DOY / WEEK (ISO, with the wrap at Jan 1 and Dec 28-31) and
+    DTRUNC to DATE_UNITS[arg] (any unit but day, week, quarter and year
+    truncates to the month, as the reference does)."""
+    if name == "DOW":
+        return _dow(days)
+    if name == "DTRUNC" and DATE_UNITS[arg] == "day":
+        return days
+    if name == "DTRUNC" and DATE_UNITS[arg] == "week":
+        return days - torch.remainder(days + 3, 7)
+    y, m, _d = civil_from_days(days)
+    one = torch.ones_like(m)
+    if name == "DTRUNC":
+        unit = DATE_UNITS[arg]
+        if unit == "quarter":
+            m = _floor_div(m - 1, 3) * 3 + 1
+        elif unit == "year":
+            m = one
+        return days_from_civil(y, m, one)
+    doy = days - days_from_civil(y, one, one) + 1
+    if name == "DOY":
+        return doy
+    w0 = _floor_div(10 + doy - _dow(days), 7)
+    # nested on the original w: a w0 < 1 resolved to last year's 53 is
+    # not re-clamped by this year's week count
+    return torch.where(w0 < 1, _iso_weeks_in_year(y - 1),
+                       torch.where(w0 > _iso_weeks_in_year(y),
+                                   torch.ones_like(w0), w0))
+
+
+def _add_months(days, months):
+    """Calendar month addition clamped to the month's end (Presto's
+    date_add: Jan 31 + 1 month = Feb 28 / 29)."""
+    y, m, d = civil_from_days(days)
+    one = torch.ones_like(m)
+    total = (m - 1) + months
+    first = days_from_civil(y + _floor_div(total, 12),
+                            torch.remainder(total, 12) + 1, one)
+    nxt = total + 1
+    next_first = days_from_civil(y + _floor_div(nxt, 12),
+                                 torch.remainder(nxt, 12) + 1, one)
+    return first + torch.minimum(d, next_first - first) - 1
+
+
+def _date_diff(unit: str, da, db):
+    """db - da in whole units, truncated toward zero; a partial month
+    does not count."""
+    if unit in ("day", "week"):
+        diff = db - da
+        return torch.sign(diff) * _floor_div(
+            torch.abs(diff), 7 if unit == "week" else 1)
+    ya, ma, dda = civil_from_days(da)
+    yb, mb, ddb = civil_from_days(db)
+    months = (yb * 12 + mb) - (ya * 12 + ma)
+    months = torch.where((months > 0) & (ddb < dda), months - 1, months)
+    months = torch.where((months < 0) & (ddb > dda), months + 1, months)
+    den = {"month": 1, "quarter": 3, "year": 12}[unit]
+    return torch.sign(months) * _floor_div(torch.abs(months), den)
+
+
+def _reencode_table(mapped):
+    """Entries mapped through a transform -> (int64 code table, sorted
+    deduplicated dictionary), so codes stay rank codes."""
+    uniq = tuple(sorted({s for s in mapped if s is not None}))
+    index = {s: i for i, s in enumerate(uniq)}
+    return [0 if s is None else index[s] for s in mapped], uniq or ("",)
+
+
+def _concat(parts, n, device):
+    """concat over dictionary slots and constants (the reference's
+    _concat): a fold over one dictionary, or over the product of two (at
+    most 65536 entries), re-encoded; NULL if any part is."""
+    dicts = [d for _v, _nl, d in parts]
+    if any(d is None for d in dicts):
+        raise NotImplementedError("concat on non-dictionary varchar")
+    multi = [i for i, d in enumerate(dicts) if len(d) > 1]
+    if len(multi) > 2 or (len(multi) == 2 and len(dicts[multi[0]])
+                          * len(dicts[multi[1]]) > 65536):
+        raise NotImplementedError("concat dictionary product too large")
+    nulls = None
+    for _v, nl, _d in parts:
+        if nl is not None:
+            nulls = nl if nulls is None else nulls | nl
+    if any(not d for d in dicts):
+        # an empty dictionary has no value to show: all NULL
+        return (torch.zeros(n, dtype=torch.int64, device=device),
+                torch.ones(n, dtype=torch.bool, device=device), ("",))
+
+    def build():
+        if len(multi) <= 1:
+            base = multi[0] if multi else 0
+            mapped = ["".join(d[0] if i != base else s
+                              for i, d in enumerate(dicts))
+                      for s in dicts[base]]
+        else:
+            a, b = multi
+            mapped = ["".join(sa if i == a else sb if i == b else d[0]
+                              for i, d in enumerate(dicts))
+                      for sa in dicts[a] for sb in dicts[b]]
+        table, out_dict = _reencode_table(mapped)
+        return torch.tensor(table, dtype=torch.int64, device=device), \
+            out_dict
+    table, out_dict = _memo(("concat", len(parts)), tuple(dicts), device,
+                            build)
+    if len(multi) <= 1:
+        codes = parts[multi[0] if multi else 0][0]
+    else:
+        a, b = multi
+        codes = parts[a][0] * len(dicts[b]) + parts[b][0]
+    return table[codes], nulls, out_dict
 
 
 def _saturating_int(v, bits: int):
@@ -759,6 +1136,14 @@ def program_nullable(ops, columns, nullable_cols, maps=()) -> bool:
         elif name in ("IF", "IF_S"):
             f, t, _c = st.pop(), st.pop(), st.pop()
             st.append(t or f)
+        elif name in ("CONCAT_S", "WBUCKET"):
+            k = arg if name == "CONCAT_S" else 4
+            flags = st[-k:]
+            del st[-k:]
+            st.append(any(flags) or name == "WBUCKET")
+        elif name == "DADD":
+            b, _a = st.pop(), st.pop()
+            st.append(b)
         elif name == "COALESCE":
             b, a = st.pop(), st.pop()
             st.append(a and b)
@@ -994,12 +1379,131 @@ class _Emitter:
             self._coalesce(args, expr.type)
         elif name == "cast":
             self._cast(args[0], expr.type)
+        elif name == "concat":
+            for a in args:
+                if not _is_varchar(a.type):
+                    raise NotImplementedError(
+                        "concat on non-dictionary varchar")
+                self.emit(a)
+            self._op("CONCAT_S", len(args), 1 - len(args))
         elif name in ("like", "substr") or name in STRING_TO_STRING \
                 or name in STRING_TO_VALUE:
             self._string_fn(name, args)
+        elif name in _DATE_FNS:
+            self._date_fn(name, args)
+        else:
+            self._math_fn(name, expr)
+
+    def _double(self, expr: RowExpression) -> None:
+        """`expr` converted to a double (the reference's
+        _to_common_numeric with a DOUBLE target)."""
+        from ..common.types import DOUBLE
+        self.emit(expr)
+        self._convert(expr.type, DOUBLE)
+
+    def _math_fn(self, name: str, expr: CallExpression) -> None:
+        """The reference's math and bitwise functions (Lowering._call)."""
+        args = expr.arguments
+        if name in FN_F and name not in ("ceil", "floor", "trunc"):
+            self._double(args[0])
+            self._op("FN_F", FN_F.index(name))
+        elif name in FN2_F:
+            self._double(args[0])
+            self._double(args[1])
+            self._op("FN2_F", FN2_F.index(name), -1)
+        elif name in FPRED_F:
+            self._double(args[0])
+            self._op("FPRED_F", FPRED_F.index(name))
+        elif name in ("ceiling", "ceil", "floor"):
+            t = args[0].type
+            self.emit(args[0])
+            up = name != "floor"
+            if _domain_is_float(t):
+                self._op("FN_F", FN_F.index("ceil" if up else "floor"))
+            elif _is_decimal(t) and t.scale > 0:
+                self._op("CEILD_I" if up else "FLOORD_I", 10 ** t.scale)
+        elif name == "sign":
+            self.emit(args[0])
+            self._op("SIGN_F" if _domain_is_float(args[0].type)
+                     else "SIGN_I")
+        elif name == "truncate":
+            self._double(args[0])
+            self._op("FN_F", FN_F.index("trunc"))
+        elif name == "round":
+            self._round(expr)
+        elif name in ("greatest", "least"):
+            if _is_varchar(expr.type):
+                raise NotImplementedError(f"{name} over varchar")
+            suffix = "_F" if _domain_is_float(expr.type) else "_I"
+            for i, a in enumerate(args):
+                self.emit(a)
+                self._convert(a.type, expr.type)
+                if i:
+                    self._op(("MAX" if name == "greatest" else "MIN")
+                             + suffix, 0, -1)
+        elif name in ("bitwise_and", "bitwise_or", "bitwise_xor",
+                      "bitwise_left_shift", "bitwise_right_shift",
+                      "bitwise_arithmetic_shift_right"):
+            for a in args:
+                if _domain_is_float(a.type):
+                    raise NotImplementedError(f"{name} of a double")
+                self.emit(a)
+            self._op(_BITWISE[name], 0, -1)
+        elif name == "bitwise_not":
+            self.emit(args[0])
+            self._op("BNOT")
+        elif name == "width_bucket":
+            for a in args[:3]:
+                self._double(a)
+            self.emit(args[3])
+            self._op("WBUCKET", 0, -3)
         else:
             raise NotImplementedError(
                 f"function {name} is not ported yet")
+
+    def _round(self, expr: CallExpression) -> None:
+        """round(x [, digits]): decimals and doubles half away from
+        zero (the reference's round)."""
+        args = expr.arguments
+        if len(args) > 1 and not isinstance(args[1], ConstantExpression):
+            raise NotImplementedError("round with non-constant digits")
+        digits = int(args[1].value) if len(args) > 1 else 0
+        t = args[0].type
+        if _is_decimal(expr.type):
+            s = t.scale if _is_decimal(t) else 0
+            self.emit(args[0])
+            if digits < s:
+                self._op("ROUNDD_I", 10 ** (s - digits))
+            self._rescale(s, expr.type.scale)
+            return
+        self._double(args[0])
+        self._op("ROUND_F", float_bits(10.0 ** digits))
+        if not _domain_is_float(expr.type):
+            # back to the argument's integer type, as XLA converts
+            self._op("F2I", 32 if torch_dtype(t) == torch.int32 else 64)
+
+    def _date_fn(self, name: str, args) -> None:
+        """The reference's _date_fn: day_of_week, day_of_year, ISO week,
+        date_trunc, date_add and date_diff over days since the epoch."""
+        if name in ("day_of_week", "day_of_year", "week"):
+            self.emit(args[0])
+            self._op({"day_of_week": "DOW", "day_of_year": "DOY",
+                      "week": "WEEK"}[name])
+            return
+        if not isinstance(args[0], ConstantExpression):
+            raise NotImplementedError(f"{name} with a non-constant unit")
+        unit = str(args[0].value).lower()
+        if name == "date_trunc":
+            self.emit(args[1])
+            self._op("DTRUNC", DATE_UNITS.index(unit)
+                     if unit in DATE_UNITS else DATE_UNITS.index("month"))
+            return
+        if unit not in DATE_UNITS:
+            raise NotImplementedError(f"{name} unit {unit!r}")
+        self.emit(args[1])
+        self.emit(args[2])
+        self._op("DADD" if name == "date_add" else "DDIFF",
+                 DATE_UNITS.index(unit), -1)
 
     def _string_fn(self, name: str, args) -> None:
         """A function of a dictionary column and constants, folded per

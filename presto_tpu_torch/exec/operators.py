@@ -608,14 +608,31 @@ def agg_init(num_slots: int, specs: Tuple[AggSpec, ...],
     return state
 
 
-def _scatter_umin(num_slots: int, slot, bits):
-    """Unsigned scatter-min of uint64 bits held in int64 into a table of
-    EMPTY_SLOT entries: flipping the sign bit makes signed order the
-    unsigned order."""
-    out = torch.full((num_slots,), EMPTY_SLOT ^ INT64_MIN, dtype=torch.int64,
-                     device=bits.device)
-    out.scatter_reduce_(0, slot, bits ^ INT64_MIN, "amin", include_self=True)
-    return out ^ INT64_MIN
+def _probe_place(table, kh, mask, num_slots: int):
+    """PROBE_ROUNDS rounds of linear probing of the rows in `mask` into
+    the keyhash table: each round the pending rows whose current slot is
+    free propose their keyhash there, an unsigned scatter-min picks one
+    winner per slot, rows whose keyhash now matches their slot's are
+    placed, and the rest advance one slot.  Returns the new table (the
+    given one is not written), each row's slot and the rows left
+    pending.  The rounds touch only the rows' slots: the table is held
+    with its sign bit flipped, so signed order is the unsigned order and
+    EMPTY_SLOT, the largest uint64, loses every scatter-min."""
+    flip = table ^ INT64_MIN
+    empty = EMPTY_SLOT ^ INT64_MIN
+    khf = kh ^ INT64_MIN
+    slot = umod(kh, num_slots)
+    pending = mask
+    placed_slot = torch.zeros_like(slot)
+    for _ in range(PROBE_ROUNDS):
+        propose = pending & (flip[slot] == empty)
+        flip.scatter_reduce_(0, slot, torch.where(propose, khf, empty),
+                             "amin", include_self=True)
+        win = pending & (flip[slot] == khf)
+        placed_slot = torch.where(win, slot, placed_slot)
+        pending = pending & ~win
+        slot = torch.where(pending, (slot + 1) % num_slots, slot)
+    return flip ^ INT64_MIN, placed_slot, pending
 
 
 def agg_update(state: dict, batch: Batch, key_cols: List[Column],
@@ -637,19 +654,8 @@ def agg_update(state: dict, batch: Batch, key_cols: List[Column],
         kh = torch.where(kh == EMPTY_SLOT, torch.zeros_like(kh), kh)
     else:
         kh = torch.zeros(mask.shape, dtype=torch.int64, device=mask.device)
-    slot = umod(kh, num_slots)
-    table = state["__keyhash"]
-    pending = mask
-    placed_slot = torch.zeros_like(slot)
-    empty = torch.full_like(kh, EMPTY_SLOT)
-    for _ in range(PROBE_ROUNDS):
-        attempt = _scatter_umin(num_slots, slot,
-                                torch.where(pending, kh, empty))
-        table = torch.where(table == EMPTY_SLOT, attempt, table)
-        win = pending & (table[slot] == kh)
-        placed_slot = torch.where(win, slot, placed_slot)
-        pending = pending & ~win
-        slot = torch.where(pending, (slot + 1) % num_slots, slot)
+    table, placed_slot, pending = _probe_place(state["__keyhash"], kh, mask,
+                                               num_slots)
     out["__collision"] = state["__collision"] | pending.any()
     out["__keyhash"] = table
     out["__occupied"] = table != EMPTY_SLOT
@@ -696,20 +702,9 @@ def agg_merge(a: dict, b: dict, specs: Tuple[AggSpec, ...],
     accumulators (the probe rounds of agg_update over b's keyhashes)."""
     out = dict(a)
     mask = b["__occupied"]
-    kh = b["__keyhash"]
-    slot = umod(kh, num_slots)
-    table = a["__keyhash"]
-    pending = mask
-    placed_slot = torch.zeros_like(slot)
-    empty = torch.full_like(kh, EMPTY_SLOT)
-    for _ in range(PROBE_ROUNDS):
-        attempt = _scatter_umin(num_slots, slot,
-                                torch.where(pending, kh, empty))
-        table = torch.where(table == EMPTY_SLOT, attempt, table)
-        win = pending & (table[slot] == kh)
-        placed_slot = torch.where(win, slot, placed_slot)
-        pending = pending & ~win
-        slot = torch.where(pending, (slot + 1) % num_slots, slot)
+    table, placed_slot, pending = _probe_place(a["__keyhash"],
+                                               b["__keyhash"], mask,
+                                               num_slots)
     out["__collision"] = a["__collision"] | b["__collision"] | pending.any()
     out["__keyhash"] = table
     out["__occupied"] = table != EMPTY_SLOT

@@ -1511,6 +1511,16 @@ class PlanCompiler:
         return BatchSource(gen, names, types)
 
     # -- aggregation ------------------------------------------------------
+    def _compile_DistinctLimitNode(self, node: P.DistinctLimitNode
+                                   ) -> BatchSource:
+        """SELECT DISTINCT ... LIMIT n: a SINGLE aggregation with no
+        aggregates over the distinct variables, then the Limit (the
+        reference's lowering)."""
+        agg = P.AggregationNode(node.id + ".agg", node.source, {},
+                                node.distinct_variables, P.SINGLE)
+        return self._compile(P.LimitNode(node.id + ".limit", agg,
+                                         node.count))
+
     def _compile_AggregationNode(self, node: P.AggregationNode) -> BatchSource:
         """Aggregation in the reference's mode order.  Over a fused scan
         chain: the CUDA scan kernels first (direct slots for G <= 64, span
@@ -2825,9 +2835,12 @@ def _column_pred_values(cid, table, column, sf, tag, fn, dtype):
     return out
 
 
-# value-returning string functions hoisted over lazy columns: column
-# first, constant extras, never-NULL results
-_HOIST_PRED = ("starts_with", "ends_with")
+# string functions hoisted over lazy columns: column first, constant
+# extras, never-NULL results (the whole-column caches carry no null
+# channel); a transform gives codes over a new dictionary, a predicate
+# per-row values
+_HOIST_XFORM = ("regexp_replace",)
+_HOIST_PRED = ("regexp_like", "starts_with", "ends_with")
 
 
 def _gather_rows(table_all: np.ndarray, col: Column) -> torch.Tensor:
@@ -2842,6 +2855,14 @@ def _host_string_column(call_expr: CallExpression, batch: Batch) -> Column:
     col = batch.columns[_hoistable_var(call_expr).name]
     cid, table, column, sf = col.lazy
     name = canonical_name(call_expr.display_name)
+    if name in _HOIST_XFORM:
+        from .lowering import STRING_TO_STRING
+        extra = tuple(a.value for a in call_expr.arguments[1:])
+        kern = STRING_TO_STRING[name]
+        cdict, codes_all = _column_xform_codes(
+            cid, table, column, sf, (name,) + extra,
+            lambda x, _k=kern, _e=extra: _k(x, *_e))
+        return Column(_gather_rows(codes_all, col), col.nulls, cdict)
     if name in _HOIST_PRED:
         from .lowering import STRING_TO_VALUE
         extra = tuple(a.value for a in call_expr.arguments[1:])
@@ -2909,11 +2930,11 @@ def _hoist_key(e: RowExpression) -> str:
 
 def _hoistable_var(e: CallExpression):
     """The single column argument of a host-hoistable string call, or
-    None: like / substr / starts_with / ends_with take the column first
-    and constants after; concat takes one column among non-NULL constant
-    parts."""
+    None: like / substr / regexp_replace / regexp_like / starts_with /
+    ends_with take the column first and constants after; concat takes one
+    column among non-NULL constant parts."""
     name = canonical_name(e.display_name)
-    if name in ("like", "substr") + _HOIST_PRED \
+    if name in ("like", "substr") + _HOIST_XFORM + _HOIST_PRED \
             and e.arguments and isinstance(
                 e.arguments[0], VariableReferenceExpression) \
             and all(isinstance(a, ConstantExpression)

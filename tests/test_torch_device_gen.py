@@ -98,3 +98,70 @@ def test_dictionaries_and_support_match_reference():
     for t in ("orders", "customer", "part", "partsupp", "supplier"):
         assert tgen._TABLES[("tpch", t)][1] == jgen._TABLES[("tpch", t)][1]
     assert not tgen.supported("tpch", "nation", "nationkey")
+
+
+# -- TPC-DS: the fact tables (every column) and the dimension subsets -----
+
+TPCDS = [(t, c) for (cid, t), (_fn, cols) in sorted(jgen._TABLES.items())
+         if cid == "tpcds" for c in sorted(cols)]
+
+
+def _compare_ds(table, column, sf, idx):
+    want = np.asarray(jgen.column("tpcds", table, column, sf,
+                                  jnp.asarray(idx)))
+    got = tgen.column("tpcds", table, column, sf,
+                      torch.from_numpy(idx)).numpy()
+    assert got.dtype == want.dtype, (column, got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("table,column", TPCDS,
+                         ids=[f"{t}.{c}" for t, c in TPCDS])
+def test_tpcds_bit_exact(table, column):
+    """Head and tail rows at sf0.01, and row indices past 2**32 (as at
+    SF100 and beyond no table reaches, but the arithmetic must hold)."""
+    n = jcatalog.table_row_count(table, 0.01, "tpcds")
+    head = np.arange(0, min(4096, n), dtype=np.int64)
+    tail = np.arange(max(0, n - 1024), n, dtype=np.int64)
+    far = np.arange((1 << 32) - 512, (1 << 32) + 512, dtype=np.int64)
+    for idx in (head, tail, far):
+        _compare_ds(table, column, 0.01, idx)
+    # the SF100 fact tables' last rows
+    n100 = jcatalog.table_row_count(table, 100.0, "tpcds")
+    _compare_ds(table, column, 100.0,
+                np.arange(n100 - 512, n100, dtype=np.int64))
+
+
+@pytest.mark.parametrize("table,column", TPCDS,
+                         ids=[f"{t}.{c}" for t, c in TPCDS])
+def test_tpcds_matches_host_generator(table, column):
+    """Codes and values equal to the host generator the scan would
+    otherwise copy (tests/test_device_gen.py's check, for the port)."""
+    n = jcatalog.table_row_count(table, 0.01, "tpcds")
+    for start, count in [(0, min(4096, n)), (max(0, n - 100), min(100, n))]:
+        idx = torch.arange(start, start + count, dtype=torch.int64)
+        dev = tgen.column("tpcds", table, column, 0.01, idx).numpy()
+        host = jcatalog.generate_column(table, column, 0.01, start, count,
+                                        "tpcds")
+        if isinstance(host, tuple):
+            codes, values = host
+            assert tgen.dictionary("tpcds", table, column) == tuple(values)
+            np.testing.assert_array_equal(dev, codes)
+        else:
+            np.testing.assert_array_equal(dev, np.asarray(host))
+
+
+def test_tpcds_registry_matches_reference():
+    for key in [k for k in jgen._TABLES if k[0] == "tpcds"]:
+        assert tgen._TABLES[key][1] == jgen._TABLES[key][1], key
+        for c in jgen._TABLES[key][1]:
+            assert tgen.supported(*key, c)
+            assert tgen.dictionary(*key, c) == jgen.dictionary(*key, c)
+            assert tgen.encoding_hint(*key, c) == \
+                jgen.encoding_hint(*key, c)
+    assert {k for k in jgen._DICTS if k[0] == "tpcds"} == \
+        {k for k in tgen._DICTS if k[0] == "tpcds"}
+    assert {k for k in jgen._ENCODING_HINTS if k[0] == "tpcds"} == \
+        {k for k in tgen._ENCODING_HINTS if k[0] == "tpcds"}
+    assert not tgen.supported("tpcds", "date_dim", "d_date_sk")
+    assert not tgen.supported("tpcds", "item", "i_item_id")

@@ -267,21 +267,16 @@ def test_query_runs_in_the_kernel_like_the_reference(ref, port, name):
 
 
 @pytest.mark.parametrize("sql,names", [
-    ("select sum(ln(l_extendedprice)) from lineitem", "function ln"),
+    ("select sum(ln(l_extendedprice)) from lineitem", "FN_F"),
     ("select sum(l_quantity) from lineitem where l_returnflag = 'R'",
      "CMP_S"),
     ("select count(*) from lineitem where l_shipmode in ('MAIL', 'SHIP')",
      "MAP_S"),
 ], ids=["ln", "varchar_eq", "varchar_in"])
 def test_unported_form_raises_naming_itself(port, sql, names):
-    """ln is not ported: the chain's probe fails (fusionDeclined
-    ProbeUnsupported) and the streaming path raises naming it.  The
-    varchar opcodes decline the kernels' plan build (PlanShape), and the
-    torch chain returns the reference's rows."""
-    if names.startswith("function"):
-        with pytest.raises(NotImplementedError, match=names):
-            port.execute(sql)
-        return
+    """ln (an FN_F opcode since the rest of the scalar function set was
+    ported) and the varchar opcodes decline the kernels' plan build
+    (PlanShape), and the torch chain returns the reference's rows."""
     from presto_tpu_torch.exec.kernels import scan_kernel as sk
     before = sk.KERNEL_METRICS.snapshot()["declined"].get("PlanShape", 0)
     got = port.execute(sql)

@@ -30,8 +30,8 @@ from torch_rows import assert_rows_close
 import torch_tpch_golden as golden
 from torch_threads import one_torch_thread  # noqa: F401
 
-COLUMNS = [(t, c) for (_cid, t), (_fn, cols) in sorted(tgen._TABLES.items())
-           for c in sorted(cols)]
+COLUMNS = [(t, c) for (cid, t), (_fn, cols) in sorted(tgen._TABLES.items())
+           if cid == "tpch" for c in sorted(cols)]
 # keeps a column resident when its padded int32 form fits (lineitem's at
 # sf0.01: (60175 + 65536) x 4 bytes) and its int64 form does not
 MIXED_MAX_COLUMN_BYTES = 600_000
