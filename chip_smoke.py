@@ -213,8 +213,9 @@ Phases, each printed with its wall time:
      reservation fits and one that declines WindowInputSize (then
      operators.window_batch), both equal to the unbudgeted rows
      (run_window_budgets); Q18 at the scale factor under 96 MiB
-     (q18_fault_outcome), where the open fault of ROADMAP section 3
-     raises "collision retries exhausted": that error or the unbudgeted
+     (q18_fault_outcome), where a reference behaviour the port mirrors
+     (ROADMAP section 3) raises "collision retries exhausted": that
+     error or the unbudgeted
      rows is recorded, any other outcome fails;
  20. TPC-DS (benchmarks/tpcds_run.py run; the fact tables generated on
      the device): the bank at sf0.01 held to the JAX package's golden
@@ -236,7 +237,22 @@ Phases, each printed with its wall time:
      query of benchmarks/function_queries.py at sf0.01 on the card equal
      to the same process's CPU rows (rtol 1e-12), and one lineitem
      aggregation per family at the scale factor (cold, warm, xla == auto,
-     kernelDeclinedPlanShape metered).
+     kernelDeclinedPlanShape metered);
+ 22. arrays, UNNEST and EXPLAIN ANALYZE at the scale factor
+     (benchmarks/arrays_run.py run): U1, U2, U4 (cold, the median of 3
+     warm walls, launches, U4's decline) and U3 (the window kernel over
+     unnested rows, equal to xla) each equal to its array-free twin; U1
+     through DistributedQueryRunner with 2 tasks and X1, whose ARRAY
+     column crosses an exchange, equal to the local rows; EXPLAIN
+     ANALYZE of Q6 and Q1 under auto (kernel #1 launches) and xla with
+     equal per-node rows and the footer's kernel lines, of Q18 fused
+     against analyze_unfused (at the scale factor from a table that no
+     collision retry follows; at SF1 from the default table, the unfused
+     path counting each retry pass), of W1 (the window kernel), of Q1 with 2
+     tasks (every fragment annotated) and of Q6 with profile=true (the
+     torch.profiler trace on disk).  The launch counters are set to 0
+     just before the phase and read just after: the direct and window
+     kernels must have launched.
 
 Any failed check raises and exits non-zero.  The second-to-last line is
 the kernels' JSON record; the last line is
@@ -265,7 +281,8 @@ UNIT_ROUNDOFF = 2.0 ** -53
 # the budgeted queries run at SF1, not at the scale factor (the script's
 # time limit): Q18 with its disk-tier run (about 67 s at SF10 on a slow
 # host) and Q21 (its 1.2 GB build spilled 35 GB in 92 s at SF10); Q18's
-# 96 MiB run stays at the scale factor, where the open fault shows
+# 96 MiB run stays at the scale factor, where the mirrored reference
+# behaviour shows
 BUDGETED_AT_SF1 = (18, 21)
 
 
@@ -2004,6 +2021,20 @@ def main() -> int:
         from presto_tpu_torch.benchmarks import functions_run as FR
         fn_records = FR.run(sf, 3, device, card=f"on {card}")
 
+    # -- ARRAY columns, UNNEST, EXPLAIN ANALYZE --------------------------
+    with phase(f"arrays, UNNEST and EXPLAIN ANALYZE at {schema}: U1-U4 "
+               f"against their twins, U1 and X1 over 2 tasks, ANALYZE of "
+               f"Q6, Q1, Q18, W1, distributed Q1 and a profiled Q6"):
+        from presto_tpu_torch.benchmarks import arrays_run as AR
+        for k in sk.LAUNCHES:
+            sk.LAUNCHES[k] = 0
+        array_records = AR.run(sf, 3, device, card=f"on {card}",
+                               profile_dir="build/profiles")
+        array_launches = dict(sk.LAUNCHES)
+        print(f"  arrays path launches {array_launches}")
+        assert array_launches["scan_direct"] > 0
+        assert array_launches["window_scan"] > 0
+
     summary = {"scan_direct": "q1", "scan_span": "s1", "scan_hash": "h1"}
     join_summary = {"scan_direct": "j2", "scan_span": "j3", "scan_hash": "j1"}
     sources = {"scan_direct": "codegen.py",
@@ -2036,6 +2067,8 @@ def main() -> int:
                 # launches on the TPC-DS path (its bank at sf0.01 and at
                 # the scale factor, Q95 at SF100)
                 "tpcds_launches": tpcds_launches[name],
+                # launches on the arrays / EXPLAIN ANALYZE path
+                "arrays_launches": array_launches[name],
                 "max_abs_err": max(r["err"] for r in records.values()
                                    if r["kernel"] == name),
                 "ms": rec["ms"],
@@ -2153,6 +2186,7 @@ def main() -> int:
             "launches": window_launches,
             "distributed_launches": dist_launches["window_scan"],
             "tpcds_launches": tpcds_launches["window_scan"],
+            "arrays_launches": array_launches["window_scan"],
             "max_abs_err": max(r["err"] for r in w_records.values()),
             "ms": wr["ms"],
             "call_ms": wr["call_ms"],
@@ -2268,6 +2302,14 @@ def main() -> int:
         print(f"  {schema} {fam}: cold {r['cold_s']:.3f} s, warm "
               f"{r['warm_ms']:.3f} ms, xla {r['xla_ms']:.3f} ms, declined "
               f"{r['declined']}")
+    print(f"arrays and EXPLAIN ANALYZE at {schema} on {card}:")
+    for q, r in array_records["arrays"].items():
+        print(f"  {q}: {r}")
+    for q, r in array_records["analyze"].items():
+        print(f"  analyze {q}: " + ", ".join(
+            f"{k} {v}" for k, v in r.items()
+            if k not in ("walls_ms", "unfused_walls_ms", "nodes")))
+    print(f"  phase walls: {array_records['walls']}")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

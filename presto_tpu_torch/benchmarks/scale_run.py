@@ -51,7 +51,9 @@ four):
     its window kernel reservation fits and one that declines
     WindowInputSize, both equal to the unbudgeted rows
     (run_window_budgets); Q18 under FAULT_BUDGET, which records whether
-    the open fault of ROADMAP section 3 still raises (q18_fault_outcome).
+    the reference behaviour of ROADMAP section 3 (a budgeted aggregation's
+    table grows unreserved and runs out of retries), which the port
+    mirrors, still raises (q18_fault_outcome).
 
 `--trace-peak Q` runs only query Q at --sf100 once with the CUDA
 allocator's history on, and prints what is live at its peak by the
@@ -103,7 +105,8 @@ BUDGETED_QUERIES = (1, 3, 5, 9, 13, 18, 21)
 # in-place retries end at "collision retries exhausted": FAULT_BUDGET)
 BUDGET = 48 << 20
 # between Q18's first aggregation table at SF10 (2^20 slots of 52 B, 52
-# MiB) and its doubled one: the open fault's budget (q18_fault_outcome)
+# MiB) and its doubled one: the budget where the reference behaviour the
+# port mirrors shows (q18_fault_outcome)
 FAULT_BUDGET = 96 << 20
 # the disk tier's host budget for the second Q18 run
 DISK_TIER_HOST_BYTES = 64 << 20
@@ -410,7 +413,9 @@ def run_sf100(sf: float, device, card: str = "", warm: int = 2,
 def _with_node_stats(runner, sql):
     """The query through a compiler of the runner's config whose
     per-node operator stats are on (TaskContext.stats): its result and
-    the scans' driver walls."""
+    the scans' driver walls.  Those stats also turn on EXPLAIN ANALYZE's
+    per-node instrumentation (PlanCompiler._instrument), so the driver
+    walls are walls under ANALYZE."""
     from ..exec.pipeline import PlanCompiler, TaskContext
     from ..exec.runner import pages_to_result
     from ..spi import plan as P
@@ -476,7 +481,8 @@ def run_lifespans(sf: float, device, card: str = "") -> dict:
         print(f"  {schema} {name} with task_concurrency={DRIVERS}, "
               f"fuse_pipelines=False: == single-driver rows; wall "
               f"{w_drv:.3f} s against {w_serial:.3f} s single; driver "
-              f"walls (s) per scan {walls} {card}", flush=True)
+              f"walls (s, under ANALYZE) per scan {walls} {card}",
+              flush=True)
     return out
 
 
@@ -617,11 +623,12 @@ def run_window_budgets(sf: float, device, card: str = "",
 def q18_fault_outcome(schema: str, sql: str, want, device,
                       card: str = "", budget: int = FAULT_BUDGET) -> dict:
     """Q18 under a budget between its aggregation's first table and the
-    doubled one (ROADMAP section 3, the open fault): the first
+    doubled one (ROADMAP section 3, a reference behaviour the port
+    mirrors): the first
     reservation fits, and the in-place collision retries grow the table
     past the budget without reserving it, as the reference's run_retrying
     does, until they end at "collision retries exhausted".  Either that
-    error (the fault still open) or the unbudgeted rows (repaired) is
+    error (the reference's behaviour) or the unbudgeted rows (repaired) is
     recorded; any other outcome raises."""
     from ..exec.pipeline import ExecutionConfig
     from ..exec.runner import LocalQueryRunner
@@ -634,7 +641,7 @@ def q18_fault_outcome(schema: str, sql: str, want, device,
         if "collision retries exhausted" not in str(e):
             raise
         wall = time.perf_counter() - t0
-        outcome = f"raised {e!r} (the open fault)"
+        outcome = f"raised {e!r} (the reference's behaviour)"
     else:
         assert_rows_close(got, want, ordered=True, rtol=RTOL)
         outcome = "== unbudgeted rows (no retry ran out)"

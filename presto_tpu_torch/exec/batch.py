@@ -12,6 +12,10 @@ mask (the counterpart of presto_tpu/exec/batch.py).  Columns:
               are the table's global row ids, and the strings are
               generated at the output boundary (batch_to_page) for live
               rows only
+  lengths     ARRAY columns: `values` is a padded (capacity, W) element
+              matrix and `lengths` (capacity,) int32 each row's live
+              element count (the ragged ArrayBlock exists only at the
+              page boundary)
 
 The mask subsumes selection (filters clear bits) and padding.  Every
 tensor of a batch lives on one device, the one its producer was given.
@@ -24,21 +28,23 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..common.block import (DictionaryBlock, FixedWidthBlock, Int128Block,
-                            VariableWidthBlock, decode_to_flat)
+from ..common.block import (ArrayBlock, DictionaryBlock, FixedWidthBlock,
+                            Int128Block, VariableWidthBlock, decode_to_flat)
 from ..common.page import Page
-from ..common.types import (BooleanType, DateType, DecimalType, DoubleType,
-                            IntegerType, RealType, Type, VarcharType, CharType)
+from ..common.types import (ArrayType, BooleanType, DateType, DecimalType,
+                            DoubleType, IntegerType, RealType, Type,
+                            VarcharType, CharType)
 
 
 class Column:
     def __init__(self, values, nulls=None,
                  dictionary: Optional[Tuple[str, ...]] = None,
-                 lazy: Optional[Tuple] = None):
+                 lazy: Optional[Tuple] = None, lengths=None):
         self.values = values
         self.nulls = nulls
         self.dictionary = dictionary
         self.lazy = lazy
+        self.lengths = lengths
 
     def null_mask(self):
         if self.nulls is None:
@@ -50,12 +56,15 @@ class Column:
         """Row gather preserving dictionary / lazy metadata."""
         return Column(self.values[idx],
                       None if self.nulls is None else self.nulls[idx],
-                      self.dictionary, self.lazy)
+                      self.dictionary, self.lazy,
+                      None if self.lengths is None else self.lengths[idx])
 
     def slice_rows(self, lo: int, hi: int) -> "Column":
         return Column(self.values[lo:hi],
                       None if self.nulls is None else self.nulls[lo:hi],
-                      self.dictionary, self.lazy)
+                      self.dictionary, self.lazy,
+                      None if self.lengths is None
+                      else self.lengths[lo:hi])
 
     def __repr__(self):
         d = f", dict[{len(self.dictionary)}]" if self.dictionary else ""
@@ -114,11 +123,31 @@ def _logical_np(typ: Type, values: np.ndarray) -> np.ndarray:
     return values
 
 
+def _host_array(typ: Type, block: ArrayBlock):
+    """(element matrix, nulls, lengths) of a ragged ArrayBlock: a (rows, W)
+    numpy matrix, W the next power of two at or above the longest array
+    (reference presto_tpu/exec/batch.py block_to_column)."""
+    etyp = typ.element if isinstance(typ, ArrayType) else typ
+    inner = decode_to_flat(block.elements)
+    if not isinstance(inner, FixedWidthBlock):
+        raise NotImplementedError("nested/varchar array elements")
+    flat = _logical_np(etyp, inner.values)
+    offs = block.offsets.astype(np.int64)
+    lens = offs[1:] - offs[:-1]
+    W = max(1, 1 << int(max(1, lens.max(initial=1)) - 1).bit_length())
+    mat = np.zeros((len(lens), W), dtype=flat.dtype)
+    live = np.arange(W)[None, :] < lens[:, None]
+    base = int(offs[0])                 # offsets are contiguous
+    mat[live] = flat[base:base + int(lens.sum())]
+    return mat, block.nulls, lens.astype(np.int32)
+
+
 def _host_column(typ: Type, block):
-    """(values, nulls, dictionary) of a host block as the device column
-    holds them: the logical values as numpy (a string block's int32 codes
-    into its dictionary, a long decimal narrowed to int64), the NULL mask
-    or None, the dictionary tuple or None."""
+    """(values, nulls, dictionary, lengths) of a host block as the device
+    column holds them: the logical values as numpy (a string block's int32
+    codes into its dictionary, a long decimal narrowed to int64, an
+    array's padded element matrix), the NULL mask or None, the dictionary
+    tuple or None, an array's lengths or None."""
     if isinstance(typ, RealType):
         raise NotImplementedError("REAL columns are not ported yet")
     if isinstance(block, DictionaryBlock):
@@ -126,8 +155,11 @@ def _host_column(typ: Type, block):
         if isinstance(flat, VariableWidthBlock):
             nulls = (flat.null_mask()[block.ids] if flat.nulls is not None
                      else None)
-            return block.ids, nulls, tuple(flat.to_pylist())
+            return block.ids, nulls, tuple(flat.to_pylist()), None
     block = decode_to_flat(block)
+    if isinstance(block, ArrayBlock):
+        mat, nulls, lens = _host_array(typ, block)
+        return mat, nulls, None, lens
     if isinstance(block, VariableWidthBlock):
         # dictionary-encode on the host: the device sees int32 codes
         strings = block.to_pylist()
@@ -136,7 +168,7 @@ def _host_column(typ: Type, block):
         codes = np.array([0 if s is None else index[s] for s in strings],
                          dtype=np.int32)
         nm = np.array([s is None for s in strings], dtype=bool)
-        return codes, (nm if nm.any() else None), tuple(uniq)
+        return codes, (nm if nm.any() else None), tuple(uniq), None
     if isinstance(block, Int128Block):
         # long decimals are narrowed to int64 on the device (batch_to_page
         # widens them on the way back out)
@@ -147,31 +179,37 @@ def _host_column(typ: Type, block):
                                dtype=np.int64),
                       np.array([v is None for v in ints], dtype=bool))
         vals, nm = narrow
-        return vals, (nm if nm.any() else None), None
+        return vals, (nm if nm.any() else None), None, None
     if not isinstance(block, FixedWidthBlock):
         raise NotImplementedError(
             f"device column from {type(block).__name__} not ported yet")
-    return _logical_np(typ, block.values), block.nulls, None
+    return _logical_np(typ, block.values), block.nulls, None, None
 
 
 def _device_column(values, nulls, dictionary, lazy, capacity: int,
-                   device) -> Column:
-    """Host arrays padded to `capacity` rows as a device column."""
-    padded = np.zeros(capacity, dtype=values.dtype)
+                   device, lengths=None) -> Column:
+    """Host arrays padded to `capacity` rows as a device column (an
+    array's element matrix keeps its width)."""
+    padded = np.zeros((capacity,) + values.shape[1:], dtype=values.dtype)
     padded[:len(values)] = values
-    dev_nulls = None
+    dev_nulls = dev_lengths = None
     if nulls is not None:
         nm = np.zeros(capacity, dtype=bool)
         nm[:len(nulls)] = nulls
         dev_nulls = torch.from_numpy(nm).to(device)
+    if lengths is not None:
+        ln = np.zeros(capacity, dtype=np.int32)
+        ln[:len(lengths)] = lengths
+        dev_lengths = torch.from_numpy(ln).to(device)
     return Column(torch.from_numpy(padded).to(device), dev_nulls,
-                  dictionary, lazy)
+                  dictionary, lazy, dev_lengths)
 
 
 def block_to_column(typ: Type, block, capacity: int, device) -> Column:
     """Host block -> padded device column."""
-    values, nulls, dictionary = _host_column(typ, block)
-    return _device_column(values, nulls, dictionary, None, capacity, device)
+    values, nulls, dictionary, lengths = _host_column(typ, block)
+    return _device_column(values, nulls, dictionary, None, capacity, device,
+                          lengths)
 
 
 _SIGN = np.uint64(1 << 63)
@@ -296,6 +334,20 @@ def _dictionary_block(dictionary: Tuple[str, ...],
     return block
 
 
+def _element_block(etyp: Type, flat: np.ndarray) -> FixedWidthBlock:
+    """Flat array-element values -> a storage-dtype FixedWidthBlock (the
+    same logical->storage rules as scalar columns in batch_to_page)."""
+    if isinstance(etyp, BooleanType):
+        flat = flat.astype(np.int8)
+    elif isinstance(etyp, DoubleType):
+        pass                        # float bits pass through
+    elif flat.dtype not in (np.int8, np.int16, np.int32, np.int64):
+        flat = flat.astype(etyp.np_dtype)
+    if isinstance(etyp, (IntegerType, DateType)):
+        flat = flat.astype(np.int32)
+    return FixedWidthBlock(flat)
+
+
 def batch_to_page(batch: Batch, names, types) -> Page:
     """Device batch -> host page (drops masked-out rows).  One host copy
     per tensor, taken after the live rows are selected on the device."""
@@ -322,6 +374,22 @@ def batch_to_page(batch: Batch, names, types) -> Page:
                 ids[nulls] = len(col.dictionary)
             blocks.append(DictionaryBlock(
                 ids, _dictionary_block(col.dictionary, with_null)))
+            continue
+        if col.lengths is not None:
+            # ARRAY column: (rows, W) padded element matrix + live lengths
+            # -> ragged ArrayBlock (offsets into a flat element block)
+            lens = col.lengths[keep].cpu().numpy().astype(np.int64)
+            W = values.shape[1] if values.ndim > 1 else 0
+            lens = np.clip(lens, 0, W)
+            if nulls is not None:
+                lens = np.where(nulls, 0, lens)
+            elem2d = values.reshape(len(lens), W)
+            flat = elem2d[np.arange(W)[None, :] < lens[:, None]]
+            offsets = np.zeros(len(lens) + 1, dtype=np.int32)
+            np.cumsum(lens, out=offsets[1:])
+            etyp = typ.element if isinstance(typ, ArrayType) else typ
+            blocks.append(ArrayBlock(offsets, _element_block(etyp, flat),
+                                     nulls))
             continue
         if isinstance(typ, (VarcharType, CharType)):
             raise NotImplementedError("varchar column without dictionary")
@@ -468,14 +536,16 @@ def pages_to_batches(pages, names, types, capacity: int, device="cpu",
         for i, typ in enumerate(types):
             block = page.blocks[i]
             if i in lazy:
-                cols.append((block.row_ids, block.nulls, None, block.lazy))
+                cols.append((block.row_ids, block.nulls, None, block.lazy,
+                             None))
             elif i in unions:
                 uniq, per_page = unions[i]
                 codes, nulls = per_page[pi]
                 cols.append((codes, nulls if nulls.any() else None, uniq,
-                             None))
+                             None, None))
             else:
-                cols.append(_host_column(typ, block) + (None,))
+                v, nl, d, ln = _host_column(typ, block)
+                cols.append((v, nl, d, None, ln))
         return cols
 
     def flush(pending, n):
@@ -485,7 +555,18 @@ def pages_to_batches(pages, names, types, capacity: int, device="cpu",
         cols = {}
         for i, name in enumerate(names):
             parts = [(c[i], lo, hi) for c, lo, hi in pending]
-            values = np.concatenate([c[0][lo:hi] for c, lo, hi in parts])
+            lengths = None
+            if parts[0][0][4] is not None:
+                # an ARRAY column: each page's matrix padded to the widest
+                W = max(c[0].shape[1] for c, _lo, _hi in parts)
+                values = np.concatenate([
+                    np.pad(c[0][lo:hi], ((0, 0), (0, W - c[0].shape[1])))
+                    for c, lo, hi in parts])
+                lengths = np.concatenate([c[4][lo:hi]
+                                          for c, lo, hi in parts])
+            else:
+                values = np.concatenate([c[0][lo:hi]
+                                         for c, lo, hi in parts])
             nulls = None
             if any(c[1] is not None for c, _lo, _hi in parts):
                 nulls = np.concatenate([
@@ -494,9 +575,9 @@ def pages_to_batches(pages, names, types, capacity: int, device="cpu",
                     for c, lo, hi in parts])
                 if not nulls.any():
                     nulls = None
-            _v, _n, dictionary, lz = parts[0][0]
+            _v, _n, dictionary, lz, _l = parts[0][0]
             cols[name] = _device_column(values, nulls, dictionary, lz,
-                                        cap, device)
+                                        cap, device, lengths)
         return Batch(cols, mask)
 
     pending, filled = [], 0

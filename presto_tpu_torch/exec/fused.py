@@ -139,10 +139,15 @@ class FusedChain:
       ("uid", AssignUniqueIdNode)
     """
 
-    def __init__(self, compiler, steps: List[tuple], scan_meta: dict):
+    def __init__(self, compiler, steps: List[tuple], scan_meta: dict,
+                 step_ids: Optional[List[str]] = None,
+                 scan_id: Optional[str] = None):
         self.compiler = compiler
         self.steps = steps
         self.scan_meta = scan_meta
+        # plan-node ids for EXPLAIN ANALYZE's row counters: node_ids[0] is
+        # the scan, node_ids[i + 1] the node step i came from
+        self.node_ids = [scan_id] + list(step_ids or [None] * len(steps))
         self.cap = scan_meta["cap"]
         # probe expressions with bound parameters read ctx.params
         self.has_params = any(
@@ -253,9 +258,11 @@ class FusedChain:
 
     # -- runtime: the chain over one scan chunk (torch) --------------------
     def make(self, pos: int, valid: int, aux, expands: Tuple[int, ...],
-             leaf_cap: int) -> Batch:
+             leaf_cap: int, counts: Optional[ChainCounts] = None) -> Batch:
         """Apply the chain to the scan chunk [pos, pos + leaf_cap) whose
-        first `valid` rows are live.  Tensor ops only: no host sync."""
+        first `valid` rows are live.  Tensor ops only: no host sync.  With
+        `counts` (EXPLAIN ANALYZE), the scan's live rows and the live rows
+        after each step are added to it."""
         meta = self.scan_meta
         mk = self._leaf_make.get(leaf_cap)
         if mk is None:
@@ -264,6 +271,7 @@ class FusedChain:
         dicts = meta["dicts"]
         batch = Batch({n: Column(v, None, dicts.get(n))
                        for n, v in outs.items()}, live)
+        step_rows = [live.sum()] if counts is not None else None
         low = self.compiler.lowering
         params = self.compiler.ctx.params if self.has_params else None
 
@@ -326,6 +334,10 @@ class FusedChain:
                     {step[1].id_variable.name: Column(ids)})
             else:
                 raise NotImplementedError(f"chain step {kind}")
+            if counts is not None:
+                step_rows.append(batch.mask.sum())
+        if counts is not None:
+            counts.add(torch.stack(step_rows).to(torch.int64))
         return batch
 
     def _apply_join(self, batch: Batch, node: P.JoinNode, tbl, low) -> Batch:
@@ -491,13 +503,16 @@ def assemble_chain(compiler, node: P.PlanNode) -> Optional[FusedChain]:
     """Walk a Filter/Project/Join/SemiJoin chain down to a device-generated
     TableScan.  Returns None when the plan shape is not fusible."""
     steps: List[tuple] = []
+    step_ids: List[str] = []
     nd = node
     while True:
         if isinstance(nd, P.FilterNode):
             steps.append(("filter", nd.predicate))
+            step_ids.append(nd.id)
             nd = nd.source
         elif isinstance(nd, P.ProjectNode):
             steps.append(("project", list(nd.assignments.items())))
+            step_ids.append(nd.id)
             nd = nd.source
         elif isinstance(nd, P.ExchangeNode) and not nd.inputs \
                 and len(nd.exchange_sources) == 1:
@@ -506,25 +521,30 @@ def assemble_chain(compiler, node: P.PlanNode) -> Optional[FusedChain]:
             inner = [v.name for v in src.output_variables]
             if outer != inner:
                 steps.append(("rename", list(zip(outer, inner))))
+                step_ids.append(nd.id)
             nd = src
         elif isinstance(nd, P.JoinNode) \
                 and nd.join_type in (P.INNER, P.LEFT) and nd.criteria:
             steps.append(("join", nd))
+            step_ids.append(nd.id)
             nd = nd.left
         elif isinstance(nd, P.SemiJoinNode):
             steps.append(("semi", nd))
+            step_ids.append(nd.id)
             nd = nd.source
         elif isinstance(nd, P.AssignUniqueIdNode):
             # unique ids derive from the scan position (see make), so the
             # decorrelated EXISTS stacks stay in one chain
             steps.append(("uid", nd))
+            step_ids.append(nd.id)
             nd = nd.source
         elif isinstance(nd, P.TableScanNode):
             meta = getattr(compiler._compile(nd), "fused_scan", None)
             if meta is None:
                 return None
             steps.reverse()
-            return FusedChain(compiler, steps, meta)
+            step_ids.reverse()
+            return FusedChain(compiler, steps, meta, step_ids, nd.id)
         else:
             return None
 
@@ -632,10 +652,15 @@ def fused_materialize(compiler, node: P.PlanNode,
     if ready is None:
         return None
     chain, aux, expands = ready
-    steps = _chain_steps(chain.chunks_for(expands), chain.leaf_cap(expands),
+    chunks = chain.chunks_for(expands)
+    steps = _chain_steps(chunks, chain.leaf_cap(expands),
                          max(1, CHAIN_STEP_ROWS // chain.cap))
-    out = _maybe_compact(_concat([chain.make(pos, cnt, aux, expands, cap)
-                                  for pos, cnt, cap in steps]))
+    acc = ChainCounts(len(chunks)) if compiler.ctx.stats is not None \
+        else None
+    parts = [chain.make(pos, cnt, aux, expands, cap, acc)
+             for pos, cnt, cap in steps]
+    record_chain_stats(compiler.ctx.stats, chain, acc)
+    out = _maybe_compact(_concat(parts))
     if cache and _fmat_reserve(compiler, batch_bytes(out)):
         compiler._cache[ckey] = (out, names)
     return out
@@ -653,6 +678,13 @@ def fused_stream(compiler, node: P.PlanNode):
     if not cfg.fuse_pipelines:
         if rs is not None:
             rs.add("fusionDeclinedDisabled", 1)
+        return None
+    analyzing = compiler.ctx.stats is not None
+    if analyzing and cfg.analyze_unfused:
+        # the knob keeps the per-operator streaming profile for join /
+        # semi-join chains too
+        if rs is not None:
+            rs.add("fusionDeclinedAnalyzeUnfused", 1)
         return None
     key = ("fstream", node.id)
     ent = compiler._cache.get(key, False)
@@ -680,9 +712,61 @@ def fused_stream(compiler, node: P.PlanNode):
     chunks = chain.chunks_for(expands)
 
     def gen():
-        for pos, cnt in chunks:
-            yield chain.make(pos, cnt, aux, expands, leaf_cap)
+        acc = ChainCounts(len(chunks)) if analyzing else None
+        try:
+            for pos, cnt in chunks:
+                yield chain.make(pos, cnt, aux, expands, leaf_cap, acc)
+        finally:
+            # the chain's root rows are the consumer's _instrument's
+            record_chain_stats(compiler.ctx.stats, chain, acc,
+                               skip_root=True)
     return gen()
+
+
+class ChainCounts:
+    """A chain pass's device-side row counters under EXPLAIN ANALYZE:
+    `counts` is int64[1 + n_steps] (the scan's live rows, then the live
+    rows after each step), summed over the pass's chunks by
+    FusedChain.make or set by a scan kernel; `n_chunks` the pass's scan
+    chunks."""
+
+    def __init__(self, n_chunks: int = 0):
+        self.counts: Optional[torch.Tensor] = None
+        self.n_chunks = n_chunks
+
+    def add(self, counts: torch.Tensor) -> None:
+        self.counts = counts if self.counts is None \
+            else self.counts + counts
+
+    def restart(self, n_chunks: int) -> None:
+        """A pass that starts over (a collision retry) counts anew."""
+        self.counts, self.n_chunks = None, n_chunks
+
+
+def record_chain_stats(stats, chain: FusedChain,
+                       acc: Optional[ChainCounts], wall_s: float = 0.0,
+                       skip_root: bool = False) -> None:
+    """Fold the chain's device-side row counters into the EXPLAIN ANALYZE
+    stats map (one host read): one entry per chain plan node, marked
+    fused.  The wall is the whole fused program's -- operators fused into
+    one pass share it.  skip_root leaves the root's rows and wall to the
+    consumer's _instrument wrapper (fused_stream yields through it)."""
+    if stats is None or acc is None or acc.counts is None:
+        return
+    n_chunks = acc.n_chunks
+    vals = [int(v) for v in acc.counts.tolist()]
+    root = chain.node_ids[-1] if chain.node_ids else None
+    for nid, rows in zip(chain.node_ids, vals):
+        if nid is None:
+            continue
+        ent = stats.setdefault(
+            nid, {"rows": 0, "wall_s": 0.0, "batches": 0})
+        ent["fused"] = True
+        if skip_root and nid == root:
+            continue
+        ent["rows"] += rows
+        ent["batches"] += n_chunks
+        ent["wall_s"] += wall_s
 
 
 def _empty_build_batch(build_node: P.PlanNode, device) -> Batch:

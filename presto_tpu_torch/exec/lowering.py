@@ -49,8 +49,18 @@ dictionaries (CONCAT_S, a fold over their product), the bitwise
 functions and shifts, and width_bucket; the regexp, URL and JSON string
 functions are MAP_S folds.  The CUDA kernels run the opcodes before
 CONST_S only (KERNEL_OPS); a program with a later one declines their
-plan build, naming it.  Anything else (the array functions) raises
-NotImplementedError naming the missing piece.
+plan build, naming it.
+
+ARRAY values are (capacity, W) element matrices with per-row lengths
+(batch.Column.lengths), which no program slot holds: an array function
+(array_constructor, subscript, element_at, cardinality, contains,
+array_max / array_min, array_position, repeat, sequence) compiles to an
+ArrayNode tree evaluated with torch ops over the padded matrix before the
+program runs (the reference's Lowering._array_fn), and enters the
+program as an ARR slot -- its scalar result, or the array itself when
+the whole expression is array-valued.  ARR is past KERNEL_OPS, so a
+chain that holds an array form declines the scan kernels.  Anything
+else raises NotImplementedError naming the missing piece.
 """
 from __future__ import annotations
 
@@ -59,14 +69,14 @@ import math
 import re
 import struct
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..common.types import (BigintType, BooleanType, CharType, DateType,
-                            DecimalType, DoubleType, IntegerType, RealType,
-                            Type, VarcharType)
+from ..common.types import (ArrayType, BigintType, BooleanType, CharType,
+                            DateType, DecimalType, DoubleType, IntegerType,
+                            RealType, Type, VarcharType)
 from ..spi.expr import (BoundParameterExpression, CallExpression,
                         ConstantExpression, RowExpression,
                         SpecialFormExpression, VariableReferenceExpression)
@@ -310,6 +320,8 @@ OPS = (
     "ROUNDD_I", "ROUND_F", "MAX_I", "MIN_I", "MAX_F", "MIN_F",
     "DOW", "DOY", "WEEK", "DTRUNC", "DADD", "DDIFF", "CONCAT_S",
     "BAND", "BOR", "BXOR", "BNOT", "SHL", "SHR", "SAR", "WBUCKET",
+    # an array form's value (its ArrayNode, evaluated before the program)
+    "ARR",
 )
 OP = {name: i for i, name in enumerate(OPS)}
 # the opcodes the CUDA scan kernels run (codegen.py, scan_common.cuh)
@@ -334,6 +346,10 @@ FN_F = ("sqrt", "exp", "ln", "log2", "log10", "sin", "cos", "tan", "asin",
         "ceil", "floor", "trunc")
 FN2_F = ("power", "log", "atan2")
 FPRED_F = ("is_nan", "is_finite", "is_infinite")
+# the array functions (the reference's Lowering._array_fn)
+ARRAY_FNS = ("array_constructor", "subscript", "element_at", "cardinality",
+             "contains", "array_max", "array_min", "array_position",
+             "repeat", "sequence")
 # DTRUNC / DADD / DDIFF's units
 DATE_UNITS = ("day", "week", "month", "quarter", "year")
 # deepest stack a program may need (it sizes the scan kernel's
@@ -375,6 +391,8 @@ class ExprProgram:
     # CONST_S's string literals and MAP_S's fold specs (_fold)
     strings: Tuple[str, ...] = ()
     maps: Tuple[tuple, ...] = ()
+    # ARR's array forms (ArrayNode trees)
+    arrays: Tuple["ArrayNode", ...] = ()
 
     def run(self, columns: Dict[str, Column], n: int, params,
             device) -> Column:
@@ -384,6 +402,10 @@ class ExprProgram:
             raise RuntimeError(
                 "bound-parameter expression evaluated without a "
                 "bound-parameter vector")
+        arrays = [a.eval(columns, n, params, device) for a in self.arrays]
+        if len(self.ops) == 1 and arrays and arrays[0].lengths is not None:
+            # the expression is an array: its matrix is the result
+            return arrays[0]
         stack: List[tuple] = []
 
         def full(bits, is_float):
@@ -412,6 +434,15 @@ class ExprProgram:
                 if not v.is_floating_point():
                     v = v.to(torch.int64)
                 stack.append((v, c.nulls, c.dictionary))
+            elif name == "ARR":
+                c = arrays[arg]
+                if c.lengths is not None:
+                    raise NotImplementedError(
+                        "an array value inside a scalar expression")
+                v = c.values
+                if not v.is_floating_point():
+                    v = v.to(torch.int64)
+                stack.append((v, c.nulls, None))
             elif name in ("CONST_I", "CONST_F"):
                 stack.append((full(arg, name == "CONST_F"), None, None))
             elif name in ("NULL_I", "NULL_F", "NULL_S"):
@@ -1122,7 +1153,9 @@ def program_nullable(ops, columns, nullable_cols, maps=()) -> bool:
         elif name in ("CONST_I", "CONST_F", "PARAM_I", "PARAM_F",
                       "CONST_S"):
             st.append(False)
-        elif name in ("NULL_I", "NULL_F", "NULL_S"):
+        elif name in ("NULL_I", "NULL_F", "NULL_S", "ARR"):
+            # an array form: an out-of-bounds subscript or an empty
+            # array's max is NULL
             st.append(True)
         elif name in _UNARY:
             pass
@@ -1181,6 +1214,15 @@ class _Emitter:
         self.uses_params = False
         self.strings: List[str] = []
         self.maps: List[tuple] = []
+        self.arrays: List[ArrayNode] = []
+
+    def _array(self, expr: RowExpression) -> None:
+        """An array form as an ARR slot (its ArrayNode evaluated before
+        the program)."""
+        node = array_node(expr)
+        if node not in self.arrays:
+            self.arrays.append(node)
+        self._op("ARR", self.arrays.index(node), +1)
 
     def _op(self, name: str, arg: int = 0, delta: int = 0):
         self.ops.append((OP[name], int(arg)))
@@ -1188,7 +1230,11 @@ class _Emitter:
         self.max_depth = max(self.max_depth, self.depth)
 
     def emit(self, expr: RowExpression) -> None:
-        if isinstance(expr, VariableReferenceExpression):
+        if isinstance(expr.type, ArrayType) or (
+                isinstance(expr, CallExpression)
+                and canonical_name(expr.display_name) in ARRAY_FNS):
+            self._array(expr)
+        elif isinstance(expr, VariableReferenceExpression):
             _domain_is_float(expr.type)
             idx = self.columns.setdefault(expr.name, len(self.columns))
             self._op("COL", idx, +1)
@@ -1618,6 +1664,162 @@ class _Emitter:
             raise NotImplementedError(f"cast {frm} -> {to} is not ported yet")
 
 
+# ---------------------------------------------------------------------------
+# array forms over the padded (capacity, W) element matrix
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ArrayNode:
+    """An array function (or an ARRAY column, `fn` "col") compiled for
+    evaluation over whole columns: `args` are ArrayNodes (array
+    arguments), ExprPrograms (scalar arguments) and, for repeat's count
+    and sequence's bounds, ints.  The reference's Lowering._array_fn:
+    element NULLs inside arrays are not represented, and Presto's
+    out-of-bounds subscript ERROR is NULL (element_at semantics)."""
+    fn: str
+    args: Tuple[Union["ArrayNode", ExprProgram, int, str], ...]
+
+    @property
+    def uses_params(self) -> bool:
+        return any(a.uses_params for a in self.args
+                   if isinstance(a, (ArrayNode, ExprProgram)))
+
+    def eval(self, columns: Dict[str, Column], n: int, params,
+             device) -> Column:
+        fn, args = self.fn, self.args
+
+        def scalar(i: int) -> Column:
+            return args[i].run(columns, n, params, device)
+        if fn == "col":
+            c = columns[args[0]]
+            if c.lengths is None:
+                raise NotImplementedError(f"{args[0]} is not an array")
+            return c
+        if fn == "array_constructor":
+            if not args:
+                return Column(torch.zeros((n, 0), dtype=torch.int64,
+                                          device=device), None, None, None,
+                              torch.zeros(n, dtype=torch.int32,
+                                          device=device))
+            cols = [scalar(i) for i in range(len(args))]
+            if any(c.dictionary is not None or c.lazy is not None
+                   or c.lengths is not None for c in cols):
+                raise NotImplementedError(
+                    "array elements must be scalar numerics")
+            if any(c.nulls is not None for c in cols):
+                raise NotImplementedError(
+                    "NULL array elements not supported")
+            dt = functools.reduce(torch.promote_types,
+                                  [c.values.dtype for c in cols])
+            vals = torch.stack([c.values.to(dt) for c in cols], dim=1)
+            return Column(vals, None, None, None,
+                          torch.full((n,), len(cols), dtype=torch.int32,
+                                     device=device))
+        if fn == "repeat":
+            # repeat(x, k): a negative count clamps to the empty array
+            # (Presto errors; the reference clamps)
+            elem, k = scalar(0), max(args[1], 0)
+            vals = elem.values[:, None].expand(n, max(k, 1))[:, :k]
+            return Column(vals.contiguous(), elem.nulls, None, None,
+                          torch.full((n,), k, dtype=torch.int32,
+                                     device=device))
+        if fn == "sequence":
+            lo, hi, step = args
+            seq = torch.arange(lo, hi + (1 if step > 0 else -1), step,
+                               dtype=torch.int64, device=device)
+            return Column(seq[None, :].expand(n, seq.shape[0]).contiguous(),
+                          None, None, None,
+                          torch.full((n,), seq.shape[0], dtype=torch.int32,
+                                     device=device))
+        arr = args[0].eval(columns, n, params, device)
+        if arr.lengths is None:
+            raise NotImplementedError(f"{fn} on non-array input")
+        W = arr.values.shape[1]
+        lens = arr.lengths.to(torch.int64)
+        if fn == "cardinality":
+            return Column(lens, arr.nulls)
+        if fn in ("subscript", "element_at"):
+            idx = scalar(1)
+            raw = idx.values.to(torch.int64)
+            if fn == "element_at":
+                # element_at(-k) indexes from the end
+                raw = torch.where(raw < 0, lens + raw + 1, raw)
+            i0 = raw - 1                                    # 1-based
+            oob = (i0 < 0) | (i0 >= lens)
+            if W == 0:
+                out = torch.zeros(n, dtype=arr.values.dtype, device=device)
+            else:
+                safe = i0.clamp(0, W - 1)
+                out = torch.gather(arr.values, 1, safe[:, None])[:, 0]
+            nulls = oob | arr.null_mask()
+            if idx.nulls is not None:
+                nulls = nulls | idx.nulls
+            return Column(out, nulls)
+        live = torch.arange(W, device=device)[None, :] < lens[:, None]
+        if fn in ("contains", "array_position"):
+            x = scalar(1)
+            eq = live & (arr.values == x.values[:, None])
+            if fn == "contains":
+                out = eq.any(dim=1)
+            else:
+                out = torch.where(eq.any(dim=1), eq.to(torch.int8)
+                                  .argmax(dim=1) + 1, 0).to(torch.int64) \
+                    if W else torch.zeros(n, dtype=torch.int64,
+                                          device=device)
+            nulls = arr.nulls
+            if x.nulls is not None:
+                nulls = x.nulls if nulls is None else nulls | x.nulls
+            return Column(out, nulls)
+        if fn in ("array_max", "array_min"):
+            v = arr.values
+            if v.is_floating_point():
+                big = math.inf
+            else:
+                big = torch.iinfo(v.dtype).max
+            ident = big if fn == "array_min" else (
+                -big if v.is_floating_point() else torch.iinfo(v.dtype).min)
+            masked = torch.where(live, v, torch.full_like(v, ident))
+            if W:
+                out = (masked.amin(dim=1) if fn == "array_min"
+                       else masked.amax(dim=1))
+            else:
+                out = torch.zeros(n, dtype=v.dtype, device=device)
+            return Column(out, (lens == 0) | arr.null_mask())
+        raise NotImplementedError(fn)
+
+
+def array_node(expr: RowExpression) -> ArrayNode:
+    """An array form compiled to its ArrayNode: its scalar arguments as
+    ExprPrograms, repeat's count and sequence's bounds as constants."""
+    if isinstance(expr, VariableReferenceExpression):
+        return ArrayNode("col", (expr.name,))
+    if not isinstance(expr, CallExpression):
+        raise NotImplementedError(
+            f"array value from {type(expr).__name__}")
+    fn = canonical_name(expr.display_name)
+    args = expr.arguments
+    if fn not in ARRAY_FNS:
+        raise NotImplementedError(f"array value from function {fn}")
+    if fn == "array_constructor":
+        for a in args:
+            if isinstance(a.type, ArrayType) or _is_varchar(a.type):
+                raise NotImplementedError(
+                    "array elements must be scalar numerics")
+        return ArrayNode(fn, tuple(compile_expr(a) for a in args))
+    if fn == "repeat":
+        if not isinstance(args[1], ConstantExpression):
+            raise NotImplementedError("repeat with non-constant count")
+        return ArrayNode(fn, (compile_expr(args[0]), int(args[1].value)))
+    if fn == "sequence":
+        if not all(isinstance(a, ConstantExpression) for a in args):
+            raise NotImplementedError("sequence with non-constant bounds")
+        lo, hi = int(args[0].value), int(args[1].value)
+        step = int(args[2].value) if len(args) > 2 else 1
+        return ArrayNode(fn, (lo, hi, step))
+    rest = tuple(compile_expr(a) for a in args[1:])
+    return ArrayNode(fn, (array_node(args[0]),) + rest)
+
+
 def compile_expr(expr: RowExpression, nullable_cols=()) -> ExprProgram:
     """`expr` as an ExprProgram; `nullable_cols` names the input columns
     that can hold NULLs (for ExprProgram.nullable)."""
@@ -1631,12 +1833,14 @@ def compile_expr(expr: RowExpression, nullable_cols=()) -> ExprProgram:
     ops = tuple(em.ops)
     maps = tuple(em.maps)
     dtype = (torch.int32 if _is_varchar(expr.type)
+             else torch.int64 if isinstance(expr.type, ArrayType)
              else torch_dtype(expr.type))
     return ExprProgram(ops, cols, _domain_is_float(expr.type), dtype,
-                       em.max_depth, em.uses_params,
+                       em.max_depth, em.uses_params
+                       or any(a.uses_params for a in em.arrays),
                        program_nullable(ops, cols, frozenset(nullable_cols),
                                         maps),
-                       tuple(em.strings), maps)
+                       tuple(em.strings), maps, tuple(em.arrays))
 
 
 class Lowering:
@@ -1656,5 +1860,6 @@ class Lowering:
     def eval(self, expr: RowExpression, batch: Batch) -> Column:
         if isinstance(expr, VariableReferenceExpression):
             return batch.column(expr.name)
+        # a scalar argument of an array form reads the batch's columns
         return self.compile(expr).run(batch.columns, batch.capacity,
                                       batch.params, batch.device)

@@ -75,6 +75,9 @@ class MemoryMetrics:
                  "revocations", "revoked_bytes", "arbitrations",
                  "arbitration_failures", "over_free", "over_free_bytes",
                  "query_limit_failures")
+    # the reference's two gauges of /v1/metrics; nothing sets them, in
+    # either package, so both serve 0
+    _GAUGES = ("reserved_bytes", "revocable_bytes")
 
     def __init__(self):
         # a leaf lock: bumped from every thread while other locks are held
@@ -83,7 +86,7 @@ class MemoryMetrics:
 
     def reset(self) -> None:
         with self._lock:
-            for name in self._COUNTERS:
+            for name in self._COUNTERS + self._GAUGES:
                 setattr(self, name, 0)
 
     def incr(self, name: str, delta=1) -> None:
@@ -92,7 +95,8 @@ class MemoryMetrics:
 
     def snapshot(self) -> dict:
         with self._lock:
-            out = {name: getattr(self, name) for name in self._COUNTERS}
+            out = {name: getattr(self, name)
+                   for name in self._COUNTERS + self._GAUGES}
         stage, wait = out["spill_wall_s"], out["spill_wait_wall_s"]
         out["spill_overlap_fraction"] = (
             max(0.0, 1.0 - wait / stage) if stage > 0 else 0.0)

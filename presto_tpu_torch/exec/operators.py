@@ -1064,17 +1064,23 @@ def probe_join(batch: Batch, table: BuildTable, probe_keys: List[str],
         nulls = None
         if pc.nulls is not None or col.nulls is not None:
             nulls = torch.cat([pc.null_mask(), col.null_mask()])
-        final_cols[name] = Column(torch.cat([pc.values, col.values]), nulls,
-                                  col.dictionary, col.lazy)
+        final_cols[name] = Column(
+            torch.cat([pc.values, col.values]), nulls, col.dictionary,
+            col.lazy, None if col.lengths is None
+            else torch.cat([pc.lengths, col.lengths]))
     for name in build_output:
         pc = pairs.columns[name]
         src = table.columns[name]
-        pad = torch.zeros(batch.capacity, dtype=pc.values.dtype, device=dev)
+        pad = torch.zeros((batch.capacity,) + tuple(pc.values.shape[1:]),
+                          dtype=pc.values.dtype, device=dev)
         nulls = torch.cat([pc.null_mask(),
                            torch.ones(batch.capacity, dtype=torch.bool,
                                       device=dev)])
-        final_cols[name] = Column(torch.cat([pc.values, pad]), nulls,
-                                  src.dictionary, src.lazy)
+        final_cols[name] = Column(
+            torch.cat([pc.values, pad]), nulls, src.dictionary, src.lazy,
+            None if pc.lengths is None else torch.cat(
+                [pc.lengths, torch.zeros(batch.capacity, dtype=torch.int32,
+                                         device=dev)]))
     final_mask = torch.cat([pairs.mask, extra_mask])
     # the live total of the emitted batch (pairs + null-extended rows), so
     # callers can right-size compaction; overflow is the pair region's
@@ -1109,7 +1115,8 @@ def probe_join_direct(batch: Batch, dt, probe_key: str,
     for name in build_output:
         c = pairs.columns[name]
         nulls = ~hit if c.nulls is None else (~hit | c.nulls)
-        final_cols[name] = Column(c.values, nulls, c.dictionary, c.lazy)
+        final_cols[name] = Column(c.values, nulls, c.dictionary, c.lazy,
+                                  c.lengths)
     return Batch(final_cols, batch.mask), matched
 
 
@@ -1557,7 +1564,8 @@ def compact(batch: Batch, out_capacity: Optional[int] = None) -> Batch:
 
     cols = {name: Column(scat(c.values),
                          None if c.nulls is None else scat(c.nulls),
-                         c.dictionary, c.lazy)
+                         c.dictionary, c.lazy,
+                         None if c.lengths is None else scat(c.lengths))
             for name, c in batch.columns.items()}
     return Batch(cols, scat(batch.mask))
 

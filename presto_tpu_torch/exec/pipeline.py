@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
@@ -48,8 +49,8 @@ import numpy as np
 import torch
 
 from ..common.page import Page
-from ..common.types import (BOOLEAN, CharType, DoubleType, RealType, Type,
-                            VarcharType)
+from ..common.types import (BOOLEAN, ArrayType, CharType, DoubleType,
+                            RealType, Type, VarcharType)
 from ..connectors import catalog
 from ..spi import plan as P
 from ..spi.expr import (CallExpression, ConstantExpression, RowExpression,
@@ -166,6 +167,18 @@ class ExecutionConfig:
     # decline); False streams it operator by operator, metered as
     # fusionDeclinedDisabled.  Config key task.fuse-pipelines
     fuse_pipelines: bool = True
+    # EXPLAIN ANALYZE profiles the FUSED execution by default (the chain
+    # and the scan kernels count live rows per step); True turns fusion
+    # off under ANALYZE, so every operator streams through its
+    # instrumented source (session property analyze_unfused)
+    analyze_unfused: bool = False
+    # session property `profile = true`: a torch.profiler capture of the
+    # query's execution, written as a Chrome trace into a per-query
+    # directory under profile_dir, named by the EXPLAIN ANALYZE footer
+    # (telemetry/profiler.py).  Config key telemetry.profile-dir (the
+    # reference's default); "" disables the capture
+    profile: bool = False
+    profile_dir: str = "/tmp/presto_tpu_profiles"
     # plan sanity/type validation (presto_tpu_torch/analysis)
     plan_validation: str = "on"
     # -- device-resident columnar storage (presto_tpu_torch/storage) -----
@@ -454,9 +467,41 @@ def _concat(batches: List[Batch]) -> Batch:
         nulls = None
         if any(p.nulls is not None for p in parts):
             nulls = torch.cat([p.null_mask() for p in parts])
-        cols[name] = Column(torch.cat([p.values for p in parts]), nulls,
-                            c0.dictionary, c0.lazy)
+        values = [p.values for p in parts]
+        lengths = None
+        if c0.lengths is not None:
+            # ARRAY columns: lengths ride along like nulls, and each
+            # element matrix is padded to the widest
+            W = max(v.shape[1] for v in values)
+            values = [torch.nn.functional.pad(v, (0, W - v.shape[1]))
+                      for v in values]
+            lengths = torch.cat([p.lengths for p in parts])
+        cols[name] = Column(torch.cat(values), nulls, c0.dictionary,
+                            c0.lazy, lengths)
     return Batch(cols, torch.cat([b.mask for b in batches]))
+
+
+def _settle_entry(ent: dict) -> None:
+    """Fold an operator-stats entry's device-side live-row count into its
+    rows and bytes (one host read)."""
+    pending = ent.pop("_pending", None)
+    if pending is not None:
+        rows = int(pending)
+        ent["rows"] += rows
+        ent["bytes"] = ent.get("bytes", 0) + rows * ent.get("_row_bytes", 0)
+    dropped = ent.pop("_dropped", None)
+    if dropped is not None:
+        ent["dynamicFilterRowsDropped"] = \
+            ent.get("dynamicFilterRowsDropped", 0) + int(dropped)
+
+
+def settle_node_stats(stats: Optional[Dict[str, dict]]) -> None:
+    """Every entry's pending device counts read into its numbers, and the
+    private keys dropped (a stream its consumer stopped early never
+    reached its end)."""
+    for ent in (stats or {}).values():
+        _settle_entry(ent)
+        ent.pop("_row_bytes", None)
 
 
 def _lazy_strings(col: Column) -> List[str]:
@@ -545,8 +590,51 @@ class PlanCompiler:
             raise NotImplementedError(
                 f"no compiler for {type(node).__name__} in the port yet")
         src = m(node)
+        if self.ctx.stats is not None:
+            src = self._instrument(node, src)
         self._sources[node.id] = src
         return src
+
+    def _instrument(self, node: P.PlanNode, src: BatchSource) -> BatchSource:
+        """EXPLAIN ANALYZE wrapper (the reference's _instrument): per plan
+        node the cumulative host wall of producing its batches (children
+        included, as the reference's operator getOutput accounting), the
+        live rows, the batches and an estimate of the output bytes (9 per
+        column and row).  The walls are host walls around asynchronous
+        launches; a batch's live count is added on the device and read
+        once, when the stream ends or settle_node_stats runs, so no batch
+        waits on the device."""
+        stats = self.ctx.stats
+        row_bytes = 9 * max(1, len(node.output_variables))
+
+        def gen():
+            ent = stats.setdefault(
+                node.id, {"rows": 0, "wall_s": 0.0, "batches": 0})
+            ent.setdefault("bytes", 0)
+            ent.setdefault("operatorType", type(node).__name__)
+            ent["_row_bytes"] = row_bytes
+            it = src.batches()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    ent["wall_s"] += time.perf_counter() - t0
+                    _settle_entry(ent)
+                    return
+                ent["wall_s"] += time.perf_counter() - t0
+                live = b.mask.sum()
+                pending = ent.get("_pending")
+                ent["_pending"] = live if pending is None else pending + live
+                ent["batches"] += 1
+                yield b
+        out = BatchSource(gen, src.names, src.types)
+        # the fused-chain assembler reads the scan's metadata off the
+        # compiled source (assemble_chain): the wrapper passes it on
+        meta = getattr(src, "fused_scan", None)
+        if meta is not None:
+            out.fused_scan = meta
+        return out
 
     def _materialize(self, src: BatchSource) -> Optional[Batch]:
         batches = list(src.batches())
@@ -891,8 +979,8 @@ class PlanCompiler:
             if ctx.remote_batches.get(node.id) is not None:
                 raise NotImplementedError(
                     "device-resident exchange input (the ICI fabric) is "
-                    "not ported yet (multi-device exchange on "
-                    "torch.distributed: ROADMAP queue 1, item 5)")
+                    "not ported yet (ROADMAP queue 1: the multi-device "
+                    "exchange on torch.distributed)")
             yield from pages_to_batches(
                 ctx.remote_pages[node.id](), names, types, cfg.batch_rows,
                 ctx.device, pack_rows=max(cfg.batch_rows,
@@ -979,6 +1067,61 @@ class PlanCompiler:
                 yield Batch({o: b.columns[i] for i, o in zip(inner, outer)},
                             b.mask)
         return BatchSource(gen, outer, types)
+
+    def _compile_UnnestNode(self, node: P.UnnestNode) -> BatchSource:
+        """One output row per array element, the source columns
+        replicated (the reference's _compile_UnnestNode, UnnestOperator):
+        output capacity cap * W, slot i*W + j = (source row i, element j);
+        several arrays zip by position, the shorter ones NULL-padded, and
+        WITH ORDINALITY numbers the elements from 1."""
+        src = self._compile(node.source)
+        names = [v.name for v in node.output_variables]
+        types = [v.type for v in node.output_variables]
+        rep_names = [v.name for v in node.replicate_variables]
+        pairs = [(av.name, elems[0].name)
+                 for av, elems in node.unnest_variables]
+        ord_name = (None if node.ordinality_variable is None
+                    else node.ordinality_variable.name)
+
+        def step(batch: Batch) -> Batch:
+            cap, dev = batch.capacity, batch.device
+            arrs = {an: batch.columns[an] for an, _en in pairs}
+            W = max([a.values.shape[1] for a in arrs.values()] + [1])
+            # rows per source row: the longest of the zipped arrays
+            rowlen = None
+            for a in arrs.values():
+                ln = torch.where(a.null_mask(), 0, a.lengths)
+                rowlen = ln if rowlen is None else torch.maximum(rowlen, ln)
+            j = torch.arange(W, dtype=torch.int32, device=dev)
+            cols = {}
+            for rn in rep_names:
+                c = batch.columns[rn]
+                cols[rn] = Column(
+                    c.values.repeat_interleave(W, dim=0),
+                    None if c.nulls is None
+                    else c.nulls.repeat_interleave(W),
+                    c.dictionary, c.lazy,
+                    None if c.lengths is None
+                    else c.lengths.repeat_interleave(W))
+            for an, en in pairs:
+                a = arrs[an]
+                aw = a.values.shape[1]
+                padded = (a.values if aw == W else torch.nn.functional.pad(
+                    a.values, (0, W - aw)))
+                ln = torch.where(a.null_mask(), 0, a.lengths)
+                valid = (j[None, :] < ln[:, None]).reshape(cap * W)
+                cols[en] = Column(padded.reshape(cap * W), ~valid)
+            if ord_name is not None:
+                cols[ord_name] = Column(
+                    (j.to(torch.int64) + 1).repeat(cap))
+            mask = (batch.mask[:, None]
+                    & (j[None, :] < rowlen[:, None])).reshape(cap * W)
+            return Batch(cols, mask)
+
+        def gen():
+            for b in src.batches():
+                yield step(b).select(names)
+        return BatchSource(gen, names, types)
 
     def _compile_SortNode(self, node: P.SortNode) -> BatchSource:
         vs = node.source.output_variables
@@ -1187,6 +1330,13 @@ class PlanCompiler:
         device = self.ctx.device
 
         def null_column(t, n):
+            if isinstance(t, ArrayType):
+                return Column(torch.zeros((n, 1), dtype=torch.int64,
+                                          device=device),
+                              torch.ones(n, dtype=torch.bool, device=device),
+                              None, None,
+                              torch.zeros(n, dtype=torch.int32,
+                                          device=device))
             if isinstance(t, (VarcharType, CharType)):
                 return Column(torch.zeros(n, dtype=torch.int32,
                                           device=device),
@@ -1250,6 +1400,24 @@ class PlanCompiler:
                     keep = keep & (v >= lo) & (v <= hi)
                 return batch.with_mask(keep)
             return apply
+
+        def apply_dynamic_filter(dyn, batches):
+            """The probe stream through the dynamic filter; under EXPLAIN
+            ANALYZE the rows it drops are counted on the device into the
+            join's entry (read when the stats settle)."""
+            stats = self.ctx.stats
+            ent = None
+            if stats is not None:
+                ent = stats.setdefault(
+                    node.id, {"rows": 0, "wall_s": 0.0, "batches": 0})
+                ent.setdefault("dynamicFilterRowsDropped", 0)
+            for b in batches:
+                nb = dyn(b)
+                if ent is not None:
+                    d = b.mask.sum() - nb.mask.sum()
+                    prev = ent.get("_dropped")
+                    ent["_dropped"] = d if prev is None else prev + d
+                yield nb
 
         def probe_stream_direct(dt, batches, build_batch):
             matched = (torch.zeros(build_batch.capacity, dtype=torch.bool,
@@ -1407,7 +1575,7 @@ class PlanCompiler:
             dyn = make_dynamic_filter(build_batch)
             batches = probe.batches()
             if dyn is not None:
-                batches = (dyn(b) for b in batches)
+                batches = apply_dynamic_filter(dyn, batches)
             dropped = _drop_null_keys(build_batch, tuple(build_keys))
             dt = (try_direct_table(dropped, build_keys[0], allow_dup=False)
                   if len(build_keys) == 1 else None)
@@ -1971,6 +2139,9 @@ class PlanCompiler:
             if not cfg.fuse_pipelines:
                 _fusion_declined("Disabled")
                 return None
+            if self.ctx.stats is not None and cfg.analyze_unfused:
+                _fusion_declined("AnalyzeUnfused")
+                return None
             # masks were lowered to IF inputs by _rewrite_agg_masks
             if any(a.distinct for a in node.aggregations.values()):
                 _fusion_declined("DistinctAgg")
@@ -1991,7 +2162,30 @@ class PlanCompiler:
 
         def run_fused(chain) -> Optional[Batch]:
             """A fused chain to its finalized output Batch, or None for the
-            streaming aggregation."""
+            streaming aggregation.  Under EXPLAIN ANALYZE it times the
+            whole fused pass (host wall, its result's row count read once)
+            and folds the chain's row counters -- the torch chain's, or
+            the scan kernel's -- into ctx.stats."""
+            from .fused import ChainCounts, record_chain_stats
+            acc = ChainCounts() if self.ctx.stats is not None else None
+            t0 = time.perf_counter()
+            out = _run_fused_inner(chain, acc)
+            if out is None or acc is None:
+                return out
+            # every pass carries the counters (the reference's runtime
+            # span and sort aggregation count in one more pass)
+            if acc.counts is not None:
+                acc.counts = acc.counts.cpu()   # the pass's end: one read
+            wall = time.perf_counter() - t0
+            record_chain_stats(self.ctx.stats, chain, acc, wall_s=wall)
+            if self.ctx.runtime_stats is not None:
+                self.ctx.runtime_stats.add("fusedProgramWallNanos",
+                                           wall * 1e9, "NANO")
+            return out
+
+        def _run_fused_inner(chain, acc) -> Optional[Batch]:
+            """run_fused's pass; `acc` (a fused.ChainCounts, None unless
+            analyzing) takes the pass's row counters."""
             pool = self.ctx.memory
             if pool.limited:
                 _fusion_declined("BudgetedPool")
@@ -2062,9 +2256,11 @@ class PlanCompiler:
                 _meter(f"torchChain{mode}", 1)
                 _meter("torchChainChunks", len(chunks))
                 _meter("torchChainSteps", len(steps))
+                if acc is not None:
+                    acc.restart(len(chunks))
                 for pos, cnt, cap in steps:
                     state = update(state, chain.make(pos, cnt, aux, expands,
-                                                     cap))
+                                                     cap, acc))
                 return state
 
             declined = self._meter_declined
@@ -2085,7 +2281,9 @@ class PlanCompiler:
                         aux=aux, expands=expands, pool=pool,
                         dma=cfg.scan_kernel_dma)
                     if kres is not None:
-                        state, _counts, _n_blocks = kres
+                        state, counts, n_chunks = kres
+                        if acc is not None:
+                            acc.counts, acc.n_chunks = counts, n_chunks
                         return ops.agg_direct_finalize(
                             state, specs, key_names, doms, kdts, kdicts,
                             force_row=not key_names)
@@ -2118,7 +2316,9 @@ class PlanCompiler:
                     runtime_stats=self.ctx.runtime_stats, aux=aux,
                     expands=expands, dma=cfg.scan_kernel_dma)
                 if kres is not None:
-                    out, _counts, _n_blocks = kres
+                    out, counts, n_chunks = kres
+                    if acc is not None:
+                        acc.counts, acc.n_chunks = counts, n_chunks
                     return _maybe_compact(out)
 
             # static span: closed dictionary / bool domains beyond the
@@ -2262,8 +2462,10 @@ class PlanCompiler:
                     _meter("torchChainChunks", len(chunks))
                     _meter("torchChainSteps", len(steps))
                     parts = []
+                    if acc is not None:
+                        acc.restart(len(chunks))
                     for pos, cnt, cap in steps:
-                        b = chain.make(pos, cnt, aux, expands, cap)
+                        b = chain.make(pos, cnt, aux, expands, cap, acc)
                         cols = {k: b.columns[k] for k in key_names}
                         for out, col in _agg_exprs(b).items():
                             if col is not None:

@@ -3,25 +3,31 @@
 The port of presto_tpu/exec/runner.py's main path: parse -> plan ->
 parameterize -> canonical plan cache -> optimize -> PlanCompiler ->
 result pages (execute), the same with the rows decoded page by page as
-they are produced (execute_streaming, the statement server's path), and
-EXPLAIN's plan text; DistributedQueryRunner / BatchQueryRunner run the
-fragmented plan as stages of tasks through exec/scheduler.py.  The
-runners run on the card by default; tests pass
+they are produced (execute_streaming, the statement server's path),
+EXPLAIN's plan text, EXPLAIN ANALYZE (the plan annotated with per-node
+operator stats: rows, host walls, batches, estimated bytes, and the
+footer's kernel and driver counters) and EXPLAIN (TYPE VALIDATE) (the
+plan checker's diagnostics at every stage); DistributedQueryRunner /
+BatchQueryRunner run the fragmented plan as stages of tasks through
+exec/scheduler.py.  The runners run on the card by default; tests pass
 device="cpu", where every kernel wrapper runs its plain torch version.
 Asking for the card where CUDA is absent raises: the runner never moves
-to the CPU on its own.  EXPLAIN ANALYZE, EXPLAIN (TYPE ...), PREPARE /
-EXECUTE / DEALLOCATE and DDL raise NotImplementedError.
+to the CPU on its own.  PREPARE / EXECUTE / DEALLOCATE and DDL raise
+NotImplementedError.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+import time
+
 import torch
 
 from ..common.block import block_to_values
 from ..sql.planner import Planner
-from .pipeline import ExecutionConfig, PlanCompiler, TaskContext, tuned_config
+from .pipeline import (ExecutionConfig, PlanCompiler, TaskContext,
+                       settle_node_stats, tuned_config)
 
 
 @dataclass
@@ -31,6 +37,9 @@ class QueryResult:
     rows: List[List]
     runtime_stats: dict = None
     peak_memory_bytes: int = 0
+    # the profiler capture's directory when the `profile` session
+    # property was set (telemetry/profiler.py); None when not captured
+    profile_trace_dir: Optional[str] = None
 
     def sorted_rows(self):
         return sorted(self.rows, key=lambda r: tuple(
@@ -88,6 +97,9 @@ class LocalQueryRunner:
         # collision
         self.plan_cache = plan_cache if plan_cache is not None \
             else PlanCache()
+        # EXPLAIN ANALYZE's side channel: node id -> operator stats of the
+        # most recent analyzed execution
+        self.last_operator_stats: Optional[dict] = None
 
     def _validation(self):
         from ..analysis import use_validation_mode
@@ -158,10 +170,6 @@ class LocalQueryRunner:
         from ..sql import parser as A
         with stats.record_wall("queryParse"):
             ast = A.parse_sql(sql)
-        if isinstance(ast, A.Explain) and (ast.analyze or ast.explain_type):
-            raise NotImplementedError(
-                "EXPLAIN ANALYZE and EXPLAIN (TYPE ...) are not ported yet "
-                "(the per-node operator-stats spine, TaskContext.stats)")
         if isinstance(ast, (A.CreateTableAs, A.InsertInto, A.DropTable,
                             A.Prepare, A.Deallocate, A.ExecuteStmt)):
             raise NotImplementedError(
@@ -184,9 +192,13 @@ class LocalQueryRunner:
         names = output.column_names
         types = [v.type for v in output.outputs]
         compiler.ctx.runtime_stats = stats
-        with stats.record_wall("queryExecute"):
-            result = pages_to_result(compiler.run_to_pages(output), names,
-                                     types)
+        from ..telemetry import profile_capture
+        with profile_capture(self.config.profile_dir, "query",
+                             enabled=self.config.profile) as trace_dir:
+            with stats.record_wall("queryExecute"):
+                result = pages_to_result(compiler.run_to_pages(output),
+                                         names, types)
+        result.profile_trace_dir = trace_dir
         result.runtime_stats = stats.to_dict()
         result.peak_memory_bytes = compiler.ctx.memory.peak
         self._release(exe)
@@ -227,14 +239,104 @@ class LocalQueryRunner:
 
     def _explain(self, ast) -> QueryResult:
         """EXPLAIN: the optimized plan as text with its row estimates
-        (reference PlanPrinter; runner.py _explain without ANALYZE)."""
+        (reference PlanPrinter).  EXPLAIN ANALYZE: execute with per-node
+        instrumentation and annotate the plan (the reference's
+        ExplainAnalyzeOperator); the fused chain and the scan kernels
+        count their rows per step, so it profiles the fused path unless
+        analyze_unfused asks for the streaming one.  EXPLAIN (TYPE
+        VALIDATE): the plan checker at every stage."""
         from ..common.types import VarcharType
-        from ..sql.explain import format_plan
+        from ..sql.explain import format_analyze_footer, format_plan
+        from ..utils.runtime_stats import RuntimeStats
+        if ast.explain_type == "VALIDATE":
+            return self._explain_validate(ast)
         with self._validation():
             output = Planner(default_schema=self.schema,
                              default_catalog=self.catalog) \
                 .plan_query_to_output(ast.query)
-        text = format_plan(output)
+        stats = rstats = trace_dir = None
+        if ast.analyze:
+            from ..telemetry import profile_capture
+            stats, rstats = {}, RuntimeStats()
+            compiler = PlanCompiler(TaskContext(
+                config=self.config, device=self.device, stats=stats,
+                runtime_stats=rstats))
+            # the local ANALYZE runs one driver on this thread: its thread
+            # CPU against its wall gives the footer's driver line
+            t0, c0 = time.perf_counter(), time.thread_time()
+            with profile_capture(self.config.profile_dir, "analyze",
+                                 enabled=self.config.profile) as trace_dir:
+                with rstats.record_wall("queryExecute"):
+                    for _page in compiler.run_to_pages(output):
+                        pass
+            rstats.add("driverCpuNanos", (time.thread_time() - c0) * 1e9,
+                       "NANO")
+            rstats.add("driverWallNanos", (time.perf_counter() - t0) * 1e9,
+                       "NANO")
+            settle_node_stats(stats)
+            self.last_operator_stats = stats
+        text = format_plan(output, stats)
+        if rstats is not None:
+            footer = format_analyze_footer(rstats, profile_dir=trace_dir)
+            if footer:
+                text += "\n\n" + footer
+        return QueryResult(["Query Plan"], [VarcharType(max(1, len(text)))],
+                           [[text]])
+
+    def _fragmenter_config(self):
+        from ..sql.fragmenter import FragmenterConfig
+        return FragmenterConfig()
+
+    def _explain_validate(self, ast) -> QueryResult:
+        """EXPLAIN (TYPE VALIDATE): every checker stage (post-plan,
+        post-optimize, post-fragment) with fail-fast raising off, so the
+        whole diagnostic list is reported, then the scans' pushdown
+        decisions (the reference's _explain_validate)."""
+        from ..analysis import (VALIDATION_OFF, check_plan, check_subplan,
+                                use_validation_mode)
+        from ..common.types import VarcharType
+        from ..parallel.mesh import mesh_size
+        from ..spi import plan as P
+        from ..sql.explain import format_validation
+        from ..sql.fragmenter import (annotate_exchange_fabrics,
+                                      plan_distributed)
+        from ..sql.optimizer import optimize
+        planner = Planner(default_schema=self.schema,
+                          default_catalog=self.catalog)
+        with use_validation_mode(VALIDATION_OFF):
+            node, names, out_vars = planner.plan_query_any(ast.query)
+            out = P.OutputNode(planner.new_id("output"), node, names,
+                               out_vars)
+            sections = [("post-plan", check_plan(out, "post-plan"))]
+            out = optimize(out)
+            sections.append(("post-optimize",
+                             check_plan(out, "post-optimize")))
+            # the scans' pushdown decisions, collected before
+            # fragmentation moves the scans into fragments
+            seen, decisions = set(), []
+            for n in P.walk_plan(out):
+                if id(n) in seen or not isinstance(n, P.TableScanNode):
+                    continue
+                seen.add(id(n))
+                tname = f"{n.table.connector_id}.{n.table.table_name}"
+                if getattr(n, "pushdown", None):
+                    for e in n.pushdown:
+                        decisions.append(
+                            f"  {tname} [{n.id}]: "
+                            f"{e['column']} {e['op']} {e['value']}")
+                else:
+                    decisions.append(f"  {tname} [{n.id}]: (no pushdown)")
+            subplan = plan_distributed(out, self._fragmenter_config())
+            annotate_exchange_fabrics(
+                subplan, exec_config=self.config,
+                mesh_size=mesh_size(getattr(self, "mesh", None)),
+                batch_mode=getattr(self, "_batch_mode", False))
+            sections.append(("post-fragment",
+                             check_subplan(subplan, "post-fragment",
+                                           exec_config=self.config)))
+        text = format_validation(sections)
+        text += "\n\n== scan-pushdown ==\n" + "\n".join(
+            decisions if decisions else ["  (no table scans)"])
         return QueryResult(["Query Plan"], [VarcharType(max(1, len(text)))],
                            [[text]])
 
@@ -244,9 +346,9 @@ class DistributedQueryRunner(LocalQueryRunner):
     fragment DAG as multi-task stages through the in-process scheduler
     (exec/scheduler.py), every task on the runner's device -- the port of
     presto_tpu/exec/runner.py DistributedQueryRunner, with in-process
-    "workers".  Plain EXPLAIN prints the fragments.  A mesh, EXPLAIN
-    ANALYZE and EXPLAIN (TYPE ...), a tracer provider, query history and
-    DDL raise NotImplementedError."""
+    "workers".  EXPLAIN prints the fragments; EXPLAIN ANALYZE runs them
+    with per-task operator stats merged per node.  A mesh, a tracer
+    provider, query history and DDL raise NotImplementedError."""
 
     # materialized exchanges can't stay device-resident; overridden by
     # BatchQueryRunner so fabric resolution keeps its edges on http
@@ -260,8 +362,8 @@ class DistributedQueryRunner(LocalQueryRunner):
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh (the ICI exchange fabric) is not ported yet "
-                "(multi-device exchange on torch.distributed: ROADMAP "
-                "queue 1, item 5)")
+                "(ROADMAP queue 1: the multi-device exchange on "
+                "torch.distributed)")
         if tracer_provider is not None or history is not None:
             raise NotImplementedError(
                 "tracing and query history are not ported yet (telemetry: "
@@ -308,11 +410,15 @@ class DistributedQueryRunner(LocalQueryRunner):
 
     def _explain_distributed(self, ast) -> QueryResult:
         """EXPLAIN over the fragmented (distributed) plan: one section per
-        fragment (the reference's EXPLAIN on this runner, without
-        ANALYZE)."""
+        fragment.  ANALYZE runs the fragment DAG through the in-process
+        scheduler with per-task operator stats and annotates every
+        fragment from their merged map (the reference's
+        _explain_distributed, without a tracer)."""
         from ..common.types import VarcharType
-        from ..sql.explain import format_subplan
+        from ..sql.explain import format_analyze_footer, format_subplan
         from ..sql.fragmenter import plan_distributed
+        if ast.explain_type == "VALIDATE":
+            return self._explain_validate(ast)
         with self._validation():
             output = Planner(default_schema=self.schema,
                              default_catalog=self.catalog) \
@@ -320,7 +426,23 @@ class DistributedQueryRunner(LocalQueryRunner):
             subplan = plan_distributed(output, self._fragmenter_config(),
                                        exec_config=self.config)
             self._annotate_fabrics(subplan)
-        text = format_subplan(subplan, None)
+        stats, footer = None, ""
+        if ast.analyze:
+            from ..telemetry import profile_capture
+            from .scheduler import InProcessScheduler
+            sched = InProcessScheduler(self._scheduler_config())
+            self.last_scheduler = sched
+            sched.node_stats = stats = {}
+            with profile_capture(self.config.profile_dir, "analyze",
+                                 enabled=self.config.profile) as trace_dir:
+                for _page in sched.execute(subplan):
+                    pass
+            self.last_operator_stats = stats
+            footer = format_analyze_footer(sched.stats,
+                                           profile_dir=trace_dir)
+        text = format_subplan(subplan, stats)
+        if footer:
+            text += "\n\n" + footer
         return QueryResult(["Query Plan"], [VarcharType(max(1, len(text)))],
                            [[text]])
 

@@ -39,10 +39,11 @@ from .adaptive import (AdaptiveState, DynamicFilterCollector,
                        DynamicFilterSummary, ExchangeDecision,
                        decide_exchange, decide_side_swap,
                        summaries_to_runtime, summarize_key_column)
-from .pipeline import ExecutionConfig, PlanCompiler, TaskContext
+from .pipeline import (ExecutionConfig, PlanCompiler, TaskContext,
+                       settle_node_stats)
 
-_ICI_MISSING = ("the ICI exchange fabric is not ported yet (multi-device "
-                "exchange on torch.distributed: ROADMAP queue 1, item 5)")
+_ICI_MISSING = ("the ICI exchange fabric is not ported yet (ROADMAP queue "
+                "1: the multi-device exchange on torch.distributed)")
 
 
 def _card() -> torch.device:
@@ -707,6 +708,8 @@ class InProcessScheduler:
                 for s in task_sums.values():
                     self.adaptive.collector.publish(s)
             if self.node_stats is not None and ctx.stats:
+                # the task's device-side row counts read once, then merged
+                settle_node_stats(ctx.stats)
                 with self._stats_lock:
                     merge_node_stats(self.node_stats, ctx.stats)
             if split_bytes or split_wall:

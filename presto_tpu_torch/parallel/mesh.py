@@ -18,5 +18,5 @@ def mesh_size(mesh) -> int:
     if mesh is None:
         return 0
     raise NotImplementedError(
-        "a device mesh is not ported yet (multi-device exchange on "
-        "torch.distributed: ROADMAP queue 1, item 5)")
+        "a device mesh is not ported yet (ROADMAP queue 1: the "
+        "multi-device exchange on torch.distributed)")

@@ -166,9 +166,9 @@ def format_analyze_footer(runtime_stats, profile_dir: str = None) -> str:
     if declined:
         body = ", ".join(f"{k}: {v}" for k, v in sorted(declined.items()))
         lines.append(f"Fusion declined: {{{body}}}")
-    # the Pallas scan-kernel twin of the fusion counters: how many fused
-    # scans ran the hand-written kernel, and why the rest stayed on the
-    # XLA chain (exec/kernels KERNEL_DECLINE_REASONS)
+    # the scan-kernel twin of the fusion counters: how many fused scans
+    # ran a hand-written CUDA kernel, and why the rest stayed on the torch
+    # chain (exec/kernels KERNEL_DECLINE_REASONS)
     kdeclined = {k[len("kernelDeclined"):]: int(v["sum"])
                  for k, v in rs.items() if k.startswith("kernelDeclined")}
     if kdeclined:
@@ -176,14 +176,15 @@ def format_analyze_footer(runtime_stats, profile_dir: str = None) -> str:
         lines.append(f"Scan kernel declined: {{{body}}}")
     kp = rs.get("kernelScanPrograms")
     if kp:
-        lines.append(f"Pallas scan kernels: {int(kp['sum'])}")
+        lines.append(f"CUDA scan kernels: {int(kp['sum'])}")
     kw = rs.get("kernelWindowPrograms")
     if kw:
-        lines.append(f"Pallas window kernels: {int(kw['sum'])}")
+        lines.append(f"CUDA window kernels: {int(kw['sum'])}")
     ov = rs.get("kernelDmaOverlapFraction")
     if ov and ov.get("count"):
         # scan.kernel-dma = double: fraction of staged block slabs whose
-        # HBM->VMEM copy was issued while the previous block computed
+        # copy into the shared-memory ring was issued while the previous
+        # block computed
         lines.append(f"Kernel DMA overlap: "
                      f"{ov['sum'] / ov['count']:.2f} "
                      f"(double-buffered, {ov['count']} kernel(s))")
@@ -260,8 +261,8 @@ def format_analyze_footer(runtime_stats, profile_dir: str = None) -> str:
     except Exception:   # noqa: BLE001 — footer is advisory
         pass
     if profile_dir:
-        # where the device profiler wrote this run's capture
-        # (open with tensorboard / xprof)
+        # where the device profiler wrote this run's capture (a
+        # torch.profiler Chrome trace, telemetry/profiler.py)
         lines.append(f"Device profile: {profile_dir}")
     return "\n".join(lines)
 

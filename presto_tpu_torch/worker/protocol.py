@@ -318,7 +318,7 @@ def apply_session_properties(config, session: Dict[str, str]):
         kw["scan_kernel"] = mode
     if "profile" in session:
         # per-query device profiler capture (telemetry/profiler.py):
-        # wraps execution in jax.profiler.trace() under profile_dir
+        # wraps execution in a torch.profiler capture under profile_dir
         kw["profile"] = str(session["profile"]).lower() == "true"
     # adaptive execution knobs (reference enable_dynamic_filtering /
     # dynamic-filtering.* session properties)

@@ -351,6 +351,19 @@ class _Handler(BaseHTTPRequestHandler):
         for reason, n in sorted(km["declined"].items()):
             lines.append('presto_tpu_kernel_declined_total{reason="%s"} %d'
                          % (reason, n))
+        # memory arbitration + two-tier spill (exec/memory.py): counters
+        # for spilled/unspilled bytes and revocations, gauges for the
+        # live reserved/revocable split and the eviction overlap fraction
+        from ..exec.memory import MEMORY_METRICS
+        mem = MEMORY_METRICS.snapshot()
+        for k in sorted(mem):
+            if k in ("reserved_bytes", "revocable_bytes",
+                     "spill_overlap_fraction"):
+                lines.append(f"# TYPE presto_tpu_memory_{k} gauge")
+                lines.append(f"presto_tpu_memory_{k} {mem[k]}")
+            else:
+                lines.append(f"# TYPE presto_tpu_memory_{k}_total counter")
+                lines.append(f"presto_tpu_memory_{k}_total {mem[k]}")
         for k, v in sorted(s.device_memory().items()):
             if k == "device":
                 continue

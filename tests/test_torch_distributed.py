@@ -21,7 +21,7 @@ held to the reference:
   * lifespan sharding: tasks run shards (0, 2) and (1, 2), and when
     grouped execution declines, shard 0 alone runs the fallback;
   * the repaired fault: plan_distributed runs;
-  * the entry points default to the card, and a mesh, EXPLAIN ANALYZE, a
+  * the entry points default to the card, and a mesh, PREPARE, a
     tracer, history and DDL raise NotImplementedError."""
 import pytest
 import torch
@@ -403,15 +403,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_unported_options_raise_naming_what_is_missing(runner):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="the multi-device exchange"):
         DistributedQueryRunner("sf0.01", mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         DistributedQueryRunner("sf0.01", tracer_provider=object(),
                                device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         DistributedQueryRunner("sf0.01", history=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="EXPLAIN ANALYZE"):
-        runner.execute("explain analyze select count(*) from nation")
+    with pytest.raises(NotImplementedError, match="Prepare"):
+        runner.execute("prepare p from select count(*) from nation")
     with pytest.raises(NotImplementedError, match="DropTable"):
         runner.execute("drop table t")
 
@@ -424,7 +424,7 @@ def test_remote_batches_raise_naming_the_ici_fabric():
     ctx = TaskContext(device=torch.device("cpu"))
     ctx.remote_batches["rs"] = lambda: iter(())
     src = PlanCompiler(ctx).compile(node)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="the multi-device exchange"):
         list(src.batches())
 
 

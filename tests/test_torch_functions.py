@@ -17,8 +17,7 @@ lowering.py, the opcodes after F2I), held to the JAX package:
     that uses one meters kernelDeclinedPlanShape, naming the opcode;
   * DistinctLimit runs.
 
-The array functions (repeat, cardinality) wait for the port's ARRAY
-columns."""
+The array functions (repeat, cardinality) are tests/test_torch_arrays.py's."""
 import numpy as np
 import jax.numpy as jnp
 import pytest

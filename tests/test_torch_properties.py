@@ -58,7 +58,9 @@ CONFIGS = [
     ({"exchange.ici-chunk-rows": "4096"}, "exchange.ici-chunk-rows"),
     ({"task.fault-injection-probability": "0.1"},
      "task.fault-injection-probability"),
-    ({"telemetry.profile-dir": "/x"}, "telemetry.profile-dir"),
+    # ExecutionConfig.profile_dir is a field since EXPLAIN ANALYZE's
+    # profiler capture
+    ({"telemetry.profile-dir": "/x"}, None),
     # ported with the distributed scheduler (parallel/fabric.py)
     ({"exchange.fabric": "http"}, None),
     ({"debug.lock-validation": "true"}, "debug.lock-validation"),
@@ -205,7 +207,8 @@ SESSIONS = [
     # ported with the streaming join (its dynamic filter)
     ({"dynamic_filtering": "false",
       "dynamic_filtering_max_distinct_values": "64"}, None),
-    ({"profile": "true"}, "profile"),
+    ({"profile": "true"}, None),
+    ({"analyze_unfused": "true"}, None),
     ({"spill_enabled": "false", "spill_partitions": "4",
       "spill_path": "/x", "spill_host_budget_bytes": "1024",
       "spill_async_staging": "false"}, None),

@@ -514,9 +514,9 @@ def test_mesh_and_ici_raise_naming_what_is_missing():
                                                  SchedulerConfig)
     from presto_tpu_torch.parallel.mesh import WORKER_AXIS, mesh_size
     assert mesh_size(None) == 0 and WORKER_AXIS == "workers"
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="the multi-device exchange"):
         mesh_size(object())
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="the multi-device exchange"):
         InProcessScheduler(SchedulerConfig(mesh=object(),
                                            device=torch.device("cpu")))
 

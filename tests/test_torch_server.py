@@ -100,7 +100,11 @@ def _get(url):
 
 
 @pytest.mark.parametrize("sql,session,match", [
-    ("explain analyze " + Q6, {}, "NotImplementedError: EXPLAIN ANALYZE"),
+    # an EXPLAIN ANALYZE whose execution raises (a varchar COALESCE,
+    # which raises in both packages) carries the error
+    ("explain analyze select coalesce(n_name, r_name) from nation join "
+     "region on n_regionkey = r_regionkey", {},
+     "NotImplementedError: varchar operands"),
     ("prepare p from select 1", {}, "NotImplementedError: Prepare"),
     (Q6, {"exchange_compression": "true"},
      "NotImplementedError: session property 'exchange_compression' is not "
@@ -166,6 +170,20 @@ def test_metrics_carry_adaptive_and_fabric_sections(servers):
     assert got and got == _metric_types(ref.uri, prefixes)
     assert any("adaptive_filters_applied_total" in t for t in got)
     assert any("exchange_fabric_bytes_total" in t for t in got)
+
+
+def test_metrics_carry_the_memory_section(servers):
+    """/v1/metrics has the reference's presto_tpu_memory_* section (the
+    process's MEMORY_METRICS), metric for metric, beside the port's
+    presto_tpu_memory_device_* gauges."""
+    from presto_tpu_torch.exec.memory import MEMORY_METRICS
+    ref, port = servers
+    got = [t for t in _metric_types(port.uri, ("presto_tpu_memory_",))
+           if "presto_tpu_memory_device_" not in t]
+    assert got and got == _metric_types(ref.uri, ("presto_tpu_memory_",))
+    text = urllib.request.urlopen(port.uri + "/v1/metrics").read().decode()
+    assert f"presto_tpu_memory_revocations_total " \
+        f"{MEMORY_METRICS.snapshot()['revocations']}" in text
 
 
 def test_unported_routes_name_what_is_missing(servers):

@@ -19,8 +19,9 @@ pipeline.py).
     summary functions over the same batches (tests/test_torch_agg_
     functions.py holds those functions on their own); spill disabled
     raising MemoryExceededError, no reservation left after a failure,
-    query.max-memory raising the typed error; the open fault of a
-    grown aggregation table raising as in the reference (the one
+    query.max-memory raising the typed error; a grown aggregation
+    table raising as in the reference (a reference behaviour the port
+    mirrors; the one
     fixture, under a budget for that case);
   * W1 under a budget that declines the window kernel's reservation
     (WindowInputSize, then operators.window_batch) and under one that
@@ -287,7 +288,8 @@ def test_budgeted_window_equals_reference(reference, budget, path):
 
 def test_grown_aggregation_table_raises_as_the_reference(reference,
                                                          monkeypatch):
-    """The open fault 2 of ROADMAP section 3, scaled to sf0.01 (one retry):
+    """A reference behaviour the port mirrors (ROADMAP section 3, once
+    logged as fault 2), scaled to sf0.01 (one retry):
     under a budget between Q18's first aggregation table and its doubled
     one the first reservation fits, the table grows unreserved, and both
     packages run out of retries with the same error, neither spilling nor
