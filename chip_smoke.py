@@ -252,7 +252,20 @@ Phases, each printed with its wall time:
      tasks (every fragment annotated) and of Q6 with profile=true (the
      torch.profiler trace on disk).  The launch counters are set to 0
      just before the phase and read just after: the direct and window
-     kernels must have launched.
+     kernels must have launched;
+ 23. the serving plane and writes at the scale factor
+     (benchmarks/serving_run.py run): PREPARE of the Q6 and grouped
+     templates, 5 EXECUTEs of each under auto (2 replans, 8 fast paths,
+     10 launches of #1, rows equal to the inline SQL under auto and xla);
+     execute_prepared_batch over 3 and 16 lanes under xla, every lane
+     equal to its solo run, and its decline under auto; a WorkerServer
+     with a plan-cache sidecar and a kernel cache (scan.kernel-dma=double:
+     #1 carries #2), 16 concurrent EXECUTEs under xla batched with no
+     fallback; the warm restart in a subprocess (no plan-cache miss, no
+     replan, no NVRTC compile, equal rows); CREATE TABLE AS / INSERT /
+     DROP over the memory connector with the serving state empty after
+     the DDL.  The launch counters are set to 0 just before the phase and
+     read just after: the direct kernel must have launched.
 
 Any failed check raises and exits non-zero.  The second-to-last line is
 the kernels' JSON record; the last line is
@@ -2035,6 +2048,23 @@ def main() -> int:
         assert array_launches["scan_direct"] > 0
         assert array_launches["window_scan"] > 0
 
+    # -- the serving plane and writes ------------------------------------
+    with phase(f"serving and writes at {schema}: PREPARE / EXECUTE, "
+               f"batched drains, the server's batcher, a warm restart in "
+               f"a subprocess, CREATE TABLE AS / INSERT / DROP"):
+        from presto_tpu_torch.benchmarks import serving_run as SV
+        for k in sk.LAUNCHES:
+            sk.LAUNCHES[k] = 0
+        staged0 = dict(sk.STAGED_LAUNCHES)
+        serving_records = SV.run(sf, device, card=f"on {card}")
+        serving_launches = dict(sk.LAUNCHES)
+        serving_staged = {k: v - staged0.get(k, 0)
+                          for k, v in sk.STAGED_LAUNCHES.items()}
+        print(f"  serving path launches {serving_launches}, staged "
+              f"{serving_staged}")
+        assert serving_launches["scan_direct"] > 0
+        assert serving_staged["scan_direct"] > 0
+
     summary = {"scan_direct": "q1", "scan_span": "s1", "scan_hash": "h1"}
     join_summary = {"scan_direct": "j2", "scan_span": "j3", "scan_hash": "j1"}
     sources = {"scan_direct": "codegen.py",
@@ -2069,6 +2099,9 @@ def main() -> int:
                 "tpcds_launches": tpcds_launches[name],
                 # launches on the arrays / EXPLAIN ANALYZE path
                 "arrays_launches": array_launches[name],
+                # launches on the serving path (EXECUTEs, the server, the
+                # declined batches' solo runs)
+                "serving_launches": serving_launches[name],
                 "max_abs_err": max(r["err"] for r in records.values()
                                    if r["kernel"] == name),
                 "ms": rec["ms"],
@@ -2164,6 +2197,7 @@ def main() -> int:
             "carrier_bound_ms": ring["bound_ms"],
             "carried_by": list(sk.SCAN_KERNELS),
             "server_launches": server["staged_launches"],
+            "serving_launches": serving_staged,
             "cases": {q: {"kernel": r["kernel"], "single_ms": r["ms"],
                           "double_ms": r["ms_double"],
                           "staged": r["staged"][0],
@@ -2187,6 +2221,7 @@ def main() -> int:
             "distributed_launches": dist_launches["window_scan"],
             "tpcds_launches": tpcds_launches["window_scan"],
             "arrays_launches": array_launches["window_scan"],
+            "serving_launches": serving_launches["window_scan"],
             "max_abs_err": max(r["err"] for r in w_records.values()),
             "ms": wr["ms"],
             "call_ms": wr["call_ms"],
@@ -2310,6 +2345,13 @@ def main() -> int:
             f"{k} {v}" for k, v in r.items()
             if k not in ("walls_ms", "unfused_walls_ms", "nodes")))
     print(f"  phase walls: {array_records['walls']}")
+    print(f"serving and writes at {schema} on {card}:")
+    for part in ("prepared", "batched"):
+        for q, r in serving_records[part].items():
+            print(f"  {part} {q}: {r}")
+    for part in ("server", "restart", "writes"):
+        print(f"  {part}: {serving_records[part]}")
+    print(f"  phase walls: {serving_records['walls']}")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,10 +19,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from ..common.types import (BIGINT, BOOLEAN, BooleanType, CharType, DateType,
-                            DecimalType, DoubleType, IntegerType, RealType,
-                            Type, VarcharType)
-from .catalog import HostColumn
+from ..common.types import BIGINT, BOOLEAN, Type, VarcharType
+from .memory import _to_connector_column
 
 V = VarcharType(128)
 
@@ -124,44 +122,3 @@ class SystemTablesConnector:
 
     def column_stats(self, table: str, column: str, sf: float):
         return None
-
-
-# a copy of presto_tpu/connectors/memory.py _to_connector_column (the
-# memory connector is not ported)
-def _to_connector_column(typ: Type, vals: list, nulls: list):
-    if isinstance(typ, (VarcharType, CharType)):
-        uniq = sorted({v for v, n in zip(vals, nulls) if not n and
-                       v is not None})
-        index = {s: i for i, s in enumerate(uniq)}
-        codes = np.array([0 if (n or v is None) else index[v]
-                          for v, n in zip(vals, nulls)], dtype=np.int32)
-        out = (codes, uniq or [""])
-    elif isinstance(typ, DecimalType):
-        scale = 10 ** typ.scale
-        out = np.array([0 if n else int(round(float(v) * scale))
-                        for v, n in zip(vals, nulls)], dtype=np.int64)
-    elif isinstance(typ, (DoubleType, RealType)):
-        out = np.array([0.0 if n else float(v)
-                        for v, n in zip(vals, nulls)], dtype=np.float64)
-    elif isinstance(typ, BooleanType):
-        out = np.array([False if n else bool(v)
-                        for v, n in zip(vals, nulls)], dtype=bool)
-    elif isinstance(typ, DateType):
-        import datetime
-        epoch = datetime.date(1970, 1, 1)
-
-        def days(v):
-            if isinstance(v, str):
-                v = datetime.date.fromisoformat(v)
-            if isinstance(v, datetime.date):
-                return (v - epoch).days
-            return int(v)
-        out = np.array([0 if n else days(v)
-                        for v, n in zip(vals, nulls)], dtype=np.int32)
-    else:
-        dt = np.int32 if isinstance(typ, IntegerType) else np.int64
-        out = np.array([0 if n else int(v)
-                        for v, n in zip(vals, nulls)], dtype=dt)
-    if any(nulls):
-        return HostColumn(out, np.array(nulls, dtype=bool))
-    return out

@@ -263,17 +263,34 @@ class FusedChain:
         first `valid` rows are live.  Tensor ops only: no host sync.  With
         `counts` (EXPLAIN ANALYZE), the scan's live rows and the live rows
         after each step are added to it."""
+        return self.apply(self.leaf(pos, valid, aux, leaf_cap), pos, aux,
+                          expands, counts)
+
+    def leaf(self, pos: int, valid: int, aux, leaf_cap: int) -> Batch:
+        """The scan chunk [pos, pos + leaf_cap) decoded, its first `valid`
+        rows live (the chain's input)."""
         meta = self.scan_meta
         mk = self._leaf_make.get(leaf_cap)
         if mk is None:
             mk = self._leaf_make[leaf_cap] = meta["make_factory"](leaf_cap)
         outs, live = mk(pos, valid, aux[0])
         dicts = meta["dicts"]
-        batch = Batch({n: Column(v, None, dicts.get(n))
-                       for n, v in outs.items()}, live)
-        step_rows = [live.sum()] if counts is not None else None
+        return Batch({n: Column(v, None, dicts.get(n))
+                      for n, v in outs.items()}, live)
+
+    def apply(self, batch: Batch, pos: int, aux, expands: Tuple[int, ...],
+              counts: Optional[ChainCounts] = None,
+              params: Optional[torch.Tensor] = None) -> Batch:
+        """The chain's steps over a decoded leaf chunk starting at scan
+        row `pos`.  `params` is the bound-parameter vector the steps read
+        (None: the compiler's ctx.params); the batched template runner
+        (serving/batched.py) applies one leaf chunk once per lane."""
+        step_rows = [batch.mask.sum()] if counts is not None else None
         low = self.compiler.lowering
-        params = self.compiler.ctx.params if self.has_params else None
+        if params is None:
+            params = self.compiler.ctx.params
+        if not self.has_params:
+            params = None
 
         def _pb(b):
             return b.with_params(params) if params is not None else b

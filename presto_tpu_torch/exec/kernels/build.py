@@ -12,9 +12,10 @@ shape: codegen.py) compile at first use with NVRTC, the CUDA toolkit's
 runtime compiler (libnvrtc, bound with ctypes), for sm_90a, and load
 through the driver API (libcuda: cuModuleLoadData, cuLaunchKernel).  Each
 cubin and its source are cached under build/presto_tpu_torch/gen/, named
-by a hash of the source, the shared headers and the options.  A failed
-compile or load raises with the compiler's log.  Nothing here runs at
-import time.
+by a hash of the source, the shared headers and the options
+(serving/persist.py enable_compilation_cache moves that directory:
+set_gen_dir).  A failed compile or load raises with the compiler's log.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -130,6 +131,27 @@ _MODULES: Dict[Tuple[str, int], "GenModule"] = {}
 # compile ms per generated source hash (first use in this process: an
 # NVRTC compile, or 0.0 when the cubin came from the cache directory)
 COMPILE_MS: Dict[str, float] = {}
+# (cache directory, source hash) of every cubin known to be on disk there
+_ON_DISK: set = set()
+
+
+def set_gen_dir(path) -> None:
+    """Read and write generated cubins under `path` from now on (the
+    serving plane's compilation cache).  A module already loaded in this
+    process is written there at its next use."""
+    global GEN_DIR
+    with _LOCK:
+        GEN_DIR = Path(path)
+
+
+def _write_cubin(key: str, cubin: bytes) -> None:
+    """The cubin under GEN_DIR, written atomically (caller holds _LOCK)."""
+    GEN_DIR.mkdir(parents=True, exist_ok=True)
+    cubin_path = GEN_DIR / f"{key}.cubin"
+    tmp = cubin_path.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_bytes(cubin)
+    os.replace(tmp, cubin_path)
+    _ON_DISK.add((GEN_DIR, key))
 
 
 def _nvrtc() -> ctypes.CDLL:
@@ -236,6 +258,7 @@ class GenModule:
     def __init__(self, key: str, cubin: bytes, device_index: int):
         self.key = key
         self.device_index = device_index
+        self.cubin = cubin
         cu = _cuda()
         _ensure_context(device_index)
         self._image = ctypes.create_string_buffer(cubin, len(cubin))
@@ -295,20 +318,24 @@ def load_generated(source: str, device_index: int) -> GenModule:
     with _LOCK:
         mod = _MODULES.get((key, device_index))
         if mod is not None:
+            if (GEN_DIR, key) not in _ON_DISK:
+                # loaded before the cache directory moved: persist it
+                if not (GEN_DIR / f"{key}.cubin").exists():
+                    _write_cubin(key, mod.cubin)
+                _ON_DISK.add((GEN_DIR, key))
             return mod
         cubin_path = GEN_DIR / f"{key}.cubin"
         if cubin_path.exists():
             cubin = cubin_path.read_bytes()
             COMPILE_MS.setdefault(key, 0.0)
+            _ON_DISK.add((GEN_DIR, key))
         else:
             GEN_DIR.mkdir(parents=True, exist_ok=True)
             (GEN_DIR / f"{key}.cu").write_text(source)
             t0 = time.perf_counter()
             cubin = compile_cubin(source, f"{key}.cu")
             COMPILE_MS[key] = (time.perf_counter() - t0) * 1e3
-            tmp = cubin_path.with_suffix(f".{os.getpid()}.tmp")
-            tmp.write_bytes(cubin)
-            os.replace(tmp, cubin_path)
+            _write_cubin(key, cubin)
         mod = _MODULES[(key, device_index)] = GenModule(key, cubin,
                                                         device_index)
         return mod

@@ -31,10 +31,13 @@ several splits drains them on task_concurrency driver threads
 column under a memory budget, is generated on the fly per chunk; under a
 budget a join build past it spills into the grace hash join and an
 aggregation into a key-partitioned store (exec/memory.py).  Every tensor
-is allocated on the task's device (TaskContext.device).  A plan shape or
-option outside the slices raises NotImplementedError naming what is
-missing (DistinctLimit, GroupId, Unnest, TableWriter among them);
-nothing falls back quietly.
+is allocated on the task's device (TaskContext.device).  The scan,
+filter and project steps share their compiled state across plans and
+runners by the subtree's structural key (PlanCompiler.fragment_jit,
+serving/fragments.py); a TableWriter streams its input into a writable
+connector and a TableFinish commits it.  A plan shape or option outside
+the slices raises NotImplementedError naming what is missing (GroupId
+among them); nothing falls back quietly.
 """
 from __future__ import annotations
 
@@ -255,6 +258,14 @@ class ExecutionConfig:
     # (exec/adaptive.py; config key adaptive.exchange / session
     # adaptive_exchange)
     adaptive_exchange: bool = True
+    # -- serving plane (presto_tpu_torch/serving) --------------------------
+    # share the scan / filter / project steps' compiled state across
+    # DIFFERENT plans by subtree structural key (serving/fragments.py):
+    # queries sharing a scan -> filter subchain reuse one artifact.  Only
+    # engages for compilers without a stage-scoped cache (the scheduler's
+    # tasks share theirs per stage); a fingerprinted field, so flipping
+    # it re-keys the canonical plan cache
+    fragment_share: bool = True
 
     def __post_init__(self):
         if self.scan_kernel not in SCAN_KERNEL_MODES:
@@ -330,6 +341,10 @@ class TaskContext:
     # not engage only shard 0 runs the aggregation's fallback, so no row
     # is counted twice
     grouped_shard: Optional[Tuple[int, int]] = None
+    # a stage's shared step states, keyed by (node id, purpose, extra):
+    # the scheduler installs one dict per stage, so its tasks build each
+    # scan / filter / project step once (PlanCompiler.fragment_jit)
+    shared_steps: Optional[Dict] = None
 
 
 class BatchSource:
@@ -534,6 +549,49 @@ def _recode_strings(parts: List[Column]) -> List[Column]:
     return out
 
 
+def _fragment_batch_sig(batch: Batch) -> tuple:
+    """Hashable digest of the first-batch column structure a step's
+    expression resolution depends on (names, dtypes, laziness, dictionary
+    presence, NULL-ability, arrays): part of the fragment_jit key, so
+    structurally equal subtrees whose resolution would differ never
+    share a step."""
+    out = []
+    for n in sorted(batch.columns):
+        c = batch.columns[n]
+        out.append((n, str(c.values.dtype), c.values.ndim,
+                    None if c.dictionary is None else len(c.dictionary),
+                    c.lazy, c.nulls is not None, c.lengths is not None))
+    return tuple(out)
+
+
+class _ExprStep:
+    """A filter's or projection's compiled step state, the unit
+    fragment_jit shares: the expressions after the string hoister's
+    resolution of the first batch, the hoisted host calls, and the
+    ExprPrograms lowered from them (one Lowering per step).  Evaluation
+    reads the batch and the bound-parameter vector only."""
+
+    def __init__(self, hoister: "_StringHoister", first: Batch):
+        self.exprs, self.hoisted = hoister.resolve(first)
+        self.low = Lowering()
+        for e in self.exprs:
+            if not isinstance(e, VariableReferenceExpression):
+                self.low.compile(e)
+
+    def _eval(self, e, b: Batch, params) -> Column:
+        return self.low.eval(
+            e, b.with_params(params if expr_has_params(e) else None))
+
+    def filter(self, b: Batch, params) -> Batch:
+        b = _add_hoisted(b, self.hoisted)
+        return ops.apply_filter(b, self._eval(self.exprs[0], b, params))
+
+    def project(self, b: Batch, params, names) -> Batch:
+        b = _add_hoisted(b, self.hoisted)
+        return Batch({n: self._eval(e, b, params)
+                      for n, e in zip(names, self.exprs)}, b.mask)
+
+
 class PlanCompiler:
     def __init__(self, ctx: TaskContext):
         if ctx.memory is None:
@@ -564,6 +622,36 @@ class PlanCompiler:
             **kw)
         self._spill_stores.append(store)
         return store
+
+    def fragment_jit(self, node: P.PlanNode, purpose: str,
+                     build: Callable, extra=()):
+        """Fragment-level step sharing (serving/fragments.py): the state
+        `build()` makes for a scan / filter / project step is cached
+        PROCESS-GLOBALLY on the subtree's structural key, so two
+        different plans (or runners) sharing a scan -> filter subchain
+        share one artifact.  With a stage cache installed (the
+        scheduler's tasks) the state is shared per stage under the
+        node's id; with the fragment_share knob off each compiler builds
+        its own.  `extra` must carry every host constant the state bakes
+        in beyond (subtree, config, device) -- chunk capacity, output
+        names, the first batch's column signature -- since a false share
+        would run the wrong program, while a missed share only costs one
+        rebuild."""
+        cfg = self.ctx.config
+        stage = self.ctx.shared_steps
+        if stage is not None:
+            key = (node.id, purpose) + tuple(extra)
+            ent = stage.get(key)
+            if ent is None:
+                ent = stage.setdefault(key, build())
+            return ent
+        if not cfg.fragment_share:
+            return build()
+        from ..serving.fragments import FRAGMENT_JIT_CACHE
+        from ..sql.canonical import config_fingerprint
+        key = (purpose, P.structural_key(node), tuple(extra),
+               config_fingerprint(cfg), str(self.ctx.device))
+        return FRAGMENT_JIT_CACHE.get_or_build(key, build)
 
     # -- public -----------------------------------------------------------
     def compile(self, root: P.PlanNode) -> BatchSource:
@@ -866,7 +954,15 @@ class PlanCompiler:
             buf[:n] = raw
             return Column(torch.from_numpy(buf).to(device), nulls)
 
-        make = make_factory(cap)
+        # the scan leaf is a function of the table's identity (its scale
+        # factor included: both inside the node's structural key), the
+        # chunk capacity, the config and the device; the resident columns
+        # ride as an argument, so plans sharing this scan share one make
+        # closure.  The output names are baked in but canonicalized away
+        # by the structural key, so they join the key
+        make = self.fragment_jit(node, "scan_make",
+                                 lambda: make_factory(cap),
+                                 extra=(cap, tuple(names)))
 
         def split_gen(split):
             for pos, n in split_chunks(split):
@@ -1018,18 +1114,20 @@ class PlanCompiler:
         batch shows which columns are lazy, and those calls become host
         columns read from whole-column caches (_StringHoister)."""
         src = self._compile(node.source)
-        low = self.lowering
         hoister = _StringHoister([node.predicate])
+        # bound parameters ride the step's calls, so one step serves every
+        # binding of the template
+        purpose = ("filter_p" if expr_has_params(node.predicate)
+                   else "filter")
         cache: dict = {}
 
         def gen():
             for b in src.batches():
-                if "pred" not in cache:
-                    (cache["pred"],), cache["hoisted"] = hoister.resolve(b)
-                pred = cache["pred"]
-                b = _add_hoisted(b, cache["hoisted"])
-                pb = b.with_params(self._params_for(pred))
-                yield ops.apply_filter(b, low.eval(pred, pb))
+                if "step" not in cache:
+                    cache["step"] = self.fragment_jit(
+                        node, purpose, lambda b=b: _ExprStep(hoister, b),
+                        extra=(_fragment_batch_sig(b),))
+                yield cache["step"].filter(b, self.ctx.params)
         return BatchSource(gen, src.names, src.types)
 
     def _compile_ProjectNode(self, node: P.ProjectNode) -> BatchSource:
@@ -1037,20 +1135,18 @@ class PlanCompiler:
         names = [v.name for v in node.assignments]
         types = [v.type for v in node.assignments]
         items = list(node.assignments.items())
-        low = self.lowering
         hoister = _StringHoister([e for _v, e in items])
+        purpose = ("project_p" if any(expr_has_params(e) for _v, e in items)
+                   else "project")
         cache: dict = {}
 
         def gen():
             for b in src.batches():
-                if "exprs" not in cache:
-                    cache["exprs"], cache["hoisted"] = hoister.resolve(b)
-                b = _add_hoisted(b, cache["hoisted"])
-                cols = {}
-                for (v, _e), e in zip(items, cache["exprs"]):
-                    cols[v.name] = low.eval(
-                        e, b.with_params(self._params_for(e)))
-                yield Batch(cols, b.mask)
+                if "step" not in cache:
+                    cache["step"] = self.fragment_jit(
+                        node, purpose, lambda b=b: _ExprStep(hoister, b),
+                        extra=(_fragment_batch_sig(b), tuple(names)))
+                yield cache["step"].project(b, self.ctx.params, names)
         return BatchSource(gen, names, types)
 
     def _compile_OutputNode(self, node: P.OutputNode) -> BatchSource:
@@ -1688,6 +1784,82 @@ class PlanCompiler:
                                 node.distinct_variables, P.SINGLE)
         return self._compile(P.LimitNode(node.id + ".limit", agg,
                                          node.count))
+
+    def _compile_TableWriterNode(self, node: P.TableWriterNode) -> BatchSource:
+        """Stream source batches into a connector write handle (reference
+        TableWriterOperator.java:78): pages are staged, not visible until
+        TableFinish commits.  Emits one row (rows-written, staging token)
+        on the task's device."""
+        src = self._compile(node.source)
+        names = [v.name for v in node.outputs]
+        types = [v.type for v in node.outputs]
+        device = self.ctx.device
+
+        def gen():
+            conn = catalog.module(node.connector_id)
+            # the handle takes the SQL-visible column names, not the
+            # planner's internal variable names
+            handle = conn.begin_write(node.table_name,
+                                      list(node.column_names),
+                                      list(src.types))
+            rows = 0
+            wrote = False
+            try:
+                for b in src.batches():
+                    page = batch_to_page(b, src.names, src.types)
+                    if page.position_count:
+                        rows += handle.write_page(page)
+                        wrote = True
+                if not wrote:
+                    # an empty result still defines the table's schema:
+                    # stage one zero-row part so scans of the empty table
+                    # see real columns (the reference's CTAS semantics)
+                    from ..common.block import block_from_values
+                    handle.write_page(Page(
+                        [block_from_values(t, []) for t in src.types], 0))
+            except BaseException:
+                handle.abort()
+                raise
+            rv, fv = node.outputs[:2]
+            zero = torch.zeros(1, dtype=torch.int32, device=device)
+            cols = {rv.name: Column(torch.tensor([rows], dtype=torch.int64,
+                                                 device=device)),
+                    fv.name: Column(zero, None, (handle.staging_id,))}
+            if len(node.outputs) > 2:
+                # coordinator-shaped fragments carry a third
+                # tableCommitContext output (TableCommitContext.java); a
+                # task-wide single-commit context is constant
+                cols[node.outputs[2].name] = Column(
+                    zero, None,
+                    ('{"lifespan":"TaskWide","pageSinkCommitStrategy":'
+                     '"NO_COMMIT"}',))
+            yield Batch(cols, torch.ones(1, dtype=torch.bool, device=device))
+        return BatchSource(gen, names, types)
+
+    def _compile_TableFinishNode(self, node: P.TableFinishNode
+                                 ) -> BatchSource:
+        """Commit every staged fragment from the writer(s) and emit the
+        total row count (reference TableFinishOperator.java)."""
+        src = self._compile(node.source)
+        names = [v.name for v in node.outputs]
+        types = [v.type for v in node.outputs]
+        device = self.ctx.device
+
+        def gen():
+            from ..common.block import block_to_values
+            conn = catalog.module(node.connector_id)
+            total = 0
+            for b in src.batches():
+                page = batch_to_page(b, src.names, src.types)
+                rows = block_to_values(src.types[0], page.blocks[0])
+                frags = block_to_values(src.types[1], page.blocks[1])
+                for r, f in zip(rows, frags):
+                    total += int(r)
+                    conn.staged(f).commit()
+            cols = {node.outputs[0].name: Column(torch.tensor(
+                [total], dtype=torch.int64, device=device))}
+            yield Batch(cols, torch.ones(1, dtype=torch.bool, device=device))
+        return BatchSource(gen, names, types)
 
     def _compile_AggregationNode(self, node: P.AggregationNode) -> BatchSource:
         """Aggregation in the reference's mode order.  Over a fused scan

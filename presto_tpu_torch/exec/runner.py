@@ -12,8 +12,14 @@ BatchQueryRunner run the fragmented plan as stages of tasks through
 exec/scheduler.py.  The runners run on the card by default; tests pass
 device="cpu", where every kernel wrapper runs its plain torch version.
 Asking for the card where CUDA is absent raises: the runner never moves
-to the CPU on its own.  PREPARE / EXECUTE / DEALLOCATE and DDL raise
-NotImplementedError.
+to the CPU on its own.  PREPARE / EXECUTE / DEALLOCATE run over the
+port's prepared-statement registry (serving/prepared.py: a repeat
+EXECUTE skips parse, plan and optimize), execute_prepared_batch runs
+concurrent EXECUTEs of one template as one batched drain
+(serving/batched.py), and CREATE TABLE AS / INSERT / DROP TABLE write a
+writable connector (connectors/memory.py) through the TableWriter /
+TableFinish pipeline, clearing every cached plan, fast path and shared
+fragment.
 """
 from __future__ import annotations
 
@@ -37,6 +43,10 @@ class QueryResult:
     rows: List[List]
     runtime_stats: dict = None
     peak_memory_bytes: int = 0
+    # statement-protocol side channel: PREPARE sets (name, text) so the
+    # server can answer with X-Presto-Added-Prepare; DEALLOCATE the name
+    added_prepare: tuple = None
+    deallocated_prepare: str = None
     # the profiler capture's directory when the `profile` session
     # property was set (telemetry/profiler.py); None when not captured
     profile_trace_dir: Optional[str] = None
@@ -97,6 +107,9 @@ class LocalQueryRunner:
         # collision
         self.plan_cache = plan_cache if plan_cache is not None \
             else PlanCache()
+        # session-scoped prepared statements (name -> SQL text); the HTTP
+        # path passes its header map per call instead
+        self._prepared: Dict[str, str] = {}
         # EXPLAIN ANALYZE's side channel: node id -> operator stats of the
         # most recent analyzed execution
         self.last_operator_stats: Optional[dict] = None
@@ -114,18 +127,24 @@ class LocalQueryRunner:
         return PlanCompiler(TaskContext(config=self.config,
                                         device=self.device))
 
-    def _checkout(self, ast, stats) -> _Execution:
+    def _checkout(self, ast, stats, bound_params=None,
+                  record_fast=None) -> _Execution:
         """Plan `ast` to the parameterized template, then check the
         canonical cache: a hit skips optimize and reuses a pooled
-        compiler; a miss optimizes and builds one."""
+        compiler; a miss optimizes and builds one.  `bound_params` are an
+        EXECUTE's USING values, bound into the planner; `record_fast`
+        takes the statement's fast-path record (serving/prepared.py)."""
         from ..serving import SERVING_METRICS
         from ..spi import plan as P
         from ..sql.canonical import cache_key_from_parts, parameterize
         with stats.record_wall("queryPlan"), self._validation():
             planner = Planner(default_schema=self.schema,
-                              default_catalog=self.catalog)
+                              default_catalog=self.catalog,
+                              bound_params=bound_params)
             unopt = planner.plan_query_unoptimized(ast)
         pp = parameterize(unopt)
+        # structural key taken BEFORE optimization (the optimizer mutates
+        # the template in place): the prepared fast path re-derives it
         template_sk = P.structural_key(pp.template)
         key = cache_key_from_parts(template_sk, self.config, self.catalog,
                                    self.schema)
@@ -143,6 +162,13 @@ class LocalQueryRunner:
             SERVING_METRICS.incr("executable_builds")
             exe = _Execution(output, compiler, key, True,
                              [s.type for s in pp.slots])
+        if record_fast is not None and pp.origins_complete:
+            from ..serving.prepared import FastPath
+            record_fast(FastPath(
+                template_sk,
+                [(s.origin, s.type,
+                  None if s.origin is not None else s.value)
+                 for s in pp.slots]))
         self._bind(exe, [s.value for s in pp.slots])
         return exe
 
@@ -165,29 +191,198 @@ class LocalQueryRunner:
             self.plan_cache.checkin(exe.key, exe.compiler)
 
     def _parse(self, sql: str, stats):
-        """The statement's AST; raises NotImplementedError for the
-        statements the port does not run."""
+        """The statement's AST, its parse wall recorded."""
         from ..sql import parser as A
         with stats.record_wall("queryParse"):
-            ast = A.parse_sql(sql)
-        if isinstance(ast, (A.CreateTableAs, A.InsertInto, A.DropTable,
-                            A.Prepare, A.Deallocate, A.ExecuteStmt)):
-            raise NotImplementedError(
-                f"{type(ast).__name__} statements are not ported yet")
-        return ast
+            return A.parse_sql(sql)
+
+    # -- prepared statements ----------------------------------------------
+
+    def _checkout_cached(self, key: str) -> Optional[_Execution]:
+        """A canonical-cache hit under `key` as an _Execution (None on a
+        miss); a hit whose pooled compilers are all out builds one."""
+        from ..serving import SERVING_METRICS
+        hit = self.plan_cache.checkout(key)
+        if hit is None:
+            return None
+        output, slot_types, compiler = hit
+        if compiler is None:
+            compiler = self._new_compiler()
+            SERVING_METRICS.incr("executable_builds")
+        return _Execution(output, compiler, key, False, list(slot_types))
+
+    def _prepared_text(self, name: str, prepared) -> str:
+        text = (prepared or {}).get(name) or self._prepared.get(name)
+        if text is None:
+            raise KeyError(f"prepared statement {name!r} does not exist")
+        return text
+
+    def _execute_prepared(self, ast, stats, prepared) -> _Execution:
+        """EXECUTE name USING v1, ... -> a ready _Execution.  The fast
+        path (statement seen before, all origins extracted) rebuilds the
+        cache key from the recorded slots and skips parse and plan; any
+        mismatch -- an unbindable value, NULL, a cold cache (this
+        runner's own PlanCache) -- replans with the USING values bound
+        into the planner."""
+        from ..serving import PREPARED_REGISTRY, SERVING_METRICS
+        from ..sql.canonical import (BindError, cache_key_from_parts,
+                                     literal_value)
+        text = self._prepared_text(ast.name, prepared)
+        ps = PREPARED_REGISTRY.get_or_parse(text)
+        if len(ast.values) != ps.param_count:
+            raise ValueError(
+                f"prepared statement {ast.name!r} expects "
+                f"{ps.param_count} parameters, got {len(ast.values)}")
+        fast = ps.fast
+        if fast is not None:
+            try:
+                values = fast.bind([literal_value(v) for v in ast.values])
+            except BindError:
+                values = None
+            if values is not None:
+                exe = self._checkout_cached(cache_key_from_parts(
+                    fast.template_key, self.config, self.catalog,
+                    self.schema))
+                if exe is not None:
+                    self._bind(exe, values)
+                    SERVING_METRICS.incr("prepared_fast_path")
+                    return exe
+        # full pipeline with the USING values bound into the planner;
+        # record the fast path for the NEXT execution of this statement
+        SERVING_METRICS.incr("prepared_replans")
+        return self._checkout(ps.statement, stats,
+                              bound_params=list(ast.values),
+                              record_fast=ps.record_fast_path)
+
+    # -- micro-batched execution ------------------------------------------
+
+    def execute_prepared_batch(self, sqls: List[str], prepared=None
+                               ) -> Optional[List[Optional[QueryResult]]]:
+        """Execute N concurrent EXECUTE..USING statements that share one
+        prepared template as ONE batched drain (serving/batched.py).
+
+        `prepared` is a name->text map, or a list of such maps aligned
+        with `sqls` (the HTTP path carries per-request header maps).
+        Returns a list aligned with `sqls` -- a QueryResult for every
+        lane the drain served, None for lanes the caller must run solo
+        (bind errors, NULLs, arity mismatches: their solo run raises or
+        replans as it should) -- or None when no batch was possible at
+        all (a cold template, a plan outside the batched envelope, a
+        cache miss).  Every returned lane's rows are bit-identical to its
+        solo run."""
+        from ..serving import PREPARED_REGISTRY, SERVING_METRICS
+        from ..serving.batched import batched_runner_for, disable_for
+        from ..sql import parser as A
+        from ..sql.canonical import (BindError, cache_key_from_parts,
+                                     device_params, literal_value)
+        if len(sqls) < 2:
+            return None
+        pmaps = (list(prepared) if isinstance(prepared, (list, tuple))
+                 else [prepared] * len(sqls))
+        text = None
+        asts = []
+        try:
+            for s, pm in zip(sqls, pmaps):
+                ast = A.parse_sql(s)
+                if not isinstance(ast, A.ExecuteStmt):
+                    return None
+                t = self._prepared_text(ast.name, pm)
+                if text is None:
+                    text = t
+                elif t != text:
+                    return None     # mixed templates: not one batch
+                asts.append(ast)
+        except Exception:   # noqa: BLE001 -- unknown name etc: solo runs
+            return None
+        ps = PREPARED_REGISTRY.get_or_parse(text)
+        fast = ps.fast
+        if fast is None:
+            return None             # cold: a solo run records the path
+        values_by_lane: List[Optional[list]] = [None] * len(sqls)
+        for i, ast in enumerate(asts):
+            if len(ast.values) != ps.param_count:
+                continue            # isolated arity error -> solo run
+            try:
+                raw = [literal_value(v) for v in ast.values]
+                values_by_lane[i] = fast.bind(raw)
+            except BindError:
+                continue            # isolated bind error -> solo run
+        lanes = [i for i, v in enumerate(values_by_lane) if v is not None]
+        if len(lanes) < 2:
+            return None
+        exe = self._checkout_cached(cache_key_from_parts(
+            fast.template_key, self.config, self.catalog, self.schema))
+        if exe is None:
+            return None
+        output, compiler = exe.output, exe.compiler
+        if not exe.slot_types:
+            self._release(exe)
+            return None
+        self._bind(exe, values_by_lane[lanes[0]])
+        runner = batched_runner_for(compiler, output)
+        if runner is None:
+            self._release(exe)
+            return None
+        try:
+            pages, launch_ns, demux_ns = runner.run(
+                [device_params(values_by_lane[i], exe.slot_types,
+                               self.device) for i in lanes])
+        except Exception:   # noqa: BLE001 -- the whole drain failed: the
+            # compiler may be poisoned (not returned to the pool) and the
+            # template is pinned sequential; every lane re-runs solo
+            disable_for(compiler)
+            return None
+        names = output.column_names
+        types = [v.type for v in output.outputs]
+        results: List[Optional[QueryResult]] = [None] * len(sqls)
+        width = 1 << max(0, len(lanes) - 1).bit_length()
+        for j, i in enumerate(lanes):
+            res = pages_to_result([pages[j]], names, types)
+            res.peak_memory_bytes = compiler.ctx.memory.peak
+            res.runtime_stats = {
+                "servingBatchOccupancy": {"sum": len(lanes), "unit": "NONE"},
+                "servingBatchLaunchNanos": {"sum": launch_ns,
+                                            "unit": "NANO"},
+            }
+            results[i] = res
+            SERVING_METRICS.incr("prepared_fast_path")
+        self._release(exe)
+        SERVING_METRICS.record_batch(len(lanes), demux_ns,
+                                     padded_lanes=width - len(lanes))
+        return results
+
+    # -- execution --------------------------------------------------------
 
     def execute(self, sql: str, prepared: Optional[Dict[str, str]] = None
                 ) -> QueryResult:
         """Run one statement to a materialized QueryResult.  `prepared`
-        (the client's prepared-statement map) is the reference's
-        signature; the port runs no EXECUTE yet."""
+        is the client's prepared-statement map (name -> text, the HTTP
+        path's headers)."""
+        from ..common.types import BOOLEAN
+        from ..serving import PREPARED_REGISTRY
         from ..sql import parser as A
         from ..utils.runtime_stats import RuntimeStats
         stats = RuntimeStats()
         ast = self._parse(sql, stats)
         if isinstance(ast, A.Explain):
             return self._explain(ast)
-        exe = self._checkout(ast, stats)
+        if isinstance(ast, (A.CreateTableAs, A.InsertInto, A.DropTable)):
+            return self._execute_ddl(ast)
+        if isinstance(ast, A.Prepare):
+            self._prepared[ast.name] = ast.text
+            PREPARED_REGISTRY.get_or_parse(ast.text)   # warm the memo
+            res = QueryResult(["result"], [BOOLEAN], [[True]])
+            res.added_prepare = (ast.name, ast.text)
+            return res
+        if isinstance(ast, A.Deallocate):
+            self._prepared.pop(ast.name, None)
+            res = QueryResult(["result"], [BOOLEAN], [[True]])
+            res.deallocated_prepare = ast.name
+            return res
+        if isinstance(ast, A.ExecuteStmt):
+            exe = self._execute_prepared(ast, stats, prepared)
+        else:
+            exe = self._checkout(ast, stats)
         output, compiler = exe.output, exe.compiler
         names = output.column_names
         types = [v.type for v in output.outputs]
@@ -206,19 +401,23 @@ class LocalQueryRunner:
 
     def execute_streaming(self, sql: str,
                           prepared: Optional[Dict[str, str]] = None):
-        """(columns-meta, row iterator, RuntimeStats) for a plain SELECT:
-        pages are decoded and yielded as they are produced, so callers
-        (the statement protocol) never hold the full result set
+        """(columns-meta, row iterator, RuntimeStats) for a SELECT or an
+        EXECUTE: pages are decoded and yielded as they are produced, so
+        callers (the statement protocol) never hold the full result set
         (reference Query.java:116 streams from the root-stage
-        ExchangeClient).  Returns None for an EXPLAIN, which needs
-        materialized execution."""
+        ExchangeClient).  Returns None for the statements that need
+        materialized execution (EXPLAIN, DDL, PREPARE, DEALLOCATE)."""
         from ..sql import parser as A
         from ..utils.runtime_stats import RuntimeStats
         stats = RuntimeStats()
         ast = self._parse(sql, stats)
-        if isinstance(ast, A.Explain):
+        if isinstance(ast, (A.Explain, A.CreateTableAs, A.InsertInto,
+                            A.DropTable, A.Prepare, A.Deallocate)):
             return None
-        exe = self._checkout(ast, stats)
+        if isinstance(ast, A.ExecuteStmt):
+            exe = self._execute_prepared(ast, stats, prepared)
+        else:
+            exe = self._checkout(ast, stats)
         output, compiler = exe.output, exe.compiler
         names = output.column_names
         types = [v.type for v in output.outputs]
@@ -236,6 +435,59 @@ class LocalQueryRunner:
             # release only after a fully successful drain (as execute)
             self._release(exe)
         return columns, rows(), stats
+
+    # -- writes -----------------------------------------------------------
+
+    def _execute_ddl(self, ast) -> QueryResult:
+        """CREATE TABLE AS / INSERT INTO / DROP TABLE (reference
+        DataDefinitionExecution + TableWriter/TableFinish plans; writes run
+        through the pipeline compiler on the runner's device)."""
+        from ..common.types import BIGINT
+        from ..connectors import catalog as cat
+        from ..sql import parser as A
+        writable = [cid for cid in cat._CONNECTORS
+                    if hasattr(cat.module(cid), "begin_write")]
+        if isinstance(ast, A.DropTable):
+            # droppable catalogs win the name lookup: a generated tpch
+            # table of the same name must not shadow the stored one
+            cid = next((c for c in writable
+                        if ast.table in cat.module(c).SCHEMAS), None)
+            if cid is None or not hasattr(cat.module(cid), "drop_table"):
+                if ast.if_exists:
+                    return QueryResult(["rows"], [BIGINT], [[0]])
+                raise KeyError(f"unknown or non-droppable table "
+                               f"{ast.table!r}")
+            # cached plans may reference the dropped table
+            self._invalidate_plans()
+            cat.module(cid).drop_table(ast.table)
+            return QueryResult(["rows"], [BIGINT], [[0]])
+        if isinstance(ast, A.CreateTableAs) and ast.if_not_exists:
+            # IF NOT EXISTS consults only writable catalogs: a read-only
+            # generated table of the same name does not shadow the target
+            if any(ast.table in cat.module(cid).SCHEMAS for cid in writable):
+                return QueryResult(["rows"], [BIGINT], [[0]])
+        with self._validation():
+            output = Planner(default_schema=self.schema,
+                             default_catalog=self.catalog).plan_write(ast)
+        compiler = self._new_compiler()
+        names = output.column_names
+        types = [v.type for v in output.outputs]
+        # writes invalidate any cached plans that scanned the target table;
+        # again once committed, so nothing the write's own run cached (its
+        # source's fragments) outlives it
+        self._invalidate_plans()
+        result = pages_to_result(compiler.run_to_pages(output), names, types)
+        self._invalidate_plans()
+        return result
+
+    def _invalidate_plans(self) -> None:
+        """DDL changed table contents: every cached plan (this runner's
+        PlanCache), every recorded prepared fast path (its template keys
+        assume the old tables) and every shared fragment may be stale."""
+        from ..serving import FRAGMENT_JIT_CACHE, PREPARED_REGISTRY
+        self.plan_cache.invalidate_all()
+        PREPARED_REGISTRY.invalidate_fast_paths()
+        FRAGMENT_JIT_CACHE.invalidate_all()
 
     def _explain(self, ast) -> QueryResult:
         """EXPLAIN: the optimized plan as text with its row estimates
@@ -347,8 +599,11 @@ class DistributedQueryRunner(LocalQueryRunner):
     (exec/scheduler.py), every task on the runner's device -- the port of
     presto_tpu/exec/runner.py DistributedQueryRunner, with in-process
     "workers".  EXPLAIN prints the fragments; EXPLAIN ANALYZE runs them
-    with per-task operator stats merged per node.  A mesh, a tracer
-    provider, query history and DDL raise NotImplementedError."""
+    with per-task operator stats merged per node.  Writes run single-task
+    through the local pipeline, as the reference runs them; a PREPARE,
+    EXECUTE or DEALLOCATE reaches the planner and fails there, as in the
+    reference.  A mesh, a tracer provider and query history raise
+    NotImplementedError."""
 
     # materialized exchanges can't stay device-resident; overridden by
     # BatchQueryRunner so fabric resolution keeps its edges on http
@@ -454,6 +709,10 @@ class DistributedQueryRunner(LocalQueryRunner):
         ast = self._parse(sql, RuntimeStats())
         if isinstance(ast, A.Explain):
             return self._explain_distributed(ast)
+        if isinstance(ast, (A.CreateTableAs, A.InsertInto, A.DropTable)):
+            # writes run single-task through the local pipeline (the
+            # reference's scaled-writer distribution is future work)
+            return self._execute_ddl(ast)
         restore = self._apply_history_sizing(ast)
         try:
             subplan, names, types = self.plan_subplan(sql, ast=ast)

@@ -639,6 +639,10 @@ class InProcessScheduler:
             ctx.enter_context(torch.cuda.stream(stream))
             return ctx
 
+        # the stage's tasks build each scan / filter / project step once
+        # (PlanCompiler.fragment_jit under a stage cache)
+        stage_steps: Dict = {}
+
         def run_task(task_index: int) -> float:
             """One task's fragment execution; returns its wall seconds."""
             t0 = time.perf_counter()  # lint: allow-wall-clock
@@ -650,6 +654,7 @@ class InProcessScheduler:
                 f"task/{frag.fragment_id}.{task_index}")
             ctx = TaskContext(config=cfg, device=device,
                               task_index=task_index, memory=task_mem,
+                              shared_steps=stage_steps,
                               runtime_stats=self.stats,
                               dynamic_filters=self._dyn_filters)
             if self.node_stats is not None:

@@ -470,6 +470,7 @@ def register_catalogs_from_etc(etc_dir: str) -> Dict[str, str]:
     """Mount every etc/catalog/*.properties connector (CatalogManager
     analog): connector.name picks the connector; returns
     {catalog_name: connector.name} for what was mounted."""
+    from ..connectors import catalog as registry
     catalog_dir = os.path.join(etc_dir, "catalog")
     mounted: Dict[str, str] = {}
     if not os.path.isdir(catalog_dir):
@@ -480,10 +481,16 @@ def register_catalogs_from_etc(etc_dir: str) -> Dict[str, str]:
         name = fn[:-len(".properties")]
         props = load_properties(os.path.join(catalog_dir, fn))
         kind = props.get("connector.name", "")
-        if kind in ("hive", "hive-hadoop2", "memory", "blackhole"):
-            # connectors/hive.py and connectors/memory.py
+        if kind in ("hive", "hive-hadoop2"):
+            # connectors/hive.py
             raise NotImplementedError(
                 f"catalog {name}: connector.name {kind!r} is not ported")
+        elif kind == "memory":
+            from ..connectors.memory import MemoryConnector
+            registry.register_connector(name, MemoryConnector())
+        elif kind == "blackhole":
+            from ..connectors.memory import BlackholeConnector
+            registry.register_connector(name, BlackholeConnector())
         elif kind in ("tpch", "tpcds"):
             pass  # built-in generated catalogs are always mounted
         else:

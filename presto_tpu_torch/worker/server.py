@@ -19,12 +19,18 @@ setup) on Python's stdlib threading HTTP server.
 Statements run on DispatchManager threads through one LocalQueryRunner
 per (schema, catalog, session) on the server's device (`device`, "cuda"
 by default: without CUDA the server refuses to start), each runner with
-its own PlanCache.  What the port lacks answers with an error naming it,
-never a quiet default: the task plane (/v1/task/..., worker/task.py with
-its buffers and exchange) and /v1/plan-check answer 501; a statement on
-a coordinator that other workers announced to fails (the distributed
-HttpQueryRunner, worker/coordinator.py); the telemetry, history, sidecar,
-compilation-cache and micro-batcher arguments raise at construction.
+its own PlanCache.  The serving plane is the reference's: concurrent
+EXECUTEs of one prepared template pass the micro-batcher
+(serving/batching.py, `batch_window_ms` / `max_batch_size`), served
+statements are recorded in the plan-cache sidecar (`plan_cache_path`)
+and replayed before the listener opens, the generated kernels' cubins
+persist in `compilation_cache_dir`, and a CREATE, INSERT or DROP drops
+the runners and clears the sidecar.  What the port lacks answers with an
+error naming it, never a quiet default: the task plane (/v1/task/...,
+worker/task.py with its buffers and exchange) and /v1/plan-check answer
+501; a statement on a coordinator that other workers announced to fails
+(the distributed HttpQueryRunner, worker/coordinator.py); the telemetry
+and history arguments raise at construction.
 """
 from __future__ import annotations
 
@@ -43,11 +49,6 @@ from .protocol import make_announcement
 # the reference WorkerServer's arguments the port lacks, with what they
 # configure
 _UNPORTED_ARGS = {
-    "batch_window_ms": "the micro-batcher (serving/batching.py)",
-    "max_batch_size": "the micro-batcher (serving/batching.py)",
-    "compilation_cache_dir":
-        "the persistent compilation cache (serving/persist.py)",
-    "plan_cache_path": "the plan-cache sidecar (serving/persist.py)",
     "telemetry_sink": "telemetry export (telemetry/)",
     "telemetry_path": "telemetry export (telemetry/)",
     "telemetry_endpoint": "telemetry export (telemetry/)",
@@ -234,9 +235,10 @@ class _Handler(BaseHTTPRequestHandler):
         s = self.server_ref
         if s.dispatch is None:
             return {}
-        from ..serving import SERVING_METRICS
+        from ..serving import PREPARED_REGISTRY, SERVING_METRICS
         return {"serving": {
             "planCache": s.plan_cache_info(),
+            "preparedStatements": PREPARED_REGISTRY.info(),
             "metrics": SERVING_METRICS.snapshot(),
             "resourceGroups": s.dispatch.resource_groups.info(),
         }}
@@ -264,17 +266,56 @@ class _Handler(BaseHTTPRequestHandler):
             "# TYPE presto_tpu_serving_plan_cache_evictions_total counter",
             "presto_tpu_serving_plan_cache_evictions_total "
             f"{sv['planCacheEvictions']}",
+            "# TYPE presto_tpu_serving_plan_cache_invalidations_total counter",
+            "presto_tpu_serving_plan_cache_invalidations_total "
+            f"{sv['planCacheInvalidations']}",
             "# TYPE presto_tpu_serving_plan_cache_entries gauge",
             f"presto_tpu_serving_plan_cache_entries {pc['entries']}",
             "# TYPE presto_tpu_serving_executable_builds_total counter",
             f"presto_tpu_serving_executable_builds_total "
             f"{sv['executableBuilds']}",
+            "# TYPE presto_tpu_serving_prepared_fast_path_total counter",
+            "presto_tpu_serving_prepared_fast_path_total "
+            f"{sv['preparedFastPath']}",
+            "# TYPE presto_tpu_serving_prepared_replans_total counter",
+            f"presto_tpu_serving_prepared_replans_total "
+            f"{sv['preparedReplans']}",
+            # compiler-pool contention (serving/cache.py checkout)
             "# TYPE presto_tpu_serving_compiler_checkouts_total counter",
             "presto_tpu_serving_compiler_checkouts_total "
             f"{sv['compilerCheckouts']}",
             "# TYPE presto_tpu_serving_compiler_pool_exhausted_total counter",
             "presto_tpu_serving_compiler_pool_exhausted_total "
             f"{sv['compilerPoolExhausted']}",
+            "# TYPE presto_tpu_serving_compiler_checkout_wait_seconds_total"
+            " counter",
+            "presto_tpu_serving_compiler_checkout_wait_seconds_total "
+            f"{sv['compilerCheckoutWaitNanos'] / 1e9:.6f}",
+            "# TYPE presto_tpu_serving_compiler_checkout_depth_peak gauge",
+            "presto_tpu_serving_compiler_checkout_depth_peak "
+            f"{sv['compilerCheckoutDepthPeak']}",
+            # micro-batched point queries (serving/batching.py)
+            "# TYPE presto_tpu_serving_batch_batches_total counter",
+            f"presto_tpu_serving_batch_batches_total {sv['servingBatches']}",
+            "# TYPE presto_tpu_serving_batch_queries_total counter",
+            "presto_tpu_serving_batch_queries_total "
+            f"{sv['servingBatchQueries']}",
+            "# TYPE presto_tpu_serving_batch_launches_saved_total counter",
+            "presto_tpu_serving_batch_launches_saved_total "
+            f"{sv['servingBatchLaunchesSaved']}",
+            "# TYPE presto_tpu_serving_batch_fallbacks_total counter",
+            "presto_tpu_serving_batch_fallbacks_total "
+            f"{sv['servingBatchFallbacks']}",
+            "# TYPE presto_tpu_serving_batch_demux_seconds_total counter",
+            "presto_tpu_serving_batch_demux_seconds_total "
+            f"{sv['servingBatchDemuxNanos'] / 1e9:.6f}",
+            # fragment-level step sharing (serving/fragments.py)
+            "# TYPE presto_tpu_serving_fragment_jit_hits_total counter",
+            "presto_tpu_serving_fragment_jit_hits_total "
+            f"{sv['fragmentJitHits']}",
+            "# TYPE presto_tpu_serving_fragment_jit_misses_total counter",
+            "presto_tpu_serving_fragment_jit_misses_total "
+            f"{sv['fragmentJitMisses']}",
         ]
         from ..storage.store import STORAGE_METRICS
         st = STORAGE_METRICS.snapshot()
@@ -661,6 +702,10 @@ class WorkerServer:
                  total_concurrency: Optional[int] = None,
                  admission_headroom_fraction: Optional[float] = None,
                  admission_memory_pool=None,
+                 batch_window_ms: float = 3.0,
+                 max_batch_size: int = 16,
+                 compilation_cache_dir: Optional[str] = None,
+                 plan_cache_path: Optional[str] = None,
                  device="cuda", **unported):
         for name in unported:
             if name not in _UNPORTED_ARGS:
@@ -716,12 +761,31 @@ class WorkerServer:
             from .auth import set_internal_ca
             set_internal_ca(internal_ca_path)
 
+        # persistent kernel cache (serving/persist.py): point the
+        # generated kernels' cubin directory at disk BEFORE anything
+        # compiles, so every kernel this process builds is reloadable
+        # after a restart
+        if compilation_cache_dir:
+            from ..serving import enable_compilation_cache
+            enable_compilation_cache(compilation_cache_dir)
+
         # coordinator role: client statement intake (worker/statement.py)
         self.dispatch = None
         self._runner_cache: Dict = {}
         self._runner_lock = threading.Lock()
+        self._batcher = None
+        self._sidecar = None
         if coordinator:
             from .statement import DispatchManager, ResourceGroupManager
+            # micro-batched point queries: concurrent same-template
+            # EXECUTEs collapse into one batched drain (max_batch_size=1
+            # disables the window entirely)
+            from ..serving import MicroBatcher
+            self._batcher = MicroBatcher(window_ms=batch_window_ms,
+                                         max_batch=max_batch_size)
+            if plan_cache_path:
+                from ..serving import PlanCacheSidecar
+                self._sidecar = PlanCacheSidecar(plan_cache_path)
             if resource_groups is None and (
                     total_concurrency is not None
                     or admission_memory_pool is not None):
@@ -743,6 +807,12 @@ class WorkerServer:
             _catalog.register_connector("system",
                                         SystemTablesConnector(self))
             self._registered_system = True
+
+        # warm restart: replay recorded exemplars BEFORE the listener
+        # opens -- the planning and kernel loads land at boot, not on the
+        # first client (the kernels load from the compilation cache)
+        if self._sidecar is not None:
+            self._warm_start_replay()
 
         self._serve_thread = threading.Thread(
             target=self.httpd.serve_forever, name=f"http-{self.port}",
@@ -818,11 +888,86 @@ class WorkerServer:
                     self._runner_cache.pop(next(iter(self._runner_cache)))
         return runner
 
+    @staticmethod
+    def _batch_template_text(runner, q) -> Optional[str]:
+        """The prepared-template text behind an EXECUTE..USING statement,
+        or None when the statement is not batchable traffic.  The text is
+        the micro-batch group key: requests resolve to the same key only
+        when a single canonical plan serves them."""
+        m = re.match(r"\s*execute\s+([A-Za-z_][A-Za-z0-9_]*)\s+using\b",
+                     q.sql, re.IGNORECASE)
+        if m is None:
+            return None
+        name = m.group(1)
+        return ((q.prepared or {}).get(name)
+                or getattr(runner, "_prepared", {}).get(name))
+
     def _execute_statement(self, q):
-        """DispatchManager executor: a single-node SELECT streams its
-        rows chunk by chunk (the coordinator never materializes the full
-        result, reference Query.java); an EXPLAIN runs materialized."""
+        """DispatchManager executor.  EXECUTE..USING traffic first passes
+        the micro-batcher: requests against the same template that land
+        inside one batching window run as ONE batched drain
+        (exec/runner.py execute_prepared_batch); everything else -- and
+        every lane the drain declines -- takes `_run_single`, the
+        sequential path."""
         runner = self._runner_for(q.schema, q.catalog, q.session)
+        result = None
+        served = False
+        if self._batcher is not None and self._batcher.enabled:
+            text = self._batch_template_text(runner, q)
+            if text is not None:
+                result = self._batcher.run(
+                    (id(runner), text), q,
+                    lambda items: runner.execute_prepared_batch(
+                        [it.sql for it in items],
+                        prepared=[it.prepared for it in items]),
+                    lambda item: self._run_single(runner, item))
+                served = True
+        if not served:
+            result = self._run_single(runner, q)
+        if self._sidecar is not None:
+            self._record_sidecar(q)
+        return result
+
+    def _record_sidecar(self, q) -> None:
+        """Persist a warm-start exemplar for a successfully served
+        statement (PlanCacheSidecar dedups per template)."""
+        head = q.sql.lstrip().split(None, 1)
+        word = head[0].lower() if head else ""
+        if word not in ("select", "with", "prepare", "execute"):
+            return
+        try:
+            self._sidecar.record(q.sql, q.prepared, q.catalog, q.schema,
+                                 q.session)
+        except Exception:   # noqa: BLE001 -- persistence is advisory
+            pass
+
+    def _warm_start_replay(self) -> int:
+        """Replay the sidecar's recorded exemplars through the same runner
+        path that serves traffic: each replay re-registers its prepared
+        statement, re-records the skip-parse fast path and re-inserts the
+        canonical PlanCache entry, its generated kernels loading from the
+        compilation cache instead of compiling.  Runs before the HTTP
+        listener starts, so the first client request after a restart is
+        already a warm hit."""
+        n = 0
+        for rec in self._sidecar.load():
+            try:
+                runner = self._runner_for(rec["schema"], rec["catalog"],
+                                          rec.get("session") or {})
+                runner.execute(rec["sql"],
+                               prepared=rec.get("prepared") or {})
+                n += 1
+            except Exception:   # noqa: BLE001 -- a stale exemplar (dropped
+                continue        # table, bad session) must not block boot
+        return n
+
+    def _run_single(self, runner, q):
+        """The sequential path: a single-node SELECT or EXECUTE streams
+        its rows chunk by chunk (the coordinator never materializes the
+        full result, reference Query.java); an EXPLAIN, a PREPARE, a
+        DEALLOCATE or a write runs materialized, and a write drops every
+        cached runner and clears the sidecar (their plans and recorded
+        exemplars may read the changed table)."""
         sr = runner.execute_streaming(q.sql, prepared=q.prepared)
         if sr is not None:
             from .statement import StreamingResult, _json_value
@@ -831,7 +976,15 @@ class WorkerServer:
                 columns,
                 ([_json_value(v) for v in row] for row in row_iter),
                 stats)
-        return runner.execute(q.sql, prepared=q.prepared)
+        result = runner.execute(q.sql, prepared=q.prepared)
+        if q.sql.lstrip()[:6].lower() in ("create", "insert") \
+                or q.sql.lstrip()[:4].lower() == "drop":
+            with self._runner_lock:
+                self._runner_cache.clear()
+            if self._sidecar is not None:
+                # a replayed exemplar would re-plan against changed tables
+                self._sidecar.clear()
+        return result
 
     def plan_cache_info(self) -> dict:
         """The runners' plan caches, summed."""

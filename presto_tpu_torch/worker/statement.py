@@ -311,6 +311,10 @@ class ManagedQuery:
     started_at: Optional[float] = None
     finished_at: Optional[float] = None
     done: threading.Event = field(default_factory=threading.Event)
+    # set once the executor has a result to serve: its row stream (a
+    # streaming result is done only when drained) or, at the finish, its
+    # rows or error; an executing poll wakes on it
+    ready: threading.Event = field(default_factory=threading.Event)
     _cancelled: bool = False
     _admitted: bool = False     # holds a resource-group running slot
     memory_estimate: Optional[int] = None   # admission claim, bytes
@@ -456,6 +460,7 @@ class DispatchManager:
                     q.columns = result.columns
                     q._stats_src = result.stats
                     q._row_iter = iter(result.row_iter)
+                    q.ready.set()
                     return
                 q.columns = [{"name": n, "type": str(t)}
                              for n, t in zip(result.column_names,
@@ -500,6 +505,7 @@ class DispatchManager:
         q.error = error
         q.finished_at = time.time()
         q.done.set()
+        q.ready.set()
         from .events import QueryCompletedEvent
         now = q.finished_at
         self.events.query_completed(QueryCompletedEvent(
@@ -621,10 +627,13 @@ class DispatchManager:
     def executing_response(self, q: ManagedQuery, token: int,
                            base_uri: str, wait_s: float = 0.5) -> dict:
         q.last_access = time.time()
+        if q._row_iter is None and not q.done.is_set():
+            # still planning, or waiting out a micro-batching window: wake
+            # when the row stream is ready, not only at the finish (a
+            # streaming result finishes when its rows are drained)
+            q.ready.wait(wait_s)
         if q._row_iter is not None:
             return self._executing_streaming(q, token, base_uri)
-        if not q.done.is_set():
-            q.done.wait(wait_s)
         resp = {"id": q.query_id,
                 "infoUri": f"{base_uri}/v1/query/{q.query_id}",
                 "stats": q.stats()}

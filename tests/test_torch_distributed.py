@@ -410,10 +410,16 @@ def test_unported_options_raise_naming_what_is_missing(runner):
                                device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         DistributedQueryRunner("sf0.01", history=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Prepare"):
-        runner.execute("prepare p from select count(*) from nation")
-    with pytest.raises(NotImplementedError, match="DropTable"):
-        runner.execute("drop table t")
+    # ported since: a PREPARE reaches the planner and raises there, and a
+    # DROP of an unknown table raises, both as in the reference's
+    # distributed runner
+    from presto_tpu.exec.runner import DistributedQueryRunner as JD
+    jrunner = JD("sf0.01", n_tasks=2)
+    for r in (runner, jrunner):
+        with pytest.raises(AttributeError, match="'Prepare' object"):
+            r.execute("prepare p from select count(*) from nation")
+        with pytest.raises(KeyError, match="non-droppable table 't'"):
+            r.execute("drop table t")
 
 
 def test_remote_batches_raise_naming_the_ici_fabric():

@@ -10,7 +10,8 @@ over late-materialized columns (LIKE, substr, starts_with, ends_with,
 concat) and their sort, group and window keys, and the shapes the port
 still leaves out, each raising NotImplementedError naming the
 missing piece (the budgeted scan and on-the-fly generation, ported
-since, return the resident scan's rows)."""
+since, return the resident scan's rows; the TableWriter, ported since,
+writes the memory connector as the reference does)."""
 import numpy as np
 import pytest
 import torch
@@ -256,14 +257,31 @@ def test_left_out_shapes_raise_naming_the_piece(ports, case):
         assert ports["auto"].execute("select x from unnest(array[1, 2, 3]) "
                                      "as t(x)").rows == [[1], [2], [3]]
     elif case == "table_writer":
-        with pytest.raises(NotImplementedError, match="CreateTableAs"):
-            ports["auto"].execute("create table memory.default.t1 as "
-                                  "select 1 as x")
-        node = TP.TableWriterNode("w", ports["auto"].plan(
-            "select l_orderkey from lineitem").source, "memory", "t",
-            ["l_orderkey"], [TE.VariableReferenceExpression("n", BIGINT)])
-        with pytest.raises(NotImplementedError, match="TableWriterNode"):
-            tpipe.PlanCompiler(tpipe.TaskContext()).compile(node)
+        # ported since: a CTAS writes the memory connector through the
+        # TableWriter / TableFinish pipeline, as the reference does
+        from presto_tpu.connectors import catalog as jcatalog
+        from presto_tpu.connectors.memory import MemoryConnector as JMem
+        from presto_tpu_torch.connectors import catalog as tcatalog
+        from presto_tpu_torch.connectors.memory import MemoryConnector
+        tcatalog.register_connector("memory", MemoryConnector())
+        jcatalog.register_connector("memory", JMem())
+        try:
+            jr = JRunner("sf0.01")
+            for r in (ports["auto"], jr):
+                assert r.execute("create table memory.default.t1 as "
+                                 "select 1 as x").rows == [[1]]
+            sql = "select x, count(*) from t1 group by x"
+            assert ports["auto"].execute(sql).rows == jr.execute(sql).rows
+            node = TP.TableWriterNode("w", ports["auto"].plan(
+                "select l_orderkey from lineitem").source, "memory", "t",
+                ["l_orderkey"], [TE.VariableReferenceExpression("n", BIGINT),
+                                 TE.VariableReferenceExpression("f",
+                                                                VARCHAR)])
+            src = tpipe.PlanCompiler(tpipe.TaskContext()).compile(node)
+            assert src.names == ["n", "f"]
+        finally:
+            tcatalog.unregister_connector("memory")
+            jcatalog.unregister_connector("memory")
     elif case in ("budgeted_scan", "on_the_fly_generation"):
         # ported since: a budgeted scan, and a column over the store's
         # cap, generate their columns on the fly and return the resident

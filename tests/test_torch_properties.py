@@ -161,7 +161,14 @@ def test_server_kwargs_from_etc_equal(tmp_path, extra):
     ("telemetry.history-max-count", "9")])
 def test_server_keys_the_port_lacks_raise(tmp_path, key, value):
     etc = _write_etc(tmp_path, f"{key}={value}\n")
-    jprops.server_kwargs_from_etc(etc)
+    jkw, _ = jprops.server_kwargs_from_etc(etc)
+    if key.startswith("serving."):
+        # the serving plane is ported since: its keys map onto the
+        # server's arguments as the reference maps them
+        tkw, _ = tprops.server_kwargs_from_etc(etc)
+        assert set(tkw) == set(jkw)
+        assert all(tkw[k] == jkw[k] for k in tkw if k != "config")
+        return
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         tprops.server_kwargs_from_etc(etc)
 
@@ -179,8 +186,19 @@ def test_catalog_mounts(tmp_path):
     for mod in (jprops, tprops):
         with pytest.raises(ValueError, match="not-a-connector"):
             mod.register_catalogs_from_etc(etc)
+    # the memory connector is ported since: it mounts as the reference's
+    # does; hive is not ported and raises naming it
     etc = _write_etc(tmp_path / "b", catalogs=(("mem", "memory"),))
-    with pytest.raises(NotImplementedError, match="'memory'"):
+    try:
+        assert tprops.register_catalogs_from_etc(etc) == \
+            jprops.register_catalogs_from_etc(etc) == {"mem": "memory"}
+    finally:
+        from presto_tpu.connectors import catalog as jcatalog
+        from presto_tpu_torch.connectors import catalog as tcatalog
+        tcatalog.unregister_connector("mem")
+        jcatalog.unregister_connector("mem")
+    etc = _write_etc(tmp_path / "c", catalogs=(("h", "hive"),))
+    with pytest.raises(NotImplementedError, match="'hive'"):
         tprops.register_catalogs_from_etc(etc)
 
 

@@ -105,17 +105,24 @@ def _get(url):
     ("explain analyze select coalesce(n_name, r_name) from nation join "
      "region on n_regionkey = r_regionkey", {},
      "NotImplementedError: varchar operands"),
-    ("prepare p from select 1", {}, "NotImplementedError: Prepare"),
+    # PREPARE is ported since: an EXECUTE of a name no PREPARE made
+    # carries the reference server's error text
+    ("execute nosuch using 1", {},
+     "KeyError: \"prepared statement 'nosuch' does not exist\""),
     (Q6, {"exchange_compression": "true"},
      "NotImplementedError: session property 'exchange_compression' is not "
      "ported"),
     (Q6, {"scan_kernel": "bogus"}, "ValueError: scan_kernel must be one"),
 ], ids=["explain_analyze", "prepare", "unported_session", "bad_session"])
 def test_failed_statements_carry_the_error(servers, sql, session, match):
-    _ref, port = servers
+    ref, port = servers
     with pytest.raises(QueryError, match=re.escape(match)):
         StatementClient(port.uri, schema="sf0.01",
                         session=session).execute(sql)
+    if sql.startswith("execute"):
+        from presto_tpu.client import QueryError as JQueryError
+        with pytest.raises(JQueryError, match=re.escape(match)):
+            JClient(ref.uri, schema="sf0.01").execute(sql)
 
 
 def test_session_properties_reach_the_runner(servers):
@@ -268,9 +275,9 @@ def test_queueing_resource_groups_and_cancel():
 
 
 def test_dbapi_cursor_with_qmark_parameters(servers):
-    """Client-side '?' binding gives equal rows on both servers; the
-    default server-side binding sends EXECUTE ... USING, which the port's
-    runner does not run yet: the cursor raises with the server's text."""
+    """Client-side '?' binding gives equal rows on both servers, and so
+    does the default server-side binding (PREPARE, then EXECUTE ...
+    USING)."""
     from presto_tpu import dbapi as jdbapi
     from presto_tpu_torch import dbapi
     ref, port = servers
@@ -284,10 +291,10 @@ def test_dbapi_cursor_with_qmark_parameters(servers):
         cur.execute(sql, (7, 0.02))
         out.append((cur.fetchall(), [d[0] for d in cur.description]))
     assert out[0] == out[1] and len(out[0][0]) == 3
-    cur = dbapi.connect(port.uri, schema="sf0.01").cursor()
-    with pytest.raises(dbapi.ProgrammingError,
-                       match="ExecuteStmt statements are not ported"):
+    for mod, uri in ((dbapi, port.uri), (jdbapi, ref.uri)):
+        cur = mod.connect(uri, schema="sf0.01").cursor()
         cur.execute(sql, (7, 0.02))
+        assert (cur.fetchall(), [d[0] for d in cur.description]) == out[0]
 
 
 def _write_etc(tmp_path, events_path):

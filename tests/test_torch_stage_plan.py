@@ -68,6 +68,13 @@ def calls():
         return rec
     for k, m in wrappers.items():
         setattr(m, k, recorder(k))
+    # the resident store is process-global and reuses a column built
+    # under a larger batch capacity; a 1M-row pad (an ExecutionConfig()
+    # runner earlier in the process) leaves sf0.01's 1-byte columns plain,
+    # so the plans are built over an empty store, at this runner's pad
+    from presto_tpu_torch.storage import store as storage
+    for st in list(storage._STORES.values()):
+        st.clear()
     try:
         runner = LocalQueryRunner("sf0.01", device="cpu")
         out = {}
