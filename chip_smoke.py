@@ -6,7 +6,9 @@
 Phases, each printed with its wall time:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA source of the port with nvcc (one process per
-     source, started together: the hash kernel and the window kernel);
+     source, started together: the hash kernel and the window kernel),
+     on a thread beside phase 17, which runs first and launches none of
+     them;
      the direct kernel (#1) and the span kernel (#3) are generated per
      chain shape (exec/kernels/codegen.py) and compiled with NVRTC at
      their first launch, their compile ms and registers printed per shape
@@ -147,7 +149,7 @@ Phases, each printed with its wall time:
      to the JAX package's golden rows (benchmarks/tpch_sf001_rows.json),
      then Q1-Q22 at the scale factor through LocalQueryRunner: the cold
      wall (with the host generation of the late-materialized string
-     columns), the median of 3 warm walls, the aggregation modes, the
+     columns), one warm wall, the aggregation modes, the
      scan kernels launched and every kernelDeclined{reason}, and one run
      under scan_kernel="xla" held to the kernels' rows row for row; the
      launch counters (and those of launches carrying a join probe) set
@@ -174,7 +176,7 @@ Phases, each printed with its wall time:
      to 0 just before the phase and read just after: the direct and
      window kernels must have launched;
 
- 17. (run right after the build, on an empty card) scans beyond the
+ 17. (run first, on an empty card, while nvcc builds) scans beyond the
      resident store at SF100 (benchmarks/scale_run.py run_sf100): Q1,
      Q3, Q5, Q6, Q11, Q12, Q14, Q18 and Q19
      through a fresh LocalQueryRunner each, unbudgeted, with the store's
@@ -222,9 +224,9 @@ Phases, each printed with its wall time:
      rows (benchmarks/tpcds_sf001_rows.json); the 21 conformance
      queries, the shape queries and two store_sales aggregations at the
      scale factor (q37 and q82, over host-generated inventory rows, at
-     SF1), cold, the median of 3 warm walls, launches or declines, and
+     SF1), cold, one warm wall, launches or declines, and
      xla equal to auto (the five queries over a host-generated fact
-     table: one warm wall, xla only where auto launched a kernel); store_sales queries on the fly
+     table: cold only, xla only where auto launched a kernel); store_sales queries on the fly
      equal to the resident rows; TPC-DS Q3 through DistributedQueryRunner
      (3 tasks, partitioned joins) equal to the local rows; BASELINE
      config 5, Q95 at SF100 (official: cold, warm, peak device memory;
@@ -239,8 +241,8 @@ Phases, each printed with its wall time:
      aggregation per family at the scale factor (cold, warm, xla == auto,
      kernelDeclinedPlanShape metered);
  22. arrays, UNNEST and EXPLAIN ANALYZE at the scale factor
-     (benchmarks/arrays_run.py run): U1, U2, U4 (cold, the median of 3
-     warm walls, launches, U4's decline) and U3 (the window kernel over
+     (benchmarks/arrays_run.py run): U1, U2, U4 (cold, one warm wall,
+     launches, U4's decline) and U3 (the window kernel over
      unnested rows, equal to xla) each equal to its array-free twin; U1
      through DistributedQueryRunner with 2 tasks and X1, whose ARRAY
      column crosses an exchange, equal to the local rows; EXPLAIN
@@ -265,7 +267,23 @@ Phases, each printed with its wall time:
      replan, no NVRTC compile, equal rows); CREATE TABLE AS / INSERT /
      DROP over the memory connector with the serving state empty after
      the DDL.  The launch counters are set to 0 just before the phase and
-     read just after: the direct kernel must have launched.
+     read just after: the direct kernel must have launched;
+ 24. the HTTP task plane and the coordinator (benchmarks/http_run.py
+     run): two WorkerServer(device="cuda") workers announcing to one
+     coordinator, all in-process; Q1-Q22 at sf0.01 through the
+     coordinator's /v1/statement against the golden rows (Q21 printed);
+     Q1 and Q6 at the scale factor through the coordinator equal to the
+     TPC-H phase's LocalQueryRunner rows; a join over a partitioned
+     exchange at the scale factor (under 1 M rows over HTTP) equal to
+     LocalQueryRunner's; Q6 under retry_policy=task with its first task
+     failed by the workers' fault injector (equal to the clean run, a
+     task retried); a worker drained mid-query (no failure, the worker
+     closes itself); each query's client and coordinator walls, task
+     counts and exchange bytes, and Q6's device idle share.  The local
+     rows are computed first; then the launch counters are set to 0 and
+     read after the cluster's parts: the direct kernel must have launched
+     in the workers' tasks, and the parts' own launch deltas must add up
+     to the counts.
 
 Any failed check raises and exits non-zero.  The second-to-last line is
 the kernels' JSON record; the last line is
@@ -474,22 +492,33 @@ def main() -> int:
         card = smi.stdout.strip().splitlines()[0]
         print(f"card: {card}")
 
-    with phase("build kernels (nvcc; the direct kernel: NVRTC per shape "
-               "at first use)"):
-        build.build_all()
-        for name in build.SOURCES:
-            for line in build.build_log(name).splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+    # nvcc builds on a thread while the SF100 phase runs, which launches
+    # no nvcc-built kernel (a `build.load` there would wait for it)
+    from concurrent.futures import ThreadPoolExecutor
+    builder = ThreadPoolExecutor(1)
+    t_build = time.perf_counter()
+    building = builder.submit(
+        lambda: (build.build_all(), time.perf_counter() - t_build)[1])
 
     # -- beyond the resident store at SF100 (first, on an empty card: its
     # joins peak near the card's 80 GB) ----------------------------------
     from presto_tpu_torch.benchmarks import scale_run as SR
     with phase("beyond the store at sf100: Q1, Q3, Q5, Q6, Q11, Q12, Q14, "
-               "Q18, Q19 through LocalQueryRunner, unbudgeted"):
+               "Q18, Q19 through LocalQueryRunner, unbudgeted, beside "
+               "the nvcc build"):
         sf100_records = SR.run_sf100(100.0, device, card=f"on {card}",
                                      warm=1)
     torch.cuda.empty_cache()
+
+    with phase("build kernels (nvcc, started before the SF100 phase; the "
+               "direct kernel: NVRTC per shape at first use)"):
+        nvcc_s = building.result()
+        builder.shutdown()
+        print(f"  nvcc finished {nvcc_s:.3f} s after it started")
+        for name in build.SOURCES:
+            for line in build.build_log(name).splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {name}: {line.strip()}")
 
     schema = f"sf{args.sf}"
     runner = LocalQueryRunner(schema, device=device)
@@ -1951,7 +1980,8 @@ def main() -> int:
             sk.LAUNCHES[k] = 0
         for k in sk.JOIN_LAUNCHES:
             sk.JOIN_LAUNCHES[k] = 0
-        tpch_records = TR.run(sf, 3, device, card=f"on {card}")
+        # one warm run each (the script's time limit)
+        tpch_records = TR.run(sf, 1, device, card=f"on {card}")
         tpch_launches = {k: sk.LAUNCHES[k] for k in sk.SCAN_KERNELS}
         tpch_join_launches = sum(sk.JOIN_LAUNCHES.values())
         print(f"  TPC-H path launches {tpch_launches}, carrying a join "
@@ -2019,7 +2049,8 @@ def main() -> int:
         for d in (sk.LAUNCHES, sk.JOIN_LAUNCHES):
             for k in d:
                 d[k] = 0
-        tpcds_records = DSR.run(sf, 100.0, 3, device, card=f"on {card}")
+        # one warm run each (the script's time limit)
+        tpcds_records = DSR.run(sf, 100.0, 1, device, card=f"on {card}")
         tpcds_launches = {k: sk.LAUNCHES[k]
                           for k in sk.SCAN_KERNELS + ("window_scan",)}
         tpcds_join_launches = sum(sk.JOIN_LAUNCHES.values())
@@ -2041,7 +2072,8 @@ def main() -> int:
         from presto_tpu_torch.benchmarks import arrays_run as AR
         for k in sk.LAUNCHES:
             sk.LAUNCHES[k] = 0
-        array_records = AR.run(sf, 3, device, card=f"on {card}",
+        # one warm run each (the script's time limit)
+        array_records = AR.run(sf, 1, device, card=f"on {card}",
                                profile_dir="build/profiles")
         array_launches = dict(sk.LAUNCHES)
         print(f"  arrays path launches {array_launches}")
@@ -2064,6 +2096,38 @@ def main() -> int:
               f"{serving_staged}")
         assert serving_launches["scan_direct"] > 0
         assert serving_staged["scan_direct"] > 0
+
+    # -- the HTTP task plane: workers and a coordinator on the card -------
+    with phase(f"HTTP task plane at {schema}: two workers and a "
+               f"coordinator, Q1-Q22 at sf0.01 against the golden rows, Q1 "
+               f"and Q6 through the coordinator, a partitioned join, a "
+               f"retried task, a drained worker"):
+        from presto_tpu_torch.benchmarks import http_run as HR
+        # the rows the cluster is held to, computed before the counts are
+        # set to 0: JOIN_SQL's LocalQueryRunner run is not the HTTP path
+        t0 = time.perf_counter()
+        http_want = HR.local_rows(sf, device, {
+            q: tpch_records["results"][q] for q in (1, 6)})
+        http_local_s = time.perf_counter() - t0
+        for d in (sk.LAUNCHES, sk.JOIN_LAUNCHES):
+            for k in d:
+                d[k] = 0
+        staged0 = dict(sk.STAGED_LAUNCHES)
+        http_records = HR.run(sf, device, http_want, card=f"on {card}")
+        http_records["walls"]["local_s"] = http_local_s
+        http_launches = dict(sk.LAUNCHES)
+        http_join_launches = sum(sk.JOIN_LAUNCHES.values())
+        http_staged = {k: v - staged0.get(k, 0)
+                       for k, v in sk.STAGED_LAUNCHES.items()}
+        print(f"  HTTP path launches {http_launches}, carrying a join probe "
+              f"{dict(sk.JOIN_LAUNCHES)}")
+        assert http_launches["scan_direct"] > 0, http_launches
+        # the parts' launches add up to the phase's: nothing outside the
+        # cluster's parts ran between the reset and the read
+        for k, v in {**http_launches, **{
+                f"probe_{k}": v for k, v in sk.JOIN_LAUNCHES.items()}}.items():
+            assert sum(p.get(k, 0) for p in
+                       http_records["launches"].values()) == v, k
 
     summary = {"scan_direct": "q1", "scan_span": "s1", "scan_hash": "h1"}
     join_summary = {"scan_direct": "j2", "scan_span": "j3", "scan_hash": "j1"}
@@ -2102,6 +2166,8 @@ def main() -> int:
                 # launches on the serving path (EXECUTEs, the server, the
                 # declined batches' solo runs)
                 "serving_launches": serving_launches[name],
+                # launches in the HTTP workers' tasks
+                "http_launches": http_launches[name],
                 "max_abs_err": max(r["err"] for r in records.values()
                                    if r["kernel"] == name),
                 "ms": rec["ms"],
@@ -2158,6 +2224,7 @@ def main() -> int:
             "tpch_launches": tpch_join_launches,
             "distributed_launches": dist_join_launches,
             "tpcds_launches": tpcds_join_launches,
+            "http_launches": http_join_launches,
             "max_abs_err": max(records[q]["err"] for q in (
                 "j1", "j2", "j3", "q3_shape", "q18_shape", "semi",
                 "semi_unique", "multi_probe", "partsupp")),
@@ -2198,6 +2265,7 @@ def main() -> int:
             "carried_by": list(sk.SCAN_KERNELS),
             "server_launches": server["staged_launches"],
             "serving_launches": serving_staged,
+            "http_launches": http_staged,
             "cases": {q: {"kernel": r["kernel"], "single_ms": r["ms"],
                           "double_ms": r["ms_double"],
                           "staged": r["staged"][0],
@@ -2222,6 +2290,7 @@ def main() -> int:
             "tpcds_launches": tpcds_launches["window_scan"],
             "arrays_launches": array_launches["window_scan"],
             "serving_launches": serving_launches["window_scan"],
+            "http_launches": http_launches["window_scan"],
             "max_abs_err": max(r["err"] for r in w_records.values()),
             "ms": wr["ms"],
             "call_ms": wr["call_ms"],
@@ -2319,8 +2388,10 @@ def main() -> int:
         if name not in ("results", "launches"):
             xla = ("not run" if r["xla_ms"] is None
                    else f"{r['xla_ms']:.3f} ms")
+            warm = ("not run" if r["warm_ms"] is None
+                    else f"{r['warm_ms']:.3f} ms")
             print(f"  {r['schema']} {name}: cold {r['cold_s']:.3f} s, warm "
-                  f"{r['warm_ms']:.3f} ms, xla {xla}, "
+                  f"{warm}, xla {xla}, "
                   f"programs {r['kernel_programs']}, chain {r['chain']}, "
                   f"launched {r['launched']}, declined {r['declined']}")
     for part in ("official", "wide"):
@@ -2352,6 +2423,14 @@ def main() -> int:
     for part in ("server", "restart", "writes"):
         print(f"  {part}: {serving_records[part]}")
     print(f"  phase walls: {serving_records['walls']}")
+    print(f"HTTP task plane at {schema} on {card}:")
+    for part in ("scale", "join", "retry", "drain", "trace_q6"):
+        print(f"  {part}: {http_records[part]}")
+    print("  sf0.01 client / coordinator ms: " + ", ".join(
+        f"{q} {r['client_ms']:.1f} / {r['coordinator_ms']}"
+        for q, r in http_records["golden"].items()))
+    print(f"  phase walls: {http_records['walls']}")
+    print(f"  phase launches by part: {http_records['launches']}")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

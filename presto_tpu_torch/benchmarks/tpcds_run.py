@@ -20,8 +20,8 @@ Runs, through LocalQueryRunner unless said otherwise:
     kernelDeclined{reason} counters, then one run under
     scan_kernel="xla", equal to the auto rows row for row.  The queries
     whose fact table the host generates on every run (HOST_HEAVY: not
-    device-generated in either package) run cold and once warm, and
-    under xla only where the auto run launched a kernel (else both modes
+    device-generated in either package) run cold only, and under xla
+    only where the auto run launched a kernel (else both modes
     take the same path); of those, q37 and q82 (inventory, 235 M rows at
     SF10) run at `inventory_sf` (SF1 by default) and say so.  At least
     one query must launch a scan kernel;
@@ -161,7 +161,7 @@ def run_bank(sf: float, runs: int, device, card: str = "",
                     if v != before[k]}
         heavy = name in HOST_HEAVY
         walls = []
-        for _ in range(min(runs, 1) if heavy else runs):
+        for _ in range(0 if heavy else runs):
             res, w = _wall(auto, sql, device)
             walls.append(w)
             assert_rows_close(res, first, ordered=ordered, rtol=RTOL)
@@ -177,8 +177,10 @@ def run_bank(sf: float, runs: int, device, card: str = "",
             "xla_ms": xla_ms, "launched": launched, **modes(first)}
         xla_note = ("not run (auto launched no kernel: the same path)"
                     if xla_ms is None else f"{xla_ms:.3f} ms == auto")
+        warm_note = ("not run" if not walls else
+                     f"median {rec['warm_ms']:.3f} ms ({len(walls)} runs)")
         print(f"  {schema} {name}: {rec['rows']} rows, cold {cold:.3f} s, "
-              f"warm median {rec['warm_ms']:.3f} ms ({len(walls)} runs), "
+              f"warm {warm_note}, "
               f"xla {xla_note}, kernel programs "
               f"{rec['kernel_programs']}, chain {rec['chain']}, streaming "
               f"{rec['streaming']}, launched {launched}, declined "

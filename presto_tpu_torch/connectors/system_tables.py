@@ -9,9 +9,7 @@ discovery map / dispatch registry at scan time, so
 `SELECT * FROM runtime_nodes` (catalog "system") answers from the
 coordinator's own state.
 
-The port of presto_tpu/connectors/system_tables.py.  runtime_tasks reads
-the worker's task manager (worker/task.py), which is not ported: scanning
-it raises NotImplementedError naming it.
+The port of presto_tpu/connectors/system_tables.py.
 """
 from __future__ import annotations
 
@@ -85,9 +83,10 @@ class SystemTablesConnector:
                             int((now - q.created_at) * 1000)])
             return out
         if table == "runtime_tasks":
-            raise NotImplementedError(
-                "system.runtime_tasks reads the task manager "
-                "(worker/task.py), which is not ported")
+            with s.task_manager._lock:
+                tasks = list(s.task_manager.tasks.values())
+            return [[t.task_id, t.state, t.output_rows, t.output_bytes,
+                     t.memory_peak] for t in tasks]
         raise KeyError(table)
 
     # -- connector contract ----------------------------------------------

@@ -180,10 +180,15 @@ class FusedChain:
     def total_rows(self) -> int:
         return sum(n for _, n in self.chunks)
 
-    def chunks_for(self, expands: Tuple[int, ...]) -> List[Tuple[int, int]]:
+    def chunks_for(self, expands: Tuple[int, ...],
+                   meter: bool = False) -> List[Tuple[int, int]]:
         """The scan chunks (pos, rows) at leaf_cap(expands), zone-map
-        pruned against the scan's pushed-down conjuncts (at least one kept,
-        so a fully pruned scan still folds an empty chunk)."""
+        pruned against the scan's pushed-down conjuncts and the runtime
+        dynamic filters delivered so far (at least one kept, so a fully
+        pruned scan still folds an empty chunk).  meter=True (a caller's
+        one computation per execution) counts an engaged dynamic filter as
+        applied: the chain never reaches the streaming scan's row-level
+        filter, so chunk pruning is its application."""
         cap = self.leaf_cap(expands)
         chunks = []
         for split in self.scan_meta["splits"]:
@@ -196,9 +201,23 @@ class FusedChain:
         if zm and pd:
             from ..storage import prune_chunks
             dyn = self.scan_meta.get("dyn_summaries")
+            detail: dict = {}
             chunks, _skipped = prune_chunks(
                 chunks, zm, pd, self.compiler.ctx.params_fingerprint,
-                dyn() if dyn is not None else None)
+                dyn() if dyn is not None else None, detail=detail)
+            if meter and detail.get("dyn_engaged"):
+                from .adaptive import ADAPTIVE_METRICS
+                ADAPTIVE_METRICS.incr("filters_applied")
+                ADAPTIVE_METRICS.incr("filter_rows_in", detail["rows_in"])
+                ADAPTIVE_METRICS.incr("filter_rows_pruned",
+                                      detail["dyn_rows_pruned"])
+                ADAPTIVE_METRICS.incr("filter_chunks_skipped",
+                                      detail["dyn_chunks_pruned"])
+                rs = self.compiler.ctx.runtime_stats
+                if rs is not None:
+                    rs.add("dynamicFilterRowsIn", detail["rows_in"])
+                    rs.add("dynamicFilterRowsPruned",
+                           detail["dyn_rows_pruned"])
         return chunks
 
     def leaf_cap(self, expands: Tuple[int, ...]) -> int:
@@ -669,7 +688,7 @@ def fused_materialize(compiler, node: P.PlanNode,
     if ready is None:
         return None
     chain, aux, expands = ready
-    chunks = chain.chunks_for(expands)
+    chunks = chain.chunks_for(expands, meter=True)
     steps = _chain_steps(chunks, chain.leaf_cap(expands),
                          max(1, CHAIN_STEP_ROWS // chain.cap))
     acc = ChainCounts(len(chunks)) if compiler.ctx.stats is not None \

@@ -1,7 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source under csrc/ compiles with nvcc into a shared library with a
-plain C interface (sm_90a, -O3), loaded with ctypes.  Libraries land in
+plain C interface (sm_90a, -O3), loaded with ctypes (a source of PARTS
+compiles once per part, in parallel, and its objects link into one
+library).  Libraries land in
 build/presto_tpu_torch/ at the repository root (listed in .gitignore),
 named by a hash of the source, the shared headers (csrc/*.cuh) and the
 flags, so an edited source or header rebuilds and an unchanged one is
@@ -37,6 +39,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 SOURCES = ("scan_grouped", "window_scan")
+# sources compiled once per part (-DSG_PART=k), all parts in parallel,
+# then linked into the one library: scan_grouped.cu's eight kernel
+# instances take most of the build, two in each of parts 1-4
+PARTS = {"scan_grouped": 5}
 GEN_DIR = BUILD_DIR / "gen"
 # NVRTC's options for a generated kernel (the nvcc flags' counterparts)
 NVRTC_OPTIONS = ("--gpu-architecture=sm_90a", "-std=c++17", "--fmad=false",
@@ -44,6 +50,9 @@ NVRTC_OPTIONS = ("--gpu-architecture=sm_90a", "-std=c++17", "--fmad=false",
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# one build_all at a time: a caller that arrives during another's waits
+# for it, then finds its libraries built
+_BUILD_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -59,40 +68,62 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(str(PARTS.get(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
-    """Start nvcc for one source; returns (process, tmp, out, log) or None
-    when the library is already built."""
+    """Start nvcc for one source, or for each of its PARTS; returns
+    (processes, part objects, tmp, out, log, log file) or None when the
+    library is already built."""
     out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = out.with_suffix(".log")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src = str(CSRC / f"{name}.cu")
+    if name in PARTS:
+        objs = [out.with_suffix(f".{os.getpid()}.{k}.o")
+                for k in range(PARTS[name])]
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        cmds = [[nvcc(), *flags, f"-DSG_PART={k}", "-c", "-o", str(o), src]
+                for k, o in enumerate(objs)]
+    else:
+        objs = []
+        cmds = [[nvcc(), *NVCC_FLAGS, "-o", str(tmp), src]]
     fh = open(log, "w")
-    proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
-    return proc, tmp, out, log, fh
+    procs = [subprocess.Popen(c, stdout=fh, stderr=subprocess.STDOUT)
+             for c in cmds]
+    return procs, objs, tmp, out, log, fh
 
 
 def build_all(names=SOURCES) -> List[Path]:
-    """Build every source, one nvcc each, all started together.  Raises
-    with the compiler's output when a build fails."""
-    jobs = [(n, _start(n)) for n in names]
-    failed = []
-    # wait for every nvcc before raising, so none outlives the call
-    for name, job in jobs:
-        if job is None:
-            continue
-        proc, tmp, out, log, fh = job
-        rc = proc.wait()
-        fh.close()
-        if rc != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n" + log.read_text())
-        else:
-            os.replace(tmp, out)
+    """Build every source, one nvcc each, all started together (safe to
+    run on a thread beside other work).  Raises with the compiler's
+    output when a build fails."""
+    with _BUILD_LOCK:
+        jobs = [(n, _start(n)) for n in names]
+        failed = []
+        # wait for every nvcc before raising, so none outlives the call
+        for name, job in jobs:
+            if job is None:
+                continue
+            procs, objs, tmp, out, log, fh = job
+            rc = next((r for r in [p.wait() for p in procs] if r), 0)
+            if objs and rc == 0:
+                rc = subprocess.run(
+                    [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                     *map(str, objs)], stdout=fh,
+                    stderr=subprocess.STDOUT).returncode
+            fh.close()
+            for o in objs:
+                o.unlink(missing_ok=True)
+            if rc != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n"
+                              + log.read_text())
+            else:
+                os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return [library_path(n) for n in names]

@@ -107,7 +107,7 @@ __device__ __forceinline__ i64 rle_run(const i64* starts, i64 n, i64 a) {
 }
 
 // logical value (int64, or float64 bits) of column `c` at absolute row `a`
-__device__ i64 decode(const i64* cm, i64 a) {
+static __device__ i64 decode(const i64* cm, i64 a) {
   const int kind = (int)cm[0];
   if (kind == K_PLAIN) return load_bits(cm[2], a, (int)cm[1]);
   if (kind == K_DICT) {
@@ -148,7 +148,7 @@ __device__ __forceinline__ i64 wrap32(i64 v) {
 
 // year / month / day / quarter of a date (days since the epoch): the
 // reference's _civil_from_days, every division a floor division
-__device__ i64 date_part(i64 days, int op) {
+static __device__ i64 date_part(i64 days, int op) {
   const i64 z = days + 719468;
   const i64 era = floor_div(z >= 0 ? z : z - 146096, 146097);
   const i64 doe = z - era * 146097;
@@ -816,7 +816,7 @@ __device__ __forceinline__ unsigned load_joined(const Tile& t, const i64* cm,
 // the thread's stack (slot k row r at sv[(k * RPT + r) * T]), `nb` its
 // null masks (slot k at nb[k * T]), `lits` the arguments of the LIT
 // instructions after an IN (stride 2).  Returns the new stack depth.
-__device__ __noinline__ int eval_ext(int op, i64 arg, const i64* lits,
+static __device__ __noinline__ int eval_ext(int op, i64 arg, const i64* lits,
                                      i64* sv, unsigned* nb, int sp, int T) {
   const int RT = RPT * T;
   i64* top = sv + (sp - 1) * RT;

@@ -81,6 +81,17 @@
 // bounds it in practice is the interpreter's instruction count per row
 // plus the probe rounds and folds; generating its code per chain, as the
 // direct and span kernels are (codegen.py), is left for later work.
+//
+// Build: the eight kernel instances take most of nvcc's time, so the
+// file compiles once per SG_PART, all parts in parallel (build.py PARTS),
+// and the objects link into one library.  Parts 1-4 each hold the two
+// stage counts of one (ONCHIP, EXT) pair and export their picker; part 0
+// holds the reduce and the launch.  A non-inline __device__ function
+// (here and in scan_common.cuh) is static, so its host-side stub stays
+// in its part.
+#ifndef SG_PART
+#error "compile once per SG_PART in 0..4 (exec/kernels/build.py PARTS)"
+#endif
 #include "scan_common.cuh"
 
 #define PROBE_ROUNDS 16
@@ -238,7 +249,7 @@ __device__ __forceinline__ int n_fold_rows(const i64* src, int n_i) {
 // armed with the stage's bytes, one bulk copy per staged column; then the
 // cursor moves on.  Not inlined: its temporaries stay out of the
 // interpreter loop's registers.
-__device__ __noinline__ void ring_fill_cols(
+static __device__ __noinline__ void ring_fill_cols(
     RingCtl* ctl, int s, unsigned char* st, u64* full, const i64* cols,
     const i64* stab, int n_cols, i64 br, i64 stage_n, const i64* grid,
     int n_grid, i64 rows_per_cta, int n_sub, i64 n_items) {
@@ -550,6 +561,23 @@ scan_grouped_kernel(const i64* __restrict__ plan_g, int n_plan,
   }
 }
 
+typedef void (*grouped_kernel_t)(const i64*, int, const i64*, int, i64, i64,
+                                 int, const i64*, int, i64, int, i64*, i64*,
+                                 double*, u64*, u64*, i64*, int8_t*, int*,
+                                 u64, int, int, int, int);
+
+#define SG_CAT(a, b) a##b
+#define SG_PICK(part) SG_CAT(scan_grouped_pick_, part)
+
+#if SG_PART > 0
+// part k in 1..4: ONCHIP = (k - 1) & 1, EXT = (k - 1) >> 1
+extern "C" grouped_kernel_t SG_PICK(SG_PART)(int stages) {
+  constexpr bool onchip = ((SG_PART - 1) & 1) != 0;
+  constexpr bool ext = ((SG_PART - 1) >> 1) != 0;
+  return stages >= 2 ? scan_grouped_kernel<2, onchip, ext>
+                     : scan_grouped_kernel<1, onchip, ext>;
+}
+#else
 // Final accumulators: grouped_reduce (scan_common.cuh) over the plan's
 // rows.
 __global__ void scan_grouped_reduce(const i64* __restrict__ plan, i64 G,
@@ -563,18 +591,18 @@ __global__ void scan_grouped_reduce(const i64* __restrict__ plan, i64 G,
                  part_i, acc_i, part_f, acc_f);
 }
 
-typedef void (*grouped_kernel_t)(const i64*, int, const i64*, int, i64, i64,
-                                 int, const i64*, int, i64, int, i64*, i64*,
-                                 double*, u64*, u64*, i64*, int8_t*, int*,
-                                 u64, int, int, int, int);
+extern "C" grouped_kernel_t scan_grouped_pick_1(int stages);
+extern "C" grouped_kernel_t scan_grouped_pick_2(int stages);
+extern "C" grouped_kernel_t scan_grouped_pick_3(int stages);
+extern "C" grouped_kernel_t scan_grouped_pick_4(int stages);
 
-template <bool EXT>
-static grouped_kernel_t pick(int stages, int onchip) {
-  if (onchip)
-    return stages >= 2 ? scan_grouped_kernel<2, true, EXT>
-                       : scan_grouped_kernel<1, true, EXT>;
-  return stages >= 2 ? scan_grouped_kernel<2, false, EXT>
-                     : scan_grouped_kernel<1, false, EXT>;
+static grouped_kernel_t pick(int stages, int onchip, int ext) {
+  switch ((onchip ? 1 : 0) + (ext ? 2 : 0)) {
+    case 0: return scan_grouped_pick_1(stages);
+    case 1: return scan_grouped_pick_2(stages);
+    case 2: return scan_grouped_pick_3(stages);
+    default: return scan_grouped_pick_4(stages);
+  }
 }
 
 // Launch the hash scan kernel over n_ctas persistent CTAs, then the
@@ -597,8 +625,7 @@ extern "C" int scan_grouped_launch(
     int n_ctas, int threads, int stages, int passes, int stage_tab,
     int stage_bytes, int smem_bytes, int ext, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const grouped_kernel_t kernel =
-      ext ? pick<true>(stages, onchip) : pick<false>(stages, onchip);
+  const grouped_kernel_t kernel = pick(stages, onchip, ext);
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -619,3 +646,4 @@ extern "C" int scan_grouped_launch(
       (i64*)acc_i, (const double*)part_f, (double*)acc_f);
   return (int)cudaGetLastError();
 }
+#endif  // SG_PART

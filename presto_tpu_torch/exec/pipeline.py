@@ -35,9 +35,10 @@ is allocated on the task's device (TaskContext.device).  The scan,
 filter and project steps share their compiled state across plans and
 runners by the subtree's structural key (PlanCompiler.fragment_jit,
 serving/fragments.py); a TableWriter streams its input into a writable
-connector and a TableFinish commits it.  A plan shape or option outside
-the slices raises NotImplementedError naming what is missing (GroupId
-among them); nothing falls back quietly.
+connector and a TableFinish commits it.  A GroupId (a translated
+reference fragment's grouping sets) yields one projection per set of
+each source batch.  A plan shape or option outside the slices raises
+NotImplementedError naming what is missing; nothing falls back quietly.
 """
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ from ..spi.expr import (CallExpression, ConstantExpression, RowExpression,
 from . import operators as ops
 from .batch import Batch, Column, batch_to_page, pages_to_batches
 from .lowering import (Lowering, canonical_name, constant_device_value,
-                       expr_has_params)
+                       expr_has_params, torch_dtype)
 from .memory import (MemoryContext, MemoryExceededError, MemoryPool,
                      PartitionedSpillStore, batch_bytes)
 
@@ -248,6 +249,49 @@ class ExecutionConfig:
     # (exec/scheduler.py _remote_reader over local_exchange.parallel_drain;
     # config key exchange.client-threads / session exchange_client_threads)
     exchange_client_threads: int = 4
+    # -- the HTTP task plane (worker/task.py, coordinator.py) ------------
+    # compress exchange pages on the wire (SerializedPage COMPRESSED
+    # marker; config key exchange.compression-enabled) with this codec
+    # (exchange.compression-codec: LZ4 | SNAPPY | ZSTD | GZIP | ZLIB | NONE)
+    exchange_compression: bool = False
+    exchange_compression_codec: str = "LZ4"
+    # per-lineage retry attempts for FAILED / lost remote tasks (0 =
+    # fail-fast); > 0 also makes worker output buffers RETAIN acknowledged
+    # pages until task teardown, so a restarted consumer replays from
+    # token 0 (config key task.remote-task-retry-attempts)
+    remote_task_retry_attempts: int = 2
+    # how long an exchange client retries an unreachable source before
+    # declaring the producer lost (exchange.max-error-duration)
+    exchange_max_error_duration_s: float = 60.0
+    # bytes buffered inside one ExchangeClient before its pullers park
+    # (exchange.max-buffer-size), and the results endpoint's response
+    # target that producers coalesce small pages up to
+    # (exchange.max-response-size)
+    exchange_max_buffer_bytes: int = 32 << 20
+    exchange_max_response_bytes: int = 1 << 20
+    # RETRY_POLICY_MODES: "query" restarts a failed lineage with its
+    # ancestors over retained in-memory buffers; "task" spools every
+    # stage's output durably (worker/spooling.py) so a failed task is
+    # retried alone (config key retry-policy / session retry_policy)
+    retry_policy: str = "query"
+    # spool directory under retry_policy="task" (spool.path; None: the
+    # spill path, then the system temp dir) and its host-RAM staging
+    # ceiling per task (spool.staging-budget-bytes)
+    spool_path: Optional[str] = None
+    spool_staging_budget_bytes: int = 16 << 20
+    # query wall-clock budget (query.max-execution-time): the coordinator
+    # forwards each task's remaining budget as X-Presto-Task-Deadline.
+    # 0 = no deadline
+    query_max_execution_time_s: float = 0.0
+    # the coordinator drops a worker whose last successful probe is older
+    # than this (failure-detector.heartbeat-timeout); 0 = streak only
+    failure_detector_heartbeat_timeout_s: float = 0.0
+    # chaos hook: the probability a task fails at start, rolled from a
+    # hash of the task id (task.fault-injection-probability)
+    fault_injection_probability: float = 0.0
+    # runtime lock-order validation of the task threads (common/locks.py;
+    # debug.lock-validation / session lock_validation)
+    lock_validation: bool = False
     # which fabric hashed remote-exchange edges ride (parallel/fabric.py
     # FABRICS): "auto", "http" (host pages) or "ici" (a device all_to_all
     # over a mesh, not ported: with no mesh every edge resolves to http).
@@ -280,6 +324,10 @@ class ExecutionConfig:
                              f"{SCAN_KERNEL_DMA_MODES}, got "
                              f"{self.scan_kernel_dma!r}")
 
+
+# legal retry-policy / retry_policy values (worker/properties.py and the
+# session property both validate against this)
+RETRY_POLICY_MODES = ("query", "task")
 
 # legal scan.kernel / scan_kernel values (the reference's)
 SCAN_KERNEL_MODES = ("xla", "pallas", "auto")
@@ -1775,6 +1823,38 @@ class PlanCompiler:
         return BatchSource(gen, names, types)
 
     # -- aggregation ------------------------------------------------------
+    def _compile_GroupIdNode(self, node: P.GroupIdNode) -> BatchSource:
+        """Grouping-set expansion (reference GroupIdOperator.java): each
+        source batch is pulled once and yielded once per grouping set,
+        its grouping columns outside the set all NULL and group_id the
+        set's index.  A NULLed column keeps its values, dictionary and
+        lazy tag, so every batch of the stream shares one encoding.  The
+        downstream aggregation groups by (grouping columns..., group_id),
+        exactly the reference pairing, and does not depend on the order
+        of the sets."""
+        src = self._compile(node.source)
+        names = [v.name for v in node.output_variables]
+        types = [v.type for v in node.output_variables]
+        gid = node.group_id_variable
+        sets = [{v.name for v in gset} for gset in node.grouping_sets]
+
+        def gen():
+            for b in src.batches():
+                for i, in_set in enumerate(sets):
+                    cols = {}
+                    for out_v, in_v in node.grouping_columns.items():
+                        c = b.columns[in_v.name]
+                        cols[out_v.name] = c if out_v.name in in_set \
+                            else Column(c.values, torch.ones_like(
+                                b.mask), c.dictionary, c.lazy, c.lengths)
+                    for v in node.aggregation_arguments:
+                        cols[v.name] = b.columns[v.name]
+                    cols[gid.name] = Column(torch.full(
+                        (b.capacity,), i, dtype=torch_dtype(gid.type),
+                        device=b.device))
+                    yield Batch(cols, b.mask)
+        return BatchSource(gen, names, types)
+
     def _compile_DistinctLimitNode(self, node: P.DistinctLimitNode
                                    ) -> BatchSource:
         """SELECT DISTINCT ... LIMIT n: a SINGLE aggregation with no
@@ -2389,7 +2469,7 @@ class PlanCompiler:
                        CHAIN_STEP_ROWS)
                 res = fused_cache.get(key)
                 if res is None:
-                    chunks = chain.chunks_for(expands)
+                    chunks = chain.chunks_for(expands, meter=True)
                     res = fused_cache[key] = (chunks, _chain_steps(
                         chunks, chain.leaf_cap(expands),
                         max(1, CHAIN_STEP_ROWS // chain.cap)))

@@ -182,9 +182,13 @@ def execution_config_from_properties(props: Dict[str, str],
     if "telemetry.profile-dir" in props:
         kw["profile_dir"] = props["telemetry.profile-dir"]
     if "retry-policy" in props:
-        # the reference checks it against RETRY_POLICY_MODES; the port has
-        # no retry policy, so setting it raises
-        kw["retry_policy"] = props["retry-policy"].strip().lower()
+        from ..exec.pipeline import RETRY_POLICY_MODES
+        mode = props["retry-policy"].strip().lower()
+        if mode not in RETRY_POLICY_MODES:
+            raise ValueError(
+                f"retry-policy must be one of {RETRY_POLICY_MODES}, "
+                f"got {mode!r}")
+        kw["retry_policy"] = mode
     if "query.max-execution-time" in props:
         kw["query_max_execution_time_s"] = parse_duration(
             props["query.max-execution-time"])

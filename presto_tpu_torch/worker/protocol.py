@@ -5,10 +5,10 @@ The port of presto_tpu/worker/protocol.py.  The task-update DTOs mirror
 the reference task protocol surface (presto-main-base/.../server/
 TaskUpdateRequest.java:37): the plan fragment rides base64-encoded inside
 the update request exactly like HttpRemoteTask.sendUpdate builds it
-(presto-main/.../server/remotetask/HttpRemoteTask.java:883-889).  The task
-plane that consumes them (worker/task.py, TaskStatus, the reference-shaped
-request of presto_protocol.py) is not ported: a Java-coordinator-shaped
-fragment raises NotImplementedError.
+(presto-main/.../server/remotetask/HttpRemoteTask.java:883-889).  A
+Java-coordinator-shaped update (presto_protocol.py) maps onto the compact
+request through from_reference_update, and its fragment is translated by
+worker/plan_translation.py.
 
 apply_session_properties maps session properties onto the port's
 ExecutionConfig; a property whose field the port lacks raises
@@ -105,12 +105,11 @@ class TaskUpdateRequest:
     def fragment(self) -> P.PlanFragment:
         raw = base64.b64decode(self.fragment_b64)
         d = json.loads(raw)
-        if "root" not in d:
-            # a Java-coordinator-shaped fragment: the reference translates
-            # it (worker/plan_translation.py), which is not ported
-            raise NotImplementedError(
-                "reference-shaped plan fragments (plan_translation.py) are "
-                "not ported")
+        from .plan_translation import is_reference_fragment, translate_fragment
+        if is_reference_fragment(d):
+            # a Java-coordinator-shaped fragment (PrestoToVeloxQueryPlan
+            # seam): translate the reference plan-node/RowExpression JSON
+            return translate_fragment(d, self.table_write_info)
         return P.PlanFragment.from_dict(d)
 
     def to_dict(self):
@@ -133,6 +132,91 @@ class TaskUpdateRequest:
             OutputBuffersSpec.from_dict(d["outputBuffers"]),
             d.get("session", {}), d.get("tableWriteInfo"),
             d.get("dynamicFilters"))
+
+
+def from_reference_update(task_id: str, d: dict) -> "TaskUpdateRequest":
+    """Accept an HttpRemoteTask-shaped TaskUpdateRequest
+    (presto_protocol_core.h:807: session/extraCredentials/fragment/
+    sources/outputIds/tableWriteInfo) and map it onto the worker's compact
+    internal request.  Output partitioning keys are not carried by the
+    reference OutputBuffers — the task derives them from the fragment's
+    partitioning scheme (same seam as PrestoToVeloxQueryPlan).  The task
+    index (AssignUniqueId namespacing) comes from the reference taskId's
+    partition component (queryId.stageId.stageExecutionId.partition.attempt,
+    TaskId.java)."""
+    from .presto_protocol import TaskUpdateRequest as RefUpdate
+    ref = RefUpdate.from_json(d)
+    parts = task_id.split(".")
+    try:
+        task_index = int(parts[3]) if len(parts) >= 4 else 0
+    except ValueError:
+        task_index = 0
+    sources = []
+    for ts in ref.sources:
+        # raw reference split dicts; Task.start translates them inside its
+        # fail-the-task guard (a malformed split must FAIL the task, not
+        # 404/500 the update request)
+        splits = [s.split or {} for s in ts.splits]
+        sources.append(TaskSource(ts.planNodeId, splits, ts.noMoreSplits))
+    bufs = ref.outputIds.buffers
+    # buffers maps bufferId -> partition; BROADCAST repeats partition 0 for
+    # every consumer, so the buffer COUNT comes from the ids
+    n_buffers = (max(int(k) for k in bufs.keys()) + 1) if bufs else 1
+    ob = OutputBuffersSpec(
+        "BROADCAST" if ref.outputIds.type == "BROADCAST"
+        else "PARTITIONED", n_buffers, [])
+    session = dict(ref.session.systemProperties)
+    return TaskUpdateRequest(task_id, task_index, ref.fragment, sources,
+                             ob, session, ref.tableWriteInfo)
+
+
+@dataclass
+class TaskStatus:
+    task_id: str
+    state: str
+    version: int
+    self_uri: str
+    failures: List[str] = field(default_factory=list)
+    memory_reservation: int = 0
+    completed_drivers: int = 0
+    # reference ErrorType.java classification of the FIRST failure
+    # (ExecutionFailureInfo.errorCode.type): the coordinator's retry
+    # decision — USER_ERROR never retries, infra errors may
+    error_type: str = ""
+
+    def to_dict(self):
+        # reference-shaped TaskStatus fields (presto_protocol_core.h:2358:
+        # failures are ExecutionFailureInfo-shaped dicts) merged with the
+        # compact extra fields in-repo clients read
+        from ..common.errors import is_retryable_type
+        from .presto_protocol import TaskStatus as RefStatus
+        et = self.error_type or "INTERNAL_ERROR"
+        ref = RefStatus(
+            version=self.version, state=self.state, self_uri=self.self_uri,
+            failures=[{"message": f, "type": "TASK_FAILURE",
+                       "errorCode": {"name": "GENERIC_" + et, "code": 0,
+                                     "type": et,
+                                     "retriable": is_retryable_type(et)}}
+                      for f in self.failures],
+            memoryReservationInBytes=self.memory_reservation).to_json()
+        ref.update({"taskId": self.task_id,
+                    "completedDrivers": self.completed_drivers})
+        return ref
+
+    @staticmethod
+    def from_dict(d):
+        failures = [f["message"] if isinstance(f, dict) else f
+                    for f in d.get("failures", [])]
+        error_type = ""
+        for f in d.get("failures", []):
+            if isinstance(f, dict):
+                error_type = (f.get("errorCode") or {}).get("type", "")
+                break
+        return TaskStatus(d["taskId"], d["state"], d["version"], d["self"],
+                          failures,
+                          d.get("memoryReservationInBytes", 0),
+                          d.get("completedDrivers", 0),
+                          error_type=error_type)
 
 
 def make_announcement(node_id: str, uri: str, environment: str = "test",
@@ -254,9 +338,13 @@ def apply_session_properties(config, session: Dict[str, str]):
         kw["exchange_max_error_duration_s"] = parse_duration(
             session["exchange_max_error_duration"])
     if "retry_policy" in session:
-        # the reference checks it against RETRY_POLICY_MODES; the port has
-        # no retry policy, so setting it raises
-        kw["retry_policy"] = str(session["retry_policy"]).strip().lower()
+        mode = str(session["retry_policy"]).strip().lower()
+        from ..exec.pipeline import RETRY_POLICY_MODES
+        if mode not in RETRY_POLICY_MODES:
+            raise ValueError(
+                f"retry_policy must be one of {RETRY_POLICY_MODES}, "
+                f"got {mode!r}")
+        kw["retry_policy"] = mode
     if "query_max_execution_time" in session:
         kw["query_max_execution_time_s"] = parse_duration(
             session["query_max_execution_time"])

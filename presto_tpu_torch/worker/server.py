@@ -1,11 +1,18 @@
-"""Worker HTTP server: the coordinator's client statement plane.
+"""Worker HTTP server: the task REST protocol, the coordinator's client
+statement plane, node info and discovery.
 
-The port of presto_tpu/worker/server.py for a single-node coordinator
-(WorkerServer(coordinator=True)), the path `python -m
-presto_tpu_torch.worker --etc-dir DIR` boots: the HTTP surface of the
-reference (presto_cpp/main/TaskResource.cpp / PrestoServer.cpp endpoint
-setup) on Python's stdlib threading HTTP server.
+The port of presto_tpu/worker/server.py: the HTTP surface of the
+reference (presto_cpp/main/TaskResource.cpp:59-129 registerUris,
+PrestoServer.cpp:327-390 endpoint setup) on Python's stdlib threading
+HTTP server.
 
+  POST   /v1/task/{taskId}                      create/update task
+  GET    /v1/task/{taskId}                      task info
+  GET    /v1/task/{taskId}/status               long-poll task status
+  DELETE /v1/task/{taskId}                      cancel
+  GET    /v1/task/{taskId}/results/{b}/{token}  pull pages (SerializedPage)
+  GET    /v1/task/{taskId}/results/{b}/{token}/acknowledge
+  DELETE /v1/task/{taskId}/results/{b}
   POST   /v1/statement                          client statement intake
   GET    /v1/statement/{queued,executing}/...   nextUri pages
   DELETE /v1/statement/...                      cancel
@@ -13,24 +20,23 @@ setup) on Python's stdlib threading HTTP server.
   GET    /v1/info, /v1/info/state, /v1/status, /v1/cluster
   PUT    /v1/info/state                         graceful shutdown (drain)
   GET    /v1/metrics                            Prometheus text exposition
+  POST   /v1/plan-check                         sidecar plan validation
   PUT    /v1/announcement/{nodeId}, GET /v1/service   discovery
   GET    /ui                                    query list page
 
-Statements run on DispatchManager threads through one LocalQueryRunner
-per (schema, catalog, session) on the server's device (`device`, "cuda"
-by default: without CUDA the server refuses to start), each runner with
-its own PlanCache.  The serving plane is the reference's: concurrent
-EXECUTEs of one prepared template pass the micro-batcher
-(serving/batching.py, `batch_window_ms` / `max_batch_size`), served
-statements are recorded in the plan-cache sidecar (`plan_cache_path`)
-and replayed before the listener opens, the generated kernels' cubins
-persist in `compilation_cache_dir`, and a CREATE, INSERT or DROP drops
-the runners and clears the sidecar.  What the port lacks answers with an
-error naming it, never a quiet default: the task plane (/v1/task/...,
-worker/task.py with its buffers and exchange) and /v1/plan-check answer
-501; a statement on a coordinator that other workers announced to fails
-(the distributed HttpQueryRunner, worker/coordinator.py); the telemetry
-and history arguments raise at construction.
+Every task and statement runs on the server's device (`device`, "cuda" by
+default: without CUDA the server refuses to start).  A coordinator with
+no announced workers runs statements through one LocalQueryRunner per
+(schema, catalog, session), each with its own PlanCache; with announced
+workers it runs them through worker/coordinator.py's HttpQueryRunner,
+with a heartbeat failure detector, retries and drain.  The serving plane
+is the reference's: concurrent EXECUTEs of one prepared template pass
+the micro-batcher (serving/batching.py, `batch_window_ms` /
+`max_batch_size`), served statements are recorded in the plan-cache
+sidecar (`plan_cache_path`) and replayed before the listener opens, the
+generated kernels' cubins persist in `compilation_cache_dir`, and a
+CREATE, INSERT or DROP drops the runners and clears the sidecar.  The
+telemetry and history arguments the port lacks raise at construction.
 """
 from __future__ import annotations
 
@@ -44,7 +50,8 @@ from typing import Dict, Optional
 from urllib.parse import parse_qs, urlparse
 
 from ..exec.pipeline import ExecutionConfig, tuned_config
-from .protocol import make_announcement
+from .protocol import TaskUpdateRequest, make_announcement
+from .task import TaskManager
 
 # the reference WorkerServer's arguments the port lacks, with what they
 # configure
@@ -59,9 +66,6 @@ _UNPORTED_ARGS = {
     "history_max_count": "query history (telemetry/history.py)",
     "history_max_age_s": "query history (telemetry/history.py)",
 }
-# what the unported task routes name
-_TASK_PLANE = ("the task plane (worker/task.py, buffers.py, exchange.py) "
-               "is not ported")
 
 # routes subject to the internal JWT filter (worker-to-worker and
 # coordinator-to-worker surfaces; client-facing statement/query/UI
@@ -185,6 +189,46 @@ class _Handler(BaseHTTPRequestHandler):
         length = int(self.headers.get("Content-Length", 0))
         return self.rfile.read(length)
 
+    def _body_json(self):
+        """Request body as a JSON value, honoring the binary transport:
+        Content-Type application/x-jackson-smile bodies (the
+        coordinator's HttpRemoteTask.java:915-931 negotiation) decode
+        through worker/smile.py; everything else parses as JSON text."""
+        raw = self._body()
+        ctype = (self.headers.get("Content-Type") or "").lower()
+        from . import smile
+        if smile.CONTENT_TYPE in ctype or raw[:3] == b":)\n":
+            return smile.decode(raw)
+        return json.loads(raw)
+
+    def _accepts_smile(self) -> bool:
+        from . import smile
+        return smile.CONTENT_TYPE in (self.headers.get("Accept")
+                                      or "").lower()
+
+    def _accepts_thrift(self) -> bool:
+        from . import thrift
+        return thrift.CONTENT_TYPE in (self.headers.get("Accept")
+                                       or "").lower()
+
+    def _send_negotiated(self, code: int, obj,
+                         thrift_encoder=None) -> None:
+        """JSON by default; SMILE or Thrift when the client's Accept asks
+        for it (the TaskStatus/TaskInfo hot path the reference serves over
+        a negotiated binary transport — HttpRemoteTask.java:915-931 /
+        TaskResource.cpp:218-224).  Thrift needs a typed schema, so only
+        endpoints passing a thrift_encoder serve it."""
+        if thrift_encoder is not None and self._accepts_thrift():
+            from . import thrift
+            self._send(code, None, thrift_encoder(obj),
+                       headers={"Content-Type": thrift.CONTENT_TYPE})
+        elif self._accepts_smile():
+            from . import smile
+            self._send(code, None, smile.encode(obj),
+                       headers={"Content-Type": smile.CONTENT_TYPE})
+        else:
+            self._send(code, obj)
+
 
 
     # -- endpoints --------------------------------------------------------
@@ -200,8 +244,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_info_state_put(self, groups, query):
         """Graceful shutdown (reference GracefulShutdownHandler /
-        presto_cpp PrestoServer.cpp:648-688): stop accepting work, then
-        report SHUTTING_DOWN until the process exits."""
+        presto_cpp PrestoServer.cpp:648-688): stop accepting tasks, drain
+        running ones, then report SHUTTING_DOWN until the process exits."""
         body = json.loads(self._body())
         if body != "SHUTTING_DOWN":
             self._send(400, {"error": f"unsupported state {body!r}"})
@@ -210,10 +254,12 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(200, "SHUTTING_DOWN")
 
     def do_status(self, groups, query):
-        """Node status (reference server/NodeStatus.java).  The port runs
-        no tasks (the task plane is not ported), so the task counts are
-        zero; heapUsed is the device allocator's peak."""
+        """Node status (reference server/NodeStatus.java: the payload the
+        coordinator's memory manager and UI poll); heapUsed is the device
+        allocator's peak."""
         s = self.server_ref
+        c = s.task_manager.counts()
+        det = s.failure_detector
         self._send(200, {
             "nodeId": s.node_id,
             "nodeVersion": {"version": "presto-tpu-0.1"},
@@ -221,11 +267,12 @@ class _Handler(BaseHTTPRequestHandler):
             "coordinator": s.coordinator,
             "state": s.state,
             "uptime": f"{time.time() - s.started_at:.0f}s",
-            "tasks": {},
-            "totalTasks": 0,
-            "tasksFailed": 0,
-            "tasksRetried": 0,
+            "tasks": c["by_state"],
+            "totalTasks": c["created"],
+            "tasksFailed": c["failed"],
+            "tasksRetried": c["retried"],
             "heapUsed": s.device_memory()["peak_allocated_bytes"],
+            **({"failureDetector": det.snapshot()} if det else {}),
             **self._serving_status(),
         })
 
@@ -246,13 +293,82 @@ class _Handler(BaseHTTPRequestHandler):
     def do_metrics(self, groups, query):
         """Prometheus text exposition (reference
         presto_cpp/main/runtime-metrics/PrometheusStatsReporter.h:40) of
-        the registries the port has: serving, storage, the scan and
-        window kernels (with the stage ring's counters), device memory
-        and resource groups."""
+        the registries the port has: tasks, the failure detector, the
+        spool, the exchange client, serving, storage, the scan and window
+        kernels (with the stage ring's counters), device memory, locks and
+        resource groups."""
         s = self.server_ref
+        c = s.task_manager.counts()
         lines = [
             "# TYPE presto_tpu_uptime_seconds gauge",
             f"presto_tpu_uptime_seconds {time.time() - s.started_at:.1f}",
+            "# TYPE presto_tpu_tasks_created_total counter",
+            f"presto_tpu_tasks_created_total {c['created']}",
+            "# TYPE presto_tpu_tasks_failed_total counter",
+            f"presto_tpu_tasks_failed_total {c['failed']}",
+            "# TYPE presto_tpu_task_retries_total counter",
+            f"presto_tpu_task_retries_total {c['retried']}",
+            "# TYPE presto_tpu_task_memory_peak_bytes gauge",
+            f"presto_tpu_task_memory_peak_bytes {c['memory_peak']}",
+            "# TYPE presto_tpu_tasks gauge",
+        ]
+        for state, n in sorted(c["by_state"].items()):
+            lines.append(
+                'presto_tpu_tasks{state="%s"} %d' % (state.lower(), n))
+        det = s.failure_detector
+        if det is not None:
+            lines.append("# TYPE presto_tpu_worker_probe_failures gauge")
+            lines.append("# TYPE presto_tpu_worker_alive gauge")
+            for uri, w in sorted(det.snapshot().items()):
+                lines.append(
+                    'presto_tpu_worker_probe_failures{worker="%s"} %d'
+                    % (uri, w["streak"]))
+                lines.append(
+                    'presto_tpu_worker_alive{worker="%s",draining="%s"} %d'
+                    % (uri, str(w["draining"]).lower(),
+                       1 if w["alive"] else 0))
+        # durable spooled-exchange section (worker/spooling.py): bytes
+        # staged/flushed by fault-tolerant (retry-policy=task) executions
+        from .spooling import SPOOL_METRICS
+        sp = SPOOL_METRICS.snapshot()
+        for k in sorted(sp):
+            if k == "staged_bytes":
+                lines.append(f"# TYPE presto_tpu_spool_{k} gauge")
+                lines.append(f"presto_tpu_spool_{k} {sp[k]}")
+            else:
+                lines.append(f"# TYPE presto_tpu_spool_{k}_total counter")
+                lines.append(f"presto_tpu_spool_{k}_total {sp[k]}")
+        # exchange-client section: process-wide (one worker per process in
+        # a real deployment; in-process test clusters aggregate, so tests
+        # reset() the singleton before asserting)
+        from .exchange import EXCHANGE_METRICS
+        x = EXCHANGE_METRICS.snapshot()
+        lines += [
+            "# TYPE presto_tpu_exchange_pages_total counter",
+            f"presto_tpu_exchange_pages_total {x['pages']}",
+            "# TYPE presto_tpu_exchange_bytes_total counter",
+            f"presto_tpu_exchange_bytes_total {x['bytes']}",
+            "# TYPE presto_tpu_exchange_uncompressed_bytes_total counter",
+            "presto_tpu_exchange_uncompressed_bytes_total "
+            f"{x['uncompressed_bytes']}",
+            "# TYPE presto_tpu_exchange_responses_total counter",
+            f"presto_tpu_exchange_responses_total {x['responses']}",
+            "# TYPE presto_tpu_exchange_clients_total counter",
+            f"presto_tpu_exchange_clients_total {x['clients']}",
+            "# TYPE presto_tpu_exchange_pull_wall_seconds_total counter",
+            f"presto_tpu_exchange_pull_wall_seconds_total "
+            f"{x['pull_wall_s']:.6f}",
+            "# TYPE presto_tpu_exchange_decode_wall_seconds_total counter",
+            f"presto_tpu_exchange_decode_wall_seconds_total "
+            f"{x['decode_wall_s']:.6f}",
+            "# TYPE presto_tpu_exchange_wait_wall_seconds_total counter",
+            f"presto_tpu_exchange_wait_wall_seconds_total "
+            f"{x['wait_wall_s']:.6f}",
+            "# TYPE presto_tpu_exchange_buffered_bytes gauge",
+            f"presto_tpu_exchange_buffered_bytes {x['buffered_bytes']}",
+            "# TYPE presto_tpu_exchange_buffered_bytes_peak gauge",
+            "presto_tpu_exchange_buffered_bytes_peak "
+            f"{x['buffered_bytes_peak']}",
         ]
         from ..serving import SERVING_METRICS
         sv = SERVING_METRICS.snapshot()
@@ -375,6 +491,27 @@ class _Handler(BaseHTTPRequestHandler):
                 f"presto_tpu_exchange_fabric_overlap_fraction{{{tag}}} "
                 f"{f['overlap_fraction']:.6f}",
             ]
+        # lock-order validation + contention metering (common/locks.py):
+        # populated when debug.lock-validation (or a session's
+        # lock_validation override) armed the OrderedLock bookkeeping
+        from ..common.locks import LOCK_METRICS, validation_enabled
+        lk = LOCK_METRICS.snapshot()
+        lines += [
+            "# TYPE presto_tpu_lock_validation_enabled gauge",
+            f"presto_tpu_lock_validation_enabled "
+            f"{1 if validation_enabled() else 0}",
+            "# TYPE presto_tpu_lock_acquisitions_total counter",
+            f"presto_tpu_lock_acquisitions_total {lk['acquisitions']}",
+            "# TYPE presto_tpu_lock_contended_total counter",
+            f"presto_tpu_lock_contended_total {lk['contended']}",
+            "# TYPE presto_tpu_lock_contention_wall_seconds_total counter",
+            f"presto_tpu_lock_contention_wall_seconds_total "
+            f"{lk['contention_wall_s']}",
+            "# TYPE presto_tpu_lock_hold_wall_seconds_total counter",
+            f"presto_tpu_lock_hold_wall_seconds_total {lk['hold_wall_s']}",
+            "# TYPE presto_tpu_lock_order_violations_total counter",
+            f"presto_tpu_lock_order_violations_total {lk['violations']}",
+        ]
         km = s.process_metrics()["kernel"]
         for k in ("scan_programs", "window_programs", "dma_staged_blocks",
                   "dma_prefetched_blocks"):
@@ -567,12 +704,13 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_cluster(self, groups, query):
         """/v1/cluster (reference ClusterStatsResource): query counts by
-        lifecycle bucket, workers, admission memory."""
+        lifecycle bucket, task and worker totals, admission memory."""
         s = self.server_ref
         d = s.dispatch
         if d is None:
             self._send(404, {"error": "not a coordinator"})
             return
+        c = s.task_manager.counts()
         by_state: Dict[str, int] = {}
         for q in d.list_queries():
             by_state[q["state"]] = by_state.get(q["state"], 0) + 1
@@ -592,12 +730,14 @@ class _Handler(BaseHTTPRequestHandler):
             "failedQueries": by_state.get("FAILED", 0),
             "canceledQueries": by_state.get("CANCELED", 0),
             "activeWorkers": len(s.worker_uris()),
-            "runningTasks": 0,
-            "totalTasks": 0,
+            "runningTasks": c["by_state"].get("RUNNING", 0),
+            "totalTasks": c["created"],
             "reservedMemoryBytes": reserved,
             "revocableMemoryBytes": adm.get("memoryRevocableBytes", 0),
             **({"memoryHeadroomBytes": headroom}
                if headroom is not None else {}),
+            **({"workers": s.failure_detector.snapshot()}
+               if s.failure_detector else {}),
         })
 
     def do_query_info(self, groups, query):
@@ -609,6 +749,12 @@ class _Handler(BaseHTTPRequestHandler):
         except KeyError:
             self._send(404, {"error": "unknown query"})
             return
+        # stage/task/operator drill-down: the terminal snapshot captured
+        # by the executor, else a LIVE snapshot from the running
+        # distributed execution matched by trace token
+        extra = q.query_info_extra
+        if extra is None and not q.done.is_set():
+            extra = self.server_ref.live_query_info(q.trace_token)
         self._send(200, {
             "queryId": q.query_id, "query": q.sql, "state": q.state,
             "traceToken": q.trace_token,
@@ -618,19 +764,25 @@ class _Handler(BaseHTTPRequestHandler):
             **({"runtimeStats": q.runtime_stats}
                if q.runtime_stats else {}),
             **({"failureInfo": {"message": q.error}} if q.error else {}),
+            **({"stages": extra.get("stages"),
+                "operatorStats": extra.get("operatorStats")}
+               if extra else {}),
             "processMetrics": self.server_ref.process_metrics(),
             "resourceGroups": d.resource_groups.info()})
 
-    # -- what the port lacks ----------------------------------------------
-    def do_task_update(self, groups, query):
-        self._send(501, {"error": _TASK_PLANE})
-
-    do_task_status = do_task_info = do_task_delete = do_task_update
-    do_results = do_results_ack = do_results_destroy = do_task_update
-
     def do_plan_check(self, groups, query):
-        self._send(501, {"error": "the plan-check sidecar (worker/router.py) "
-                                  "is not ported"})
+        """Sidecar plan validation (presto-native-sidecar-plugin
+        nativechecker analog): can the native planner handle this SQL?
+        Consumed by the plan-check router scheduler."""
+        from .router import plan_checks
+        sql = self._body().decode()
+        err = plan_checks(sql,
+                          schema=self.headers.get("X-Presto-Schema",
+                                                  "sf0.01"),
+                          catalog=self.headers.get("X-Presto-Catalog",
+                                                   "tpch"))
+        self._send(200, {"ok": err is None,
+                         **({"error": err} if err else {})})
 
     def do_ui(self, groups, query):
         """Minimal cluster console (the presto-ui query-list analog)."""
@@ -672,15 +824,103 @@ collapse}}td,th{{border:1px solid #ccc;padding:4px 8px;text-align:left}}
         self._send(200, None, html.encode(),
                    headers={"Content-Type": "text/html; charset=utf-8"})
 
+    def do_task_update(self, groups, query):
+        if self.server_ref.state != "ACTIVE":
+            # draining node refuses new work; the coordinator reroutes
+            self._send(503, {"error": "node is shutting down"})
+            return
+        body = self._body_json()
+        if "outputIds" in body or "extraCredentials" in body:
+            # reference-shaped request (HttpRemoteTask.java:883-936)
+            from .protocol import from_reference_update
+            update = from_reference_update(groups["task"], body)
+        else:
+            update = TaskUpdateRequest.from_dict(body)
+        # X-Presto-Task-Deadline carries the query's REMAINING execution
+        # budget in ms (no cross-node clock sync needed): the TaskManager
+        # reaper and the pipeline drain loop both enforce it
+        deadline_ms = None
+        raw_deadline = self.headers.get("X-Presto-Task-Deadline")
+        if raw_deadline:
+            try:
+                deadline_ms = float(raw_deadline)
+            except ValueError:
+                deadline_ms = None
+        status = self.server_ref.task_manager.create_or_update(
+            update, deadline_ms=deadline_ms)
+        from .thrift import task_status_to_thrift
+        self._send_negotiated(200, status.to_dict(),
+                              thrift_encoder=task_status_to_thrift)
+
+    def do_task_status(self, groups, query):
+        task = self.server_ref.task_manager.get(groups["task"])
+        current = self.headers.get("X-Presto-Current-State") or \
+            (query.get("currentState", [None])[0])
+        max_wait = float(query.get("maxWaitMs", ["1000"])[0]) / 1000.0
+        status = task.wait_status(current, max_wait)
+        from .thrift import task_status_to_thrift
+        self._send_negotiated(200, status.to_dict(),
+                              thrift_encoder=task_status_to_thrift)
+
+    def do_task_info(self, groups, query):
+        task = self.server_ref.task_manager.get(groups["task"])
+        self._send_negotiated(200, task.info())
+
+    def do_task_delete(self, groups, query):
+        task = self.server_ref.task_manager.get(groups["task"])
+        task.cancel()
+        from .thrift import task_status_to_thrift
+        self._send_negotiated(200, task.status().to_dict(),
+                              thrift_encoder=task_status_to_thrift)
+
+    def do_results(self, groups, query):
+        task = self.server_ref.task_manager.get(groups["task"])
+        max_wait = float(query.get("maxWaitMs", ["1000"])[0]) / 1000.0
+        # X-Presto-Max-Size (PrestoHeaders.java:57): the consumer caps how
+        # many bytes one response may carry; absent means uncapped
+        max_size = self.headers.get("X-Presto-Max-Size")
+        max_bytes = None
+        if max_size:
+            from .protocol import parse_data_size
+            try:
+                max_bytes = parse_data_size(max_size)
+            except (ValueError, TypeError):
+                max_bytes = None
+        pages, next_token, complete = task.buffers.get(
+            int(groups["buffer"]), int(groups["token"]), max_wait,
+            max_bytes=max_bytes)
+        body = b"".join(pages)
+        # reference header names (PrestoHeaders.java:51-52 /
+        # presto_protocol_core.cpp:82-84): the Java ExchangeClient reads
+        # X-Presto-Page-Sequence-Id / X-Presto-Page-End-Sequence-Id.  The
+        # pre-round-4 repo names are kept as aliases for older peers.
+        self._send(200, None, body, headers={
+            "X-Presto-Page-Sequence-Id": groups["token"],
+            "X-Presto-Page-End-Sequence-Id": str(next_token),
+            "X-Presto-Page-Token": groups["token"],
+            "X-Presto-Page-Next-Token": str(next_token),
+            "X-Presto-Buffer-Complete": "true" if complete else "false",
+            "X-Presto-Task-Instance-Id": task.task_id,
+        })
+
+    def do_results_ack(self, groups, query):
+        task = self.server_ref.task_manager.get(groups["task"])
+        task.buffers.acknowledge(int(groups["buffer"]), int(groups["token"]))
+        self._send(200, {"acknowledged": True})
+
+    def do_results_destroy(self, groups, query):
+        task = self.server_ref.task_manager.get(groups["task"])
+        task.buffers.destroy(int(groups["buffer"]))
+        self._send(200, {"destroyed": True})
+
 
 
 
 class WorkerServer:
-    """One coordinator process node (coordinator=True: statement intake
-    and the embedded discovery service, like the reference coordinator
-    embeds Airlift discovery, PrestoServer.java:122).  Without
-    coordinator=True the server answers /v1/info-style endpoints only:
-    the worker's task plane is not ported."""
+    """One worker (or coordinator) process node.  With coordinator=True the
+    server also hosts the embedded discovery service, like the reference
+    coordinator embeds Airlift discovery (PrestoServer.java:122).  Every
+    task and every statement the server runs computes on `device`."""
 
     # every not-yet-closed server in this process (weak: a dropped server
     # must not be kept alive by the registry)
@@ -726,6 +966,11 @@ class WorkerServer:
         self.started_at = time.time()
         self.exec_config = config or tuned_config()
         self.plan_cache_entries = plan_cache_entries
+        if getattr(self.exec_config, "lock_validation", False):
+            # debug.lock-validation=on arms the worker-wide base flag;
+            # per-query session overrides compose scopes on top of it
+            from ..common.locks import set_validation
+            set_validation(True)
 
         handler = type("Handler", (_Handler,), {"server_ref": self})
         self.httpd = ThreadingHTTPServer(("127.0.0.1", port), handler)
@@ -760,6 +1005,16 @@ class WorkerServer:
         if internal_ca_path:
             from .auth import set_internal_ca
             set_internal_ca(internal_ca_path)
+        # the task plane: every task's fragment runs on this server's
+        # device and its executor thread enters it
+        self.task_manager = TaskManager(self.uri, config, events=events,
+                                        device=self.device)
+        # terminal-task eviction must not depend on new tasks arriving
+        # (reference PeriodicTaskManager)
+        self.task_manager.start_reaper()
+        # coordinator role: liveness probing over discovered workers,
+        # attached lazily when the first distributed statement runs
+        self.failure_detector = None
 
         # persistent kernel cache (serving/persist.py): point the
         # generated kernels' cubin directory at disk BEFORE anything
@@ -856,37 +1111,51 @@ class WorkerServer:
                     for a in (self.discovery or {}).values()]
 
     def _runner_for(self, schema, catalog, session):
-        """Get-or-build the cached LocalQueryRunner for one (schema,
-        catalog, session) combination, on the server's device and with
-        its own PlanCache (serving.plan-cache-entries bounds each).  A
-        coordinator other workers announced to would run the statement
-        distributed in the reference (HttpQueryRunner), which is not
-        ported: the statement fails naming it."""
+        """Get-or-build the cached query runner for one (workers, schema,
+        catalog, session) combination, on the server's device.  With
+        workers announced it is an HttpQueryRunner over them (with a
+        failure detector); otherwise a LocalQueryRunner with its own
+        PlanCache (serving.plan-cache-entries bounds each).  Runners are
+        cached so repeated statements reuse the plan cache and warm
+        pipelines; DDL invalidates the cache (it may change any
+        catalog's tables)."""
         from .protocol import apply_session_properties
         cfg = apply_session_properties(self.exec_config, session)
         uris = tuple(sorted(u for u in self.worker_uris() if u != self.uri))
-        if uris:
-            raise NotImplementedError(
-                f"distributed execution over {len(uris)} announced "
-                f"worker(s) (worker/coordinator.py HttpQueryRunner) is not "
-                f"ported")
-        key = (schema, catalog, tuple(sorted(session.items())))
+        key = (uris, schema, catalog, tuple(sorted(session.items())))
         with self._runner_lock:
             runner = self._runner_cache.get(key)
             if runner is None:
-                from ..exec.runner import LocalQueryRunner
-                from ..serving import PlanCache
-                cache = (PlanCache(self.plan_cache_entries)
-                         if self.plan_cache_entries is not None
-                         else PlanCache())
-                runner = LocalQueryRunner(schema, config=cfg,
-                                          catalog=catalog,
-                                          plan_cache=cache,
-                                          device=self.device)
+                if uris:
+                    from .coordinator import (HeartbeatFailureDetector,
+                                              HttpQueryRunner)
+                    det = HeartbeatFailureDetector(
+                        list(uris),
+                        heartbeat_timeout_s=(
+                            cfg.failure_detector_heartbeat_timeout_s
+                            or None))
+                    runner = HttpQueryRunner(list(uris), schema=schema,
+                                             config=cfg, session=session,
+                                             failure_detector=det,
+                                             catalog=catalog,
+                                             device=self.device)
+                    self.failure_detector = det
+                else:
+                    from ..exec.runner import LocalQueryRunner
+                    from ..serving import PlanCache
+                    cache = (PlanCache(self.plan_cache_entries)
+                             if self.plan_cache_entries is not None
+                             else PlanCache())
+                    runner = LocalQueryRunner(schema, config=cfg,
+                                              catalog=catalog,
+                                              plan_cache=cache,
+                                              device=self.device)
                 self._runner_cache[key] = runner
                 while len(self._runner_cache) > 16:
-                    self._runner_cache.pop(next(iter(self._runner_cache)))
-        return runner
+                    old = self._runner_cache.pop(
+                        next(iter(self._runner_cache)))
+                    self._close_runner(old)
+        return runner, uris
 
     @staticmethod
     def _batch_template_text(runner, q) -> Optional[str]:
@@ -903,16 +1172,19 @@ class WorkerServer:
                 or getattr(runner, "_prepared", {}).get(name))
 
     def _execute_statement(self, q):
-        """DispatchManager executor.  EXECUTE..USING traffic first passes
+        """DispatchManager executor: run a managed query over the
+        discovered workers (HttpQueryRunner) or in-process when none are
+        announced.  Single-node EXECUTE..USING traffic first passes
         the micro-batcher: requests against the same template that land
         inside one batching window run as ONE batched drain
         (exec/runner.py execute_prepared_batch); everything else -- and
         every lane the drain declines -- takes `_run_single`, the
         sequential path."""
-        runner = self._runner_for(q.schema, q.catalog, q.session)
+        runner, uris = self._runner_for(q.schema, q.catalog, q.session)
         result = None
         served = False
-        if self._batcher is not None and self._batcher.enabled:
+        if (not uris and self._batcher is not None
+                and self._batcher.enabled):
             text = self._batch_template_text(runner, q)
             if text is not None:
                 result = self._batcher.run(
@@ -920,10 +1192,10 @@ class WorkerServer:
                     lambda items: runner.execute_prepared_batch(
                         [it.sql for it in items],
                         prepared=[it.prepared for it in items]),
-                    lambda item: self._run_single(runner, item))
+                    lambda item: self._run_single(runner, uris, item))
                 served = True
         if not served:
-            result = self._run_single(runner, q)
+            result = self._run_single(runner, uris, q)
         if self._sidecar is not None:
             self._record_sidecar(q)
         return result
@@ -952,8 +1224,11 @@ class WorkerServer:
         n = 0
         for rec in self._sidecar.load():
             try:
-                runner = self._runner_for(rec["schema"], rec["catalog"],
-                                          rec.get("session") or {})
+                runner, uris = self._runner_for(
+                    rec["schema"], rec["catalog"],
+                    rec.get("session") or {})
+                if uris:
+                    continue    # warm start serves the single-node plane
                 runner.execute(rec["sql"],
                                prepared=rec.get("prepared") or {})
                 n += 1
@@ -961,30 +1236,70 @@ class WorkerServer:
                 continue        # table, bad session) must not block boot
         return n
 
-    def _run_single(self, runner, q):
-        """The sequential path: a single-node SELECT or EXECUTE streams
+    def _run_single(self, runner, uris, q):
+        """The sequential path.  Single-node: a SELECT or EXECUTE streams
         its rows chunk by chunk (the coordinator never materializes the
         full result, reference Query.java); an EXPLAIN, a PREPARE, a
-        DEALLOCATE or a write runs materialized, and a write drops every
-        cached runner and clears the sidecar (their plans and recorded
-        exemplars may read the changed table)."""
-        sr = runner.execute_streaming(q.sql, prepared=q.prepared)
-        if sr is not None:
-            from .statement import StreamingResult, _json_value
-            columns, row_iter, stats = sr
-            return StreamingResult(
-                columns,
-                ([_json_value(v) for v in row] for row in row_iter),
-                stats)
-        result = runner.execute(q.sql, prepared=q.prepared)
+        DEALLOCATE or a write runs materialized.  Distributed: the
+        HttpQueryRunner runs the statement over the workers and its
+        execution's stage / task snapshot is kept for /v1/query/{id}.  A
+        write drops every cached runner and clears the sidecar (their
+        plans and recorded exemplars may read the changed table)."""
+        if not uris:
+            sr = runner.execute_streaming(q.sql, prepared=q.prepared)
+            if sr is not None:
+                from .statement import StreamingResult, _json_value
+                columns, row_iter, stats = sr
+                return StreamingResult(
+                    columns,
+                    ([_json_value(v) for v in row] for row in row_iter),
+                    stats)
+            result = runner.execute(q.sql, prepared=q.prepared)
+        else:
+            result = runner.execute(q.sql, trace_token=q.trace_token)
+            exe = getattr(runner, "last_execution", None)
+            if exe is not None and getattr(exe, "trace_token",
+                                           "") == q.trace_token:
+                try:
+                    # terminal snapshot: tasks stay queryable on workers
+                    # until TTL eviction
+                    q.query_info_extra = exe.query_info_snapshot()
+                except Exception:  # noqa: BLE001 -- snapshot best-effort
+                    pass
         if q.sql.lstrip()[:6].lower() in ("create", "insert") \
                 or q.sql.lstrip()[:4].lower() == "drop":
             with self._runner_lock:
+                for r in self._runner_cache.values():
+                    self._close_runner(r)
                 self._runner_cache.clear()
             if self._sidecar is not None:
                 # a replayed exemplar would re-plan against changed tables
                 self._sidecar.clear()
         return result
+
+    def live_query_info(self, trace_token: str) -> Optional[dict]:
+        """Live stage/task/operator snapshot for a RUNNING distributed
+        query, matched to its execution by trace token (the runner cache
+        is shared across queries, so the token is the join key)."""
+        if not trace_token:
+            return None
+        with self._runner_lock:
+            runners = list(self._runner_cache.values())
+        for r in runners:
+            exe = getattr(r, "last_execution", None)
+            if exe is not None and getattr(exe, "trace_token",
+                                           "") == trace_token:
+                try:
+                    return exe.query_info_snapshot()
+                except Exception:  # noqa: BLE001 -- snapshot best-effort
+                    return None
+        return None
+
+    @staticmethod
+    def _close_runner(runner) -> None:
+        det = getattr(runner, "failure_detector", None)
+        if det is not None:
+            det.close()
 
     def plan_cache_info(self) -> dict:
         """The runners' plan caches, summed."""
@@ -1042,20 +1357,37 @@ class WorkerServer:
         self.close()
 
     def begin_shutdown(self) -> None:
-        """Refuse new work, then stop the server after a grace period
-        (reference GracefulShutdownHandler / native
-        PrestoServer.cpp:648-688; the reference then drains tasks, and
-        the port runs none)."""
+        """Refuse new tasks, wait for running ones to drain, then stop the
+        server (reference GracefulShutdownHandler / native
+        PrestoServer.cpp:648-688)."""
         with self.discovery_lock:
             if self.state != "ACTIVE":
                 return
             self.state = "SHUTTING_DOWN"
 
         def drain():
-            # the coordinator observes the drain state before the
-            # endpoints disappear (the reference waits 2x the
-            # announcement interval for the same reason)
+            # grace period first, so the coordinator observes the drain
+            # state before the endpoints disappear (the reference waits
+            # 2x the announcement interval for the same reason)
             time.sleep(2.0)
+            deadline = time.time() + 30.0
+            while time.time() < deadline:
+                counts = self.task_manager.counts()["by_state"]
+                if not any(s in ("RUNNING", "PLANNED") for s in counts):
+                    break
+                time.sleep(0.1)
+            # spooled output (retry-policy=task) outlives task completion:
+            # make it durable, then keep serving /results until every
+            # consumer has drained it (final DELETE or acked-to-end), so
+            # in-flight queries finish with zero failures before we exit
+            try:
+                self.task_manager.flush_spools()
+            except Exception:  # noqa: BLE001 -- drain is best-effort
+                pass
+            while time.time() < deadline:
+                if self.task_manager.all_output_consumed():
+                    break
+                time.sleep(0.1)
             self.close()
         threading.Thread(target=drain, name="drain", daemon=True).start()
 
@@ -1069,7 +1401,15 @@ class WorkerServer:
             clear_process_auth(self.auth)
             self._unregister_system()
             with self._runner_lock:
+                for r in self._runner_cache.values():
+                    self._close_runner(r)
                 self._runner_cache.clear()
+            self.task_manager.cancel_all()
+            if getattr(self.exec_config, "lock_validation", False):
+                # disarm the base flag this server armed at init (session
+                # scopes are counted separately and unwind on their own)
+                from ..common.locks import set_validation
+                set_validation(False)
         finally:
             # the listener MUST die even if teardown raised
             WorkerServer._live.discard(self)

@@ -54,17 +54,18 @@ CONFIGS = [
       "experimental.spill-enabled": "false",
       "exchange.compression-enabled": "true",
       "exchange.compression-codec": "zstd", "task.batch-rows": "8192",
-      "coordinator-only.key": "ignored"}, "exchange.compression-enabled"),
+      "coordinator-only.key": "ignored"}, None),
     ({"exchange.ici-chunk-rows": "4096"}, "exchange.ici-chunk-rows"),
-    ({"task.fault-injection-probability": "0.1"},
-     "task.fault-injection-probability"),
+    # the task plane's keys are ported with worker/task.py
+    ({"task.fault-injection-probability": "0.1"}, None),
     # ExecutionConfig.profile_dir is a field since EXPLAIN ANALYZE's
     # profiler capture
     ({"telemetry.profile-dir": "/x"}, None),
     # ported with the distributed scheduler (parallel/fabric.py)
     ({"exchange.fabric": "http"}, None),
-    ({"debug.lock-validation": "true"}, "debug.lock-validation"),
-    ({"retry-policy": "task"}, "retry-policy"),
+    ({"debug.lock-validation": "true"}, None),
+    ({"retry-policy": "task", "spool.path": "/z",
+      "query.max-execution-time": "30s"}, None),
     # ExecutionConfig.fuse_pipelines is a field since the torch chain
     ({"task.fuse-pipelines": "false", "task.batch-rows": "8192"}, None),
     # the spill fields are ported with execution under a memory budget
@@ -104,6 +105,7 @@ def test_execution_config_mapping(props, missing):
     ({"exchange.fabric": "bogus"}, "exchange.fabric must be one of"),
     ({"exchange.client-threads": "0"},
      "exchange.client-threads must be >= 1"),
+    ({"retry-policy": "sometimes"}, "retry-policy must be one of"),
 ])
 def test_bad_values_raise_the_reference_errors(props, match):
     for mod in (jprops, tprops):
@@ -220,8 +222,9 @@ SESSIONS = [
     ({"query_max_memory_per_node": "1GB", "query_max_memory": "2GB",
       "storage_zone_rows": "4096"}, None),
     ({"spill_enabled": "true"}, None),
-    ({"exchange_compression": "true"}, "exchange_compression"),
-    ({"lock_validation": "on"}, "lock_validation"),
+    # ported with the task plane
+    ({"exchange_compression": "true"}, None),
+    ({"lock_validation": "on"}, None),
     # ported with the streaming join (its dynamic filter)
     ({"dynamic_filtering": "false",
       "dynamic_filtering_max_distinct_values": "64"}, None),
@@ -238,6 +241,8 @@ SESSIONS = [
     # the reference maps no exchange_fabric session property: both
     # packages leave the config's fabric as it is
     ({"exchange_fabric": "http"}, None),
+    # history-based sizing comes with query history (telemetry/)
+    ({"adaptive_history_sizing": "true"}, "adaptive_history_sizing"),
 ]
 
 

@@ -109,9 +109,9 @@ def _get(url):
     # carries the reference server's error text
     ("execute nosuch using 1", {},
      "KeyError: \"prepared statement 'nosuch' does not exist\""),
-    (Q6, {"exchange_compression": "true"},
-     "NotImplementedError: session property 'exchange_compression' is not "
-     "ported"),
+    (Q6, {"adaptive_history_sizing": "true"},
+     "NotImplementedError: session property 'adaptive_history_sizing' is "
+     "not ported"),
     (Q6, {"scan_kernel": "bogus"}, "ValueError: scan_kernel must be one"),
 ], ids=["explain_analyze", "prepare", "unported_session", "bad_session"])
 def test_failed_statements_carry_the_error(servers, sql, session, match):
@@ -194,16 +194,31 @@ def test_metrics_carry_the_memory_section(servers):
 
 
 def test_unported_routes_name_what_is_missing(servers):
-    _ref, port = servers
-    for method, path in (("GET", "/v1/task/t1"), ("POST", "/v1/task/t1"),
-                         ("POST", "/v1/plan-check")):
-        req = urllib.request.Request(port.uri + path, method=method,
-                                     data=b"{}" if method == "POST"
-                                     else None)
-        with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(req, timeout=30)
-        assert e.value.code == 501
-        assert "is not ported" in json.loads(e.value.read())["error"]
+    """The task routes and /v1/plan-check are ported since the task
+    plane: no route answers 501 any more, and each answers as the
+    reference server's does (an unknown task 404, a malformed update
+    404, an unplannable statement ok=false with its error)."""
+    ref, port = servers
+    for method, path, body in (("GET", "/v1/task/t1", None),
+                               ("GET", "/v1/task/t1/status", None),
+                               ("POST", "/v1/task/t1", b"{}")):
+        codes = []
+        for srv in (ref, port):
+            req = urllib.request.Request(srv.uri + path, method=method,
+                                         data=body)
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(req, timeout=30)
+            codes.append(e.value.code)
+        assert codes == [404, 404], (path, codes)
+    for sql in (b"select count(*) from lineitem", b"select nope(1) from x"):
+        got = []
+        for srv in (ref, port):
+            req = urllib.request.Request(srv.uri + "/v1/plan-check",
+                                         data=sql, method="POST")
+            got.append(json.loads(urllib.request.urlopen(
+                req, timeout=30).read()))
+        assert got[0]["ok"] == got[1]["ok"]
+        assert ("error" in got[0]) == ("error" in got[1])
     info = _get(port.uri + "/v1/info")
     assert info["coordinator"] is True
     assert _get(port.uri + "/v1/status")["nodeId"] == port.node_id
