@@ -167,12 +167,13 @@ Phases, each printed with its wall time:
      held), with each stage's task and stage walls, the exchange's host
      bytes and wall, the dynamic filters, adaptive flips and swaps, the
      warm run's launches and peak memory; the direct kernel launched in
-     Q1's and Q6's source stages; Q3 and Q18 with 3 tasks and
-     partitioned joins; W1 with the window kernel launched in the hash
-     stage over the exchange; batch mode on Q1 and Q3 with task 0 of a
+     Q1's and Q6's source stages; W1 with the window kernel launched in
+     the hash stage over the exchange; batch mode on Q1 with task 0 of a
      source stage failing once and retried once; the Q18 shape's 4
-     lifespans sharded over 2 tasks; one torch.profiler capture of
-     distributed Q3 (idle share, copy ms).  The launch counters are set
+     lifespans sharded over 2 tasks (the partitioned Q3 and Q18, batch
+     mode on Q3 and the profile of Q3 are left out for the script's time
+     limit: the mesh phase runs Q3 and Q18 over hashed page exchanges and
+     profiles Q3 under both fabrics).  The launch counters are set
      to 0 just before the phase and read just after: the direct and
      window kernels must have launched;
 
@@ -187,8 +188,9 @@ Phases, each printed with its wall time:
      grouped lifespans (engaged or not, how many, the gen and compute
      walls: Q3 and Q18 must engage under auto, the others must not), the
      device's peak memory per query, the store's resident columns and
-     those over its per-column cap; Q3 again with grouped_lifespans=1,
-     equal to its lifespans' rows; Q1, Q6 and Q18 held to plain chunked
+     those over its per-column cap (Q3 again with grouped_lifespans=1 is
+     left out for the script's time limit); Q1, Q6 and Q18 held to plain
+     chunked
      torch computations over device_gen.column (sums and counts exact;
      Q18's orders, prices, dates and quantity sums exact in the same
      order); each query's peak within 90% of the card
@@ -247,10 +249,11 @@ Phases, each printed with its wall time:
      through DistributedQueryRunner with 2 tasks and X1, whose ARRAY
      column crosses an exchange, equal to the local rows; EXPLAIN
      ANALYZE of Q6 and Q1 under auto (kernel #1 launches) and xla with
-     equal per-node rows and the footer's kernel lines, of Q18 fused
-     against analyze_unfused (at the scale factor from a table that no
-     collision retry follows; at SF1 from the default table, the unfused
-     path counting each retry pass), of W1 (the window kernel), of Q1 with 2
+     equal per-node rows and the footer's kernel lines, of Q18 (fused
+     at the scale factor from a table that no collision retry follows;
+     at SF1 from the default table against analyze_unfused, the unfused
+     path counting each retry pass: the scale factor's unfused run is
+     left out for the script's time limit), of W1 (the window kernel), of Q1 with 2
      tasks (every fragment annotated) and of Q6 with profile=true (the
      torch.profiler trace on disk).  The launch counters are set to 0
      just before the phase and read just after: the direct and window
@@ -279,11 +282,27 @@ Phases, each printed with its wall time:
      failed by the workers' fault injector (equal to the clean run, a
      task retried); a worker drained mid-query (no failure, the worker
      closes itself); each query's client and coordinator walls, task
-     counts and exchange bytes, and Q6's device idle share.  The local
-     rows are computed first; then the launch counters are set to 0 and
-     read after the cluster's parts: the direct kernel must have launched
-     in the workers' tasks, and the parts' own launch deltas must add up
-     to the counts.
+     counts and exchange bytes, and Q6's device idle share.  The
+     coordinator exports its telemetry into a CollectorSink and keeps a
+     history store: one warm Q6 and one warm Q1 at the scale factor with
+     a trace token stitch one trace (query -> fragment -> task ->
+     operator spans, coordinator and worker roles, nothing dropped; each
+     span's wall printed), and a grouped statement run twice under
+     adaptive_history_sizing=true is sized from history on the repeat
+     with equal rows.  The local rows are computed first; then the launch
+     counters are set to 0 and read after the cluster's parts: the direct
+     kernel must have launched in the workers' tasks, and the parts' own
+     launch deltas must add up to the counts;
+ 25. the device exchange over a mesh (benchmarks/mesh_run.py run):
+     DistributedQueryRunner(n_tasks=4, mesh=make_mesh(devices=[cuda:0] *
+     4)) with exchange_fabric ici and the same with http; Q1, Q3, Q5,
+     Q18, the GROUPBY of tests/test_ici_exchange.py and W1 at the scale
+     factor through both, the ici rows equal to the http rows, every
+     query's hashed edges through the device exchange with no fallback;
+     walls, exchanged bytes and chunks, the overlap fraction, and Q3
+     under torch.profiler through each fabric.  The launch counters are
+     set to 0 just before the phase and read just after: the direct and
+     window kernels must have launched.
 
 Any failed check raises and exits non-zero.  The second-to-last line is
 the kernels' JSON record; the last line is
@@ -507,7 +526,7 @@ def main() -> int:
                "Q18, Q19 through LocalQueryRunner, unbudgeted, beside "
                "the nvcc build"):
         sf100_records = SR.run_sf100(100.0, device, card=f"on {card}",
-                                     warm=1)
+                                     warm=1, whole_q3=False)
     torch.cuda.empty_cache()
 
     with phase("build kernels (nvcc, started before the SF100 phase; the "
@@ -1996,12 +2015,13 @@ def main() -> int:
     with phase(f"distributed at {schema}: Q1-Q22 at sf0.01 against the "
                f"golden rows, {DR_SMOKE} at {schema} through "
                f"DistributedQueryRunner (2 tasks) against the local rows, "
-               f"Q3 and Q18 partitioned, W1, batch mode, sharded "
-               f"lifespans, a profile of Q3"):
+               f"W1, batch mode on Q1, sharded lifespans"):
         for d in (sk.LAUNCHES, sk.JOIN_LAUNCHES, gk.ONCHIP_LAUNCHES):
             for k in d:
                 d[k] = 0
         dist_records = DR.run_all(sf, device, local=tpch_records,
+                                  partitioned=False, batch_queries=(1,),
+                                  trace=False,
                                   queries=DR.SMOKE_QUERIES,
                                   card=f"on {card}")
         dist_launches = {k: sk.LAUNCHES[k]
@@ -2074,7 +2094,8 @@ def main() -> int:
             sk.LAUNCHES[k] = 0
         # one warm run each (the script's time limit)
         array_records = AR.run(sf, 1, device, card=f"on {card}",
-                               profile_dir="build/profiles")
+                               profile_dir="build/profiles",
+                               unfused_q18=False)
         array_launches = dict(sk.LAUNCHES)
         print(f"  arrays path launches {array_launches}")
         assert array_launches["scan_direct"] > 0
@@ -2100,8 +2121,9 @@ def main() -> int:
     # -- the HTTP task plane: workers and a coordinator on the card -------
     with phase(f"HTTP task plane at {schema}: two workers and a "
                f"coordinator, Q1-Q22 at sf0.01 against the golden rows, Q1 "
-               f"and Q6 through the coordinator, a partitioned join, a "
-               f"retried task, a drained worker"):
+               f"and Q6 through the coordinator, traced spans and history "
+               f"sizing, a partitioned join, a retried task, a drained "
+               f"worker"):
         from presto_tpu_torch.benchmarks import http_run as HR
         # the rows the cluster is held to, computed before the counts are
         # set to 0: JOIN_SQL's LocalQueryRunner run is not the HTTP path
@@ -2128,6 +2150,22 @@ def main() -> int:
                 f"probe_{k}": v for k, v in sk.JOIN_LAUNCHES.items()}}.items():
             assert sum(p.get(k, 0) for p in
                        http_records["launches"].values()) == v, k
+
+    # -- the device exchange over a mesh of 4 positions on the card ------
+    from presto_tpu_torch.benchmarks import mesh_run as MR
+    with phase(f"mesh at {schema}: Q1, Q3, Q5, Q18, GROUPBY, W1 over "
+               f"{MR.POSITIONS} positions on {device} through ici against "
+               f"http, Q3 under torch.profiler"):
+        for d in (sk.LAUNCHES, sk.JOIN_LAUNCHES):
+            for k in d:
+                d[k] = 0
+        mesh_records = MR.run(sf, device, card=f"on {card}")
+        mesh_launches = dict(sk.LAUNCHES)
+        mesh_join_launches = sum(sk.JOIN_LAUNCHES.values())
+        print(f"  mesh-path launches {mesh_launches}, carrying a join probe "
+              f"{dict(sk.JOIN_LAUNCHES)}")
+        for name in ("scan_direct", "window_scan"):
+            assert mesh_launches[name] > 0, (name, mesh_launches)
 
     summary = {"scan_direct": "q1", "scan_span": "s1", "scan_hash": "h1"}
     join_summary = {"scan_direct": "j2", "scan_span": "j3", "scan_hash": "j1"}
@@ -2168,6 +2206,8 @@ def main() -> int:
                 "serving_launches": serving_launches[name],
                 # launches in the HTTP workers' tasks
                 "http_launches": http_launches[name],
+                # launches in the mesh phase's tasks (both fabrics)
+                "mesh_launches": mesh_launches[name],
                 "max_abs_err": max(r["err"] for r in records.values()
                                    if r["kernel"] == name),
                 "ms": rec["ms"],
@@ -2225,6 +2265,7 @@ def main() -> int:
             "distributed_launches": dist_join_launches,
             "tpcds_launches": tpcds_join_launches,
             "http_launches": http_join_launches,
+            "mesh_launches": mesh_join_launches,
             "max_abs_err": max(records[q]["err"] for q in (
                 "j1", "j2", "j3", "q3_shape", "q18_shape", "semi",
                 "semi_unique", "multi_probe", "partsupp")),
@@ -2291,6 +2332,7 @@ def main() -> int:
             "arrays_launches": array_launches["window_scan"],
             "serving_launches": serving_launches["window_scan"],
             "http_launches": http_launches["window_scan"],
+            "mesh_launches": mesh_launches["window_scan"],
             "max_abs_err": max(r["err"] for r in w_records.values()),
             "ms": wr["ms"],
             "call_ms": wr["call_ms"],
@@ -2347,7 +2389,6 @@ def main() -> int:
     for q, r in sf100_records.items():
         if "grouped" in r:
             print(f"  {q} lifespans: {r['grouped']}")
-    print(f"  q3 with grouped_lifespans=1: {sf100_records['whole_q3']}")
     print(f"drivers and lifespans at {schema} on {card}:")
     for q, r in lifespan_records.items():
         print(f"  {q}: {r}")
@@ -2371,18 +2412,13 @@ def main() -> int:
               f"launched {r['launched']}"
               + ("" if "equal_to_local" not in r
                  else f", equal to local {r['equal_to_local']}"))
-    for part in ("partitioned", "batch"):
-        for q, r in dist_records[part].items():
-            print(f"  {part} {q}: {r['wall_s']:.3f} s")
+    for q, r in dist_records["batch"].items():
+        print(f"  batch {q}: {r['wall_s']:.3f} s")
     print(f"  window: {dist_records['window']['wall_s']:.3f} s, launched "
           f"{dist_records['window']['launched']}")
     print(f"  sharded: {dist_records['sharded']['wall_s']:.3f} s, "
           f"lifespans per shard "
           f"{dist_records['sharded']['lifespans_per_shard']}")
-    t3 = dist_records["trace_q3"]
-    print(f"  q3 profile: wall {t3['wall_ms']:.3f} ms, busy "
-          f"{t3['busy_ms']:.3f} ms, idle {t3['idle_share']:.4f}, DtoH "
-          f"{t3['d2h_ms']:.3f} ms, HtoD {t3['h2d_ms']:.3f} ms")
     print(f"TPC-DS at {schema} on {card}:")
     for name, r in tpcds_records["bank"].items():
         if name not in ("results", "launches"):
@@ -2424,13 +2460,21 @@ def main() -> int:
         print(f"  {part}: {serving_records[part]}")
     print(f"  phase walls: {serving_records['walls']}")
     print(f"HTTP task plane at {schema} on {card}:")
-    for part in ("scale", "join", "retry", "drain", "trace_q6"):
+    for part in ("scale", "join", "retry", "drain", "trace_q6", "spans",
+                 "history"):
         print(f"  {part}: {http_records[part]}")
     print("  sf0.01 client / coordinator ms: " + ", ".join(
         f"{q} {r['client_ms']:.1f} / {r['coordinator_ms']}"
         for q, r in http_records["golden"].items()))
     print(f"  phase walls: {http_records['walls']}")
     print(f"  phase launches by part: {http_records['launches']}")
+    print(f"mesh of {MR.POSITIONS} positions at {schema} on {card}:")
+    for q, r in mesh_records["queries"].items():
+        print(f"  {q}: {r}")
+    print(f"  ici fabric: {mesh_records['fabric_ici']}")
+    print(f"  launches by fabric: {mesh_records['launches']}")
+    print(f"  Q3 traces: {mesh_records['trace_q3']}")
+    print(f"  phase walls: {mesh_records['walls']}")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,19 @@ protocol.  Runs (every failed check raises):
     elapsedTimeMillis), the task count and the exchange's bytes; each
     part's wall and kernel launches (the counts' deltas around it); one
     torch.profiler capture of Q6 through the coordinator (the device's
-    busy time and idle share of the wall, as distributed_run's trace).
+    busy time and idle share of the wall, as distributed_run's trace);
+  * telemetry: the coordinator exports through a CollectorSink
+    (telemetry/export.py) and keeps a history store.  One warm Q6 and one
+    warm Q1 at the scale factor, each with a trace token, must stitch one
+    trace: every fragment span parented to `query`, every task span to a
+    fragment, every operator span to a task, both the coordinator and
+    the worker resource roles, nothing dropped.  Each span's wall is
+    printed, and the query span's wall outside every task span (task
+    POSTs, status polls and result pulls: the protocol's share);
+  * history-based sizing: one grouped statement twice under session
+    adaptive_history_sizing=true; the repeat is sized from the first
+    run's history record (history_sized_queries rises by one) and its
+    rows equal the first run's.
 chip_smoke.py computes `local_rows` and then runs `run` as its HTTP
 phase, so the launch counts it reads around `run` are the cluster's
 alone.
@@ -90,11 +102,15 @@ def _get(url: str) -> dict:
         return json.loads(r.read())
 
 
-def start_cluster(device, workers: int = WORKERS):
+def start_cluster(device, workers: int = WORKERS, sink=None):
     """A coordinator and `workers` workers, every one on `device`; returns
-    (coordinator, [worker...]) once every worker has announced."""
+    (coordinator, [worker...]) once every worker has announced.  With a
+    telemetry `sink` the coordinator exports into it, and its workers'
+    tasks reach it through the process exporter."""
     from ..worker.server import WorkerServer
-    coord = WorkerServer(coordinator=True, device=device)
+    coord = WorkerServer(coordinator=True, device=device,
+                         telemetry_sink=sink,
+                         telemetry_flush_interval_s=0.02)
     ws = [WorkerServer(discovery_uri=coord.uri, announce_interval_s=0.1,
                        device=device) for _ in range(workers)]
     deadline = time.time() + ANNOUNCE_TIMEOUT_S
@@ -112,14 +128,16 @@ def close_cluster(coord, workers) -> None:
 
 
 def statement(coord, schema: str, sql: str,
-              session: Optional[dict] = None, device=None) -> dict:
+              session: Optional[dict] = None, device=None,
+              trace_token: str = "") -> dict:
     """One statement through the coordinator: the client's result, its
     wall and the coordinator's (QueryInfo elapsedTimeMillis), and the
     execution's stages (task count, rows and bytes each stage's tasks
     produced)."""
     from ..client import StatementClient
     client = StatementClient(coord.uri, schema=schema,
-                             session=session or {}, timeout_s=600.0)
+                             session=session or {}, timeout_s=600.0,
+                             trace_token=trace_token)
     if device is not None:
         _sync(device)
     t0 = time.perf_counter()
@@ -365,6 +383,135 @@ def trace_q6(coord, sf: float, device, card: str = "") -> dict:
     return out
 
 
+def _covered_ms(intervals) -> float:
+    """The length of the union of (start, end) intervals, in ms."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total * 1e3
+
+
+def trace_spans(coord, sink, sf: float, device, want: dict,
+                card: str = "") -> dict:
+    """One warm Q6 and one warm Q1 through the coordinator, each with a
+    trace token: the exported spans must stitch one trace (the
+    reference's test_end_to_end_distributed_trace); each span's wall and
+    the query span's wall outside every task span are printed."""
+    from ..telemetry import trace_id_for
+    schema = f"sf{sf:g}"
+    out = {}
+    for q in (6, 1):
+        token = f"smoke-q{q}-{time.time_ns()}"
+        rec = statement(coord, schema, queries_for_sf(sf)[q],
+                        device=device, trace_token=token)
+        assert_rows_close(rec["result"], want[q], ordered=q in ORDERED,
+                          rtol=RTOL)
+        assert coord.telemetry.flush(timeout_s=30.0)
+        tid = trace_id_for(token)
+        spans = [s for s in sink.spans() if s["traceId"] == tid]
+        by_id = {s["spanId"]: s for s in spans}
+        kinds = {k: [s for s in spans if s["name"].split(" ")[0] == k]
+                 for k in ("query", "fragment", "task", "operator")}
+        (query,) = kinds["query"]
+        assert kinds["fragment"] and kinds["task"] and kinds["operator"],             sorted(s["name"] for s in spans)
+        parents = {"fragment": "query", "task": "fragment",
+                   "operator": "task"}
+        for kind, parent in parents.items():
+            for s in kinds[kind]:
+                p = by_id.get(s["parentSpanId"])
+                assert p is not None and p["name"].startswith(parent),                     (s["name"], s["parentSpanId"])
+        roles = set()
+        for p in sink.payloads:
+            for rs in p.get("resourceSpans", []):
+                names = {sp["traceId"] for ss in rs["scopeSpans"]
+                         for sp in ss["spans"]}
+                if tid not in names:
+                    continue
+                for a in rs["resource"]["attributes"]:
+                    if a["key"] == "presto.role":
+                        roles.add(a["value"]["stringValue"])
+        assert {"coordinator", "worker"} <= roles, roles
+
+        def wall_ms(s):
+            return (int(s["endTimeUnixNano"])
+                    - int(s["startTimeUnixNano"])) / 1e6
+
+        def interval(s):
+            return (int(s["startTimeUnixNano"]) / 1e9,
+                    int(s["endTimeUnixNano"]) / 1e9)
+        q0, q1 = interval(query)
+        in_tasks = _covered_ms(
+            (max(a, q0), min(b, q1)) for a, b in map(interval, kinds["task"])
+            if min(b, q1) > max(a, q0))
+        r = {"client_ms": rec["client_ms"],
+             "coordinator_ms": rec["coordinator_ms"],
+             "query_ms": wall_ms(query),
+             "fragments_ms": {s["name"]: wall_ms(s)
+                              for s in kinds["fragment"]},
+             "tasks_ms": {s["name"]: wall_ms(s) for s in kinds["task"]},
+             "operators": len(kinds["operator"]),
+             "task_union_ms": in_tasks,
+             "outside_tasks_ms": wall_ms(query) - in_tasks,
+             "roles": sorted(roles)}
+        out[f"q{q}"] = r
+        print(f"  {schema} Q{q} traced through the coordinator: one trace, "
+              f"{len(spans)} spans ({len(kinds['fragment'])} fragments, "
+              f"{len(kinds['task'])} tasks, {r['operators']} operators), "
+              f"roles {r['roles']}; client {r['client_ms']:.3f} ms, "
+              f"coordinator {r['coordinator_ms']:.3f} ms, query span "
+              f"{r['query_ms']:.3f} ms, fragments "
+              + ", ".join(f"{k} {v:.3f}" for k, v in
+                          sorted(r["fragments_ms"].items()))
+              + " ms, tasks "
+              + ", ".join(f"{k.split(' ')[1]} {v:.3f}" for k, v in
+                          sorted(r["tasks_ms"].items()))
+              + f" ms; the tasks cover {in_tasks:.3f} ms of the query "
+              f"span, {r['outside_tasks_ms']:.3f} ms outside every task "
+              f"{card}", flush=True)
+    c = coord.telemetry.counters()
+    assert c["dropped"] == 0 and c["dropped_after_retry"] == 0, c
+    out["exporter"] = c
+    return out
+
+
+HISTORY_SQL = ("select l_returnflag, l_linestatus, count(*) as n, "
+               "sum(l_quantity) as q from lineitem "
+               "where l_shipdate <= date '1998-09-01' "
+               "group by l_returnflag, l_linestatus")
+
+
+def run_history(coord, sf: float, device, card: str = "") -> dict:
+    """One grouped statement twice under adaptive_history_sizing=true:
+    the repeat is sized from the first run's record."""
+    from ..exec.adaptive import ADAPTIVE_METRICS
+    schema = f"sf{sf:g}"
+    session = {"adaptive_history_sizing": "true"}
+    sized0 = ADAPTIVE_METRICS.snapshot()["history_sized_queries"]
+    first = statement(coord, schema, HISTORY_SQL, session, device)
+    sized1 = ADAPTIVE_METRICS.snapshot()["history_sized_queries"]
+    again = statement(coord, schema, HISTORY_SQL, session, device)
+    sized2 = ADAPTIVE_METRICS.snapshot()["history_sized_queries"]
+    assert_rows_close(again["result"], first["result"], ordered=False,
+                      rtol=RTOL)
+    assert sized1 == sized0 and sized2 == sized1 + 1, \
+        (sized0, sized1, sized2)
+    rec = {"first_ms": first["client_ms"], "repeat_ms": again["client_ms"],
+           "history_sized_queries": sized2 - sized0,
+           "history_entries": len(coord.history)}
+    print(f"  {schema} grouped statement twice under adaptive history "
+          f"sizing: history_sized_queries +{sized1 - sized0} on the first "
+          f"run, +{sized2 - sized1} on the repeat; client "
+          f"{rec['first_ms']:.3f} ms then {rec['repeat_ms']:.3f} ms; rows "
+          f"equal; {rec['history_entries']} history entries {card}",
+          flush=True)
+    return rec
+
+
 def local_rows(sf: float, device, local: Optional[dict] = None) -> dict:
     """LocalQueryRunner's rows of Q1, Q6 (unless `local` holds them) and
     JOIN_SQL at the scale factor on the device: what `run` holds the
@@ -384,12 +531,17 @@ def run(sf: float, device, want: dict, card: str = "") -> dict:
     """Every part of the module's docstring over one cluster; returns the
     records, with each part's wall and kernel launches (the join probes
     carried by #1 / #4 as `probe_*`).  `want`: local_rows(sf, device)."""
+    from ..telemetry import CollectorSink
     walls, launches = {}, {}
-    coord, workers = start_cluster(device)
+    sink = CollectorSink()
+    coord, workers = start_cluster(device, sink=sink)
     parts = (
         ("golden", lambda: check_golden(coord, card)),
         ("scale", lambda: run_scale(coord, sf, device, want, card)),
         ("trace_q6", lambda: trace_q6(coord, sf, device, card)),
+        ("spans", lambda: trace_spans(coord, sink, sf, device, want,
+                                      card)),
+        ("history", lambda: run_history(coord, sf, device, card)),
         ("join", lambda: run_join(workers, sf, device, want["join"], card)),
         ("retry", lambda: run_retry(coord, workers, sf, device, want[6],
                                     card)),

@@ -279,7 +279,7 @@ def check_headroom(q: int, peak: int, device) -> None:
 
 
 def run_sf100(sf: float, device, card: str = "", warm: int = 2,
-              queries=SF100_QUERIES) -> dict:
+              queries=SF100_QUERIES, whole_q3: bool = True) -> dict:
     from ..connectors import catalog, device_gen
     from ..exec.grouped import AUTO_SPAN_THRESHOLD
     from ..exec.pipeline import tuned_config
@@ -332,7 +332,7 @@ def run_sf100(sf: float, device, card: str = "", warm: int = 2,
                 > AUTO_SPAN_THRESHOLD:
             assert gr["engaged"] == (q in LIFESPAN_QUERIES), (q, gr)
         del runner
-        if q == 3:
+        if q == 3 and whole_q3:
             # the whole-table path (no lifespans) for the same rows
             gc.collect()
             if device.type == "cuda":

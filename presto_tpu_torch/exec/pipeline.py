@@ -293,15 +293,33 @@ class ExecutionConfig:
     # debug.lock-validation / session lock_validation)
     lock_validation: bool = False
     # which fabric hashed remote-exchange edges ride (parallel/fabric.py
-    # FABRICS): "auto", "http" (host pages) or "ici" (a device all_to_all
-    # over a mesh, not ported: with no mesh every edge resolves to http).
-    # Config key exchange.fabric
+    # FABRICS): "auto", "http" (host pages) or "ici" (the device
+    # all_to_all over the runner's mesh, parallel/exchange.py; with no
+    # mesh every edge resolves to http).  Config key exchange.fabric
     exchange_fabric: str = "auto"
+    # chunk granularity of the chunked device exchange
+    # (exchange.ici-chunk-rows): each producer's rows split into
+    # fixed-size chunks exchanged back to back with no host sync between
+    # them, so chunk k+1's exchange is queued while the consumer computes
+    # on chunk k.  0 = auto-tune: the scheduler picks the next run's
+    # chunk size from the observed overlap_fraction in FabricMetrics
+    # (parallel/fabric.py IciChunkTuner)
+    ici_chunk_rows: int = 0
     # re-decide broadcast-vs-partitioned exchange (and INNER join sides)
     # at stage boundaries from the OBSERVED build cardinality
     # (exec/adaptive.py; config key adaptive.exchange / session
     # adaptive_exchange)
     adaptive_exchange: bool = True
+    # seed task counts, agg slot sizing and admission memory estimates
+    # from matching query-history records keyed on the canonical plan
+    # template (adaptive.history-sizing / session adaptive_history_sizing)
+    adaptive_history_sizing: bool = False
+    # observed group count from a prior run of the same plan template
+    # (set by the runner's history-sizing pass, never by hand): when
+    # present it REPLACES the optimizer's group estimate for aggregation
+    # table sizing.  A dataclass field so the plan-cache config
+    # fingerprint re-keys compiled plans on a changed hint
+    history_agg_groups: Optional[int] = None
     # -- serving plane (presto_tpu_torch/serving) --------------------------
     # share the scan / filter / project steps' compiled state across
     # DIFFERENT plans by subtree structural key (serving/fragments.py):
@@ -379,7 +397,8 @@ class TaskContext:
     # estimate reads them)
     remote_rows: Dict[str, int] = field(default_factory=dict)
     # remote-source node id -> callable returning device Batches (the
-    # reference's ICI exchange input); never set without a mesh
+    # "ici" fabric's input: chunks the device exchange placed on this
+    # task's mesh position, exec/scheduler.py _device_reader)
     remote_batches: Dict[str, Callable[[], Iterator[Batch]]] = field(
         default_factory=dict)
     # lifespan sharding (exec/grouped.py stage_shards_lifespans): when set
@@ -712,6 +731,16 @@ class PlanCompiler:
                 page = batch_to_page(batch, src.names, src.types)
                 if page.position_count:
                     yield page
+        finally:
+            while self._spill_stores:
+                self._spill_stores.pop().close()
+
+    def run_to_batches(self, root: P.PlanNode) -> Iterator[Batch]:
+        """Device-resident drain of the fragment (the "ici" fabric's
+        producer side: output rows stay on the device for the exchange)."""
+        src = self.compile(root)
+        try:
+            yield from src.batches()
         finally:
             while self._spill_stores:
                 self._spill_stores.pop().close()
@@ -1108,23 +1137,22 @@ class PlanCompiler:
 
     def _compile_RemoteSourceNode(self, node: P.RemoteSourceNode
                                   ) -> BatchSource:
-        """Exchange input: the host pages the scheduler wired for this
-        task (TaskContext.remote_pages), moved to the task's device with
-        every string column on one union dictionary
-        (batch.pages_to_batches).  Device batches (the reference's ICI
-        path, TaskContext.remote_batches) need a mesh, which the port does
-        not have yet."""
+        """Exchange input.  The "ici" fabric's device batches
+        (TaskContext.remote_batches: the chunks the device exchange left
+        on this task's mesh position) are consumed as they are; otherwise
+        the host pages the scheduler wired for this task
+        (TaskContext.remote_pages) move to the task's device with every
+        string column on one union dictionary (batch.pages_to_batches)."""
         names = [v.name for v in node.outputs]
         types = [v.type for v in node.outputs]
         cfg = self.ctx.config
         ctx = self.ctx
 
         def gen():
-            if ctx.remote_batches.get(node.id) is not None:
-                raise NotImplementedError(
-                    "device-resident exchange input (the ICI fabric) is "
-                    "not ported yet (ROADMAP queue 1: the multi-device "
-                    "exchange on torch.distributed)")
+            dev = ctx.remote_batches.get(node.id)
+            if dev is not None:
+                yield from dev()
+                return
             yield from pages_to_batches(
                 ctx.remote_pages[node.id](), names, types, cfg.batch_rows,
                 ctx.device, pack_rows=max(cfg.batch_rows,
@@ -1992,8 +2020,18 @@ class PlanCompiler:
         cfg = self.ctx.config
         device = self.ctx.device
         fused_cache: dict = {}
-        est_groups = _group_estimate(node) if key_names else None
-        initial_slots = _initial_slots(est_groups, key_names, cfg.agg_slots)
+        if key_names and cfg.history_agg_groups:
+            # history-based sizing (adaptive.history-sizing): the OBSERVED
+            # group count of a prior run of this plan template replaces the
+            # estimate and, being a measurement, may size BELOW agg_slots
+            # too (floored so a tiny count cannot degenerate the probing)
+            est_groups = int(cfg.history_agg_groups)
+            hist_based = 1 << max(0, (2 * est_groups - 1).bit_length())
+            initial_slots = max(256, min(hist_based, 1 << 20))
+        else:
+            est_groups = _group_estimate(node) if key_names else None
+            initial_slots = _initial_slots(est_groups, key_names,
+                                           cfg.agg_slots)
         # with no group estimate (a FINAL step, a join in a hash stage) the
         # rows the exchange input holds decide: more than half the first
         # table's slots aggregate by sort (a table started at agg_slots

@@ -19,10 +19,19 @@ concurrent EXECUTEs of one template as one batched drain
 (serving/batched.py), and CREATE TABLE AS / INSERT / DROP TABLE write a
 writable connector (connectors/memory.py) through the TableWriter /
 TableFinish pipeline, clearing every cached plan, fast path and shared
-fragment.
+fragment.  A `tracer_provider` records the query's spans (the scheduler's
+fragment, task and operator spans under the runner's `query` span), and a
+`history` store (telemetry/history.py) records each successful run keyed
+on its canonical plan template: with adaptive_history_sizing on, a repeat
+of the template sizes its aggregation table (and, distributed, its hash
+stages' task count) from what the last run observed.
+DistributedQueryRunner(mesh=...) runs eligible hashed edges as the device
+exchange over the mesh's positions (the "ici" fabric).
 """
 from __future__ import annotations
 
+import itertools
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -54,6 +63,17 @@ class QueryResult:
     def sorted_rows(self):
         return sorted(self.rows, key=lambda r: tuple(
             (v is None, str(type(v)), v) for v in r))
+
+
+def plan_template_digest(template_sk) -> str:
+    """Stable short digest of a parameterized plan's structural key -- the
+    join key between a query-history record ("planTemplate") and a later
+    run of the same canonical plan (adaptive.history-sizing)."""
+    import hashlib
+    return hashlib.sha256(repr(template_sk).encode()).hexdigest()[:16]
+
+
+_history_qid = itertools.count()
 
 
 def pages_to_result(pages, names, types) -> "QueryResult":
@@ -96,12 +116,20 @@ class _Execution:
 class LocalQueryRunner:
     def __init__(self, schema: str = "sf0.01",
                  config: Optional[ExecutionConfig] = None,
-                 catalog: str = "tpch", plan_cache=None, device="cuda"):
+                 catalog: str = "tpch", plan_cache=None, device="cuda",
+                 tracer_provider=None, history=None):
         from ..serving import PlanCache
         self.schema = schema
         self.catalog = catalog
         self.device = resolve_device(device)
         self.config = config or tuned_config()
+        self.tracer_provider = tracer_provider   # utils.runtime_stats
+        # optional telemetry.history.QueryHistoryStore: successful runs
+        # record template-keyed observations, and -- when the
+        # adaptive.history-sizing knob is on -- a repeat of the same plan
+        # template seeds its aggregation-table size from the record
+        self.history = history
+        self._last_template_digest: Optional[str] = None
         # the runner's OWN canonical plan cache: a process-global cache
         # would hand this runner another package's compiler on a key
         # collision
@@ -123,8 +151,9 @@ class LocalQueryRunner:
             return Planner(default_schema=self.schema,
                            default_catalog=self.catalog).plan(sql)
 
-    def _new_compiler(self) -> PlanCompiler:
-        return PlanCompiler(TaskContext(config=self.config,
+    def _new_compiler(self, config: Optional[ExecutionConfig] = None
+                      ) -> PlanCompiler:
+        return PlanCompiler(TaskContext(config=config or self.config,
                                         device=self.device))
 
     def _checkout(self, ast, stats, bound_params=None,
@@ -146,19 +175,24 @@ class LocalQueryRunner:
         # structural key taken BEFORE optimization (the optimizer mutates
         # the template in place): the prepared fast path re-derives it
         template_sk = P.structural_key(pp.template)
-        key = cache_key_from_parts(template_sk, self.config, self.catalog,
+        self._last_template_digest = plan_template_digest(template_sk)
+        # adaptive.history-sizing: the effective config may carry the
+        # prior run's observed group count -- a fingerprinted field, so
+        # the cache key below re-keys on a changed hint
+        cfg = self._history_sized_config()
+        key = cache_key_from_parts(template_sk, cfg, self.catalog,
                                    self.schema)
         hit = self.plan_cache.checkout(key)
         if hit is not None:
             output, slot_types, compiler = hit
             if compiler is None:
-                compiler = self._new_compiler()
+                compiler = self._new_compiler(cfg)
                 SERVING_METRICS.incr("executable_builds")
             exe = _Execution(output, compiler, key, False, list(slot_types))
         else:
             with stats.record_wall("queryOptimize"), self._validation():
                 output = Planner.optimize_output(pp.template)
-            compiler = self._new_compiler()
+            compiler = self._new_compiler(cfg)
             SERVING_METRICS.incr("executable_builds")
             exe = _Execution(output, compiler, key, True,
                              [s.type for s in pp.slots])
@@ -189,6 +223,67 @@ class LocalQueryRunner:
                                    exe.compiler)
         else:
             self.plan_cache.checkin(exe.key, exe.compiler)
+
+    # -- history-based sizing (adaptive.history-sizing) -------------------
+
+    def _history_record(self) -> Optional[dict]:
+        if (self.history is None or self._last_template_digest is None
+                or not self.config.adaptive_history_sizing):
+            return None
+        return self.history.find_by_template(self._last_template_digest)
+
+    def _history_sized_config(self) -> ExecutionConfig:
+        """A prior FINISHED run of the same plan template seeds the
+        aggregation table size: the observed group count replaces the
+        optimizer's estimate (exec/pipeline.py _compile_AggregationNode)."""
+        rec = self._history_record()
+        groups = (rec or {}).get("aggGroups")
+        if not groups:
+            return self.config
+        import dataclasses
+
+        from .adaptive import ADAPTIVE_METRICS
+        ADAPTIVE_METRICS.incr("history_sized_queries")
+        return dataclasses.replace(self.config,
+                                   history_agg_groups=int(groups))
+
+    def _record_history(self, result: QueryResult, root,
+                        subplan=None) -> None:
+        """Record one template-keyed observation after a successful run.
+        aggGroups is recorded only when the output chain is
+        Output -> (Project|Sort)* -> grouped Aggregation, where the
+        result row count IS the observed group count."""
+        if self.history is None or self._last_template_digest is None:
+            return
+        from ..spi import plan as P
+        node = getattr(root, "source", None)
+        while isinstance(node, (P.ProjectNode, P.SortNode,
+                                P.RemoteSourceNode)):
+            if isinstance(node, P.RemoteSourceNode):
+                # distributed: the chain continues in the (sole) child
+                # fragment feeding this gather edge
+                if subplan is None or len(node.source_fragment_ids) != 1:
+                    break
+                by_id = {c.fragment.fragment_id: c
+                         for c in subplan.children}
+                child = by_id.get(node.source_fragment_ids[0])
+                if child is None:
+                    break
+                subplan, node = child, child.fragment.root
+            else:
+                node = node.source
+        rec = {"queryId": f"run-{next(_history_qid)}",
+               "state": "FINISHED",
+               "planTemplate": self._last_template_digest,
+               "rows": len(result.rows),
+               "peakMemoryBytes": getattr(result, "peak_memory_bytes",
+                                          0) or 0}
+        if isinstance(node, P.AggregationNode) and node.grouping_keys:
+            rec["aggGroups"] = len(result.rows)
+        try:
+            self.history.record(rec)
+        except Exception:   # noqa: BLE001 -- history is advisory
+            pass
 
     def _parse(self, sql: str, stats):
         """The statement's AST, its parse wall recorded."""
@@ -240,6 +335,8 @@ class LocalQueryRunner:
             except BindError:
                 values = None
             if values is not None:
+                self._last_template_digest = \
+                    plan_template_digest(fast.template_key)
                 exe = self._checkout_cached(cache_key_from_parts(
                     fast.template_key, self.config, self.catalog,
                     self.schema))
@@ -332,6 +429,8 @@ class LocalQueryRunner:
             # template is pinned sequential; every lane re-runs solo
             disable_for(compiler)
             return None
+        self._last_template_digest = plan_template_digest(
+            fast.template_key)
         names = output.column_names
         types = [v.type for v in output.outputs]
         results: List[Optional[QueryResult]] = [None] * len(sqls)
@@ -346,6 +445,7 @@ class LocalQueryRunner:
             }
             results[i] = res
             SERVING_METRICS.incr("prepared_fast_path")
+            self._record_history(res, output)
         self._release(exe)
         SERVING_METRICS.record_batch(len(lanes), demux_ns,
                                      padded_lanes=width - len(lanes))
@@ -363,7 +463,11 @@ class LocalQueryRunner:
         from ..sql import parser as A
         from ..utils.runtime_stats import RuntimeStats
         stats = RuntimeStats()
+        tracer = self.tracer_provider.new_tracer(sql) \
+            if self.tracer_provider else None
         ast = self._parse(sql, stats)
+        if tracer:
+            tracer.add_point("query parsed")
         if isinstance(ast, A.Explain):
             return self._explain(ast)
         if isinstance(ast, (A.CreateTableAs, A.InsertInto, A.DropTable)):
@@ -383,20 +487,26 @@ class LocalQueryRunner:
             exe = self._execute_prepared(ast, stats, prepared)
         else:
             exe = self._checkout(ast, stats)
+        if tracer:
+            tracer.add_point("query planned")
         output, compiler = exe.output, exe.compiler
         names = output.column_names
         types = [v.type for v in output.outputs]
         compiler.ctx.runtime_stats = stats
         from ..telemetry import profile_capture
-        with profile_capture(self.config.profile_dir, "query",
-                             enabled=self.config.profile) as trace_dir:
-            with stats.record_wall("queryExecute"):
-                result = pages_to_result(compiler.run_to_pages(output),
-                                         names, types)
+        with (tracer.span("query", sql=sql) if tracer else nullcontext()):
+            with profile_capture(self.config.profile_dir, "query",
+                                 enabled=self.config.profile) as trace_dir:
+                with stats.record_wall("queryExecute"):
+                    result = pages_to_result(compiler.run_to_pages(output),
+                                             names, types)
         result.profile_trace_dir = trace_dir
         result.runtime_stats = stats.to_dict()
         result.peak_memory_bytes = compiler.ctx.memory.peak
+        if tracer:
+            tracer.end_trace("query finished")
         self._release(exe)
+        self._record_history(result, output)
         return result
 
     def execute_streaming(self, sql: str,
@@ -602,8 +712,10 @@ class DistributedQueryRunner(LocalQueryRunner):
     with per-task operator stats merged per node.  Writes run single-task
     through the local pipeline, as the reference runs them; a PREPARE,
     EXECUTE or DEALLOCATE reaches the planner and fails there, as in the
-    reference.  A mesh, a tracer provider and query history raise
-    NotImplementedError."""
+    reference.  With a mesh (parallel/mesh.py, positions of the runner's
+    device kind) an eligible hashed edge runs as the device exchange; a
+    tracer provider records the query's span tree; a history store sizes
+    repeats of a plan template."""
 
     # materialized exchanges can't stay device-resident; overridden by
     # BatchQueryRunner so fabric resolution keeps its edges on http
@@ -614,19 +726,18 @@ class DistributedQueryRunner(LocalQueryRunner):
                  n_tasks: int = 2, broadcast_threshold: int = 600_000,
                  catalog: str = "tpch", mesh=None, tracer_provider=None,
                  history=None, device="cuda"):
+        super().__init__(schema, config, catalog, device=device,
+                         tracer_provider=tracer_provider, history=history)
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (the ICI exchange fabric) is not ported yet "
-                "(ROADMAP queue 1: the multi-device exchange on "
-                "torch.distributed)")
-        if tracer_provider is not None or history is not None:
-            raise NotImplementedError(
-                "tracing and query history are not ported yet (telemetry: "
-                "ROADMAP queue 1, item 7)")
-        super().__init__(schema, config, catalog, device=device)
+            mesh.check_on(self.device)
         self.n_tasks = n_tasks
         self.broadcast_threshold = broadcast_threshold
+        # parallel/mesh.DeviceMesh: hashed exchanges between stages pinned
+        # to its positions run as the device exchange
         self.mesh = mesh
+        # history-seeded hash-stage task count for the CURRENT query
+        # (adaptive.history-sizing); None means use n_tasks
+        self._history_tasks: Optional[int] = None
         # the scheduler of the last execute(): its stages (task and stage
         # walls, lifespan shards) and adaptive decisions
         self.last_scheduler = None
@@ -663,12 +774,12 @@ class DistributedQueryRunner(LocalQueryRunner):
         return FragmenterConfig(
             broadcast_threshold=self.broadcast_threshold)
 
-    def _explain_distributed(self, ast) -> QueryResult:
+    def _explain_distributed(self, ast, sql: str = "") -> QueryResult:
         """EXPLAIN over the fragmented (distributed) plan: one section per
         fragment.  ANALYZE runs the fragment DAG through the in-process
         scheduler with per-task operator stats and annotates every
-        fragment from their merged map (the reference's
-        _explain_distributed, without a tracer)."""
+        fragment from their merged map; with a tracer provider it also
+        records the query -> fragment -> task -> operator span tree."""
         from ..common.types import VarcharType
         from ..sql.explain import format_analyze_footer, format_subplan
         from ..sql.fragmenter import plan_distributed
@@ -688,10 +799,20 @@ class DistributedQueryRunner(LocalQueryRunner):
             sched = InProcessScheduler(self._scheduler_config())
             self.last_scheduler = sched
             sched.node_stats = stats = {}
-            with profile_capture(self.config.profile_dir, "analyze",
-                                 enabled=self.config.profile) as trace_dir:
-                for _page in sched.execute(subplan):
-                    pass
+            # ANALYZE collects per-node stats, so the scheduler can also
+            # emit the full query->fragment->task->operator span hierarchy
+            tracer = self.tracer_provider.new_tracer(sql) \
+                if (self.tracer_provider and sql) else None
+            sched.tracer = tracer
+            with (tracer.span("query", sql=sql) if tracer
+                  else nullcontext()):
+                with profile_capture(self.config.profile_dir, "analyze",
+                                     enabled=self.config.profile) \
+                        as trace_dir:
+                    for _page in sched.execute(subplan):
+                        pass
+            if tracer:
+                tracer.end_trace("query finished")
             self.last_operator_stats = stats
             footer = format_analyze_footer(sched.stats,
                                            profile_dir=trace_dir)
@@ -708,36 +829,95 @@ class DistributedQueryRunner(LocalQueryRunner):
         from ..utils.runtime_stats import RuntimeStats
         ast = self._parse(sql, RuntimeStats())
         if isinstance(ast, A.Explain):
-            return self._explain_distributed(ast)
+            return self._explain_distributed(ast, sql=sql)
         if isinstance(ast, (A.CreateTableAs, A.InsertInto, A.DropTable)):
             # writes run single-task through the local pipeline (the
             # reference's scaled-writer distribution is future work)
             return self._execute_ddl(ast)
+        from ..telemetry import profile_capture
         restore = self._apply_history_sizing(ast)
         try:
             subplan, names, types = self.plan_subplan(sql, ast=ast)
             sched = InProcessScheduler(self._scheduler_config())
             self.last_scheduler = sched
-            result = pages_to_result(sched.execute(subplan), names, types)
+            tracer = self.tracer_provider.new_tracer(sql) \
+                if self.tracer_provider else None
+            sched.tracer = tracer
+            with (tracer.span("query", sql=sql) if tracer
+                  else nullcontext()):
+                with profile_capture(self.config.profile_dir, "query",
+                                     enabled=self.config.profile) \
+                        as trace_dir:
+                    result = pages_to_result(sched.execute(subplan),
+                                             names, types)
         finally:
             restore()
+        result.profile_trace_dir = trace_dir
         # fabric-tagged exchange stats (bytes / walls per fabric) and the
         # adaptive counters collected while the stages ran
         result.runtime_stats = sched.stats.to_dict()
         # query-level context peak (all tasks' reservations bubbled up)
         result.peak_memory_bytes = sched.memory.peak
+        if tracer:
+            tracer.end_trace("query finished")
+        self._record_history(result, subplan.fragment.root, subplan=subplan)
         return result
 
     def _apply_history_sizing(self, ast):
-        """adaptive.history-sizing: a no-op without query history (the
-        reference's, history=None); returns the restore callback."""
-        return lambda: None
+        """adaptive.history-sizing (distributed): parameterize the plan
+        to its template digest; when a prior FINISHED run matches, seed
+        the aggregation-table hint (config, consumed by every task's
+        compiler) and the hash-stage task count from what that run
+        observed.  Returns a restore callback for the per-query state."""
+        self._last_template_digest = None
+        if self.history is None:
+            return lambda: None
+        from ..spi import plan as P
+        from ..sql.canonical import parameterize
+        try:
+            with self._validation():
+                unopt = Planner(default_schema=self.schema,
+                                default_catalog=self.catalog) \
+                    .plan_query_unoptimized(ast)
+            self._last_template_digest = plan_template_digest(
+                P.structural_key(parameterize(unopt).template))
+        except Exception:   # noqa: BLE001 -- sizing is advisory
+            return lambda: None
+        rec = self._history_record()
+        if rec is None:
+            return lambda: None
+        import dataclasses
+
+        from .adaptive import ADAPTIVE_METRICS
+        saved_cfg, saved_tasks = self.config, self._history_tasks
+        changed = False
+        groups = rec.get("aggGroups")
+        if groups:
+            self.config = dataclasses.replace(
+                self.config, history_agg_groups=int(groups))
+            changed = True
+        rows = rec.get("rows")
+        if rows is not None:
+            # one hash task per ~500k observed output rows: a repeat of
+            # a small query skips the fan-out cost the planned
+            # parallelism assumed (never raised above n_tasks)
+            seeded = max(1, min(self.n_tasks, -(-int(rows) // 500_000)))
+            if seeded != self.n_tasks:
+                self._history_tasks = seeded
+                changed = True
+        if changed:
+            ADAPTIVE_METRICS.incr("history_sized_queries")
+
+        def restore():
+            self.config, self._history_tasks = saved_cfg, saved_tasks
+        return restore
 
     def _scheduler_config(self):
         from .scheduler import SchedulerConfig
         return SchedulerConfig(
             exec_config=self.config, source_tasks=self.n_tasks,
-            hash_tasks=self.n_tasks, mesh=self.mesh,
+            hash_tasks=self._history_tasks or self.n_tasks,
+            mesh=self.mesh,
             broadcast_threshold=self.broadcast_threshold,
             device=self.device)
 
@@ -753,9 +933,11 @@ class BatchQueryRunner(DistributedQueryRunner):
     def __init__(self, schema: str = "sf0.01", config=None,
                  n_tasks: int = 2, catalog: str = "tpch",
                  task_retries: int = 2, temp_dir=None,
-                 fault_injector=None, device="cuda"):
+                 fault_injector=None, device="cuda", tracer_provider=None,
+                 history=None):
         super().__init__(schema, config, n_tasks=n_tasks, catalog=catalog,
-                         device=device)
+                         device=device, tracer_provider=tracer_provider,
+                         history=history)
         self.task_retries = task_retries
         self.temp_dir = temp_dir
         self.fault_injector = fault_injector

@@ -36,7 +36,12 @@ the micro-batcher (serving/batching.py, `batch_window_ms` /
 sidecar (`plan_cache_path`) and replayed before the listener opens, the
 generated kernels' cubins persist in `compilation_cache_dir`, and a
 CREATE, INSERT or DROP drops the runners and clears the sidecar.  The
-telemetry and history arguments the port lacks raise at construction.
+telemetry arguments configure the OTLP exporter (telemetry/export.py):
+the coordinator exports each traced query's `query` and `fragment` spans
+and every worker task its `task` and `operator` spans, stitched into one
+trace by the trace token; a coordinator keeps a query history store
+(telemetry/history.py, `history_path` reloads it across restarts) behind
+/v1/query, /v1/cluster and admission sizing.
 """
 from __future__ import annotations
 
@@ -52,20 +57,6 @@ from urllib.parse import parse_qs, urlparse
 from ..exec.pipeline import ExecutionConfig, tuned_config
 from .protocol import TaskUpdateRequest, make_announcement
 from .task import TaskManager
-
-# the reference WorkerServer's arguments the port lacks, with what they
-# configure
-_UNPORTED_ARGS = {
-    "telemetry_sink": "telemetry export (telemetry/)",
-    "telemetry_path": "telemetry export (telemetry/)",
-    "telemetry_endpoint": "telemetry export (telemetry/)",
-    "telemetry_flush_interval_s": "telemetry export (telemetry/)",
-    "telemetry_queue_bound": "telemetry export (telemetry/)",
-    "telemetry_metrics_interval_s": "telemetry export (telemetry/)",
-    "history_path": "query history (telemetry/history.py)",
-    "history_max_count": "query history (telemetry/history.py)",
-    "history_max_age_s": "query history (telemetry/history.py)",
-}
 
 # routes subject to the internal JWT filter (worker-to-worker and
 # coordinator-to-worker surfaces; client-facing statement/query/UI
@@ -547,6 +538,32 @@ class _Handler(BaseHTTPRequestHandler):
                 continue
             lines.append(f"# TYPE presto_tpu_memory_device_{k} gauge")
             lines.append(f"presto_tpu_memory_device_{k} {v}")
+        # telemetry export pipeline + history store counters
+        if s.telemetry is not None:
+            tc = s.telemetry.counters()
+            lines += [
+                "# TYPE presto_tpu_telemetry_enqueued_total counter",
+                f"presto_tpu_telemetry_enqueued_total {tc['enqueued']}",
+                "# TYPE presto_tpu_telemetry_exported_total counter",
+                f"presto_tpu_telemetry_exported_total {tc['exported']}",
+                "# TYPE presto_tpu_telemetry_dropped_total counter",
+                "presto_tpu_telemetry_dropped_total "
+                f"{tc['dropped'] + tc['dropped_after_retry']}",
+                "# TYPE presto_tpu_telemetry_retries_total counter",
+                f"presto_tpu_telemetry_retries_total {tc['retries']}",
+                "# TYPE presto_tpu_telemetry_queue_depth gauge",
+                f"presto_tpu_telemetry_queue_depth {tc['queue_depth']}",
+            ]
+        if s.history is not None:
+            hc = s.history.counters()
+            lines += [
+                "# TYPE presto_tpu_history_entries gauge",
+                f"presto_tpu_history_entries {hc['entries']}",
+                "# TYPE presto_tpu_history_recorded_total counter",
+                f"presto_tpu_history_recorded_total {hc['recorded']}",
+                "# TYPE presto_tpu_history_evicted_total counter",
+                f"presto_tpu_history_evicted_total {hc['evicted']}",
+            ]
         if s.dispatch is not None:
             lines += [
                 "# TYPE presto_tpu_serving_group_running gauge",
@@ -693,18 +710,40 @@ class _Handler(BaseHTTPRequestHandler):
 
 
     def do_query_list(self, groups, query):
-        """/v1/query[?state=...]: the live dispatch registry (the
-        reference merges its history store, which is not ported)."""
+        """/v1/query[?state=...]: the live dispatch registry merged with
+        the durable history store -- after a coordinator restart the live
+        registry is empty but ?state=FINISHED still lists what the spool
+        reloaded (reference QueryResource list + system.runtime.queries
+        over completed queries)."""
         d = self._dispatch_mgr()
         if d is None:
             return
         state = (query.get("state", [None])[0] or "").upper() or None
-        self._send(200, [q for q in d.list_queries()
-                         if state is None or q["state"] == state])
+        live = d.list_queries()
+        out = [q for q in live if state is None or q["state"] == state]
+        hist = self.server_ref.history
+        if hist is not None:
+            live_ids = {q["queryId"] for q in live}
+            for rec in hist.list(state=state):
+                if rec["queryId"] in live_ids:
+                    continue  # live registry wins (same terminal record)
+                out.append({
+                    "queryId": rec["queryId"],
+                    "state": rec.get("state", "UNKNOWN"),
+                    "query": rec.get("query", ""),
+                    "user": rec.get("user", ""),
+                    "resourceGroup": rec.get("resourceGroup", ""),
+                    **({"errorMessage": rec["errorMessage"]}
+                       if rec.get("errorMessage") else {})})
+        self._send(200, out)
 
     def do_cluster(self, groups, query):
         """/v1/cluster (reference ClusterStatsResource): query counts by
-        lifecycle bucket, task and worker totals, admission memory."""
+        lifecycle bucket, task and worker totals, admission memory, the
+        per-fabric shuffle byte rates, the history store's size and the
+        exporter's counters.  Terminal counts take the durable history
+        store when it is ahead of the (restart-lossy, eviction-bounded)
+        live registry."""
         s = self.server_ref
         d = s.dispatch
         if d is None:
@@ -714,6 +753,7 @@ class _Handler(BaseHTTPRequestHandler):
         by_state: Dict[str, int] = {}
         for q in d.list_queries():
             by_state[q["state"]] = by_state.get(q["state"], 0) + 1
+        hist_counts = s.history.counts_by_state() if s.history else {}
         queued = by_state.get("QUEUED", 0)
         adm = d.resource_groups.info().get("__admission", {})
         headroom = adm.get("memoryHeadroomBytes")
@@ -722,13 +762,17 @@ class _Handler(BaseHTTPRequestHandler):
                        + adm.get("memoryRevocableBytes", 0))
         blocked = queued if (headroom is not None and queued
                              and reserved >= headroom) else 0
+        from ..parallel.fabric import FABRIC_METRICS
         self._send(200, {
             "runningQueries": by_state.get("RUNNING", 0),
             "queuedQueries": queued,
             "blockedQueries": blocked,
-            "finishedQueries": by_state.get("FINISHED", 0),
-            "failedQueries": by_state.get("FAILED", 0),
-            "canceledQueries": by_state.get("CANCELED", 0),
+            "finishedQueries": max(by_state.get("FINISHED", 0),
+                                   hist_counts.get("FINISHED", 0)),
+            "failedQueries": max(by_state.get("FAILED", 0),
+                                 hist_counts.get("FAILED", 0)),
+            "canceledQueries": max(by_state.get("CANCELED", 0),
+                                   hist_counts.get("CANCELED", 0)),
             "activeWorkers": len(s.worker_uris()),
             "runningTasks": c["by_state"].get("RUNNING", 0),
             "totalTasks": c["created"],
@@ -736,8 +780,12 @@ class _Handler(BaseHTTPRequestHandler):
             "revocableMemoryBytes": adm.get("memoryRevocableBytes", 0),
             **({"memoryHeadroomBytes": headroom}
                if headroom is not None else {}),
+            "fabricByteRates": FABRIC_METRICS.byte_rates(),
             **({"workers": s.failure_detector.snapshot()}
                if s.failure_detector else {}),
+            "historyEntries": len(s.history) if s.history else 0,
+            **({"telemetry": s.telemetry.counters()}
+               if s.telemetry else {}),
         })
 
     def do_query_info(self, groups, query):
@@ -747,6 +795,13 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             q = d.get(groups["qid"])
         except KeyError:
+            # fall back to the durable history record: terminal queries
+            # outlive the in-memory registry (eviction, restarts)
+            hist = self.server_ref.history
+            rec = hist.get(groups["qid"]) if hist is not None else None
+            if rec is not None:
+                self._send(200, {**rec, "source": "history"})
+                return
             self._send(404, {"error": "unknown query"})
             return
         # stage/task/operator drill-down: the terminal snapshot captured
@@ -916,6 +971,24 @@ collapse}}td,th{{border:1px solid #ccc;padding:4px 8px;text-align:left}}
 
 
 
+class _QuerySpanListener:
+    """EventListener bridging terminal queries to the telemetry exporter
+    (a plain class with the listener surface: the manager dispatches by
+    method name)."""
+
+    def __init__(self, server: "WorkerServer"):
+        self._server = server
+
+    def query_created(self, event) -> None:
+        pass
+
+    def task_completed(self, event) -> None:
+        pass
+
+    def query_completed(self, event) -> None:
+        self._server._export_query_spans(event)
+
+
 class WorkerServer:
     """One worker (or coordinator) process node.  With coordinator=True the
     server also hosts the embedded discovery service, like the reference
@@ -946,14 +1019,15 @@ class WorkerServer:
                  max_batch_size: int = 16,
                  compilation_cache_dir: Optional[str] = None,
                  plan_cache_path: Optional[str] = None,
-                 device="cuda", **unported):
-        for name in unported:
-            if name not in _UNPORTED_ARGS:
-                raise TypeError(f"WorkerServer got an unexpected keyword "
-                                f"argument {name!r}")
-            raise NotImplementedError(
-                f"WorkerServer({name}=...): {_UNPORTED_ARGS[name]} is not "
-                f"ported")
+                 telemetry_sink=None, telemetry_path: str = "",
+                 telemetry_endpoint: str = "",
+                 telemetry_flush_interval_s: float = 0.2,
+                 telemetry_queue_bound: int = 256,
+                 telemetry_metrics_interval_s: float = 0.0,
+                 history_path: Optional[str] = None,
+                 history_max_count: int = 200,
+                 history_max_age_s: Optional[float] = None,
+                 device="cuda"):
         from ..exec.runner import resolve_device
         # the device every runner computes on, resolved before the
         # listener opens: without CUDA, "cuda" fails the start-up
@@ -1051,6 +1125,57 @@ class WorkerServer:
                        if admission_headroom_fraction is not None else {}))
             self.dispatch = DispatchManager(self._execute_statement,
                                             resource_groups, events=events)
+
+        # telemetry export pipeline (telemetry/): bounded-queue
+        # OTLP span/metric export through the configured sink.  The first
+        # server to configure telemetry owns the process exporter slot that
+        # deep execution layers (tasks, coordinator executions) publish
+        # through; test clusters with several in-process servers share it.
+        self.telemetry = None
+        self._owns_process_exporter = False
+        from ..telemetry import (TelemetryExporter, TelemetrySink,
+                                 get_process_exporter, make_sink,
+                                 set_process_exporter)
+        sink = (telemetry_sink if isinstance(telemetry_sink, TelemetrySink)
+                else make_sink(telemetry_sink or "none",
+                               endpoint=telemetry_endpoint,
+                               path=telemetry_path))
+        if sink is not None:
+            self.telemetry = TelemetryExporter(
+                sink, queue_bound=telemetry_queue_bound,
+                flush_interval_s=telemetry_flush_interval_s,
+                metrics_interval_s=telemetry_metrics_interval_s,
+                resource={"service.name": "presto-tpu",
+                          "service.instance.id": self.node_id,
+                          "deployment.environment": environment})
+            if get_process_exporter() is None:
+                set_process_exporter(self.telemetry)
+                self._owns_process_exporter = True
+
+        # query history service (coordinator role): terminal QueryInfo
+        # records, retention-bounded, reloaded from the JSONL spool across
+        # restarts; fed by QueryCompletedEvent through the dispatch event
+        # manager so failures isolate like any other listener
+        self.history = None
+        self._history_listener = None
+        if coordinator:
+            from ..telemetry import HistoryEventListener, QueryHistoryStore
+            self.history = QueryHistoryStore(
+                history_path or None, max_count=history_max_count,
+                max_age_s=history_max_age_s)
+            self._history_listener = HistoryEventListener(
+                self.history, extra_fields=self._history_extra_fields)
+            self.dispatch.events.register(self._history_listener)
+            # admission-time history sizing (adaptive.history-sizing):
+            # the dispatch manager consults the same store for a repeat
+            # query's observed peak memory
+            self.dispatch.history = self.history
+            # coordinator slice of the distributed trace: query +
+            # per-stage fragment spans exported at terminal state (worker
+            # processes export their own task/operator spans under the
+            # same trace-token-derived trace id)
+            self._span_listener = _QuerySpanListener(self)
+            self.dispatch.events.register(self._span_listener)
 
         # system runtime tables (reference system connector): only the
         # coordinator registers, so the last-built worker of a
@@ -1301,6 +1426,63 @@ class WorkerServer:
         if det is not None:
             det.close()
 
+    def _history_extra_fields(self, event) -> dict:
+        """Enrich the history record with state the completed event does
+        not carry: the profiler capture dir and the per-stage breakdown
+        summary of a distributed run."""
+        try:
+            q = self.dispatch.get(event.query_id)
+        except KeyError:
+            return {}
+        extra = {}
+        if q.profile_trace_dir:
+            extra["profileTraceDir"] = q.profile_trace_dir
+        stages = (q.query_info_extra or {}).get("stages")
+        if stages:
+            extra["nStages"] = len(stages)
+            extra["nTasks"] = sum(st.get("nTasks", 0) for st in stages)
+        return extra
+
+    def _export_query_spans(self, event) -> None:
+        """Coordinator-side slice of the distributed trace for one
+        terminal query: a `query` root span plus a `fragment {fid}` span
+        per stage, exported under the trace id derived from the query's
+        trace token.  Worker processes export their own `task ...` /
+        `operator ...` spans with `fragment {fid}` parents, so the
+        deterministic (token, name) span ids stitch both slices into ONE
+        OTLP trace with no id handshake."""
+        exp = self.telemetry
+        if exp is None:
+            from ..telemetry import get_process_exporter
+            exp = get_process_exporter()
+        if exp is None or not event.trace_token:
+            return
+        from ..utils.runtime_stats import Span
+        try:
+            q = self.dispatch.get(event.query_id)
+        except KeyError:
+            q = None
+        started = (q.started_at if q is not None and q.started_at
+                   else event.create_time)
+        spans = [Span("query", "", start=started, end=event.end_time,
+                      attributes={"queryId": event.query_id,
+                                  "sql": event.sql, "user": event.user,
+                                  "state": event.state,
+                                  "rows": event.rows})]
+        extra = q.query_info_extra if q is not None else None
+        for st in (extra or {}).get("stages") or []:
+            fid = st.get("fragmentId", st.get("stageId", 0))
+            wall = float(st.get("wallTimeInNanos", 0) or 0) / 1e9
+            spans.append(Span(
+                f"fragment {fid}", "query", start=started,
+                end=(min(event.end_time, started + wall) if wall
+                     else event.end_time),
+                attributes={"nTasks": st.get("nTasks", 0),
+                            "partitioning": st.get("partitioning", "")}))
+        exp.export_spans(event.trace_token, spans,
+                         resource={"presto.role": "coordinator",
+                                   "presto.node_id": self.node_id})
+
     def plan_cache_info(self) -> dict:
         """The runners' plan caches, summed."""
         with self._runner_lock:
@@ -1405,6 +1587,19 @@ class WorkerServer:
                     self._close_runner(r)
                 self._runner_cache.clear()
             self.task_manager.cancel_all()
+            if self.dispatch is not None:
+                if self._history_listener is not None:
+                    self.dispatch.events.unregister(self._history_listener)
+                span_listener = getattr(self, "_span_listener", None)
+                if span_listener is not None:
+                    self.dispatch.events.unregister(span_listener)
+            if self.telemetry is not None:
+                from ..telemetry import (get_process_exporter,
+                                         set_process_exporter)
+                if self._owns_process_exporter and \
+                        get_process_exporter() is self.telemetry:
+                    set_process_exporter(None)
+                self.telemetry.close()
             if getattr(self.exec_config, "lock_validation", False):
                 # disarm the base flag this server armed at init (session
                 # scopes are counted separately and unwind on their own)

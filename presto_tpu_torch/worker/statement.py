@@ -355,15 +355,12 @@ class DispatchManager:
         """executor(query) runs the SQL and returns an exec.runner
         QueryResult (column_names / column_types / rows).  `events` is an
         EventListenerManager receiving created/completed events (the
-        QueryMonitor analog, QueryMonitor.java:106).  `history` (the
-        reference's telemetry.history.QueryHistoryStore, consulted at
-        admission for adaptive.history-sizing) is not ported: passing one
-        raises."""
+        QueryMonitor analog, QueryMonitor.java:106).  `history` is an
+        optional telemetry.history.QueryHistoryStore consulted at
+        admission time (adaptive.history-sizing): a repeat of a recorded
+        query seeds its memory claim from the observed peak instead of
+        the flat default estimate."""
         from .events import EventListenerManager
-        if history is not None:
-            raise NotImplementedError(
-                "query history (telemetry/history.py) and its admission "
-                "sizing are not ported")
         self._executor = executor
         self.resource_groups = resource_groups or ResourceGroupManager()
         self.events = events or EventListenerManager()
@@ -412,6 +409,8 @@ class DispatchManager:
                 q.memory_estimate = max(0, int(est))
             except (TypeError, ValueError):
                 pass
+        if q.memory_estimate is None:
+            self._seed_estimate_from_history(q)
         from .events import QueryCreatedEvent
         self.events.query_created(QueryCreatedEvent(
             query_id=qid, sql=sql, user=user, source=source,
@@ -435,6 +434,30 @@ class DispatchManager:
             # INSUFFICIENT_RESOURCES)
             self._finish(q, FAILED, str(e))
         return q
+
+    def _seed_estimate_from_history(self, q: ManagedQuery) -> None:
+        """adaptive.history-sizing at the admission gate: a repeat of a
+        recorded query claims ~1.5x its last observed peak instead of the
+        flat default estimate -- small queries stop over-claiming headroom
+        and large ones stop sneaking under the cap.  Opt-in per session
+        (adaptive_history_sizing); text-keyed because admission runs
+        before planning, so no plan template exists yet."""
+        if self.history is None:
+            return
+        if str(q.session.get("adaptive_history_sizing", "")) \
+                .strip().lower() not in ("true", "1"):
+            return
+        try:
+            recs = self.history.list(state="FINISHED")
+        except Exception:   # noqa: BLE001 -- sizing is advisory
+            return
+        for rec in recs:
+            peak = rec.get("peakMemoryBytes")
+            if rec.get("query") == q.sql and peak:
+                q.memory_estimate = max(1 << 20, int(int(peak) * 1.5))
+                from ..exec.adaptive import ADAPTIVE_METRICS
+                ADAPTIVE_METRICS.incr("history_sized_queries")
+                return
 
     def _start(self, q: ManagedQuery) -> None:
         t = threading.Thread(target=self._run, args=(q,),

@@ -13,8 +13,9 @@ Every task computes on its manager's device: the TaskContext of each task
 is built on it (a task of a WorkerServer(device="cuda") never runs on the
 CPU), and the task's executor thread enters that device and the stream
 the manager was built on, since torch's current device and stream are
-per thread.  The telemetry export of the reference's tasks (their span
-subtree) waits for the port's telemetry exporter: no span is exported.
+per thread.  A traced task (one that carries a trace token) exports its
+span subtree -- the task span and one span per operator -- into the
+process telemetry exporter when it ends (telemetry/export.py).
 """
 from __future__ import annotations
 
@@ -669,10 +670,48 @@ class TpuTask:
 
     def _export_spans(self, fragment: P.PlanFragment) -> None:
         """Export this task's span subtree into the process telemetry
-        exporter.  The port has no telemetry exporter yet (telemetry/
-        export.py is not ported), so there is nothing to export to."""
+        exporter.  Span names embed the task id and parent the owning
+        fragment's span by NAME — span ids are derived from
+        (trace token, name) on both sides (telemetry/otlp.py), so the
+        coordinator's `fragment {id}` span and this worker's
+        `task {id}` span stitch into one distributed trace without any
+        coordinator<->worker handshake."""
         if not self.trace_token:
             return
+        from ..telemetry import get_process_exporter
+        exp = get_process_exporter()
+        if exp is None:
+            return
+        import time as _t
+        from ..utils.runtime_stats import Span
+        end = _t.time()
+        task_name = f"task {self.task_id}"
+        spans = [Span(
+            name=task_name,
+            parent=f"fragment {fragment.fragment_id}",
+            start=self.created_at, end=end,
+            attributes={
+                "presto.task_id": self.task_id,
+                "presto.state": self.state,
+                "presto.rows": self.output_rows,
+                "presto.pages": self.output_pages,
+                "presto.bytes": self.output_bytes,
+                "presto.cpu_nanos": getattr(self, "_driver_cpu_nanos", 0),
+                "presto.peak_memory_bytes": self.memory_peak,
+            })]
+        for op in self.plan_nodes:
+            attrs = {"presto.operator": op.get("operatorType", ""),
+                     "presto.plan_node_id": op.get("planNodeId", "")}
+            for k, v in (op.get("stats") or {}).items():
+                if isinstance(v, (bool, int, float, str)):
+                    attrs[k] = v
+            spans.append(Span(
+                name=f"operator {self.task_id}.{op.get('planNodeId', '')}",
+                parent=task_name,
+                start=self.created_at, end=end, attributes=attrs))
+        exp.export_spans(self.trace_token, spans,
+                         resource={"presto.role": "worker",
+                                   "presto.task_uri": self.self_uri})
 
 
 class TaskManager:

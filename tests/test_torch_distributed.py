@@ -21,8 +21,9 @@ held to the reference:
   * lifespan sharding: tasks run shards (0, 2) and (1, 2), and when
     grouped execution declines, shard 0 alone runs the fallback;
   * the repaired fault: plan_distributed runs;
-  * the entry points default to the card, and a mesh, PREPARE, a
-    tracer, history and DDL raise NotImplementedError."""
+  * the entry points default to the card; a mesh of CPU positions, a
+    tracer and a history store are taken (a mesh of card positions on
+    a CPU runner raises); PREPARE and DDL fail as in the reference."""
 import pytest
 import torch
 
@@ -403,13 +404,25 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_unported_options_raise_naming_what_is_missing(runner):
-    with pytest.raises(NotImplementedError, match="the multi-device exchange"):
-        DistributedQueryRunner("sf0.01", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DistributedQueryRunner("sf0.01", tracer_provider=object(),
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DistributedQueryRunner("sf0.01", history=object(), device="cpu")
+    """The mesh, the tracer provider and the history store are ported:
+    each is taken and used; a mesh of card positions on a CPU runner
+    raises naming the device."""
+    from presto_tpu_torch.parallel.mesh import make_mesh
+    from presto_tpu_torch.telemetry import QueryHistoryStore
+    from presto_tpu_torch.utils.runtime_stats import TracerProvider
+    with pytest.raises(ValueError, match="not on the runner's device"):
+        DistributedQueryRunner("sf0.01", device="cpu",
+                               mesh=make_mesh(devices=["cuda:0"] * 2))
+    mesh = make_mesh(devices=["cpu"] * 2)
+    provider, hist = TracerProvider("simple"), QueryHistoryStore()
+    sql = "select n_regionkey, count(*) from nation group by n_regionkey"
+    r = DistributedQueryRunner("sf0.01", device="cpu", mesh=mesh,
+                               tracer_provider=provider, history=hist)
+    assert sorted(r.execute(sql).rows) == [[i, 5] for i in range(5)]
+    assert r.mesh is mesh
+    assert provider.get_trace(sql).span_children("")[0].name == "query"
+    (rec,) = hist.list()
+    assert rec["aggGroups"] == 5 and rec["planTemplate"]
     # ported since: a PREPARE reaches the planner and raises there, and a
     # DROP of an unknown table raises, both as in the reference's
     # distributed runner
@@ -423,15 +436,25 @@ def test_unported_options_raise_naming_what_is_missing(runner):
 
 
 def test_remote_batches_raise_naming_the_ici_fabric():
+    """Device batches wired as a remote source's input (the ici fabric's
+    TaskContext.remote_batches) are consumed as they are, and the host
+    pages are not read."""
+    from presto_tpu_torch.exec.batch import Batch, Column
     from presto_tpu_torch.exec.pipeline import PlanCompiler, TaskContext
     from presto_tpu_torch.common.types import BIGINT
     from presto_tpu_torch.spi.plan import Variable
     node = P.RemoteSourceNode("rs", ["1"], [Variable("x", BIGINT)])
     ctx = TaskContext(device=torch.device("cpu"))
-    ctx.remote_batches["rs"] = lambda: iter(())
+    chunk = Batch({"x": Column(torch.arange(4))},
+                  torch.tensor([True, False, True, True]))
+    ctx.remote_batches["rs"] = lambda: iter([chunk])
+
+    def no_pages():
+        raise AssertionError("the page path was read")
+    ctx.remote_pages["rs"] = no_pages
     src = PlanCompiler(ctx).compile(node)
-    with pytest.raises(NotImplementedError, match="the multi-device exchange"):
-        list(src.batches())
+    (got,) = list(src.batches())
+    assert got is chunk
 
 
 def test_local_exchange_node_renames_its_inputs():

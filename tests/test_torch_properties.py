@@ -55,7 +55,8 @@ CONFIGS = [
       "exchange.compression-enabled": "true",
       "exchange.compression-codec": "zstd", "task.batch-rows": "8192",
       "coordinator-only.key": "ignored"}, None),
-    ({"exchange.ici-chunk-rows": "4096"}, "exchange.ici-chunk-rows"),
+    # ported with the device exchange (parallel/exchange.py)
+    ({"exchange.ici-chunk-rows": "4096"}, None),
     # the task plane's keys are ported with worker/task.py
     ({"task.fault-injection-probability": "0.1"}, None),
     # ExecutionConfig.profile_dir is a field since EXPLAIN ANALYZE's
@@ -164,9 +165,9 @@ def test_server_kwargs_from_etc_equal(tmp_path, extra):
 def test_server_keys_the_port_lacks_raise(tmp_path, key, value):
     etc = _write_etc(tmp_path, f"{key}={value}\n")
     jkw, _ = jprops.server_kwargs_from_etc(etc)
-    if key.startswith("serving."):
-        # the serving plane is ported since: its keys map onto the
-        # server's arguments as the reference maps them
+    if key.startswith(("serving.", "telemetry.")):
+        # the serving plane and telemetry are ported since: their keys
+        # map onto the server's arguments as the reference maps them
         tkw, _ = tprops.server_kwargs_from_etc(etc)
         assert set(tkw) == set(jkw)
         assert all(tkw[k] == jkw[k] for k in tkw if k != "config")
@@ -241,8 +242,8 @@ SESSIONS = [
     # the reference maps no exchange_fabric session property: both
     # packages leave the config's fabric as it is
     ({"exchange_fabric": "http"}, None),
-    # history-based sizing comes with query history (telemetry/)
-    ({"adaptive_history_sizing": "true"}, "adaptive_history_sizing"),
+    # ported with query history (telemetry/history.py)
+    ({"adaptive_history_sizing": "true"}, None),
 ]
 
 

@@ -510,15 +510,35 @@ def test_resolve_fabric_decision_table():
 
 
 def test_mesh_and_ici_raise_naming_what_is_missing():
+    """A mesh is ported: its size is its position count, a scheduler over
+    CPU positions plans an eligible hashed edge as ici with one task per
+    position, and only a mesh of another device kind than the
+    scheduler's raises, naming the device."""
     from presto_tpu_torch.exec.scheduler import (InProcessScheduler,
                                                  SchedulerConfig)
-    from presto_tpu_torch.parallel.mesh import WORKER_AXIS, mesh_size
+    from presto_tpu_torch.parallel.fabric import FABRIC_ICI
+    from presto_tpu_torch.parallel.mesh import (WORKER_AXIS, make_mesh,
+                                                mesh_size)
+    from presto_tpu_torch.exec.runner import DistributedQueryRunner
     assert mesh_size(None) == 0 and WORKER_AXIS == "workers"
-    with pytest.raises(NotImplementedError, match="the multi-device exchange"):
-        mesh_size(object())
-    with pytest.raises(NotImplementedError, match="the multi-device exchange"):
-        InProcessScheduler(SchedulerConfig(mesh=object(),
-                                           device=torch.device("cpu")))
+    mesh = make_mesh(devices=["cpu"] * 4)
+    assert mesh_size(mesh) == 4
+    sched = InProcessScheduler(SchedulerConfig(
+        mesh=mesh, device=torch.device("cpu")))
+    runner = DistributedQueryRunner("sf0.01", n_tasks=2, mesh=mesh,
+                                    device="cpu")
+    subplan, _, _ = runner.plan_subplan(
+        "select o_custkey, count(*) from orders group by o_custkey")
+    root = sched._build_stages(subplan)
+    sched._plan_fabrics(root)
+    (child,) = root.children
+    (grand,) = child.children
+    assert grand.fabric == FABRIC_ICI and grand.n_tasks == 4
+    assert child.n_tasks == 4
+    with pytest.raises(ValueError, match="not on the runner's device"):
+        InProcessScheduler(SchedulerConfig(
+            mesh=make_mesh(devices=["cuda:0"] * 2),
+            device=torch.device("cpu")))
 
 
 def test_scheduler_defaults_to_the_card():

@@ -109,9 +109,10 @@ def _get(url):
     # carries the reference server's error text
     ("execute nosuch using 1", {},
      "KeyError: \"prepared statement 'nosuch' does not exist\""),
-    (Q6, {"adaptive_history_sizing": "true"},
-     "NotImplementedError: session property 'adaptive_history_sizing' is "
-     "not ported"),
+    # every session property is ported since: a bad retry_policy fails
+    # in both servers with the same error
+    (Q6, {"retry_policy": "sometimes"},
+     "ValueError: retry_policy must be one of"),
     (Q6, {"scan_kernel": "bogus"}, "ValueError: scan_kernel must be one"),
 ], ids=["explain_analyze", "prepare", "unported_session", "bad_session"])
 def test_failed_statements_carry_the_error(servers, sql, session, match):
@@ -119,10 +120,11 @@ def test_failed_statements_carry_the_error(servers, sql, session, match):
     with pytest.raises(QueryError, match=re.escape(match)):
         StatementClient(port.uri, schema="sf0.01",
                         session=session).execute(sql)
-    if sql.startswith("execute"):
+    if sql.startswith("execute") or "retry_policy" in session:
         from presto_tpu.client import QueryError as JQueryError
         with pytest.raises(JQueryError, match=re.escape(match)):
-            JClient(ref.uri, schema="sf0.01").execute(sql)
+            JClient(ref.uri, schema="sf0.01",
+                    session=session).execute(sql)
 
 
 def test_session_properties_reach_the_runner(servers):
