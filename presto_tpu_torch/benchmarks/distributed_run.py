@@ -86,7 +86,7 @@ STATS = ("exchangeFabricHttpBytes", "exchangeFabricHttpExchangeWallNanos",
 
 def _sync(device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.synchronize(device)  # lint: allow-host-sync
 
 
 def _wall(runner, sql, device):

@@ -50,11 +50,11 @@ def split_ms(launch, n: int, names=KERNEL_NAMES) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     launch()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize()  # lint: allow-host-sync
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             launch()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: allow-host-sync
     out = {k: 0.0 for k in names}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:

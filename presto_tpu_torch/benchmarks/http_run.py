@@ -83,7 +83,7 @@ TASK_RETRY = {"retry_policy": "task"}
 
 def _sync(device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.synchronize(device)  # lint: allow-host-sync
 
 
 def _launches() -> Dict[str, int]:

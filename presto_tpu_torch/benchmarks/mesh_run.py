@@ -56,7 +56,7 @@ CHUNK_ROWS = IciChunkTuner.MAX_ROWS
 
 def _sync(device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.synchronize(device)  # lint: allow-host-sync
 
 
 def _launches() -> Dict[str, int]:

@@ -167,7 +167,7 @@ def plain_q6(sf: float, device) -> int:
             & (qty < 2400)
         price = _col("extendedprice", sf, idx)
         total += torch.where(sel, price * disc, 0).sum()
-    return int(total)
+    return int(total)  # lint: allow-host-sync
 
 
 def plain_q1(sf: float, device) -> Dict[tuple, list]:
@@ -194,7 +194,7 @@ def plain_q1(sf: float, device) -> Dict[tuple, list]:
     flags = device_gen.dictionary("tpch", "lineitem", "returnflag")
     stats = device_gen.dictionary("tpch", "lineitem", "linestatus")
     out = {}
-    for code, row in enumerate(acc.tolist()):
+    for code, row in enumerate(acc.tolist()):  # lint: allow-host-sync
         if row[5]:
             out[(flags[code // 2], stats[code % 2])] = row
     return out
@@ -219,8 +219,9 @@ def plain_q18(sf: float, device, limit: int = 100) -> list:
         return device_gen.column("tpch", "orders", name, sf, rows) \
             .to(torch.int64)
     price, day, cust = ocol("totalprice"), ocol("orderdate"), ocol("custkey")
-    out = sorted(zip(okeys.tolist(), cust.tolist(), day.tolist(),
-                     price.tolist(), qty[okeys].tolist()),
+    host = [a.tolist() for a in (  # lint: allow-host-sync
+        okeys, cust, day, price, qty[okeys])]
+    out = sorted(zip(*host),
                  key=lambda r: (-r[3], r[2]))
     return out[:limit]
 
@@ -279,7 +280,8 @@ def check_headroom(q: int, peak: int, device) -> None:
 
 
 def run_sf100(sf: float, device, card: str = "", warm: int = 2,
-              queries=SF100_QUERIES, whole_q3: bool = True) -> dict:
+              queries=SF100_QUERIES, whole_q3: bool = True,
+              warm_queries=None) -> dict:
     from ..connectors import catalog, device_gen
     from ..exec.grouped import AUTO_SPAN_THRESHOLD
     from ..exec.pipeline import tuned_config
@@ -305,7 +307,8 @@ def run_sf100(sf: float, device, card: str = "", warm: int = 2,
         launched = {k: v - before[k] for k, v in _launches().items()
                     if v != before[k]}
         walls = []
-        for _ in range(warm):
+        for _ in range(warm if warm_queries is None or q in warm_queries
+                       else 0):
             res, w = _wall(runner, qs[q], device)
             walls.append(w)
             assert_rows_close(res, first, ordered=q in ORDERED, rtol=RTOL)
@@ -317,7 +320,8 @@ def run_sf100(sf: float, device, card: str = "", warm: int = 2,
             "peak_bytes": _peak(device), "launched": launched,
             "grouped": lifespans(first), **modes(first)}
         warm_txt = ("no warm run" if not walls else
-                    f"warm median {rec['warm_ms']:.3f} ms ({warm} runs)")
+                    f"warm median {rec['warm_ms']:.3f} ms ({len(walls)} "
+                    f"runs)")
         gr = rec["grouped"]
         print(f"  {schema} Q{q}: {rec['rows']} rows, cold {cold:.3f} s, "
               f"{warm_txt}, peak "

@@ -91,7 +91,7 @@ def no_scan_kernel(name, res, launches0) -> None:
 
 def _sync(device):
     if device.type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: allow-host-sync
 
 
 def timed(runner, sql, runs, device, warm=True):
@@ -132,8 +132,8 @@ class Columns:
                 zone_rows=self.cfg.storage_zone_rows,
                 encodings=self.cfg.storage_encodings)
             assert ent is not None, f"{table}.{col} not resident"
-            self.cache[key] = ent.column.decode_full()[:n].cpu().numpy() \
-                .astype(np.int64)
+            host = ent.column.decode_full()[:n].cpu()  # lint: allow-host-sync
+            self.cache[key] = host.numpy().astype(np.int64)
         return self.cache[key]
 
     @staticmethod

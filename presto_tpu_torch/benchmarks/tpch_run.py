@@ -43,7 +43,7 @@ RTOL = 1e-9
 
 def _sync(device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: allow-host-sync
 
 
 def _wall(runner, sql, device):

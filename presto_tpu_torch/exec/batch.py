@@ -118,6 +118,12 @@ def _logical_np(typ: Type, values: np.ndarray) -> np.ndarray:
     """Storage-dtype numpy array -> logical-dtype numpy array."""
     if isinstance(typ, DoubleType):
         return values.view(np.float64) if values.dtype != np.float64 else values
+    if isinstance(typ, RealType):
+        # REAL travels as float32 bits in an INT_ARRAY
+        if values.dtype == np.float64:
+            return values.astype(np.float32)
+        return values if values.dtype == np.float32 \
+            else values.view(np.float32)
     if isinstance(typ, BooleanType):
         return values.astype(bool)
     return values
@@ -148,8 +154,6 @@ def _host_column(typ: Type, block):
     codes into its dictionary, a long decimal narrowed to int64, an
     array's padded element matrix), the NULL mask or None, the dictionary
     tuple or None, an array's lengths or None."""
-    if isinstance(typ, RealType):
-        raise NotImplementedError("REAL columns are not ported yet")
     if isinstance(block, DictionaryBlock):
         flat = decode_to_flat(block.dictionary)
         if isinstance(flat, VariableWidthBlock):
@@ -339,6 +343,8 @@ def _element_block(etyp: Type, flat: np.ndarray) -> FixedWidthBlock:
     same logical->storage rules as scalar columns in batch_to_page)."""
     if isinstance(etyp, BooleanType):
         flat = flat.astype(np.int8)
+    elif isinstance(etyp, RealType):
+        flat = flat.astype(np.float32).view(np.int32)   # REAL's wire bits
     elif isinstance(etyp, DoubleType):
         pass                        # float bits pass through
     elif flat.dtype not in (np.int8, np.int16, np.int32, np.int64):
@@ -358,8 +364,9 @@ def batch_to_page(batch: Batch, names, types) -> Page:
     blocks = []
     for name, typ in zip(names, types):
         col = batch.columns[name]
-        values = col.values[keep].cpu().numpy()
-        nulls = None if col.nulls is None else col.nulls[keep].cpu().numpy()
+        values = col.values[keep].cpu().numpy()  # lint: allow-host-sync
+        nulls = None if col.nulls is None else (
+            col.nulls[keep].cpu().numpy())  # lint: allow-host-sync
         if col.lazy is not None:
             # late-materialized strings: generated for the live rows only,
             # when a reader first needs their bytes
@@ -378,7 +385,8 @@ def batch_to_page(batch: Batch, names, types) -> Page:
         if col.lengths is not None:
             # ARRAY column: (rows, W) padded element matrix + live lengths
             # -> ragged ArrayBlock (offsets into a flat element block)
-            lens = col.lengths[keep].cpu().numpy().astype(np.int64)
+            lens = col.lengths[keep].cpu(  # lint: allow-host-sync
+            ).numpy().astype(np.int64)
             W = values.shape[1] if values.ndim > 1 else 0
             lens = np.clip(lens, 0, W)
             if nulls is not None:
@@ -399,6 +407,9 @@ def batch_to_page(batch: Batch, names, types) -> Page:
             continue
         if isinstance(typ, BooleanType):
             values = values.astype(np.int8)
+        elif isinstance(typ, RealType):
+            # float32 bits in an INT_ARRAY, as the wire carries REAL
+            values = values.astype(np.float32).view(np.int32)
         elif isinstance(typ, DoubleType):
             pass  # float bits pass through FixedWidthBlock
         elif values.dtype not in (np.int8, np.int16, np.int32, np.int64):

@@ -88,7 +88,7 @@ def _key_stats(values, mask):
     v = values.to(torch.int64)
     vmin = torch.where(mask, v, torch.full_like(v, ops.INT64_MAX)).min()
     vmax = torch.where(mask, v, torch.full_like(v, ops.INT64_MIN)).max()
-    return int(vmin), int(vmax), int(mask.sum())
+    return int(vmin), int(vmax), int(mask.sum())  # lint: allow-host-sync
 
 
 def _max_run_device(table: ops.BuildTable) -> torch.Tensor:

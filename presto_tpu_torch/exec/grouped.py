@@ -186,7 +186,7 @@ class _DupFlags:
         if self._host is None:
             return False
         if self._event is not None:
-            self._event.synchronize()
+            self._event.synchronize()  # lint: allow-host-sync
         return bool(self._host.any())
 
 

@@ -79,8 +79,9 @@ enum { D_N, D_NCOLS, D_NPART, D_NORDER, D_NSLOTS, D_NSPECS, D_NTILES,
 #define SLOT_WORDS 2
 #define SPEC_WORDS 4
 enum { K_ROW_NUMBER, K_RANK, K_DENSE_RANK, K_COUNT, K_SUM, K_AVG };
-// column dtypes (exec/kernels/scan_kernel.py _DTYPES)
-enum { DT_I8, DT_I16, DT_I32, DT_I64, DT_F64, DT_BOOL };
+// column dtypes (exec/kernels/scan_kernel.py _DTYPES, and the window's
+// own float32 for REAL keys, window.py _WINDOW_DTYPES)
+enum { DT_I8, DT_I16, DT_I32, DT_I64, DT_F64, DT_BOOL, DT_F32 };
 
 __device__ __forceinline__ i64 wadd(i64 a, i64 b) {   // two's-complement
   return (i64)((u64)a + (u64)b);
@@ -108,6 +109,11 @@ __device__ __forceinline__ bool col_change(const i64* col, i64 i) {
   if (dt == DT_F64) {
     const double a = ((const double*)col[1])[i];
     const double b = ((const double*)col[1])[i - 1];
+    return !(a == b || (isnan(a) && isnan(b)));
+  }
+  if (dt == DT_F32) {
+    const float a = ((const float*)col[1])[i];
+    const float b = ((const float*)col[1])[i - 1];
     return !(a == b || (isnan(a) && isnan(b)));
   }
   return load_int(col[1], dt, i) != load_int(col[1], dt, i - 1);

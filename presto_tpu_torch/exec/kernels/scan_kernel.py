@@ -912,9 +912,9 @@ def build_scan_plan(chain, *, mode, specs, key_names, strides, G,
         words += [rel(o), int(s)]
     for kind, is_f, off, vrow, crow, in_f, seen in spec_rows:
         words += [kind, is_f, rel(off), vrow, crow, in_f, seen]
-    for k, v in zip(int_names, init_i.tolist()):
+    for k, v in zip(int_names, init_i.tolist()):  # lint: allow-host-sync
         words += [int(v), ops_of.get(k, _R_ADD)]
-    for k, v in zip(flt_names, init_f.tolist()):
+    for k, v in zip(flt_names, init_f.tolist()):  # lint: allow-host-sync
         words += [float_bits(v), ops_of.get(k, _R_ADD)]
     words += src_rows
     jkey_at = off_jkeys

@@ -56,6 +56,11 @@ from .. import operators as ops
 from ..batch import Batch, Column
 from .scan_kernel import _DTYPES, KERNEL_METRICS, LAUNCHES, bump
 
+# the window kernel's operand dtypes: the scan kernels' and float32 (a
+# REAL partition / order key or count argument; csrc/window_scan.cu
+# DT_F32, compared as the float64 keys are: NaN equals NaN)
+_WINDOW_DTYPES = {**_DTYPES, torch.float32: 6}
+
 _SUPPORTED = ("row_number", "rank", "dense_rank", "count", "count_star",
               "sum", "avg")
 # csrc/window_scan.cu K_* spec kinds
@@ -226,9 +231,9 @@ def _launch(mask, arrays, names, partition_names, orderings, specs, outs):
              len(slots), len(specs), n_tiles, mask.data_ptr()]
     for nm in names:
         v, nl = arrays[nm]
-        if v.dtype not in _DTYPES:
+        if v.dtype not in _WINDOW_DTYPES:
             raise ValueError(f"window operand {nm}: dtype {v.dtype}")
-        words += [_DTYPES[v.dtype], v.data_ptr(),
+        words += [_WINDOW_DTYPES[v.dtype], v.data_ptr(),
                   0 if nl is None else nl.data_ptr()]
     words += [names.index(p) for p in partition_names]
     words += [names.index(o) for o, _ in orderings]

@@ -21,6 +21,17 @@ reference package's: NULL propagates through scalar calls (result null
 unscaled int64 with scales taken from the planner's expression types,
 and rescaling down rounds half away from zero.
 
+REAL values ride the float64 slots (a float32 value is exact there) and
+every REAL-typed arithmetic result and conversion is rounded back to
+float32 (F2R), which gives the float32 arithmetic's result bit for bit;
+a REAL result column is float32.  The planner types arithmetic with a
+REAL operand DOUBLE (sql/planner.py _arith_type, as the reference's
+planner does), so SQL reaches only the conversions' F2R (a cast to REAL,
+a REAL constant or parameter); the F2R after REAL-typed arithmetic is
+never planned and serves expression IR typed REAL by hand, which the
+reference's Lowering computes in float32: it is kept for parity with
+that IR.
+
 Supported here: variable references, constants, bound parameters, add /
 subtract / multiply / divide / modulus in the integer, decimal and double
 domains (a zero divisor gives NULL outside the double domain), negate,
@@ -247,8 +258,9 @@ def param_vector(host_values, types, device) -> torch.Tensor:
     words = []
     for v, t in zip(host_values, types):
         if isinstance(t, RealType):
-            raise NotImplementedError("REAL parameters are not ported yet")
-        words.append(float_bits(v) if isinstance(t, DoubleType)
+            # a REAL slot carries the float32 value, exact in float64
+            v = float(np.float32(v))
+        words.append(float_bits(v) if isinstance(t, (DoubleType, RealType))
                      else int(v))
     return torch.tensor(words, dtype=torch.int64, device=device)
 
@@ -266,7 +278,7 @@ def torch_dtype(typ: Type):
     if isinstance(typ, DoubleType):
         return torch.float64
     if isinstance(typ, RealType):
-        raise NotImplementedError("REAL is not ported yet")
+        return torch.float32
     if isinstance(typ, BooleanType):
         return torch.bool
     if isinstance(typ, (IntegerType, DateType)):
@@ -322,6 +334,8 @@ OPS = (
     "BAND", "BOR", "BXOR", "BNOT", "SHL", "SHR", "SAR", "WBUCKET",
     # an array form's value (its ArrayNode, evaluated before the program)
     "ARR",
+    # a float64 slot rounded to the nearest float32 (a REAL-typed result)
+    "F2R",
 )
 OP = {name: i for i, name in enumerate(OPS)}
 # the opcodes the CUDA scan kernels run (codegen.py, scan_common.cuh)
@@ -331,7 +345,7 @@ _UNARY = frozenset(("MULC_I", "DIVR_I", "I2F", "DIVC_F", "WRAP32", "NOT",
                     "DAY", "QUARTER", "MULC_F", "RINT_I", "F2I",
                     "FN_F", "FPRED_F", "SIGN_I", "SIGN_F", "CEILD_I",
                     "FLOORD_I", "ROUNDD_I", "ROUND_F", "DOW", "DOY", "WEEK",
-                    "DTRUNC", "BNOT"))
+                    "DTRUNC", "BNOT", "F2R"))
 _NULLING = frozenset(("DIV_I", "MOD_I", "DIVQ_I", "NULLIF_I", "NULLIF_F",
                       "NULLIF_X", "DIVQS_I", "SHL", "SHR", "SAR"))
 # the binary forms of the scalar function set (NULL is the OR of the
@@ -433,6 +447,8 @@ class ExprProgram:
                 v = c.values
                 if not v.is_floating_point():
                     v = v.to(torch.int64)
+                elif v.dtype == torch.float32:
+                    v = v.to(torch.float64)     # a REAL column, exact
                 stack.append((v, c.nulls, c.dictionary))
             elif name == "ARR":
                 c = arrays[arg]
@@ -873,6 +889,8 @@ def _unary(name: str, arg: int, v):
         return _div_round_half_up(v, arg)
     if name == "I2F":
         return v.to(torch.float64)
+    if name == "F2R":
+        return v.to(torch.float32).to(torch.float64)
     if name == "DIVC_F":
         return v / _bits_float(arg)
     if name == "MULC_F":
@@ -945,10 +963,18 @@ def _binary_fn(name: str, arg: int, a, b):
         if fn == "log":                 # log(base a, x b)
             return torch.log(b) / torch.log(a), None
         return torch.atan2(a, b), None
-    if name in ("MAX_I", "MAX_F"):
-        return torch.maximum(a, b), None
-    if name in ("MIN_I", "MIN_F"):
-        return torch.minimum(a, b), None
+    if name in ("MAX_I", "MAX_F", "MIN_I", "MIN_F"):
+        big = name.startswith("MAX")
+        out = torch.maximum(a, b) if big else torch.minimum(a, b)
+        if name.endswith("_F"):
+            # jnp.maximum / minimum order -0.0 below 0.0 (torch returns
+            # the first of two equal zeros)
+            zero = (a == 0) & (b == 0)
+            neg = (torch.signbit(a) & torch.signbit(b)) if big \
+                else (torch.signbit(a) | torch.signbit(b))
+            out = torch.where(zero, torch.where(neg, -0.0, 0.0).to(
+                out.dtype), out)
+        return out, None
     if name == "DADD":                  # date_add(unit, n a, date b)
         unit = DATE_UNITS[arg]
         if unit in ("day", "week"):
@@ -1198,9 +1224,10 @@ def _is_varchar(t: Type) -> bool:
 
 
 def _domain_is_float(t: Type) -> bool:
-    if isinstance(t, RealType):
-        raise NotImplementedError("REAL is not ported yet")
-    return isinstance(t, DoubleType)
+    """Whether `t` lives in a program's float64 slots: DOUBLE, and REAL,
+    whose float32 values a slot holds exactly (a REAL result column is
+    rounded back to float32 when the program stores it)."""
+    return isinstance(t, (DoubleType, RealType))
 
 
 class _Emitter:
@@ -1369,6 +1396,8 @@ class _Emitter:
             self._op("NULL_F" if is_f else "NULL_I", 0, +1)
             return
         v = constant_device_value(expr.value, expr.type)
+        if isinstance(expr.type, RealType):
+            v = float(np.float32(v))
         if is_f:
             self._op("CONST_F", float_bits(v), +1)
         else:
@@ -1387,6 +1416,10 @@ class _Emitter:
                 self._op("DIVC_F", float_bits(float(10 ** typ.scale)))
             elif not _domain_is_float(typ):
                 self._op("I2F")
+            if isinstance(target, RealType) \
+                    and not isinstance(typ, RealType):
+                # the reference converts the operand to float32
+                self._op("F2R")
 
     def _rescale(self, frm: int, to: int) -> None:
         if to > frm:
@@ -1582,6 +1615,13 @@ class _Emitter:
                 self.emit(e)
                 self._convert(t, tr)
             self._op(_ARITH[name] + "_F", 0, -1)
+            if isinstance(tr, RealType):
+                # float32 arithmetic: the float64 result of two float32
+                # values rounds to the correctly rounded float32 result
+                # (+ - * / carry at least 2 * 24 + 2 bits in float64);
+                # never planned (REAL arithmetic is typed DOUBLE), only
+                # IR typed REAL by hand, as the module docstring says
+                self._op("F2R")
             return
         if _domain_is_float(ta) or _domain_is_float(tb):
             raise NotImplementedError(
@@ -1645,7 +1685,10 @@ class _Emitter:
         if frm.signature == to.signature \
                 or (_is_varchar(frm) and _is_varchar(to)):
             return
-        if isinstance(to, DoubleType):
+        if isinstance(to, RealType) and (_is_varchar(frm) or isinstance(
+                frm, (BooleanType, DateType, ArrayType))):
+            raise NotImplementedError(f"cast {frm} -> {to} is not ported yet")
+        if isinstance(to, (DoubleType, RealType)):
             self._convert(frm, to)
         elif _is_decimal(to) and _domain_is_float(frm):
             self._op("MULC_F", float_bits(float(10 ** to.scale)))
@@ -1658,7 +1701,7 @@ class _Emitter:
             if _is_decimal(frm):
                 self._rescale(frm.scale, 0)
         elif isinstance(to, (IntegerType, BigintType)) \
-                and isinstance(frm, DoubleType):
+                and _domain_is_float(frm):
             self._op("F2I", 32 if isinstance(to, IntegerType) else 64)
         else:
             raise NotImplementedError(f"cast {frm} -> {to} is not ported yet")

@@ -546,7 +546,8 @@ class PartitionedSpillStore:
         names, tensors = self._partitioned(
             batch, self._bucket_ids(batch, list(key_names)))
         if not (self.async_staging and batch.device.type == "cuda"):
-            self._route(names, [t.cpu().numpy() for t in tensors])
+            host = [t.cpu().numpy() for t in tensors]  # lint: allow-host-sync
+            self._route(names, host)
             return
         if self._stream is None:
             self._stream = torch.cuda.Stream(device=batch.device)
@@ -589,14 +590,15 @@ class PartitionedSpillStore:
         (the producer's wait for it is metered)."""
         st = self._inflight.popleft()
         if not st.done.query():
-            t0 = time.perf_counter()
-            st.done.synchronize()
-            self._wait_wall += time.perf_counter() - t0
+            t0 = time.perf_counter()  # lint: allow-wall-clock
+            st.done.synchronize()  # lint: allow-host-sync
+            t1 = time.perf_counter()  # lint: allow-wall-clock
+            self._wait_wall += t1 - t0
         self._stage_wall += st.start.elapsed_time(st.done) / 1e3
         arrays = [hb.numpy() for hb in st.host]
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # lint: allow-wall-clock
         self._route(st.names, arrays)
-        self._stage_wall += time.perf_counter() - t0
+        self._stage_wall += time.perf_counter() - t0  # lint: allow-wall-clock
         # the host buffers and the device sources go only now, after the
         # copy has completed
         st.host = st.source = None
@@ -712,7 +714,7 @@ class PartitionedSpillStore:
         records = self._disk_records[p]
         if not records:
             return []
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # lint: allow-wall-clock
         out = []
         with open(self._disk_file, "rb") as f:
             for offset, length, cols, nrows in records:
@@ -721,7 +723,7 @@ class PartitionedSpillStore:
                 self.unspilled_bytes += length
                 if self.pool is not None:
                     self.pool.note_unspill(length)
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0  # lint: allow-wall-clock
         total = sum(r[1] for r in records)
         MEMORY_METRICS.incr("unspilled_bytes", total)
         MEMORY_METRICS.incr("unspill_wall_s", wall)
@@ -741,7 +743,8 @@ class PartitionedSpillStore:
         """Drop in-flight copies (after they complete), the staged rows
         and the disk file (idempotent)."""
         while self._inflight:
-            self._inflight.popleft().done.synchronize()
+            done = self._inflight.popleft().done
+            done.synchronize()  # lint: allow-host-sync
         self.buckets = [[] for _ in range(self.k)]
         if self._disk_file is not None:
             try:

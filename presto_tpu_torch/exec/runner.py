@@ -141,6 +141,8 @@ class LocalQueryRunner:
         # EXPLAIN ANALYZE's side channel: node id -> operator stats of the
         # most recent analyzed execution
         self.last_operator_stats: Optional[dict] = None
+        # the oracle's per-node stats of the last execute_reference
+        self.last_reference_operator_stats: Optional[dict] = None
 
     def _validation(self):
         from ..analysis import use_validation_mode
@@ -625,7 +627,8 @@ class LocalQueryRunner:
                 runtime_stats=rstats))
             # the local ANALYZE runs one driver on this thread: its thread
             # CPU against its wall gives the footer's driver line
-            t0, c0 = time.perf_counter(), time.thread_time()
+            t0 = time.perf_counter()  # lint: allow-wall-clock
+            c0 = time.thread_time()
             with profile_capture(self.config.profile_dir, "analyze",
                                  enabled=self.config.profile) as trace_dir:
                 with rstats.record_wall("queryExecute"):
@@ -633,8 +636,8 @@ class LocalQueryRunner:
                         pass
             rstats.add("driverCpuNanos", (time.thread_time() - c0) * 1e9,
                        "NANO")
-            rstats.add("driverWallNanos", (time.perf_counter() - t0) * 1e9,
-                       "NANO")
+            wall = time.perf_counter() - t0  # lint: allow-wall-clock
+            rstats.add("driverWallNanos", wall * 1e9, "NANO")
             settle_node_stats(stats)
             self.last_operator_stats = stats
         text = format_plan(output, stats)
@@ -701,6 +704,28 @@ class LocalQueryRunner:
             decisions if decisions else ["  (no table scans)"])
         return QueryResult(["Query Plan"], [VarcharType(max(1, len(text)))],
                            [[text]])
+
+    def execute_reference(self, sql: str) -> QueryResult:
+        """Same query through the numpy reference interpreter (the oracle,
+        exec/reference.py), on the host whatever the runner's device.
+
+        Per-node {rows, wall_s, batches} land in
+        `last_reference_operator_stats` keyed by plan-node id, so
+        differential tests can diff the stats surface against the
+        engine's EXPLAIN ANALYZE / QueryInfo counters too."""
+        from .reference import execute_reference
+        output = self.plan(sql)
+        stats: dict = {}
+        rows = execute_reference(output, stats=stats)
+        self.last_reference_operator_stats = stats
+        types = [v.type for v in output.outputs]
+        return QueryResult(output.column_names, types, rows)
+
+    def assert_same_as_reference(self, sql: str, ordered: bool = False):
+        got = self.execute(sql)
+        exp = self.execute_reference(sql)
+        _assert_rows_equal(got, exp, ordered)
+        return got
 
 
 class DistributedQueryRunner(LocalQueryRunner):
@@ -949,3 +974,33 @@ class BatchQueryRunner(DistributedQueryRunner):
         cfg.temp_dir = self.temp_dir
         cfg.fault_injector = self.fault_injector
         return cfg
+
+
+def _assert_rows_equal(got: QueryResult, exp: QueryResult, ordered: bool):
+    g = got.rows if ordered else got.sorted_rows()
+    e = exp.rows if ordered else exp.sorted_rows()
+    if len(g) != len(e):
+        raise AssertionError(
+            f"row count mismatch: engine {len(g)} vs reference {len(e)}\n"
+            f"engine head: {g[:5]}\nreference head: {e[:5]}")
+    for i, (rg, re_) in enumerate(zip(g, e)):
+        if len(rg) != len(re_):
+            raise AssertionError(f"column count mismatch at row {i}")
+        for j, (a, b) in enumerate(zip(rg, re_)):
+            if not _value_eq(a, b):
+                raise AssertionError(
+                    f"value mismatch at row {i} col {j} "
+                    f"({got.column_names[j]}): engine {a!r} vs reference {b!r}\n"
+                    f"engine row: {rg}\nreference row: {re_}")
+
+
+def _value_eq(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, float) or isinstance(b, float):
+        fa, fb = float(a), float(b)
+        if fa == fb:
+            return True
+        denom = max(abs(fa), abs(fb), 1e-30)
+        return abs(fa - fb) / denom < 1e-9
+    return a == b

@@ -963,7 +963,7 @@ class InProcessScheduler:
         # this path
         present = [b for b in task_batches if b is not None]
         routed = bucket_counts(present, list(keys), n)
-        host = torch.stack([
+        host = torch.stack([  # lint: allow-host-sync
             torch.cat([b.mask.sum().reshape(1), r]).to(devices[0])
             for b, r in zip(present, routed)]).tolist()
         max_live = max(int(row[0]) for row in host)
@@ -1214,7 +1214,8 @@ def _pack_chunks(chunks: List) -> "Batch":
     live counts), then concatenated."""
     from .operators import compact
     from .pipeline import _concat
-    counts = torch.stack([b.mask.sum() for b in chunks]).tolist()
+    counts = torch.stack(  # lint: allow-host-sync
+        [b.mask.sum() for b in chunks]).tolist()
     live = [compact(b, n) for b, n in zip(chunks, counts) if n]
     return _concat(live) if live else compact(chunks[0], 1)
 

@@ -239,7 +239,8 @@ def build_zone_maps(arr, n_rows: int, zone_rows: int, nulls=None,
     body = arr[:n_rows]
     nz = -(-n_rows // zone_rows)
     pad = nz * zone_rows - n_rows
-    np_dtype = torch.empty(0, dtype=body.dtype).numpy().dtype
+    np_dtype = torch.empty(  # lint: allow-host-sync
+        0, dtype=body.dtype).numpy().dtype
     ident_min, ident_max = _identities_np(np_dtype)
 
     def padded(ident):
@@ -254,10 +255,12 @@ def build_zone_maps(arr, n_rows: int, zone_rows: int, nulls=None,
         if pad:
             nbody = torch.cat([nbody, torch.zeros(pad, dtype=torch.bool,
                                                   device=nbody.device)])
-        ncnt = nbody.reshape(nz, zone_rows).sum(dim=1).cpu().numpy()
+        ncnt = nbody.reshape(nz, zone_rows).sum(  # lint: allow-host-sync
+            dim=1).cpu().numpy()
     else:
         ncnt = np.zeros(nz, dtype=np.int32)
-    return ZoneMaps(zmin.cpu().numpy(), zmax.cpu().numpy(), ncnt, zone_rows)
+    lo, hi = zmin.cpu().numpy(), zmax.cpu().numpy()  # lint: allow-host-sync
+    return ZoneMaps(lo, hi, ncnt, zone_rows)
 
 
 def _build_zone_maps_host(host: np.ndarray, n_rows: int,

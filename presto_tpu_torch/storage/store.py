@@ -122,7 +122,8 @@ class ResidentStore:
                           self.device)
         from ..connectors import device_gen
         hint = device_gen.encoding_hint(cid, table, colname)
-        host = arr.cpu().numpy() if n_rows <= HOST_STATS_ROWS else None
+        host = (arr.cpu().numpy()  # lint: allow-host-sync
+                if n_rows <= HOST_STATS_ROWS else None)
         col = encode_column(arr, n_rows, encodings=encodings, hint=hint,
                             host=host)
         zones = build_zone_maps(arr, n_rows, zone_rows, host=host)

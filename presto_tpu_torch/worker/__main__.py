@@ -30,7 +30,8 @@ def main(argv=None) -> int:
                         help="also host the embedded discovery service")
     parser.add_argument("--environment", default=None)
     parser.add_argument("--hive-warehouse", default=None, metavar="DIR",
-                        help="not ported (the hive connector)")
+                        help="mount a Parquet warehouse directory as the "
+                             "'hive' catalog (CREATE TABLE AS / INSERT)")
     parser.add_argument("--etc-dir", default=None, metavar="DIR",
                         help="boot from an etc/ directory of "
                              "config.properties / node.properties / "
@@ -42,8 +43,9 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.hive_warehouse:
-        raise SystemExit("--hive-warehouse: the hive connector "
-                         "(connectors/hive.py) is not ported")
+        from ..connectors import catalog, hive
+        catalog.register_connector(
+            "hive", hive.HiveConnector(args.hive_warehouse))
 
     # baseline defaults <- etc-dir file keys <- explicitly-given flags
     kwargs = dict(port=0, node_id=None, coordinator=False,

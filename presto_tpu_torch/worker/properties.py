@@ -486,9 +486,14 @@ def register_catalogs_from_etc(etc_dir: str) -> Dict[str, str]:
         props = load_properties(os.path.join(catalog_dir, fn))
         kind = props.get("connector.name", "")
         if kind in ("hive", "hive-hadoop2"):
-            # connectors/hive.py
-            raise NotImplementedError(
-                f"catalog {name}: connector.name {kind!r} is not ported")
+            from ..connectors import hive
+            warehouse = props.get("hive.warehouse.dir",
+                                  os.path.join(etc_dir, "warehouse"))
+            registry.register_connector(
+                name, hive.HiveConnector(
+                    warehouse,
+                    storage_format=props.get("hive.storage-format",
+                                             "PARQUET").upper()))
         elif kind == "memory":
             from ..connectors.memory import MemoryConnector
             registry.register_connector(name, MemoryConnector())

@@ -166,7 +166,8 @@ def test_stack_depth_recorded():
 
 # each form's variant the port still lacks: a double operand of an exact
 # divide, LIKE over a value that is not a dictionary varchar, IF with a
-# double branch of an exact result, abs of a REAL
+# double branch of an exact result, abs of a REAL cast from a varchar
+# (REAL itself is ported: test_abs_of_a_real_compiles)
 @pytest.mark.parametrize("builder", [
     lambda E, T, v: E.call("divide", T.BIGINT,
                            E.variable("f", T.DOUBLE), v),
@@ -174,12 +175,19 @@ def test_stack_depth_recorded():
                            E.constant("%x", T.VARCHAR)),
     lambda E, T, v: E.special("IF", T.BIGINT, E.constant(True, T.BOOLEAN),
                               E.variable("f", T.DOUBLE), v),
-    lambda E, T, v: E.call("abs", T.REAL, E.variable("r", T.REAL)),
+    lambda E, T, v: E.call("abs", T.REAL, E.call(
+        "cast", T.REAL, E.variable("s", T.VARCHAR))),
 ], ids=["divide", "like", "if", "abs"])
 def test_unsupported_expression_raises(builder):
     expr = builder(TE, TT, TE.variable("i", TT.BIGINT))
     with pytest.raises(NotImplementedError):
         compile_expr(expr)
+
+
+def test_abs_of_a_real_compiles():
+    """REAL rides a float64 slot; the result column is float32."""
+    prog = compile_expr(TE.call("abs", TT.REAL, TE.variable("r", TT.REAL)))
+    assert prog.float_result and prog.dtype == torch.float32
 
 
 # -- a divergence by design: decimal -> double is the exact quotient -------

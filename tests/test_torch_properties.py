@@ -8,6 +8,8 @@ every field the port has; a key the reference maps onto a field or server
 argument the port lacks raises NotImplementedError naming the key."""
 import dataclasses
 
+import os
+
 import pytest
 
 from presto_tpu.worker import properties as jprops
@@ -189,8 +191,8 @@ def test_catalog_mounts(tmp_path):
     for mod in (jprops, tprops):
         with pytest.raises(ValueError, match="not-a-connector"):
             mod.register_catalogs_from_etc(etc)
-    # the memory connector is ported since: it mounts as the reference's
-    # does; hive is not ported and raises naming it
+    # the memory and hive connectors are ported since: they mount as the
+    # reference's do
     etc = _write_etc(tmp_path / "b", catalogs=(("mem", "memory"),))
     try:
         assert tprops.register_catalogs_from_etc(etc) == \
@@ -201,8 +203,21 @@ def test_catalog_mounts(tmp_path):
         tcatalog.unregister_connector("mem")
         jcatalog.unregister_connector("mem")
     etc = _write_etc(tmp_path / "c", catalogs=(("h", "hive"),))
-    with pytest.raises(NotImplementedError, match="'hive'"):
-        tprops.register_catalogs_from_etc(etc)
+    with open(os.path.join(etc, "catalog", "h.properties"), "a") as f:
+        f.write(f"hive.warehouse.dir={tmp_path / 'wh'}\n"
+                "hive.storage-format=orc\n")
+    from presto_tpu.connectors import catalog as jcatalog
+    from presto_tpu_torch.connectors import catalog as tcatalog
+    try:
+        assert tprops.register_catalogs_from_etc(etc) == \
+            jprops.register_catalogs_from_etc(etc) == {"h": "hive"}
+        tconn, jconn = tcatalog.module("h"), jcatalog.module("h")
+        assert (tconn.warehouse, tconn.storage_format) == \
+            (jconn.warehouse, jconn.storage_format) == \
+            (str(tmp_path / "wh"), "ORC")
+    finally:
+        tcatalog.unregister_connector("h")
+        jcatalog.unregister_connector("h")
 
 
 def test_system_config_typed_accessors():
